@@ -9,22 +9,30 @@ the CUDA toolkit:
 Phases (any failure raises and exits non-zero before the result line):
 
 1. card: the card's name and power limit (nvidia-smi), then the build of
-   the kernels from csrc/ with torch.utils.cpp_extension.load, with each kernel's registers and spills;
-2. kernels: K2, K3 and K4 against their plain PyTorch versions on the card
-   (exact: the outputs are integers), at the main path's shapes and a ragged
-   width, each timed beside its plain version and its bound;
+   the kernels from csrc/ with torch.utils.cpp_extension.load, with each
+   kernel's registers and spills;
+2. kernels: K2, K3, K4 and K5 against their plain PyTorch versions on the
+   card (exact: the outputs are integers), at the main path's shapes and
+   ragged ones (K5: a tiny plan with one-word slabs, a multi-slab plan with
+   a database, 8 keys at the fold's full plan, and 128 queries at the PIR
+   path's plan with its database in phase 4), each timed beside its plain
+   version and its bound;
 3. fold: 1024 Int(64) keys per party at log-domain 20 through
    ``full_domain_fold_chunks`` (key_chunk 128), on the default last step
-   (K2 per level, then K4) and the fused one (K2, then K3); the kernel
-   folds of 8 keys equal the plain path run on the card, and both paths
-   agree;
+   (K2 per level, then K4), the fused one (K2, then K3) and
+   mode="megakernel" (one K5 launch per chunk); the kernel folds of 8 keys
+   equal the plain path run on the card, and all three paths agree for
+   every key;
 4. PIR: a 2^20 x XorWrapper(128) database, one ``pir_query_batch_chunked``
-   batch per party; every answer reconstructs its record.
+   batch per party in mode="fold" over the lane order and in
+   mode="megakernel" over the megakernel order; every answer reconstructs
+   its record and the two modes agree.
 
-Before the main path runs, every launch count is set to 0; after it, every
-kernel of the path must have launched. The line before the last is the
-``{"kernels": [...]}`` JSON, the last line ``{"ok": true, "device": ...}``.
-Imports nothing of JAX or of the JAX package.
+Each path of the main path (fold default, fused and megakernel; PIR fold
+and megakernel) runs with every launch count set to 0 just before it, and
+every kernel of that path must have launched just after it. The line before
+the last is the ``{"kernels": [...]}`` JSON, the last line ``{"ok": true,
+"device": ...}``. Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -121,6 +129,38 @@ def hash_cost(key_planes, k: int, w: int):
     return 4 * 2 * k * 128 * w, k * w * mmo_gates(key_planes["value"])
 
 
+# K5's tail per leaf word, besides its value hash: the 32x32 transposes (4
+# groups x 5 stages x 16 pairs x 6 word operations: two shifts, an AND and
+# three XORs) and, per block, the control mask (shift, AND, negate).
+TRANSPOSE_OPS = 4 * 5 * 16 * 6
+CONTROL_MASK_OPS = 3
+
+
+def megakernel_cost(key_planes, plan, k: int, bits: int, keep: int, party: int,
+                    xor_group: bool, with_db: bool):
+    """(bytes, gates) of K5 on K keys under `plan`: every child word hashes
+    once under its child's PRG key, with the seed correction and control
+    update (258); every leaf word hashes once under the value key, is
+    transposed, and each kept limb of each block is gated (AND), corrected
+    (XOR; or add with carry, 3, and for party 1 the negation, 3 more),
+    masked by the database (AND) and folded (XOR). Bytes: the entry tile,
+    the correction tables and the database read once, the output written
+    once."""
+    lpe = bits // 32
+    levels = plan.levels_a + plan.levels_b
+    child_words = (2 * (plan.mid_words - plan.entry_words)
+                   + plan.num_slabs * 2 * (plan.final_words - plan.slab_words))
+    leaf_words = plan.num_slabs * plan.final_words
+    per_child = (mmo_gates(key_planes["left"]) + mmo_gates(key_planes["right"])) / 2 + 2 * 128 + 2
+    per_limb = 1 + (1 if xor_group else 3 + (3 if party else 0)) + (1 if with_db else 0) + 1
+    per_leaf = (mmo_gates(key_planes["value"]) + TRANSPOSE_OPS
+                + 32 * (keep * lpe * per_limb + CONTROL_MASK_OPS))
+    gates = k * (child_words * per_child + leaf_words * per_leaf)
+    nbytes = 4 * (k * (129 * plan.entry_words + levels * 130 + 4 + lpe * plan.fold_words)
+                  + (keep * lpe * 32 * leaf_words if with_db else 0))
+    return nbytes, gates
+
+
 def main() -> None:
     import torch
 
@@ -148,7 +188,7 @@ def main() -> None:
     # -- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
     aes_cuda.library()
-    print(f"build: csrc/binding.cpp + csrc/expand.cu for sm_90a in "
+    print(f"build: csrc/{' + csrc/'.join(aes_cuda.SOURCES)} for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s")
     for kern in aes_cuda.KERNELS:
         if "registers" not in kern.ptxas:
@@ -218,6 +258,45 @@ def main() -> None:
               f"{ms:.4f} ms (plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by}); "
               f"{kern.ptxas}")
     del args, planes2
+    # K5 against its plain version: a tiny ragged plan (one-word slabs,
+    # fold width 4), a multi-slab plan with a database, and 8 keys at the
+    # main path's full plan; then timed at the main path's chunk.
+    def mk_plan(lds, vt, budget=evaluator.MEGAKERNEL_BUDGET):
+        d = T.DistributedPointFunction.create(T.DpfParameters(lds, vt))
+        return evaluator.plan_megakernel(d, budget=budget)
+
+    def mk_args(plan, k, bits, with_db):
+        levels = plan.levels_a + plan.levels_b
+        lpe = bits // 32
+        return (rnd(k, 128, plan.entry_words), rnd(k, plan.entry_words),
+                rnd(k, levels, 128), rnd(k, levels), rnd(k, levels),
+                rnd(k, 128 // bits, lpe),
+                rnd((128 // bits) * lpe * 32, plan.num_slabs * plan.final_words)
+                if with_db else None)
+
+    main_plan = mk_plan(LOG_DOMAIN, T.Int(64))
+    for plan, k, vt, party, with_db in (
+        (mk_plan(12, T.Int(64), 16384), 5, T.Int(64), 1, False),
+        (mk_plan(16, T.XorWrapper(128)), 5, T.XorWrapper(128), 0, True),
+        (main_plan, 8, T.Int(64), 1, False),
+    ):
+        bits = vt.bitsize
+        kw = dict(plan=plan, bits=bits, party=party,
+                  xor_group=isinstance(vt, T.XorWrapper), keep=128 // bits)
+        a = mk_args(plan, k, bits, with_db)
+        hold("K5", aes_cuda.megakernel_fold(*a, **kw), backend_torch.megakernel_fold(*a, **kw))
+        print(f"K5 == plain at K={k}, {vt}, party {party}, db {with_db}: {plan}")
+    kw = dict(plan=main_plan, bits=64, party=0, xor_group=False, keep=2)
+    a = mk_args(main_plan, KEY_CHUNK, 64, False)
+    hold("K5", aes_cuda.megakernel_fold(*a, **kw), backend_torch.megakernel_fold(*a, **kw))
+    ms = time_ms(torch, lambda: aes_cuda.megakernel_fold(*a, **kw), 5)
+    plain_ms = time_ms(torch, lambda: backend_torch.megakernel_fold(*a, **kw), 1)
+    b_ms, b_by = bound_ms(*megakernel_cost(key_planes, main_plan, KEY_CHUNK, 64, 2, 0, False, False))
+    rows["K5"] = dict(kernel=aes_cuda.K5, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"K5 at K={KEY_CHUNK}, log-domain {LOG_DOMAIN} Int(64) full plan: {ms:.4f} ms "
+          f"(plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by}); {aes_cuda.K5.ptxas}")
+    del a
+    torch.cuda.empty_cache()
     k2_widths = {}
     for lv in range(max(vt_levels.values()) - HOST_LEVELS):
         w = 1 << lv
@@ -237,13 +316,14 @@ def main() -> None:
     print(f"keygen: {NUM_KEYS} Int(64) key pairs at log-domain {LOG_DOMAIN} in "
           f"{time.perf_counter() - t0:.2f} s (host)")
 
-    def fold_pass(party_keys, fuse):
+    def fold_pass(party_keys, path):
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = [
             fold[:valid]
             for valid, fold in evaluator.full_domain_fold_chunks(
-                dpf, party_keys, key_chunk=KEY_CHUNK, fuse_last_hash=fuse
+                dpf, party_keys, key_chunk=KEY_CHUNK, fuse_last_hash=path == "fused",
+                mode="megakernel" if path == "megakernel" else "fold",
             )
         ]
         folds = aes_torch.from_words(torch.cat(out))
@@ -251,24 +331,36 @@ def main() -> None:
 
     main_launches = {}
     results = {}
-    for fuse in (False, True):
+    chunks = NUM_KEYS // KEY_CHUNK
+    path_kernels = {
+        "default": (aes_cuda.K2, aes_cuda.K4),
+        "fused": (aes_cuda.K2, aes_cuda.K3),
+        "megakernel": (aes_cuda.K5,),
+    }
+    evals_per_s = {}
+    for path, need in path_kernels.items():
         aes_cuda.reset_launch_counts()
         for party in (0, 1):
-            results[(fuse, party)] = fold_pass(keys[party], fuse)
+            results[(path, party)] = fold_pass(keys[party], path)
         counts = {k.name: k.launches for k in aes_cuda.KERNELS}
-        path = "fused" if fuse else "default"
-        need = (aes_cuda.K2, aes_cuda.K3 if fuse else aes_cuda.K4)
         for kern in need:
             if kern.launches == 0:
                 fail(f"{path} path ran without launching {kern.name}")
             main_launches[kern.name] = main_launches.get(kern.name, 0) + kern.launches
-        secs = [results[(fuse, p)][1] for p in (0, 1)]
+        if path == "megakernel" and counts != {
+            k.name: (2 * chunks if k is aes_cuda.K5 else 0) for k in aes_cuda.KERNELS
+        }:
+            fail(f"the megakernel path must launch K5 once per chunk and nothing "
+                 f"else; launches {counts}")
+        secs = [results[(path, p)][1] for p in (0, 1)]
+        evals_per_s[path] = NUM_KEYS * 2**LOG_DOMAIN / min(secs)
         print(f"fold, {path} path: {NUM_KEYS} keys x 2^{LOG_DOMAIN} per party in "
               f"{secs[0]:.3f} s / {secs[1]:.3f} s = "
-              f"{NUM_KEYS * 2**LOG_DOMAIN / min(secs):.4e} evals/s; launches {counts}")
+              f"{evals_per_s[path]:.4e} evals/s; launches {counts}")
+    print(f"fold evals/s, megakernel / default path: "
+          f"{evals_per_s['megakernel']:.4e} / {evals_per_s['default']:.4e}")
     # The AES work of one default-path pass, against the card's bound.
     levels = LOG_DOMAIN - 1 - HOST_LEVELS
-    chunks = NUM_KEYS // KEY_CHUNK
     pass_gates = chunks * (
         sum(expand_cost(key_planes, KEY_CHUNK, 1 << lv, False)[1] for lv in range(levels))
         + hash_cost(key_planes, KEY_CHUNK, 1 << levels)[1]
@@ -277,8 +369,9 @@ def main() -> None:
     print(f"fold pass: {pass_gates:.4e} two-input gates of AES work, bound "
           f"{pass_bound:.1f} ms by operations")
     for party in (0, 1):
-        if not np.array_equal(results[(False, party)][0], results[(True, party)][0]):
-            fail(f"default and fused folds differ (party {party})")
+        for path in ("fused", "megakernel"):
+            if not np.array_equal(results[("default", party)][0], results[(path, party)][0]):
+                fail(f"default and {path} folds differ (party {party})")
         # The plain path on the card, for the first 8 keys of the first chunk.
         kb = evaluator.KeyBatch.from_keys(dpf, keys[party][:8], device=dev)
         ch = evaluator._prepare_chunk(kb, 8, HOST_LEVELS, 64)
@@ -286,10 +379,10 @@ def main() -> None:
             ch, None, LOG_DOMAIN - 1 - HOST_LEVELS, 64, party, False, 2, False,
             ops=backend_torch,
         ))
-        if not np.array_equal(results[(False, party)][0][:8], want):
+        if not np.array_equal(results[("default", party)][0][:8], want):
             fail(f"kernel folds differ from the plain path on the card (party {party})")
-    print("fold: default == fused for every key; kernels == plain path for 8 keys "
-          "per party")
+    print("fold: default == fused == megakernel for every key; kernels == plain "
+          "path for 8 keys per party")
 
     # Where one chunk's time goes (default path, party 0).
     kb = evaluator.KeyBatch.from_keys(dpf, keys[0][:KEY_CHUNK], device=dev)
@@ -309,9 +402,12 @@ def main() -> None:
     chunk_ms = time_ms(torch, lambda: evaluator._fold_chunk(
         ch, None, levels, 64, 0, False, 2, False), 3)
     kern_ms = time_ms(torch, kernels_only, 3)
+    mk_chunk_ms = time_ms(torch, lambda: evaluator._megakernel_fold_chunk(
+        ch, None, main_plan, 64, 0, False, 2), 3)
     print(f"one chunk ({KEY_CHUNK} keys): host prep + upload {prep_s * 1e3:.1f} ms, "
           f"device {chunk_ms:.1f} ms of which pack + K2 x {levels} + K4 "
-          f"{kern_ms:.1f} ms, unpack/correct/fold {chunk_ms - kern_ms:.1f} ms")
+          f"{kern_ms:.1f} ms, unpack/correct/fold {chunk_ms - kern_ms:.1f} ms; "
+          f"megakernel mode device {mk_chunk_ms:.1f} ms (pack, K5, final XOR)")
     del results, ch
     torch.cuda.empty_cache()
 
@@ -327,25 +423,56 @@ def main() -> None:
     prepared = pir.prepare_pir_database(pdpf, db)
     print(f"PIR: 2^{LOG_DOMAIN} x 16-byte database prepared in "
           f"{time.perf_counter() - t:.2f} s")
-    aes_cuda.reset_launch_counts()
-    answers = []
-    for q in (qa, qb):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        answers.append(pir.pir_query_batch_chunked(pdpf, q, prepared, mode="fold"))
-        secs = time.perf_counter() - t
-        print(f"PIR: {PIR_QUERIES} queries in {secs:.3f} s = "
-              f"{PIR_QUERIES / secs:.1f} queries/s")
-    for kern in (aes_cuda.K2, aes_cuda.K4):
-        if kern.launches == 0:
-            fail(f"PIR ran without launching {kern.name}")
-        main_launches[kern.name] = main_launches.get(kern.name, 0) + kern.launches
-    rec = answers[0] ^ answers[1]
-    if not np.array_equal(rec, db[targets]):
-        bad = int((rec != db[targets]).any(axis=1).sum())
-        fail(f"PIR: {bad} of {PIR_QUERIES} answers do not reconstruct their record")
-    print(f"PIR: all {PIR_QUERIES} answers reconstruct (ra ^ rb == db[alpha]); "
-          f"main-path launches {main_launches}")
+    t = time.perf_counter()
+    prepared_mk = pir.prepare_pir_database(pdpf, db, order="megakernel")
+    print(f"PIR: the same database in megakernel order ({prepared_mk.plan}) "
+          f"prepared in {time.perf_counter() - t:.2f} s")
+    # K5 against its plain version at the PIR path's own shape: its plan,
+    # its database rows and a full chunk of queries.
+    pplan = prepared_mk.plan
+    kw = dict(plan=pplan, bits=128, party=1, xor_group=True, keep=1)
+    a = mk_args(pplan, PIR_QUERIES, 128, False)[:6] + (prepared_mk.lane_db,)
+    hold("K5", aes_cuda.megakernel_fold(*a, **kw), backend_torch.megakernel_fold(*a, **kw))
+    ms = time_ms(torch, lambda: aes_cuda.megakernel_fold(*a, **kw), 5)
+    plain_ms = time_ms(torch, lambda: backend_torch.megakernel_fold(*a, **kw), 1)
+    b_ms, b_by = bound_ms(*megakernel_cost(key_planes, pplan, PIR_QUERIES, 128, 1, 1, True, True))
+    print(f"K5 == plain at K={PIR_QUERIES}, log-domain {LOG_DOMAIN} XorWrapper(128) PIR "
+          f"plan with the database: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
+          f"{b_ms:.4f} ms by {b_by})")
+    del a
+    pir_answers = {}
+    for mode, pdb, need in (("fold", prepared, (aes_cuda.K2, aes_cuda.K4)),
+                            ("megakernel", prepared_mk, (aes_cuda.K5,))):
+        aes_cuda.reset_launch_counts()
+        answers = []
+        for q in (qa, qb):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            answers.append(pir.pir_query_batch_chunked(
+                pdpf, q, pdb, key_chunk=KEY_CHUNK if mode == "megakernel" else 64,
+                mode=mode,
+            ))
+            secs = time.perf_counter() - t
+            print(f"PIR, mode {mode}: {PIR_QUERIES} queries in {secs:.3f} s = "
+                  f"{PIR_QUERIES / secs:.1f} queries/s")
+        for kern in need:
+            if kern.launches == 0:
+                fail(f"PIR mode {mode} ran without launching {kern.name}")
+            main_launches[kern.name] = main_launches.get(kern.name, 0) + kern.launches
+        if mode == "megakernel" and aes_cuda.K5.launches != 2 * (PIR_QUERIES // KEY_CHUNK):
+            fail(f"PIR mode megakernel: {aes_cuda.K5.launches} K5 launches, one per "
+                 "chunk expected")
+        rec = answers[0] ^ answers[1]
+        if not np.array_equal(rec, db[targets]):
+            bad = int((rec != db[targets]).any(axis=1).sum())
+            fail(f"PIR mode {mode}: {bad} of {PIR_QUERIES} answers do not "
+                 "reconstruct their record")
+        pir_answers[mode] = answers
+    for a, b in zip(pir_answers["fold"], pir_answers["megakernel"]):
+        if not np.array_equal(a, b):
+            fail("PIR answers of mode fold and mode megakernel differ")
+    print(f"PIR: all {PIR_QUERIES} answers reconstruct (ra ^ rb == db[alpha]) in "
+          f"both modes, and the modes agree; main-path launches {main_launches}")
 
     if "jax" in sys.modules:
         fail("JAX was imported")
@@ -356,7 +483,7 @@ def main() -> None:
     # -- result -------------------------------------------------------------
     k1_bound, k1_by = bound_ms(0, hash_cost(key_planes, KEY_CHUNK, 2 * max_w)[1])
     kernels = [{
-        "name": "K1 aes_rows (device function inlined in K2-K4; timed as K4)",
+        "name": "K1 aes_rows (device function inlined in K2-K5; timed as K4)",
         "route": "cuda",
         "source": "distributed_point_functions_tpu_torch/csrc/aes_rows.cuh",
         "replaces": "distributed_point_functions_tpu/ops/aes_pallas.py:182",
@@ -368,12 +495,13 @@ def main() -> None:
         "bound_by": k1_by,
         "library_ms": None,
     }]
-    for name, line in (("K2", 315), ("K3", 421), ("K4", 462)):
+    for name, line, source in (("K2", 315, "expand.cu"), ("K3", 421, "expand.cu"),
+                               ("K4", 462, "expand.cu"), ("K5", 872, "megakernel.cu")):
         r = rows[name]
         kernels.append({
             "name": r["kernel"].name,
             "route": "cuda",
-            "source": "distributed_point_functions_tpu_torch/csrc/expand.cu",
+            "source": f"distributed_point_functions_tpu_torch/csrc/{source}",
             "replaces": f"distributed_point_functions_tpu/ops/aes_pallas.py:{line}",
             "launches": main_launches.get(r["kernel"].name, 0),
             "max_abs_err": checks[name],

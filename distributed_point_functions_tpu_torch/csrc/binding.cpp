@@ -1,7 +1,8 @@
-// PyTorch binding of the kernels in expand.cu: the only source that includes
-// PyTorch's headers. ops/aes_cuda.py checks the operands, allocates the
-// outputs and counts launches; each function here makes the operands' device
-// current, launches on PyTorch's current stream for it and checks the launch.
+// PyTorch binding of the kernels in expand.cu and megakernel.cu: the only
+// source that includes PyTorch's headers. ops/aes_cuda.py checks the
+// operands, allocates the outputs and counts launches; each function here
+// makes the operands' device current, launches on PyTorch's current stream
+// for it and checks the launch.
 
 #include <torch/extension.h>
 
@@ -43,9 +44,76 @@ void value_hash(const torch::Tensor& planes, torch::Tensor out) {
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// K5's operands without pointers: the plan (levels_a, levels_b,
+// entry_words, mid_words, slab_words, final_words, fold_words, num_slabs)
+// and the value width, as the launcher reads them.
+dpf::MegakernelArgs megakernel_args(const std::vector<int64_t>& plan,
+                                    int64_t lpe) {
+  dpf::MegakernelArgs a{};
+  a.levels_a = static_cast<int>(plan[0]);
+  a.levels_b = static_cast<int>(plan[1]);
+  a.entry_words = static_cast<int>(plan[2]);
+  a.mid_words = static_cast<int>(plan[3]);
+  a.slab_words = static_cast<int>(plan[4]);
+  a.final_words = static_cast<int>(plan[5]);
+  a.fold_words = static_cast<int>(plan[6]);
+  a.num_slabs = static_cast<int>(plan[7]);
+  a.lpe = static_cast<int>(lpe);
+  return a;
+}
+
+// Bytes of dynamic shared memory one K5 block needs under `plan`.
+int64_t megakernel_smem_bytes(const std::vector<int64_t>& plan, int64_t lpe) {
+  return 4 * dpf::megakernel_smem_words(megakernel_args(plan, lpe),
+                                        dpf::kMegakernelThreads);
+}
+
+// The most dynamic shared memory a block may opt in to on `device`, or -1.
+int64_t max_shared_memory_per_block(int64_t device) {
+  int limit = 0;
+  if (cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             static_cast<int>(device)) != cudaSuccess) {
+    return -1;
+  }
+  return limit;
+}
+
+// K5. `plan` as for megakernel_args; `db` is read only when use_db. The
+// caller (ops/aes_cuda.py) has checked the shared memory against the card.
+void megakernel_fold(const torch::Tensor& planes, const torch::Tensor& control,
+                     const torch::Tensor& cw, const torch::Tensor& ccl,
+                     const torch::Tensor& ccr, const torch::Tensor& corr,
+                     const torch::Tensor& db, bool use_db, torch::Tensor out,
+                     torch::Tensor workspace, std::vector<int64_t> plan,
+                     int64_t lpe, int64_t keep, int64_t party, bool xor_group) {
+  const c10::cuda::CUDAGuard guard(planes.device());
+  dpf::MegakernelArgs a = megakernel_args(plan, lpe);
+  a.planes = words_of(planes);
+  a.control = words_of(control);
+  a.cw = words_of(cw);
+  a.ccl = words_of(ccl);
+  a.ccr = words_of(ccr);
+  a.corr = words_of(corr);
+  a.db = use_db ? words_of(db) : nullptr;
+  a.out = words_of(out);
+  a.workspace = words_of(workspace);
+  a.workspace_words = workspace.size(1);
+  a.keep = static_cast<int>(keep);
+  a.party = static_cast<int>(party);
+  a.xor_group = xor_group ? 1 : 0;
+  C10_CUDA_CHECK(dpf::launch_megakernel_fold(
+      a, static_cast<int>(planes.size(0)), at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("expand_level", &expand_level, "K2 (hash_child=False) or K3 (True)");
   m.def("value_hash", &value_hash, "K4");
+  m.def("megakernel_fold", &megakernel_fold, "K5");
+  m.def("megakernel_smem_bytes", &megakernel_smem_bytes,
+        "K5's shared memory per block under a plan");
+  m.def("max_shared_memory_per_block", &max_shared_memory_per_block,
+        "the card's opt-in shared memory limit per block");
 }

@@ -1,4 +1,5 @@
-// Host launchers of the kernels in expand.cu, called by binding.cpp.
+// Host launchers of the kernels in expand.cu and megakernel.cu, called by
+// binding.cpp.
 //
 // Each launches on `stream` and returns without synchronising; the caller
 // checks the launch (C10_CUDA_KERNEL_LAUNCH_CHECK) and guarantees
@@ -9,6 +10,8 @@
 #include <cstdint>
 
 #include <cuda_runtime_api.h>
+
+#include "megakernel_args.h"
 
 namespace dpf {
 
@@ -23,5 +26,12 @@ void launch_expand_level(const uint32_t* planes, const uint32_t* control,
 // K4: planes [K, 128, W] -> out [K, 128, W].
 void launch_value_hash(const uint32_t* planes, uint32_t* out, int num_keys,
                        int words, cudaStream_t stream);
+
+// K5: one block of kMegakernelThreads per key, with
+// megakernel_smem_words(a, kMegakernelThreads) words of dynamic shared
+// memory (the caller checks that the card allows them). Returns the error of
+// raising the kernel's shared-memory limit, if any.
+cudaError_t launch_megakernel_fold(const MegakernelArgs& a, int num_keys,
+                                   cudaStream_t stream);
 
 }  // namespace dpf

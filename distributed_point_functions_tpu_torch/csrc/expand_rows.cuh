@@ -1,4 +1,5 @@
-// The per-lane-word bodies of K2, K3 and K4 (csrc/expand.cu launches them).
+// The per-lane-word bodies of K2, K3 and K4 (csrc/expand.cu launches them),
+// and the doubling step K5 shares with them.
 //
 // Each body handles one 32-bit lane word of one key: it loads the word's 128
 // plane words, runs K1 (aes_rows.cuh) and stores 128 words. The __global__
@@ -18,10 +19,25 @@
 
 namespace dpf {
 
+// One doubling child (0 = left, 1 = right) of the 32 seeds in s, in place:
+// the seed hash under the child's PRG key, the seed correction cw & c, and
+// the new control word h[0] ^ (c & cc) (returned) with plane 0 cleared.
+// Shared by K2, K3 and K5 (megakernel_rows.cuh).
+__device__ __forceinline__ uint32_t child_rows(uint32_t* s, uint32_t c,
+                                               const uint32_t* cw, uint32_t cc,
+                                               int child, uint32_t* stash,
+                                               int stride) {
+  mmo_hash_rows(s, child == 0 ? kTableLeft : kTableRight, stash, stride);
+#pragma unroll
+  for (int p = 0; p < 128; ++p) s[p] ^= cw[p] & c;
+  const uint32_t new_control = s[0] ^ (c & cc);
+  s[0] = 0;
+  return new_control;
+}
+
 // K2 (kHashChild = false) and K3 (true) for (key k, child, word w): the
-// child's seed hash under the left or right PRG key, the seed correction
-// cw & control, the new control h[0] ^ (control & cc) with plane 0 cleared,
-// and for K3 the value hash of that child, chained in registers.
+// child's seeds (child_rows) and for K3 the value hash of that child,
+// chained in registers.
 template <bool kHashChild>
 __device__ __forceinline__ void expand_word(
     const uint32_t* __restrict__ planes, const uint32_t* __restrict__ control,
@@ -33,15 +49,9 @@ __device__ __forceinline__ void expand_word(
   const uint32_t* in = planes + k * 128 * words + w;
 #pragma unroll
   for (int p = 0; p < 128; ++p) s[p] = in[p * words];
-  const uint32_t c = control[k * words + w];
-
-  mmo_hash_rows(s, child == 0 ? kTableLeft : kTableRight, stash, stride);
-  const uint32_t* cwk = cw + k * 128;
-#pragma unroll
-  for (int p = 0; p < 128; ++p) s[p] ^= cwk[p] & c;
-  const uint32_t cc = child == 0 ? ccl[k] : ccr[k];
-  const uint32_t new_control = s[0] ^ (c & cc);
-  s[0] = 0;
+  const uint32_t new_control =
+      child_rows(s, control[k * words + w], cw + k * 128,
+                 child == 0 ? ccl[k] : ccr[k], child, stash, stride);
   if (kHashChild) mmo_hash_rows(s, kTableValue, stash, stride);
 
   const int64_t out_words = 2 * words;

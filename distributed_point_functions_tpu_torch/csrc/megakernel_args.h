@@ -1,0 +1,46 @@
+// The operands and plan of K5, the slab megakernel: what the launcher in
+// megakernel.cu passes to the body in megakernel_rows.cuh. Plain C++ (no
+// CUDA header), so the binding and the host-compiler test build it too.
+
+#pragma once
+
+#include <cstdint>
+
+namespace dpf {
+
+// Threads of one K5 block. At the 255 registers K1 needs, 256 threads take
+// the whole register file of an SM.
+constexpr int kMegakernelThreads = 256;
+
+// uint32 words, row-major; L = levels_a + levels_b device levels; the plan
+// fields are evaluator.MegakernelPlan's.
+struct MegakernelArgs {
+  const uint32_t* planes;   // [K, 128, entry_words] entry seed planes
+  const uint32_t* control;  // [K, entry_words]
+  const uint32_t* cw;       // [K, L, 128] correction-seed plane masks
+  const uint32_t* ccl;      // [K, L] control-correction masks
+  const uint32_t* ccr;      // [K, L]
+  const uint32_t* corr;     // [K, 4]: the [epb, lpe] correction limbs
+  const uint32_t* db;       // [keep * lpe * 32, num_slabs * final_words]
+                            // megakernel-order rows, or null: no database
+  uint32_t* out;            // [K, lpe, fold_words] partial folds
+  uint32_t* workspace;      // [K, workspace_words] phase-A ping-pong
+  int64_t workspace_words;
+  int levels_a, levels_b;
+  int entry_words, mid_words, slab_words, final_words, fold_words, num_slabs;
+  int lpe, keep, party, xor_group;
+};
+
+// Shared memory of one block of `threads` threads, in words: the MMO stash
+// (128 per thread), the fold (lpe x fold_words), and, with two or more
+// phase-B levels, the phase-B ping-pong buffers of 129 rows (128 planes and
+// the control row) of final_words / 2 and final_words / 4 words.
+inline int64_t megakernel_smem_words(const MegakernelArgs& a, int threads) {
+  int64_t words = int64_t(128) * threads + int64_t(a.lpe) * a.fold_words;
+  if (a.levels_b >= 2) {
+    words += int64_t(129) * (a.final_words / 2 + a.final_words / 4);
+  }
+  return words;
+}
+
+}  // namespace dpf

@@ -1,4 +1,4 @@
-"""Wrappers of the hand-written Hopper kernels K2, K3 and K4.
+"""Wrappers of the hand-written Hopper kernels K2, K3, K4 and K5.
 
 Each wrapper takes the same tensors as its plain version in
 ops/backend_torch.py and returns the same result:
@@ -12,10 +12,12 @@ K3     ``expand_and_hash_last_      ops/aes_pallas.py
        level``                      expand_and_hash_last_level_pallas_batched
 K4     ``hash_value_planes``        ops/aes_pallas.py
                                     hash_value_planes_pallas_batched
+K5     ``megakernel_fold``          ops/aes_pallas.py
+                                    megakernel_fold_pallas_batched
 =====  ===========================  ==========================================
 
 K1, the bitsliced AES row circuit (csrc/aes_rows.cuh, replacing
-``_aes_rows`` / ``_sbox_rows``), is inlined into all three.
+``_aes_rows`` / ``_sbox_rows``), is inlined into all four.
 
 Device rule: a wrapper given CPU tensors runs the plain version, because the
 tensors lie on the CPU; given CUDA tensors it launches its kernel or raises.
@@ -24,12 +26,12 @@ There is no fallback from the kernel to the plain version.
 What bounds the kernels on an H100 is integer operations (about 25k 32-bit
 logic operations per lane word and hash, against 512 bytes of plane traffic
 each way), so the kernels keep the AES state in registers and touch each
-plane word once in each direction; see csrc/expand.cu.
+plane word once in each direction; see csrc/expand.cu and csrc/megakernel.cu.
 
 Build: the first launch builds csrc/binding.cpp (the one source with
-PyTorch's headers) and csrc/expand.cu with ``torch.utils.cpp_extension.load``
-for ``sm_90a`` into the package's ``_build/`` directory; ninja rebuilds what
-changed and reuses the rest. ``-Xptxas -v`` reports each kernel's registers
+PyTorch's headers), csrc/expand.cu and csrc/megakernel.cu with
+``torch.utils.cpp_extension.load`` for ``sm_90a`` into the package's
+``_build/`` directory; ninja rebuilds what changed and reuses the rest. ``-Xptxas -v`` reports each kernel's registers
 and spills, kept in ``Kernel.ptxas``. The binding makes the operands' device
 current, launches on PyTorch's current stream and checks every launch with
 ``C10_CUDA_KERNEL_LAUNCH_CHECK``.
@@ -74,7 +76,9 @@ class Kernel:
 K2 = Kernel("K2 expand_one_level", "dpf_expand_level_kernel")
 K3 = Kernel("K3 expand_and_hash_last_level", "dpf_expand_hash_kernel")
 K4 = Kernel("K4 hash_value_planes", "dpf_value_hash_kernel")
-KERNELS = (K2, K3, K4)
+K5 = Kernel("K5 megakernel_fold", "dpf_megakernel_fold_kernel")
+KERNELS = (K2, K3, K4, K5)
+SOURCES = ("binding.cpp", "expand.cu", "megakernel.cu")
 
 
 def reset_launch_counts() -> None:
@@ -165,7 +169,7 @@ def library():
         with _stdout_to(log):
             module = load(
                 name="dpf_tpu_torch_kernels",
-                sources=[str(CSRC / "binding.cpp"), str(CSRC / "expand.cu")],
+                sources=[str(CSRC / name) for name in SOURCES],
                 extra_cuda_cflags=list(EXTRA_CUDA_CFLAGS),
                 extra_include_paths=[str(include), str(CSRC)],
                 build_directory=str(BUILD_DIR),
@@ -173,16 +177,21 @@ def library():
             )
     except Exception as e:
         raise InternalError(f"building the kernels failed: {e}\n{log.read_text()}") from e
-    report = _parse_ptxas(log.read_text())
-    ptxas = BUILD_DIR / "ptxas.txt"
-    if report:  # this call compiled expand.cu: keep its report for later loads
-        ptxas.write_text(log.read_text())
-    elif ptxas.exists():
-        report = _parse_ptxas(ptxas.read_text())
-    for kernel in KERNELS:
-        for fn, stats in report.items():
-            if kernel.symbol in fn:
-                kernel.ptxas = stats
+    # Each .cu's report is kept: ninja recompiles only the sources that
+    # changed, and a load that compiled none reports nothing.
+    text = log.read_text()
+    fresh = _parse_ptxas(text)
+    for source, kernels in (("expand.cu", (K2, K3, K4)), ("megakernel.cu", (K5,))):
+        saved = BUILD_DIR / f"ptxas.{source}.txt"
+        report = fresh
+        if any(k.symbol in fn for fn in report for k in kernels):
+            saved.write_text(text)
+        elif saved.exists():
+            report = _parse_ptxas(saved.read_text())
+        for kernel in kernels:
+            for fn, stats in report.items():
+                if kernel.symbol in fn:
+                    kernel.ptxas = stats
     return module
 
 
@@ -279,4 +288,93 @@ def hash_value_planes(planes):
         return out
     library().value_hash(planes, out)
     K4.launches += 1
+    return out
+
+
+def megakernel_fold(
+    planes, control, cw_planes, ccl, ccr, corrections, db_rows=None, *,
+    plan, bits: int, party: int, xor_group: bool, keep: int,
+):
+    """K5, the slab megakernel: one launch for a chunk of K keys.
+
+    planes int32[K, 128, entry_words], control int32[K, entry_words],
+    cw_planes int32[K, L, 128], ccl/ccr int32[K, L] (L = levels_a +
+    levels_b), corrections int32[K, epb, lpe], db_rows int32[keep * lpe *
+    32, total_words] or None -> int32[K, lpe, fold_words] partial folds
+    (``evaluator.MegakernelPlan`` fields). Every device level, the value
+    hash, the transpose to limbs, the correction, the database AND and the
+    fold run in the kernel; the leaves never reach device memory. Replaces
+    aes_pallas.py:megakernel_fold_pallas_batched (the plain version is
+    ``backend_torch.megakernel_fold``).
+
+    Bound on the H100: integer operations, ~25k logic operations per lane
+    word and hash against a few hundred bytes of input per key and the
+    database read once; the design (csrc/megakernel.cu) keeps each key's
+    tree on chip and spends its bytes on the entry tile, the phase-A state
+    and the database tile. The plan's slab must fit one block's shared
+    memory (``evaluator.MEGAKERNEL_BUDGET`` plans do); a larger plan is
+    refused on the card.
+    """
+    if bits % 32:
+        raise NotImplementedError(
+            f"K5's value correction handles 32-bit-multiple widths, got {bits}"
+        )
+    if party not in (0, 1):
+        raise InvalidArgumentError(f"party must be 0 or 1, got {party}")
+    lpe, epb = bits // 32, 128 // bits
+    if keep < 1 or keep > epb or keep & (keep - 1):
+        raise InvalidArgumentError(f"keep must be a power of two <= {epb}, got {keep}")
+    if planes.dim() != 3:
+        raise InvalidArgumentError(f"planes must be [K, 128, W], got {tuple(planes.shape)}")
+    k = planes.shape[0]
+    levels = plan.levels_a + plan.levels_b
+    total = plan.num_slabs * plan.final_words
+    if not (
+        plan.mid_words == plan.entry_words << plan.levels_a == plan.num_slabs * plan.slab_words
+        and plan.final_words == plan.slab_words << plan.levels_b
+        and plan.fold_words == min(128, plan.final_words)
+        and levels >= 1
+    ):
+        raise InvalidArgumentError(f"{plan} is not a consistent megakernel plan")
+    _check(planes, (k, 128, plan.entry_words), "planes")
+    _check(control, (k, plan.entry_words), "control")
+    _check(cw_planes, (k, levels, 128), "cw_planes")
+    _check(ccl, (k, levels), "ccl")
+    _check(ccr, (k, levels), "ccr")
+    _check(corrections, (k, epb, lpe), "corrections")
+    args = [planes, control, cw_planes, ccl, ccr, corrections]
+    if db_rows is not None:
+        _check(db_rows, (keep * lpe * 32, total), "db_rows")
+        args.append(db_rows)
+    kw = dict(plan=plan, bits=bits, party=party, xor_group=xor_group, keep=keep)
+    if _on_cpu(*args):
+        return backend_torch.megakernel_fold(
+            planes, control, cw_planes, ccl, ccr, corrections, db_rows, **kw
+        )
+    if not all(t.is_contiguous() for t in args):
+        raise InvalidArgumentError(f"{K5.name}: operands must be contiguous")
+    dev = planes.device
+    out = torch.empty((k, lpe, plan.fold_words), dtype=torch.int32, device=dev)
+    if k == 0:
+        return out
+    lib = library()
+    fields = [plan.levels_a, plan.levels_b, plan.entry_words, plan.mid_words,
+              plan.slab_words, plan.final_words, plan.fold_words, plan.num_slabs]
+    need = lib.megakernel_smem_bytes(fields, lpe)
+    limit = lib.max_shared_memory_per_block(dev.index)
+    if need > limit:
+        raise InvalidArgumentError(
+            f"{K5.name}: {plan} needs {need} bytes of shared memory per block "
+            f"and {dev} allows {limit}; plan it with a smaller budget"
+        )
+    # Phase A ping-pongs between a mid_words and a mid_words / 2 buffer of
+    # 129 rows (128 planes and the control row) per key.
+    ws_words = 129 * (plan.mid_words + plan.mid_words // 2) if plan.levels_a else 1
+    workspace = torch.empty((k, ws_words), dtype=torch.int32, device=dev)
+    lib.megakernel_fold(
+        planes, control, cw_planes, ccl, ccr, corrections,
+        planes if db_rows is None else db_rows, db_rows is not None,
+        out, workspace, fields, lpe, keep, party, xor_group,
+    )
+    K5.launches += 1
     return out

@@ -66,6 +66,20 @@ def _bit_transpose32(a: torch.Tensor) -> torch.Tensor:
     return torch.flip(a, dims=(-1,))
 
 
+def transpose32_rows(rows: torch.Tensor) -> torch.Tensor:
+    """32x32 bit transpose over the row axis: int32[..., 32, W] -> the same
+    shape with out[..., j, w] bit i == rows[..., i, w] bit j.
+
+    The plain version of the slab megakernel's in-register transpose
+    (csrc/megakernel_rows.cuh ``transpose32_rows``; the JAX package's
+    ``aes_pallas._transpose32_rows``), the same masked-shift butterfly as
+    ``_bit_transpose32``. Applied to hashed plane rows [32 l, 32 l + 32) it
+    gives limb l of each block: out[j, w] = limb l of block 32 w + j, the
+    row form of ``unpack_from_planes``.
+    """
+    return _bit_transpose32(rows.transpose(-1, -2)).transpose(-1, -2)
+
+
 def pack_to_planes(x: torch.Tensor) -> torch.Tensor:
     """int32[..., N, 4] blocks -> int32[..., 128, W] planes; plane b, word w
     holds bit b of blocks 32w..32w+31 (block 32w+i in bit i). N % 32 == 0."""

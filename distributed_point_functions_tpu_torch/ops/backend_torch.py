@@ -1,10 +1,10 @@
 """The DPF expansion primitives in plain PyTorch, on bit-planes.
 
 The port's counterpart of the JAX package's ``ops/backend_jax.py``, cut to
-the full-domain slice. ``expand_one_level``, ``expand_and_hash_last_level``
-and ``hash_value_planes`` are the *plain versions* of the CUDA kernels K2,
-K3 and K4 (ops/aes_cuda.py): same arguments, same outputs, written as
-tensor algebra over a leading key axis. The wrappers in ops/aes_cuda.py run
+the full-domain slice. ``expand_one_level``, ``expand_and_hash_last_level``,
+``hash_value_planes`` and ``megakernel_fold`` are the *plain versions* of
+the CUDA kernels K2, K3, K4 and K5 (ops/aes_cuda.py): same arguments, same
+outputs, written as tensor algebra over a leading key axis. The wrappers in ops/aes_cuda.py run
 them for CPU tensors; chip_smoke.py holds the kernels against them on the
 card. The JAX package's functions take one key and are vmapped; these take
 the key axis explicitly, as the kernels do.
@@ -24,7 +24,7 @@ import torch
 
 from ..core import constants
 from ..utils import errors
-from . import aes_torch
+from . import aes_torch, value_codec
 
 _FULL = np.uint32(0xFFFFFFFF)
 
@@ -102,6 +102,91 @@ def expand_and_hash_last_level(planes, control, cw_plane, ccl_mask, ccr_mask):
         planes, control, cw_plane, ccl_mask, ccr_mask
     )
     return hash_value_planes(children), new_control
+
+
+def xor_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """XOR of int32 words over axis `dim` (removed), by pairwise halving."""
+    x = x.movedim(dim, 0)
+    while x.shape[0] > 1:
+        n = x.shape[0]
+        folded = x[: n // 2] ^ x[n // 2 : 2 * (n // 2)]
+        if n % 2:
+            folded[0] ^= x[n - 1]
+        x = folded
+    return x[0]
+
+
+def megakernel_fold(
+    planes,  # int32[K, 128, entry_words] entry seed planes
+    control,  # int32[K, entry_words]
+    cw_planes,  # int32[K, L, 128]
+    ccl,  # int32[K, L]
+    ccr,  # int32[K, L]
+    corrections,  # int32[K, epb, lpe]
+    db_rows=None,  # int32[keep * lpe * 32, total_words]
+    *,
+    plan,
+    bits: int,
+    party: int,
+    xor_group: bool,
+    keep: int,
+):
+    """The slab megakernel: the plain version of K5 -> int32[K, lpe,
+    fold_words] partial folds.
+
+    Phase A expands the entry tile ``levels_a`` levels to the mid state.
+    Each of its ``num_slabs`` slices of ``slab_words`` then takes the
+    phase-B levels to its ``final_words`` leaves (the slabs run side by side
+    as extra rows of the key axis), the value hash, the 32x32 transposes to
+    limbs, ``rows_correct_element`` of each kept element gated by its
+    block's control bit, the AND with the database rows when given, and the
+    XOR over the blocks; slab and word are folded to ``fold_words`` (word w
+    into w mod fold_words), as the JAX package's
+    ``megakernel_fold_pallas_batched`` leaves them. Both phases keep the
+    [left | right] layout, so ``evaluator.megakernel_db_rows`` describes the
+    lanes.
+    """
+    k = planes.shape[0]
+    lpe = bits // 32
+    s, sw, wf = plan.num_slabs, plan.slab_words, plan.final_words
+    rows, c = planes, control
+    for lvl in range(plan.levels_a):
+        rows, c = expand_one_level(rows, c, cw_planes[:, lvl], ccl[:, lvl], ccr[:, lvl])
+    # Slab j of key i becomes row i * s + j.
+    rows = rows.reshape(k, 128, s, sw).transpose(1, 2).reshape(k * s, 128, sw)
+    c = c.reshape(k * s, sw)
+    for lvl in range(plan.levels_a, plan.levels_a + plan.levels_b):
+        rows, c = expand_one_level(
+            rows, c, cw_planes[:, lvl].repeat_interleave(s, dim=0),
+            ccl[:, lvl].repeat_interleave(s, dim=0),
+            ccr[:, lvl].repeat_interleave(s, dim=0),
+        )
+    hashed = hash_value_planes(rows)
+    del rows
+    # values[:, q, i, w] = limb q of block 32 w + i
+    values = aes_torch.transpose32_rows(hashed.reshape(k * s, 4, 32, wf))
+    del hashed
+    shifts = torch.arange(32, dtype=torch.int32, device=c.device)[:, None]
+    ctrl_mask = -((c[:, None, :] >> shifts) & 1)  # [K * s, 32, wf]: 0 / ~0
+    corr = corrections.repeat_interleave(s, dim=0)
+    if db_rows is not None:
+        db = db_rows.reshape(keep * lpe, 32, s, wf).transpose(0, 2)  # [s, 32, q, wf]
+    acc = [torch.zeros((k * s, wf), dtype=torch.int32, device=c.device)] * lpe
+    for e in range(keep):
+        vals = value_codec.rows_correct_element(
+            [values[:, e * lpe + l] for l in range(lpe)],
+            ctrl_mask,
+            [corr[:, e, l, None, None] for l in range(lpe)],
+            bits, party, xor_group,
+        )
+        for l in range(lpe):
+            v = vals[l]
+            if db_rows is not None:  # slab j's tile, for every key
+                v = (v.view(k, s, 32, wf) & db[:, :, e * lpe + l]).view(k * s, 32, wf)
+            acc[l] = acc[l] ^ xor_reduce(v, dim=1)
+    folds = torch.stack(acc, dim=1)  # [K * s, lpe, wf]
+    folds = folds.reshape(k, s, lpe, wf // plan.fold_words, plan.fold_words)
+    return xor_reduce(xor_reduce(folds, dim=3), dim=1)
 
 
 def unpack_mask_device(mask_words: torch.Tensor) -> torch.Tensor:

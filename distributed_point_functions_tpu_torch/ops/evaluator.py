@@ -15,6 +15,13 @@ given (the two-server PIR inner product, parallel/pir.py). Per key chunk:
    32-bit limbs, and the fold.
 
 Values stay on the device; each chunk yields a tiny [key_chunk, lpe] fold.
+
+``mode="megakernel"`` replaces steps 2 and 3 with one launch of the slab
+megakernel K5 per chunk (ops/aes_cuda.megakernel_fold): every device level,
+the value hash, the transpose to limbs, the correction and the fold (or the
+AND with a megakernel-order database) on chip, sized by a
+``MegakernelPlan`` (``plan_megakernel``).
+
 Chunks run one after another (no prefetch pipeline yet). Words are int32
 tensors carrying uint32 bit patterns (ops/aes_torch.py); limb carries are
 computed in int64.
@@ -23,7 +30,8 @@ computed in int64.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Optional, Sequence, Tuple
+import functools
+from typing import Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -178,8 +186,6 @@ def key_batch_from_numpy(
 # Value extraction / correction in u32 limbs (device, plain PyTorch)
 # ---------------------------------------------------------------------------
 
-_LIMB = 0xFFFFFFFF
-
 
 def _split_elements(limbs: torch.Tensor, bits: int) -> torch.Tensor:
     """int32[..., 4] 128-bit blocks -> int32[..., epb, limbs_per_element].
@@ -197,35 +203,19 @@ def _split_elements(limbs: torch.Tensor, bits: int) -> torch.Tensor:
     return vals.reshape(*lead, 128 // bits, 1)
 
 
-def _u64(x: torch.Tensor) -> torch.Tensor:
-    """int32 words -> int64 holding the unsigned value."""
-    return x.to(torch.int64) & _LIMB
-
-
 def _limb_add(a: torch.Tensor, b: torch.Tensor, bits: int) -> torch.Tensor:
     """Element-wise addition mod 2^bits on int32[..., lpe] limb arrays."""
-    if bits <= 32:
-        return ((_u64(a) + _u64(b)) & ((1 << bits) - 1)).to(torch.int32)
-    out = []
-    carry = torch.zeros_like(a[..., 0], dtype=torch.int64)
-    for l in range(bits // 32):
-        s = _u64(a[..., l]) + _u64(b[..., l]) + carry
-        carry = s >> 32
-        out.append((s & _LIMB).to(torch.int32))
-    return torch.stack(out, dim=-1)
+    if bits < 32:
+        s = value_codec.unsigned(a) + value_codec.unsigned(b)
+        return (s & ((1 << bits) - 1)).to(torch.int32)
+    return torch.stack(value_codec.rows_limb_add(a.unbind(-1), b.unbind(-1), bits), dim=-1)
 
 
 def _limb_neg(a: torch.Tensor, bits: int) -> torch.Tensor:
     """Two's-complement negation mod 2^bits on int32[..., lpe] limbs."""
-    if bits <= 32:
-        return ((-_u64(a)) & ((1 << bits) - 1)).to(torch.int32)
-    out = []
-    carry = torch.ones_like(a[..., 0], dtype=torch.int64)  # ~a + 1
-    for l in range(bits // 32):
-        s = _u64(~a[..., l]) + carry
-        carry = s >> 32
-        out.append((s & _LIMB).to(torch.int32))
-    return torch.stack(out, dim=-1)
+    if bits < 32:
+        return ((-value_codec.unsigned(a)) & ((1 << bits) - 1)).to(torch.int32)
+    return torch.stack(value_codec.rows_limb_neg(a.unbind(-1), bits), dim=-1)
 
 
 def _correct_values(
@@ -250,18 +240,6 @@ def _correct_values(
     if party == 1:
         out = _limb_neg(out, bits)
     return out
-
-
-def _xor_fold(values: torch.Tensor) -> torch.Tensor:
-    """XOR-reduces int32[K, n, lpe] over n by pairwise halving."""
-    while values.shape[1] > 1:
-        n = values.shape[1]
-        half = n // 2
-        folded = values[:, :half] ^ values[:, half : 2 * half]
-        if n % 2:
-            folded[:, 0] ^= values[:, n - 1]
-        values = folded
-    return values[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -411,7 +389,7 @@ def _fold_chunk(
         # Padded lane positions of the lane-order DB hold zeros, so garbage
         # lanes cannot contribute to the inner product.
         values = values & db[None]
-    return _xor_fold(values)
+    return backend_torch.xor_reduce(values, dim=1)
 
 
 def full_domain_fold_chunks(
@@ -422,6 +400,7 @@ def full_domain_fold_chunks(
     host_levels: Optional[int] = None,
     db_lane=None,
     fuse_last_hash: bool = False,
+    mode: str = "fold",
     device=None,
 ) -> Iterator[Tuple[int, torch.Tensor]]:
     """Full-domain evaluation with the XOR fold computed on the device.
@@ -439,9 +418,16 @@ def full_domain_fold_chunks(
       host_levels: tree levels expanded on the host (default 5 = one packed
         word of lanes; at least 5).
       db_lane: uint32 numpy or int32 tensor [positions, lpe] in lane order
-        (``parallel.pir.prepare_pir_database``).
+        (``parallel.pir.prepare_pir_database``); with mode="megakernel" the
+        megakernel row layout [keep * lpe * 32, total_words] instead
+        (``megakernel_db_rows`` under ``plan_megakernel(dpf, hierarchy_level,
+        host_levels)``, or ``prepare_pir_database(order="megakernel")``).
       fuse_last_hash: run the last level and the value hash as one kernel
-        (K3) instead of K2 then K4.
+        (K3) instead of K2 then K4 (mode="fold" only).
+      mode: "fold" (K2 per level, K4 or K3, then the fold in plain
+        PyTorch) or "megakernel" (one K5 launch per chunk under
+        ``plan_megakernel(dpf, hierarchy_level, host_levels)``; value widths
+        that are multiples of 32 bits, at least one device level).
       device: ``None`` = CUDA; ``"cpu"`` runs the plain PyTorch versions.
 
     Scalar Int/XorWrapper value types only (the XOR fold of mod-N limb shares
@@ -450,6 +436,12 @@ def full_domain_fold_chunks(
     v = dpf.validator
     if hierarchy_level < 0:
         hierarchy_level = v.num_hierarchy_levels - 1
+    if mode not in ("fold", "megakernel"):
+        raise InvalidArgumentError(
+            f"mode must be 'fold' or 'megakernel', got {mode!r}"
+        )
+    if mode == "megakernel" and fuse_last_hash:
+        raise InvalidArgumentError("fuse_last_hash applies to mode='fold' only")
     if isinstance(keys, KeyBatch):
         batch = keys
         if device is not None and resolve_device(device) != batch.device:
@@ -487,21 +479,40 @@ def full_domain_fold_chunks(
     host_levels = min(host_levels, stop_level)
     device_levels = stop_level - host_levels
 
+    if mode == "megakernel":
+        if bits % 32:
+            raise NotImplementedError(
+                f"the megakernel's value correction handles 32-bit-multiple "
+                f"widths (Int/XorWrapper 32/64/128), got {bits}-bit values; "
+                "use mode='fold'"
+            )
+        plan = plan_megakernel(dpf, hierarchy_level, host_levels)
+
     db = None
     if db_lane is not None:
         db = _db_tensor(db_lane, batch.device)
-        want = ((1 << stop_level) * keep, max(bits // 32, 1))
+        if mode == "megakernel":
+            want = (keep * (bits // 32) * 32, plan.num_slabs * plan.final_words)
+            order = "the megakernel row layout (megakernel_db_rows)"
+        else:
+            want = ((1 << stop_level) * keep, max(bits // 32, 1))
+            order = "lane order"
         if tuple(db.shape) != want:
             raise InvalidArgumentError(
-                f"db_lane must be {list(want)} in lane order, got {tuple(db.shape)}"
+                f"db_lane must be {list(want)} in {order}, got {tuple(db.shape)}"
             )
 
     for kb, valid in _key_chunks(batch, num_keys, key_chunk):
         ch = _prepare_chunk(kb, valid, host_levels, bits)
-        yield valid, _fold_chunk(
-            ch, db, device_levels, bits, batch.party, xor_group, keep,
-            fuse_last_hash,
-        )
+        if mode == "megakernel":
+            yield valid, _megakernel_fold_chunk(
+                ch, db, plan, bits, batch.party, xor_group, keep
+            )
+        else:
+            yield valid, _fold_chunk(
+                ch, db, device_levels, bits, batch.party, xor_group, keep,
+                fuse_last_hash,
+            )
 
 
 def _db_tensor(db, device: torch.device) -> torch.Tensor:
@@ -553,6 +564,227 @@ def lane_order_map(
         out[pos[valid]] = leaf_elem[valid]
     out[out >= (1 << lds)] = -1  # block packing overshoot
     return out
+
+
+# ---------------------------------------------------------------------------
+# The slab megakernel (K5): plan, lane order, database layout, chunk body
+# ---------------------------------------------------------------------------
+
+# The budget ``plan_megakernel`` splits between the leaf slab and the mid
+# state (the JAX package's DPF_TPU_MEGAKERNEL_VMEM, 8 MiB of a v5e core's
+# VMEM there). Here it is sized for what K5 keeps in one block's shared
+# memory: the plan arithmetic gives final_words <= floor_pow2(budget / 4096)
+# = 256 and mid_words <= floor_pow2(budget / 2064) = 256 at 1 MiB. A block of
+# 256 threads then holds the MMO stash (128 words x 256 threads = 128 KiB),
+# the phase-B ping-pong (129 rows x (final_words / 2 + final_words / 4)
+# words = 96.75 KiB) and the fold (lpe x fold_words <= 512 words = 2 KiB):
+# 232,192 bytes, under the H100's 232,448-byte opt-in limit per block. The
+# mid state lives in device memory, where its size is no constraint.
+MEGAKERNEL_BUDGET = 1 << 20
+
+
+class MegakernelPlan(NamedTuple):
+    """Static shape plan of the slab megakernel (ops/aes_cuda.megakernel_fold
+    and its plain version), field for field the JAX package's. Widths are
+    in packed 32-lane words; every field is a power of two.
+
+      entry_words  width of the level-host_levels seed tile (2^(h-5))
+      levels_a     levels from the entry tile to the mid state (phase A)
+      mid_words    mid-state width (= entry << levels_a = num_slabs *
+                   slab_words)
+      num_slabs    domain slabs per key
+      slab_words   slab slice width at the mid level
+      levels_b     levels from a slab slice to its leaves (phase B)
+      final_words  leaf-level slab width (slab_words << levels_b)
+      fold_words   width the fold reduces to (<= 128): the per-key output
+                   is [lpe, fold_words] whatever the domain
+    """
+
+    host_levels: int
+    levels_a: int
+    levels_b: int
+    entry_words: int
+    mid_words: int
+    slab_words: int
+    final_words: int
+    fold_words: int
+    num_slabs: int
+
+
+def _floor_pow2(x: int) -> int:
+    return 1 << max(0, int(x).bit_length() - 1)
+
+
+def plan_megakernel(
+    dpf: DistributedPointFunction,
+    hierarchy_level: int = -1,
+    host_levels: Optional[int] = None,
+    budget: Optional[int] = None,
+) -> MegakernelPlan:
+    """Sizes the megakernel's slab geometry from a byte budget.
+
+    The JAX package's ``plan_megakernel`` arithmetic, with the budget an
+    argument instead of an environment variable: for the same budget the
+    two packages plan the same slabs. The budget splits between the
+    leaf-level slab (128 plane rows x final_words x 4 B, 4x slack for
+    temporaries, in half the budget) and the mid state (129 rows x
+    mid_words x 4 B, in a quarter). ``None`` takes ``MEGAKERNEL_BUDGET``,
+    sized for K5's shared memory; the entry points always plan with it.
+    """
+    v = dpf.validator
+    if hierarchy_level < 0:
+        hierarchy_level = v.num_hierarchy_levels - 1
+    stop = v.hierarchy_to_tree[hierarchy_level]
+    if host_levels is None:
+        host_levels = 5
+    if host_levels < 5:
+        raise InvalidArgumentError(
+            f"megakernel requires host_levels >= 5 (one packed word), got "
+            f"{host_levels}"
+        )
+    if stop < host_levels + 1:
+        raise InvalidArgumentError(
+            f"megakernel needs at least one device level (tree depth {stop} "
+            f"<= host_levels {host_levels}); use mode='fold' for tiny domains"
+        )
+    if budget is None:
+        budget = MEGAKERNEL_BUDGET
+    w_f_max = _floor_pow2(max(1, (budget // 2) // (128 * 4 * 4)))
+    w_v_max = _floor_pow2(max(1, (budget // 4) // (129 * 4)))
+    entry_words = 1 << (host_levels - 5)
+    total_words = 1 << (stop - 5)
+    final_words = min(total_words, w_f_max)
+    num_slabs = total_words // final_words
+    if num_slabs > (1 << 20):
+        raise InvalidArgumentError(
+            f"megakernel plan would need {num_slabs} slabs at tree depth "
+            f"{stop}; raise the budget or use mode='fold'"
+        )
+    slab_words = min(final_words, max(1, _floor_pow2(w_v_max // num_slabs)))
+    if num_slabs * slab_words < entry_words:
+        slab_words = entry_words // num_slabs if num_slabs <= entry_words else 1
+    mid_words = num_slabs * slab_words
+    levels_a = (mid_words // entry_words).bit_length() - 1
+    levels_b = (final_words // slab_words).bit_length() - 1
+    return MegakernelPlan(
+        host_levels=host_levels,
+        levels_a=levels_a,
+        levels_b=levels_b,
+        entry_words=entry_words,
+        mid_words=mid_words,
+        slab_words=slab_words,
+        final_words=final_words,
+        fold_words=min(128, final_words),
+        num_slabs=num_slabs,
+    )
+
+
+@functools.lru_cache(maxsize=8)
+def _megakernel_block_leaves(plan: MegakernelPlan) -> np.ndarray:
+    """int64[total_blocks]: tree-leaf index of the megakernel's block at
+    global position g = slab * final_words * 32 + local lane, the host
+    replay of the kernel's two block-concat recursions (phase A over the
+    whole row, phase B within each slab slice). Element e of block g is
+    domain index leaves[g] * keep + e."""
+    prefix = np.arange(plan.entry_words * 32, dtype=np.int64)
+    for _ in range(plan.levels_a):
+        prefix = np.concatenate([2 * prefix, 2 * prefix + 1])
+    swl = plan.slab_words * 32
+    fwl = plan.final_words * 32
+    out = np.empty(plan.num_slabs * fwl, dtype=np.int64)
+    for j in range(plan.num_slabs):
+        base = prefix[j * swl : (j + 1) * swl]
+        for _ in range(plan.levels_b):
+            base = np.concatenate([2 * base, 2 * base + 1])
+        out[j * fwl : (j + 1) * fwl] = base
+    return out
+
+
+def megakernel_order_map(
+    dpf: DistributedPointFunction,
+    hierarchy_level: int = -1,
+    host_levels: Optional[int] = None,
+    plan: Optional[MegakernelPlan] = None,
+) -> np.ndarray:
+    """int64[domain]: the domain index of each megakernel output position
+    (position g * keep + e holds the value at domain index map[g * keep +
+    e]), the megakernel's ``lane_order_map``; a permutation of the domain.
+    Identical to the JAX package's map for the same plan."""
+    v = dpf.validator
+    if hierarchy_level < 0:
+        hierarchy_level = v.num_hierarchy_levels - 1
+    if plan is None:
+        plan = plan_megakernel(dpf, hierarchy_level, host_levels)
+    stop = v.hierarchy_to_tree[hierarchy_level]
+    lds = v.parameters[hierarchy_level].log_domain_size
+    keep = 1 << (lds - stop)
+    leaves = _megakernel_block_leaves(plan)
+    return (leaves[:, None] * keep + np.arange(keep, dtype=np.int64)).reshape(-1)
+
+
+def megakernel_db_rows(
+    dpf: DistributedPointFunction,
+    db_limbs: np.ndarray,  # uint32[domain, lpe]
+    plan: MegakernelPlan,
+    hierarchy_level: int = -1,
+) -> np.ndarray:
+    """Permutes a natural-order database into the megakernel's row layout
+    uint32[keep * lpe * 32, total_words]: row (e * lpe + l) * 32 + i at word
+    w holds limb l of the database value of element e of the block the
+    kernel computes at lane 32 w + i, which K5 ANDs against after its
+    transpose. Slab j's tile is columns [j * final_words, (j + 1) *
+    final_words). Identical to the JAX package's layout for the same plan,
+    so a database prepared by either package serves both."""
+    v = dpf.validator
+    if hierarchy_level < 0:
+        hierarchy_level = v.num_hierarchy_levels - 1
+    stop = v.hierarchy_to_tree[hierarchy_level]
+    lds = v.parameters[hierarchy_level].log_domain_size
+    keep = 1 << (lds - stop)
+    db_limbs = np.asarray(db_limbs)
+    lpe = db_limbs.shape[1]
+    leaves = _megakernel_block_leaves(plan)
+    blocks = leaves.reshape(-1, 32)  # [W_total, 32]
+    out = np.empty((keep * lpe * 32, blocks.shape[0]), dtype=np.uint32)
+    for e in range(keep):
+        rows = blocks * keep + e  # [W_total, 32] domain indices
+        for l in range(lpe):
+            out[(e * lpe + l) * 32 : (e * lpe + l + 1) * 32, :] = db_limbs[
+                rows, l
+            ].T
+    return out
+
+
+def _megakernel_fold_chunk(
+    ch: _Chunk,
+    db: Optional[torch.Tensor],  # int32[keep * lpe * 32, total_words]
+    plan: MegakernelPlan,
+    bits: int,
+    party: int,
+    xor_group: bool,
+    keep: int,
+    ops=aes_cuda,
+) -> torch.Tensor:
+    """One chunk through the slab megakernel -> int32[K, lpe]: the plane
+    pack, one K5 launch (the JAX package's ``_megakernel_fold_chunk_jit``)
+    and the XOR of its [K, lpe, fold_words] partial folds. `ops` supplies
+    K5: the wrapper (ops/aes_cuda.py) or its plain version
+    (ops/backend_torch.py)."""
+    folds = ops.megakernel_fold(
+        aes_torch.pack_to_planes(ch.seeds),
+        ch.control_mask,
+        ch.cw.transpose(0, 1).contiguous(),  # key-major [K, L, 128]
+        ch.ccl.T.contiguous(),
+        ch.ccr.T.contiguous(),
+        ch.corr,
+        db,
+        plan=plan,
+        bits=bits,
+        party=party,
+        xor_group=xor_group,
+        keep=keep,
+    )
+    return backend_torch.xor_reduce(folds, dim=2)
 
 
 def _value_kind(value_type) -> Tuple[int, bool]:

@@ -1,6 +1,6 @@
 """The PyTorch/CUDA port on a CUDA card: kernels against their plain
-versions, and the fold and PIR paths through the kernels against the same
-paths on the CPU.
+versions, and the fold and PIR paths through the kernels (K2-K4, and K5 in
+mode="megakernel") against the same paths on the CPU.
 
 Every test here needs a card and skips without one. The file imports no
 JAX, so on a machine without JAX it runs without the suite's conftest:
@@ -55,7 +55,63 @@ def test_kernels_match_plain_versions(cuda, w):
     assert torch.equal(
         aes_cuda.hash_value_planes(args[0]), backend_torch.hash_value_planes(args[0])
     )
-    assert [k.launches for k in aes_cuda.KERNELS] == [1, 1, 1]
+    assert [k.launches for k in aes_cuda.KERNELS] == [1, 1, 1, 0]
+
+
+def megakernel_plan(lds, value_type, budget, host_levels=None):
+    dpf = port.DistributedPointFunction.create(port.DpfParameters(lds, value_type))
+    return evaluator.plan_megakernel(dpf, host_levels=host_levels, budget=budget)
+
+
+@pytest.mark.parametrize(
+    "lds, value_type, budget, host_levels, party, with_db",
+    [
+        (9, port.Int(64), 8192, 7, 1, True),  # no phase-A level
+        (12, port.Int(64), 4096, None, 0, False),  # no phase-B level, fold width 1
+        (12, port.Int(32), 16384, 6, 1, True),  # two-word entry tile, one buffer
+        (12, port.XorWrapper(128), 65536, None, 0, True),  # both buffers
+        (16, port.Int(64), evaluator.MEGAKERNEL_BUDGET, None, 1, False),  # full slab
+    ],
+)
+def test_megakernel_matches_plain_version(cuda, lds, value_type, budget, host_levels, party, with_db):
+    """K5 on the card equals its plain version on the same tensors, for
+    ragged, multi-slab and full-width plans; one launch per call."""
+    plan = megakernel_plan(lds, value_type, budget, host_levels)
+    bits = value_type.bitsize
+    lpe, levels = bits // 32, plan.levels_a + plan.levels_b
+    keep = 128 // bits
+    rng = np.random.default_rng(lds)
+
+    def r(*shape):
+        return torch.from_numpy(as_words(rng.integers(0, 2**32, size=shape, dtype=np.uint32))).to(cuda)
+
+    k = 3
+    args = (r(k, 128, plan.entry_words), r(k, plan.entry_words), r(k, levels, 128),
+            r(k, levels), r(k, levels), r(k, 128 // bits, lpe),
+            r(keep * lpe * 32, plan.num_slabs * plan.final_words) if with_db else None)
+    kw = dict(plan=plan, bits=bits, party=party,
+              xor_group=isinstance(value_type, port.XorWrapper), keep=keep)
+    aes_cuda.reset_launch_counts()
+    got = aes_cuda.megakernel_fold(*args, **kw)
+    assert aes_cuda.K5.launches == 1
+    assert torch.equal(got, backend_torch.megakernel_fold(*args, **kw))
+
+
+def test_megakernel_refuses_a_slab_larger_than_shared_memory(cuda):
+    """A plan whose phase-B slab needs more shared memory than a block may
+    have is refused on the card, not run elsewhere."""
+    plan = megakernel_plan(20, port.Int(64), 2 * evaluator.MEGAKERNEL_BUDGET)
+    assert plan.final_words == 512 and plan.levels_b >= 2
+    levels = plan.levels_a + plan.levels_b
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=cuda)
+
+    args = (z(1, 128, 1), z(1, 1), z(1, levels, 128), z(1, levels), z(1, levels), z(1, 2, 2))
+    aes_cuda.reset_launch_counts()
+    with pytest.raises(InvalidArgumentError, match="shared memory"):
+        aes_cuda.megakernel_fold(*args, plan=plan, bits=64, party=0, xor_group=False, keep=2)
+    assert aes_cuda.K5.launches == 0
 
 
 def test_kernels_reject_non_contiguous_operands(cuda):
@@ -101,6 +157,42 @@ def test_fold_on_the_card_matches_the_cpu(cuda, fuse_last_hash):
     assert aes_cuda.K2.launches > 0
     assert (aes_cuda.K3 if fuse_last_hash else aes_cuda.K4).launches > 0
     assert np.array_equal(on_card, fold("cpu"))
+
+
+@pytest.mark.parametrize("party", [0, 1])
+def test_megakernel_fold_on_the_card_matches_the_cpu(cuda, party, monkeypatch):
+    """mode="megakernel" on the card equals the same mode on the CPU, with
+    and without a megakernel-order database, one K5 launch per chunk and no
+    other kernel; and equals mode="fold". The keys evaluate on device="cuda"
+    and the database tensor lies on cuda:0: the same card. A small
+    megakernel budget gives the plan several slabs."""
+    dpf = port.DistributedPointFunction.create(port.DpfParameters(13, port.Int(64)))
+    rng = np.random.default_rng(13)
+    seeds = rng.integers(0, 2**32, size=(5, 2, 4), dtype=np.uint32)
+    keys = dpf.generate_keys_batch([0, 1, 77, 4000, 8191], [[3, 4, 5, 6, 7]], seeds=seeds)[party]
+    monkeypatch.setattr(evaluator, "MEGAKERNEL_BUDGET", 16384)
+    plan = evaluator.plan_megakernel(dpf)
+    assert plan.num_slabs > 1
+    db = evaluator.megakernel_db_rows(
+        dpf, rng.integers(0, 2**32, size=(1 << 13, 2), dtype=np.uint32), plan
+    )
+
+    def fold(device, db_rows=None, mode="megakernel"):
+        if db_rows is not None:
+            db_rows = torch.from_numpy(as_words(db_rows)).to(device)
+        return np.concatenate([
+            from_words(f)[:v]
+            for v, f in evaluator.full_domain_fold_chunks(
+                dpf, keys, key_chunk=2, db_lane=db_rows, mode=mode, device=device,
+            )
+        ])
+
+    aes_cuda.reset_launch_counts()
+    on_card = fold(cuda)
+    assert [k.launches for k in aes_cuda.KERNELS] == [0, 0, 0, 3]
+    assert np.array_equal(on_card, fold("cpu"))
+    assert np.array_equal(on_card, fold("cpu", mode="fold"))
+    assert np.array_equal(fold(cuda, db), fold("cpu", db))
 
 
 def test_pir_on_the_card_reconstructs(cuda):

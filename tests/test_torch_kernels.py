@@ -3,10 +3,15 @@
 K1 (bitsliced AES, ops/aes_torch.py), K2/K3/K4 (ops/backend_torch.py, the
 plain versions the CUDA wrappers in ops/aes_cuda.py run for CPU tensors) are
 held bit-exact against ``jax.vmap(backend_jax.expand_one_level)``,
-``jax.vmap(backend_jax.hash_value_planes)`` and their composition. Every
-comparison is exact (``np.array_equal``): the outputs are integers. The
-CUDA sources themselves are built with the host compiler and held against
-the plain versions too; the kernels on the card are tests/test_torch_cuda.py.
+``jax.vmap(backend_jax.hash_value_planes)`` and their composition. K5's
+plain version (``backend_torch.megakernel_fold``) is held against the JAX
+package's eager replay ``aes_pallas.megakernel_reference_rows`` (the real
+circuit under ``jax.disable_jit()``; no interpret-mode kernel), and its
+pieces, the row-form correction and the 32x32 transpose, against theirs.
+Every comparison is exact (``np.array_equal``): the outputs are integers.
+The CUDA sources themselves are built with the host compiler and held
+against the plain versions too; the kernels on the card are
+tests/test_torch_cuda.py.
 """
 
 import re
@@ -21,9 +26,18 @@ import torch
 
 from distributed_point_functions_tpu.core import aes_numpy as jax_aes_numpy
 from distributed_point_functions_tpu.core import constants as jax_constants
-from distributed_point_functions_tpu.ops import aes_jax, backend_jax
+from distributed_point_functions_tpu.core.dpf import DistributedPointFunction as JaxDpf
+from distributed_point_functions_tpu.core.params import DpfParameters as JaxParams
+from distributed_point_functions_tpu.core.value_types import Int as JaxInt
+from distributed_point_functions_tpu.core.value_types import XorWrapper as JaxXor
+from distributed_point_functions_tpu.ops import aes_jax, aes_pallas, backend_jax
+from distributed_point_functions_tpu.ops import evaluator as jax_ev
+from distributed_point_functions_tpu.ops import value_codec as jax_value_codec
+import distributed_point_functions_tpu_torch as port
 from distributed_point_functions_tpu_torch.core import aes_numpy, backend_numpy, constants
-from distributed_point_functions_tpu_torch.ops import aes_cuda, aes_torch, backend_torch
+from distributed_point_functions_tpu_torch.ops import (
+    aes_cuda, aes_torch, backend_torch, evaluator, value_codec,
+)
 from distributed_point_functions_tpu_torch.utils.errors import InvalidArgumentError
 
 RNG_SEED = 20261016
@@ -149,6 +163,108 @@ def test_k3_expand_and_hash_matches_jax_composition(w):
         assert np.array_equal(aes_torch.from_words(got[1]), want[1])
 
 
+@pytest.mark.parametrize("bits", [32, 64, 128])
+def test_rows_correct_element_matches_jax(bits):
+    """The row-form correction, its limb add and its negation equal the JAX
+    package's for both parties and both groups, on random rows and on rows
+    of 0 / ~0 limbs whose carries run the whole element."""
+    rng = np.random.default_rng(bits)
+    lpe, n = bits // 32, 96
+    limbs = rng.integers(0, 2**32, size=(lpe, n), dtype=np.uint32)
+    limbs[:, n // 3 : 2 * n // 3] = np.uint32(0xFFFFFFFF)
+    limbs[:, 2 * n // 3 :] = 0
+    gate = np.where(rng.integers(0, 2, size=n) == 1, np.uint32(0xFFFFFFFF), np.uint32(0))
+    corr = rng.integers(0, 2**32, size=lpe, dtype=np.uint32)
+    corr[0] = 1  # + 1 carries through ~0 limbs
+    port_rows = [words(r) for r in limbs]
+    jax_rows = [jnp.asarray(r) for r in limbs]
+
+    def same(got, want):
+        return all(np.array_equal(aes_torch.from_words(g), np.asarray(w)) for g, w in zip(got, want))
+
+    for party in (0, 1):
+        for xor_group in (False, True):
+            got = value_codec.rows_correct_element(
+                port_rows, words(gate), [int(c) for c in corr.view(np.int32)],
+                bits, party, xor_group,
+            )
+            want = jax_value_codec.rows_correct_element(
+                jax_rows, jnp.asarray(gate), [jnp.uint32(c) for c in corr], bits, party,
+                xor_group,
+            )
+            assert same(got, want), (party, xor_group)
+    assert same(value_codec.rows_limb_add(port_rows, port_rows[::-1], bits),
+                jax_value_codec.rows_limb_add(jax_rows, jax_rows[::-1], bits))
+    assert same(value_codec.rows_limb_neg(port_rows, bits),
+                jax_value_codec.rows_limb_neg(jax_rows, bits))
+    for fn in (value_codec.rows_limb_neg, lambda r, b: value_codec.rows_limb_add(r, r, b)):
+        with pytest.raises(NotImplementedError, match="32-bit-multiple"):
+            fn(port_rows, 16)
+
+
+def test_transpose32_rows_matches_unpack_and_jax():
+    """The in-register transpose: per limb l, row j at word w of the
+    transposed plane rows [32 l, 32 l + 32) is limb l of block 32 w + j, as
+    unpack_from_planes gives it and as the JAX package's row transpose
+    computes it."""
+    w = 3
+    planes = np.random.default_rng(32).integers(0, 2**32, size=(128, w), dtype=np.uint32)
+    blocks = aes_torch.from_words(aes_torch.unpack_from_planes(words(planes)))  # [32 w, 4]
+    for l in range(4):
+        got = aes_torch.from_words(aes_torch.transpose32_rows(words(planes[32 * l : 32 * l + 32])))
+        assert np.array_equal(got, blocks[:, l].reshape(w, 32).T)
+        want = aes_pallas._transpose32_rows([jnp.asarray(planes[32 * l + i]) for i in range(32)])
+        assert np.array_equal(got, np.stack([np.asarray(r) for r in want]))
+
+
+def _replay_case(name):
+    """(JAX DPF, keys of one party, bits, party, xor_group, budget, with a
+    database) of K5's replay test, at log-domain 8 with two slabs."""
+    rng = np.random.default_rng(8)
+    seeds = rng.integers(0, 2**32, size=(2, 2, 4), dtype=np.uint32)
+    if name.startswith("int64"):
+        dpf = JaxDpf.create(JaxParams(8, JaxInt(64)))
+        party = int(name[-1])
+        keys = dpf.generate_keys_batch([3, 201], [[5, 2**64 - 9]], seeds=seeds)[party]
+        # party 0: phase A and phase B one level each; party 1: both
+        # levels in phase A
+        return dpf, keys, 64, party, False, (8192 if party == 0 else 12288), False
+    dpf = JaxDpf.create(JaxParams(8, JaxXor(128)))
+    keys = dpf.generate_keys_batch([9, 250], [[2**128 - 1] * 2], seeds=seeds)[1]
+    return dpf, keys, 128, 1, True, 16384, True
+
+
+@pytest.mark.parametrize("name", ["int64-party0", "int64-party1", "xor128-db"])
+def test_megakernel_plain_version_matches_jax_replay(name):
+    """K5's plain version, reduced to [K, lpe], equals the JAX package's
+    eager megakernel replay for the chunk's first key, on the same chunk
+    inputs built by the JAX package (as its megakernel tests build them)."""
+    dpf, keys, bits, party, xor_group, budget, with_db = _replay_case(name)
+    plan = jax_ev.plan_megakernel(dpf, vmem_budget=budget)
+    assert plan.num_slabs >= 2
+    lds = dpf.validator.parameters[-1].log_domain_size
+    keep = 1 << (lds - dpf.validator.hierarchy_to_tree[-1])
+    batch = jax_ev.KeyBatch.from_keys(dpf, keys)
+    ch = jax_ev._prepare_chunk(batch, len(keys), 5, True, bits)
+    planes, control = jax_ev._pack_batch_jit(ch.seeds, ch.control_mask)
+    inputs = [np.array(a) for a in (planes, control, ch.cw, ch.ccl, ch.ccr, ch.corr)]
+    db = None
+    if with_db:
+        natural = np.random.default_rng(1).integers(0, 2**32, size=(1 << lds, 4), dtype=np.uint32)
+        db = jax_ev.megakernel_db_rows(dpf, natural, plan)
+    port_plan = evaluator.MegakernelPlan(*plan)
+    got = backend_torch.xor_reduce(backend_torch.megakernel_fold(
+        *map(words, inputs), None if db is None else words(db), plan=port_plan,
+        bits=bits, party=party, xor_group=xor_group, keep=keep,
+    ), dim=2)
+    with jax.disable_jit():
+        want = aes_pallas.megakernel_reference_rows(
+            *[jnp.asarray(a[0]) for a in inputs], None if db is None else jnp.asarray(db),
+            plan=plan, bits=bits, party=party, xor_group=xor_group, keep=keep,
+        )
+    assert np.array_equal(aes_torch.from_words(got)[0], np.asarray(want))
+
+
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     """On CPU tensors the wrappers run the plain versions and launch
     nothing; operands they cannot take are refused before any dispatch."""
@@ -156,7 +272,7 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     args = [words(a) for a in expand_inputs(3, 1)]
     aes_cuda.expand_one_level(*args)
     aes_cuda.hash_value_planes(args[0])
-    assert [k.launches for k in aes_cuda.KERNELS] == [0, 0, 0]
+    assert [k.launches for k in aes_cuda.KERNELS] == [0, 0, 0, 0]
     with pytest.raises(InvalidArgumentError, match="int32"):
         aes_cuda.hash_value_planes(args[0].to(torch.int64))
     with pytest.raises(InvalidArgumentError, match="shape"):
@@ -182,16 +298,56 @@ _HARNESS = r"""
 #include <cstdio>
 #include <vector>
 #include "expand_rows.cuh"
+#include "megakernel_rows.cuh"
 // stdin: mode K W, then the operands; stdout: the outputs.
 static std::vector<uint32_t> rd(size_t n) {
   std::vector<uint32_t> v(n);
   if (fread(v.data(), 4, n, stdin) != n) throw 1;
   return v;
 }
+// K5 (mode 3): 13 ints (the plan's levels_a, levels_b, entry, mid, slab,
+// final, fold, slabs; lpe, keep, party, xor_group, use_db), the operands;
+// every key runs as one block of one thread.
+static int megakernel(int K) {
+  int f[13];
+  if (fread(f, 4, 13, stdin) != 13) return 1;
+  dpf::MegakernelArgs a{};
+  a.levels_a = f[0]; a.levels_b = f[1]; a.entry_words = f[2]; a.mid_words = f[3];
+  a.slab_words = f[4]; a.final_words = f[5]; a.fold_words = f[6]; a.num_slabs = f[7];
+  a.lpe = f[8]; a.keep = f[9]; a.party = f[10]; a.xor_group = f[11];
+  const int L = a.levels_a + a.levels_b;
+  auto planes = rd(size_t(K) * 128 * a.entry_words), control = rd(size_t(K) * a.entry_words);
+  auto cw = rd(size_t(K) * L * 128), ccl = rd(size_t(K) * L), ccr = rd(size_t(K) * L);
+  auto corr = rd(size_t(K) * 4);
+  std::vector<uint32_t> db;
+  if (f[12]) db = rd(size_t(a.keep) * a.lpe * 32 * a.num_slabs * a.final_words);
+  std::vector<uint32_t> out(size_t(K) * a.lpe * a.fold_words);
+  a.workspace_words = 129 * (a.mid_words + a.mid_words / 2);
+  std::vector<uint32_t> ws(size_t(K) * a.workspace_words);
+  std::vector<uint32_t> smem(dpf::megakernel_smem_words(a, 1));
+  a.planes = planes.data(); a.control = control.data(); a.cw = cw.data();
+  a.ccl = ccl.data(); a.ccr = ccr.data(); a.corr = corr.data();
+  a.db = f[12] ? db.data() : nullptr; a.out = out.data(); a.workspace = ws.data();
+  for (int k = 0; k < K; ++k) dpf::megakernel_key(a, k, 0, 1, smem.data());
+  fwrite(out.data(), 4, out.size(), stdout);
+  return 0;
+}
+// K5's correction (mode 4): lpe party xor_group, then N blocks of 4 hash
+// limbs, N gate masks and 4 correction limbs; out: the corrected limbs.
+static int correction(int N) {
+  int f[3];
+  if (fread(f, 4, 3, stdin) != 3) return 1;
+  auto v = rd(size_t(N) * 4), m = rd(N), corr = rd(4);
+  for (int n = 0; n < N; ++n) dpf::correct_block(&v[4 * n], corr.data(), m[n], f[0], f[1], f[2]);
+  fwrite(v.data(), 4, v.size(), stdout);
+  return 0;
+}
 int main() {
   int hdr[3];
   if (fread(hdr, 4, 3, stdin) != 3) return 1;
   const int mode = hdr[0], K = hdr[1], W = hdr[2];
+  if (mode == 3) return megakernel(K);
+  if (mode == 4) return correction(K);
   uint32_t stash[128];
   auto planes = rd(size_t(K) * 128 * W);
   if (mode == 2) {
@@ -220,10 +376,49 @@ int main() {
 """
 
 
+def megakernel_cases():
+    """(plan, bits, party, xor_group, keep, with a database) of K5's host
+    test: no phase-A level, no phase-B level (fold width 1), one and both
+    phase-B buffers, an entry tile of two words, every limb layout (Int(32)
+    keeps four elements a block, Int(64) two, XorWrapper(128) one), fewer
+    kept elements than a block holds, both parties and the database AND."""
+    def plan(lds, vt, budget, host_levels=None):
+        dpf = port.DistributedPointFunction.create(port.DpfParameters(lds, vt))
+        return evaluator.plan_megakernel(dpf, host_levels=host_levels, budget=budget)
+
+    return [
+        (plan(9, port.Int(64), 8192, host_levels=7), 64, 1, False, 2, True),
+        (plan(12, port.Int(64), 4096), 64, 0, False, 2, False),
+        (plan(12, port.Int(32), 16384, host_levels=6), 32, 1, False, 4, True),
+        (plan(12, port.XorWrapper(128), 65536), 128, 0, True, 1, True),
+        # Two of a block's four Int(32) elements kept, as a domain smaller
+        # than its blocks would.
+        (plan(12, port.Int(32), 8192), 32, 0, False, 2, False),
+    ]
+
+
+def megakernel_inputs(plan, bits, keep, with_db, seed):
+    """uint32 numpy operands of K5 for K keys under `plan`."""
+    rng = np.random.default_rng(seed)
+    levels = plan.levels_a + plan.levels_b
+    lpe = bits // 32
+
+    def r(*shape):
+        return rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+
+    db = r(keep * lpe * 32, plan.num_slabs * plan.final_words) if with_db else None
+    return (r(K, 128, plan.entry_words), r(K, plan.entry_words), r(K, levels, 128),
+            r(K, levels), r(K, levels), r(K, 128 // bits, lpe), db)
+
+
 def test_csrc_kernel_bodies_on_the_host_compiler(tmp_path):
     """csrc/expand_rows.cuh and aes_rows.cuh — the bodies K2, K3 and K4
     launch per lane word — built with g++ and run over every (key, child,
-    word) equal the plain versions, ragged width included."""
+    word) equal the plain versions, ragged width included; and
+    csrc/megakernel_rows.cuh, K5's per-key body (phase A, phase B, the
+    tail's transpose, correction, database AND and fold), run as a block of
+    one thread per key, equals K5's plain version on each plan of
+    ``megakernel_cases``."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ on this host")
@@ -259,3 +454,53 @@ def test_csrc_kernel_bodies_on_the_host_compiler(tmp_path):
     out = run(2, planes)
     want = aes_torch.from_words(backend_torch.hash_value_planes(words(planes)))
     assert np.array_equal(out.reshape(K, 128, w), want)
+
+    for i, (plan, bits, party, xor_group, keep, with_db) in enumerate(megakernel_cases()):
+        ops = megakernel_inputs(plan, bits, keep, with_db, seed=i)
+        fields = [plan.levels_a, plan.levels_b, plan.entry_words, plan.mid_words,
+                  plan.slab_words, plan.final_words, plan.fold_words, plan.num_slabs,
+                  bits // 32, keep, party, int(xor_group), int(with_db)]
+        out = subprocess.run(
+            [str(exe)],
+            input=np.array([3, K, 0] + fields, np.int32).tobytes()
+            + b"".join(a.tobytes() for a in ops if a is not None),
+            check=True, capture_output=True, timeout=60,
+        ).stdout
+        want = backend_torch.megakernel_fold(
+            *[None if a is None else words(a) for a in ops], plan=plan, bits=bits,
+            party=party, xor_group=xor_group, keep=keep,
+        )
+        assert np.array_equal(
+            np.frombuffer(out, np.uint32).reshape(K, bits // 32, plan.fold_words),
+            aes_torch.from_words(want),
+        ), plan
+
+    # The correction alone, on limbs whose carries a random hash almost never
+    # produces: sums that wrap to exactly 0 (a carry out of every limb),
+    # limbs at ~corr (a carry in makes them wrap: limb + corr = ~0, + 1), and
+    # limbs of 0 or ~0.
+    rng = np.random.default_rng(5)
+    n = 64
+    corr = rng.integers(0, 2**32, size=4, dtype=np.uint32)
+    limbs = np.where(rng.integers(0, 2, size=(n, 4)) == 1, np.uint32(0xFFFFFFFF), np.uint32(0))
+    limbs[: n // 2] = (-corr.astype(np.int64) % 2**32).astype(np.uint32)
+    limbs[n // 4 : 3 * n // 4, 1:] = ~corr[1:]
+    limbs[n // 2 : 3 * n // 4, 0] = rng.integers(0, 2**32, size=n // 4, dtype=np.uint32)
+    gate = np.where(rng.integers(0, 4, size=n) > 0, np.uint32(0xFFFFFFFF), np.uint32(0))
+    for bits, party, xor_group in ((32, 1, False), (64, 0, False), (64, 1, False),
+                                   (128, 1, False), (128, 0, True)):
+        lpe = bits // 32
+        out = subprocess.run(
+            [str(exe)],
+            input=np.array([4, n, 0, lpe, party, int(xor_group)], np.int32).tobytes()
+            + limbs.tobytes() + gate.tobytes() + corr.tobytes(),
+            check=True, capture_output=True, timeout=60,
+        ).stdout
+        got = np.frombuffer(out, np.uint32).reshape(n, 4)
+        for e in range(4 // lpe):
+            q = slice(e * lpe, (e + 1) * lpe)
+            want = value_codec.rows_correct_element(
+                [words(limbs[:, i]) for i in range(q.start, q.stop)], words(gate),
+                [int(c) for c in corr[q].view(np.int32)], bits, party, xor_group,
+            )
+            assert np.array_equal(got[:, q], np.stack([aes_torch.from_words(w) for w in want], 1))

@@ -1,11 +1,13 @@
 """The PyTorch/CUDA port's PIR inner product and XorWrapper(128) fold
 against the JAX package, on the CPU.
 
-``pir.pir_query_batch_chunked(mode="fold")`` against
-``sharded.pir_query_batch_chunked(mode="fold")``, both parties, and the
-two-server reconstruction ``ra ^ rb == db[alpha]``; the port's
+``pir.pir_query_batch_chunked`` in mode="fold" (over a lane-order database)
+and in mode="megakernel" (K5's plain version, over a megakernel-order one)
+against ``sharded.pir_query_batch_chunked(mode="fold")``, both parties, and
+the two-server reconstruction ``ra ^ rb == db[alpha]``; the port's
 ``full_domain_fold_chunks`` on XorWrapper(128) keys with and without the
-lane-order database. Comparisons are exact.
+lane-order database. A database prepared in one order is refused by the
+other mode. Comparisons are exact.
 """
 
 import numpy as np
@@ -121,11 +123,101 @@ def test_xor128_fold_matches_jax(xor128, fuse_last_hash):
     assert np.array_equal(fold(xor128["port_keys"][0], None), want)
 
 
-def test_pir_rejects_what_it_cannot_serve(xor128):
+def megakernel_answers(dpf, keys, db, **kw) -> np.ndarray:
+    """One server's answers through mode="megakernel" (K5's plain version
+    for CPU tensors)."""
+    return pir.pir_query_batch_chunked(
+        dpf, keys, db, key_chunk=KEY_CHUNK, mode="megakernel", **kw
+    )
+
+
+# Budgets that plan log-domain 8 with one slab (the default) and eight.
+MEGAKERNEL_BUDGETS = (port_ev.MEGAKERNEL_BUDGET, 4096)
+
+
+@pytest.mark.parametrize("budget", MEGAKERNEL_BUDGETS, ids=["1slab", "8slabs"])
+@pytest.mark.parametrize("party", [0, 1])
+def test_megakernel_pir_answers_match_jax(xor128, party, budget, monkeypatch):
+    """mode="megakernel" over a megakernel-order database gives the JAX
+    package's answers (its mode="fold" over the lane order)."""
+    dpf = xor128["port_dpf"]
+    monkeypatch.setattr(port_ev, "MEGAKERNEL_BUDGET", budget)
+    prepared = pir.prepare_pir_database(dpf, xor128["db"], order="megakernel", device="cpu")
+    assert prepared.order == "megakernel"
+    assert prepared.plan == port_ev.plan_megakernel(dpf, budget=budget)
+    got = megakernel_answers(dpf, xor128["port_keys"][party], prepared)
+    assert got.dtype == np.uint32 and got.shape == (3, 4)
+    assert np.array_equal(got, xor128["want"][party])
+
+
+def test_megakernel_pir_reconstructs_the_records(xor128):
+    """Through K5's path the servers' answers XOR to the queried records; a
+    host database (prepared in megakernel order on the call) answers as a
+    prepared one does."""
+    dpf = xor128["port_dpf"]
+    answers = [
+        megakernel_answers(dpf, xor128["port_keys"][p], xor128["db"], device="cpu")
+        for p in (0, 1)
+    ]
+    assert np.array_equal(answers[0] ^ answers[1], xor128["db"][xor128["targets"]])
+
+
+def test_megakernel_database_matches_jax(xor128, monkeypatch):
+    """A megakernel-order database prepared by the port equals the JAX
+    package's under the same budget (its DPF_TPU_MEGAKERNEL_VMEM), so either
+    package's database serves both."""
+    budget = 8192
+    monkeypatch.setenv("DPF_TPU_MEGAKERNEL_VMEM", str(budget))
+    monkeypatch.setattr(port_ev, "MEGAKERNEL_BUDGET", budget)
+    want = sharded.prepare_pir_database(xor128["jax_dpf"], xor128["db"], order="megakernel")
+    got = pir.prepare_pir_database(
+        xor128["port_dpf"], xor128["db"], order="megakernel", device="cpu"
+    )
+    assert tuple(got.plan) == tuple(want.plan)
+    assert np.array_equal(from_words(got.lane_db), np.asarray(want.lane_db))
+
+
+def test_megakernel_fold_of_all_records_matches_jax(xor128):
+    """Over an all-ones database the answer is the XOR fold of every value:
+    K5's path gives the JAX package's fold (under an all-ones lane mask, the
+    program the answers above compiled)."""
+    dpf = xor128["port_dpf"]
+    ones = np.full(xor128["db"].shape, 0xFFFFFFFF, np.uint32)
+    m = port_ev.lane_order_map(dpf)
+    ones_lane = np.zeros((m.shape[0], 4), np.uint32)
+    ones_lane[m >= 0] = 0xFFFFFFFF
+    for party in (0, 1):
+        want = np.concatenate([
+            np.asarray(f)[:v]
+            for v, f in jax_ev.full_domain_fold_chunks(
+                xor128["jax_dpf"], xor128["jax_keys"][party], key_chunk=KEY_CHUNK,
+                db_lane=ones_lane, mode="fold", use_pallas=False, pipeline=False,
+            )
+        ])
+        got = megakernel_answers(dpf, xor128["port_keys"][party], ones, device="cpu")
+        assert np.array_equal(got, want)
+
+
+def test_pir_rejects_what_it_cannot_serve(xor128, monkeypatch):
     dpf, keys = xor128["port_dpf"], xor128["port_keys"][0]
     prepared = pir.prepare_pir_database(dpf, xor128["db"], device="cpu")
-    with pytest.raises(UnimplementedError, match="mode='megakernel'"):
-        pir.pir_query_batch_chunked(dpf, keys, prepared, mode="megakernel")
+    # A database in the other order is refused, in both directions.
+    with pytest.raises(InvalidArgumentError, match="'megakernel'-order"):
+        megakernel_answers(dpf, keys, prepared)
+    mk = pir.prepare_pir_database(dpf, xor128["db"], order="megakernel", device="cpu")
+    with pytest.raises(InvalidArgumentError, match="'lane'-order"):
+        pir.pir_query_batch_chunked(dpf, keys, mk, mode="fold")
+    with pytest.raises(InvalidArgumentError, match="host_levels"):
+        megakernel_answers(dpf, keys, mk, host_levels=6)
+    # A database laid out under a plan the budget no longer gives.
+    monkeypatch.setattr(port_ev, "MEGAKERNEL_BUDGET", 4096)
+    with pytest.raises(InvalidArgumentError, match="prepare it again"):
+        megakernel_answers(dpf, keys, mk)
+    monkeypatch.undo()
+    with pytest.raises(InvalidArgumentError, match="order must be"):
+        pir.prepare_pir_database(dpf, xor128["db"], order="natural", device="cpu")
+    with pytest.raises(UnimplementedError, match="mode='walk' is not ported"):
+        pir.pir_query_batch_chunked(dpf, keys, prepared, mode="walk")
     with pytest.raises(InvalidArgumentError, match="host_levels"):
         pir.pir_query_batch_chunked(dpf, keys, prepared, host_levels=6)
     with pytest.raises(InvalidArgumentError, match="PreparedPirDatabase"):
