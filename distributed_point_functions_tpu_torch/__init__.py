@@ -3,8 +3,8 @@
 The PyTorch/CUDA port of ``distributed_point_functions_tpu``, beside it in
 the same repository. It imports neither JAX nor that package: the host
 protocol layers it needs (``core/``) are its own copies. Slice by slice it
-ports the JAX package's paths; this one carries full-domain evaluation
-folded on the device and its two-server PIR inner product:
+ports the JAX package's paths; so far full-domain evaluation folded on the
+device, its two-server PIR inner product, and batched EvaluateAt:
 
     from distributed_point_functions_tpu_torch import (
         DistributedPointFunction, DpfParameters, Int)
@@ -14,6 +14,7 @@ folded on the device and its two-server PIR inner product:
     keys_a, keys_b = dpf.generate_keys_batch(alphas, [betas], seeds=seeds)
     for valid, fold in evaluator.full_domain_fold_chunks(dpf, keys_a):
         ...
+    shares = evaluator.evaluate_at_batch(dpf, keys_a, points, mode="walkkernel")
 
 Entry points run on the first CUDA device unless the caller passes
 ``device="cpu"``; with no card and no ``device="cpu"`` they raise.

@@ -26,9 +26,15 @@
 // at build time from the package's key schedule (ops/aes_cuda.py writes
 // dpf_round_keys.h). Every lane of a warp reads the same word, which the
 // constant cache broadcasts. The Pallas kernel selects the left or right key
-// per lane with a `key_mask`; here one thread hashes under one key, so the
-// kernel passes the table index instead (a warp that straddles the two
-// children reads two addresses, which only serialises that read).
+// per lane with a `key_mask`. A doubling level (K2, K3, K5) hashes each child
+// under one key, so there one thread passes the table index instead (a warp
+// that straddles the two children reads two addresses, which only serialises
+// that read). A point walk (K6, K7) needs the select per lane: each of the
+// 32 points of a word takes its own path, so `mmo_hash_rows_masked` takes the
+// level's path word as the mask and adds, per plane, the left key where the
+// mask bit is clear and the right key where it is set. That costs one more
+// constant load and one more logic operation per plane than the table form,
+// which K2-K5 keep unchanged.
 
 #pragma once
 
@@ -228,27 +234,61 @@ __device__ __forceinline__ void mix_columns(const uint32_t* t, uint32_t* s) {
   }
 }
 
-// AES-128 encryption of the 32 blocks in s under key schedule `table`.
-__device__ __forceinline__ void aes128_encrypt_rows(uint32_t* s, int table) {
+// AddRoundKey with the key chosen per lane: the left key on the lanes whose
+// `mask` bit is clear, the right key where it is set. This is the JAX
+// package's `rk_base ^ (rk_diff & key_mask)` written as a select of the two
+// tables.
+__device__ __forceinline__ void add_round_key_masked(uint32_t* s, int round,
+                                                     uint32_t mask) {
+#pragma unroll
+  for (int p = 0; p < 128; ++p) {
+    s[p] ^= (kRoundKeys[kTableLeft][round][p] & ~mask) |
+            (kRoundKeys[kTableRight][round][p] & mask);
+  }
+}
+
+// The two ways of adding a round key, as arguments of the round structure
+// below: one table for the whole word, or the per-lane select.
+struct TableKey {
+  int table;
+  __device__ __forceinline__ void operator()(uint32_t* s, int round) const {
+    add_round_key(s, table, round);
+  }
+};
+
+struct MaskedKey {
+  uint32_t mask;
+  __device__ __forceinline__ void operator()(uint32_t* s, int round) const {
+    add_round_key_masked(s, round, mask);
+  }
+};
+
+// AES-128 encryption of the 32 blocks in s, `add_key(s, round)` adding each
+// round key.
+template <class AddKey>
+__device__ __forceinline__ void aes128_encrypt_rows_with(uint32_t* s,
+                                                         AddKey add_key) {
   uint32_t t[128];
-  add_round_key(s, table, 0);
+  add_key(s, 0);
 #pragma unroll 1
   for (int round = 1; round < 10; ++round) {
     sub_shift(s, t);
     mix_columns(t, s);
-    add_round_key(s, table, round);
+    add_key(s, round);
   }
   sub_shift(s, t);
 #pragma unroll
   for (int p = 0; p < 128; ++p) s[p] = t[p];
-  add_round_key(s, table, 10);
+  add_key(s, 10);
 }
 
 // Fixed-key MMO hash H(x) = AES(sigma(x)) ^ sigma(x), sigma(x) = (hi ^ lo,
 // hi) with planes 0..63 the low half. `stash` is this thread's column of a
 // shared-memory buffer, `stride` words between planes.
-__device__ __forceinline__ void mmo_hash_rows(uint32_t* s, int table,
-                                              uint32_t* stash, int stride) {
+template <class AddKey>
+__device__ __forceinline__ void mmo_hash_rows_with(uint32_t* s, AddKey add_key,
+                                                   uint32_t* stash,
+                                                   int stride) {
 #pragma unroll
   for (int p = 0; p < 64; ++p) {
     const uint32_t lo = s[p];
@@ -258,9 +298,25 @@ __device__ __forceinline__ void mmo_hash_rows(uint32_t* s, int table,
   }
 #pragma unroll
   for (int p = 0; p < 128; ++p) stash[p * stride] = s[p];
-  aes128_encrypt_rows(s, table);
+  aes128_encrypt_rows_with(s, add_key);
 #pragma unroll
   for (int p = 0; p < 128; ++p) s[p] ^= stash[p * stride];
+}
+
+// The MMO hash under key schedule `table` (K2-K5).
+__device__ __forceinline__ void mmo_hash_rows(uint32_t* s, int table,
+                                              uint32_t* stash, int stride) {
+  mmo_hash_rows_with(s, TableKey{table}, stash, stride);
+}
+
+// The MMO hash under the left PRG key where `mask`'s bit is clear and the
+// right one where it is set (K6, K7): the JAX package's
+// `_aes_rows(sig, rk_left, rk_lr_diff, key_mask)`.
+__device__ __forceinline__ void mmo_hash_rows_masked(uint32_t* s,
+                                                     uint32_t mask,
+                                                     uint32_t* stash,
+                                                     int stride) {
+  mmo_hash_rows_with(s, MaskedKey{mask}, stash, stride);
 }
 
 }  // namespace dpf

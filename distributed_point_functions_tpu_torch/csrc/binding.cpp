@@ -1,5 +1,5 @@
-// PyTorch binding of the kernels in expand.cu and megakernel.cu: the only
-// source that includes PyTorch's headers. ops/aes_cuda.py checks the
+// PyTorch binding of the kernels in expand.cu, megakernel.cu, walk.cu and
+// walk_megakernel.cu: the only source that includes PyTorch's headers. ops/aes_cuda.py checks the
 // operands, allocates the outputs and counts launches; each function here
 // makes the operands' device current, launches on PyTorch's current stream
 // for it and checks the launch.
@@ -106,6 +106,49 @@ void megakernel_fold(const torch::Tensor& planes, const torch::Tensor& control,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// K6: one walk level (the caller passes this level's path word row and
+// per-key tables).
+void walk_level(const torch::Tensor& planes, const torch::Tensor& control,
+                const torch::Tensor& path, const torch::Tensor& cw,
+                const torch::Tensor& ccl, const torch::Tensor& ccr,
+                torch::Tensor out_planes, torch::Tensor out_control) {
+  const c10::cuda::CUDAGuard guard(planes.device());
+  dpf::launch_walk_level(
+      words_of(planes), words_of(control), words_of(path), words_of(cw),
+      words_of(ccl), words_of(ccr), words_of(out_planes),
+      words_of(out_control), static_cast<int>(planes.size(0)),
+      static_cast<int>(planes.size(2)), at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// K7 (EvaluateAt form). The caller (ops/aes_cuda.py) has checked the shapes.
+void walk_megakernel(const torch::Tensor& seed_planes,
+                     const torch::Tensor& path, const torch::Tensor& cw,
+                     const torch::Tensor& ccl, const torch::Tensor& ccr,
+                     const torch::Tensor& corr, const torch::Tensor& sel,
+                     torch::Tensor out, int64_t lpe, int64_t keep,
+                     int64_t party, bool xor_group) {
+  const c10::cuda::CUDAGuard guard(seed_planes.device());
+  dpf::WalkMegakernelArgs a{};
+  a.seed_planes = words_of(seed_planes);
+  a.path = words_of(path);
+  a.cw = words_of(cw);
+  a.ccl = words_of(ccl);
+  a.ccr = words_of(ccr);
+  a.corr = words_of(corr);
+  a.sel = words_of(sel);
+  a.out = words_of(out);
+  a.levels = static_cast<int>(path.size(0));
+  a.words = static_cast<int>(path.size(1));
+  a.lpe = static_cast<int>(lpe);
+  a.keep = static_cast<int>(keep);
+  a.party = static_cast<int>(party);
+  a.xor_group = xor_group ? 1 : 0;
+  dpf::launch_walk_megakernel(a, static_cast<int>(seed_planes.size(0)),
+                              at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -114,6 +157,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("megakernel_fold", &megakernel_fold, "K5");
   m.def("megakernel_smem_bytes", &megakernel_smem_bytes,
         "K5's shared memory per block under a plan");
+  m.def("walk_level", &walk_level, "K6");
+  m.def("walk_megakernel", &walk_megakernel, "K7 (EvaluateAt form)");
   m.def("max_shared_memory_per_block", &max_shared_memory_per_block,
         "the card's opt-in shared memory limit per block");
 }

@@ -1,5 +1,5 @@
-// Host launchers of the kernels in expand.cu and megakernel.cu, called by
-// binding.cpp.
+// Host launchers of the kernels in expand.cu, megakernel.cu, walk.cu and
+// walk_megakernel.cu, called by binding.cpp.
 //
 // Each launches on `stream` and returns without synchronising; the caller
 // checks the launch (C10_CUDA_KERNEL_LAUNCH_CHECK) and guarantees
@@ -33,5 +33,18 @@ void launch_value_hash(const uint32_t* planes, uint32_t* out, int num_keys,
 // raising the kernel's shared-memory limit, if any.
 cudaError_t launch_megakernel_fold(const MegakernelArgs& a, int num_keys,
                                    cudaStream_t stream);
+
+// K6: one walk level. planes [K, 128, W], control [K, W], path [W] (this
+// level's path bits, shared by all keys), cw [K, 128], ccl/ccr [K] ->
+// out_planes [K, 128, W], out_control [K, W].
+void launch_walk_level(const uint32_t* planes, const uint32_t* control,
+                       const uint32_t* path, const uint32_t* cw,
+                       const uint32_t* ccl, const uint32_t* ccr,
+                       uint32_t* out_planes, uint32_t* out_control,
+                       int num_keys, int words, cudaStream_t stream);
+
+// K7 (EvaluateAt form): one thread per (key, word of a.words); a.levels >= 1.
+void launch_walk_megakernel(const WalkMegakernelArgs& a, int num_keys,
+                            cudaStream_t stream);
 
 }  // namespace dpf

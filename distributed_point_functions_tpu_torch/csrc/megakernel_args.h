@@ -1,6 +1,8 @@
-// The operands and plan of K5, the slab megakernel: what the launcher in
-// megakernel.cu passes to the body in megakernel_rows.cuh. Plain C++ (no
-// CUDA header), so the binding and the host-compiler test build it too.
+// The operands of the megakernels: K5, the slab megakernel (what the
+// launcher in megakernel.cu passes to the body in megakernel_rows.cuh), and
+// K7, the walk megakernel (walk_megakernel.cu, body in walk_rows.cuh). Plain
+// C++ (no CUDA header), so the binding and the host-compiler test build it
+// too.
 
 #pragma once
 
@@ -42,5 +44,21 @@ inline int64_t megakernel_smem_words(const MegakernelArgs& a, int threads) {
   }
   return words;
 }
+
+// K7 in its EvaluateAt form. uint32 words, row-major; L = levels, Wp =
+// words (the WalkkernelPlan's padded width), n_rows = 128 / (32 * lpe)
+// elements of a block.
+struct WalkMegakernelArgs {
+  const uint32_t* seed_planes;  // [K, 128] root-seed plane masks (0 / ~0)
+  const uint32_t* path;         // [L, Wp] packed path bits of each level
+  const uint32_t* cw;           // [K, L, 128] correction-seed plane masks
+  const uint32_t* ccl;          // [K, L] control-correction masks
+  const uint32_t* ccr;          // [K, L]
+  const uint32_t* corr;         // [K, n_rows, lpe]: 4 correction limbs a key
+  const uint32_t* sel;          // [keep, Wp] packed element-select bits
+  uint32_t* out;                // [K, lpe * 32, Wp] value rows
+  int levels, words;
+  int lpe, keep, party, xor_group;
+};
 
 }  // namespace dpf

@@ -1,4 +1,4 @@
-"""Wrappers of the hand-written Hopper kernels K2, K3, K4 and K5.
+"""Wrappers of the hand-written Hopper kernels K2 to K7.
 
 Each wrapper takes the same tensors as its plain version in
 ops/backend_torch.py and returns the same result:
@@ -14,10 +14,17 @@ K4     ``hash_value_planes``        ops/aes_pallas.py
                                     hash_value_planes_pallas_batched
 K5     ``megakernel_fold``          ops/aes_pallas.py
                                     megakernel_fold_pallas_batched
+K6     ``walk_level`` (and          ops/aes_pallas.py
+       ``walk_levels``, one         walk_levels_pallas_batched
+       launch per level)
+K7     ``walk_megakernel``          ops/aes_pallas.py
+                                    walk_megakernel_pallas_batched
+                                    (EvaluateAt form)
 =====  ===========================  ==========================================
 
 K1, the bitsliced AES row circuit (csrc/aes_rows.cuh, replacing
-``_aes_rows`` / ``_sbox_rows``), is inlined into all four.
+``_aes_rows`` / ``_sbox_rows``), is inlined into all six; K6 and K7 use its
+form with the PRG key selected per lane.
 
 Device rule: a wrapper given CPU tensors runs the plain version, because the
 tensors lie on the CPU; given CUDA tensors it launches its kernel or raises.
@@ -29,9 +36,10 @@ each way), so the kernels keep the AES state in registers and touch each
 plane word once in each direction; see csrc/expand.cu and csrc/megakernel.cu.
 
 Build: the first launch builds csrc/binding.cpp (the one source with
-PyTorch's headers), csrc/expand.cu and csrc/megakernel.cu with
-``torch.utils.cpp_extension.load`` for ``sm_90a`` into the package's
-``_build/`` directory; ninja rebuilds what changed and reuses the rest. ``-Xptxas -v`` reports each kernel's registers
+PyTorch's headers), csrc/expand.cu, csrc/megakernel.cu, csrc/walk.cu and
+csrc/walk_megakernel.cu with ``torch.utils.cpp_extension.load`` for
+``sm_90a`` into the package's ``_build/`` directory; ninja compiles the
+sources in parallel, rebuilds what changed and reuses the rest. ``-Xptxas -v`` reports each kernel's registers
 and spills, kept in ``Kernel.ptxas``. The binding makes the operands' device
 current, launches on PyTorch's current stream and checks every launch with
 ``C10_CUDA_KERNEL_LAUNCH_CHECK``.
@@ -50,7 +58,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..utils.errors import InternalError, InvalidArgumentError
+from ..utils.errors import InternalError, InvalidArgumentError, UnimplementedError
 from . import backend_torch
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -77,8 +85,17 @@ K2 = Kernel("K2 expand_one_level", "dpf_expand_level_kernel")
 K3 = Kernel("K3 expand_and_hash_last_level", "dpf_expand_hash_kernel")
 K4 = Kernel("K4 hash_value_planes", "dpf_value_hash_kernel")
 K5 = Kernel("K5 megakernel_fold", "dpf_megakernel_fold_kernel")
-KERNELS = (K2, K3, K4, K5)
-SOURCES = ("binding.cpp", "expand.cu", "megakernel.cu")
+K6 = Kernel("K6 walk_level", "dpf_walk_level_kernel")
+K7 = Kernel("K7 walk_megakernel", "dpf_walk_megakernel_kernel")
+KERNELS = (K2, K3, K4, K5, K6, K7)
+# Each .cu source and the kernels ptxas reports for it.
+CUDA_SOURCES = {
+    "expand.cu": (K2, K3, K4),
+    "megakernel.cu": (K5,),
+    "walk.cu": (K6,),
+    "walk_megakernel.cu": (K7,),
+}
+SOURCES = ("binding.cpp",) + tuple(CUDA_SOURCES)
 
 
 def reset_launch_counts() -> None:
@@ -181,7 +198,7 @@ def library():
     # changed, and a load that compiled none reports nothing.
     text = log.read_text()
     fresh = _parse_ptxas(text)
-    for source, kernels in (("expand.cu", (K2, K3, K4)), ("megakernel.cu", (K5,))):
+    for source, kernels in CUDA_SOURCES.items():
         saved = BUILD_DIR / f"ptxas.{source}.txt"
         report = fresh
         if any(k.symbol in fn for fn in report for k in kernels):
@@ -377,4 +394,117 @@ def megakernel_fold(
         out, workspace, fields, lpe, keep, party, xor_group,
     )
     K5.launches += 1
+    return out
+
+
+def _check_walk_args(planes, control, path_mask, cw_plane, ccl_mask, ccr_mask):
+    if planes.dim() != 3:
+        raise InvalidArgumentError(f"planes must be [K, 128, W], got {tuple(planes.shape)}")
+    k, _, w = planes.shape
+    _check(planes, (k, 128, w), "planes")
+    _check(control, (k, w), "control")
+    _check(path_mask, (w,), "path_mask")
+    _check(cw_plane, (k, 128), "cw_plane")
+    _check(ccl_mask, (k,), "ccl_mask")
+    _check(ccr_mask, (k,), "ccr_mask")
+
+
+def walk_level(planes, control, path_mask, cw_plane, ccl_mask, ccr_mask):
+    """K6: one level of the point walk for K keys. planes int32[K, 128, W],
+    control int32[K, W], path_mask int32[W] (this level's path bits, shared
+    by the keys), cw_plane int32[K, 128], ccl_mask/ccr_mask int32[K] ->
+    (int32[K, 128, W], int32[K, W]). Replaces
+    aes_pallas.py:walk_levels_pallas_batched (one launch per level, as its
+    pallas_call); the plain version is ``backend_torch.walk_level``.
+
+    Bound on the H100: integer operations, one MMO hash with the per-lane
+    key select per lane word against 1 KiB of plane traffic
+    (csrc/walk.cu)."""
+    args = (planes, control, path_mask, cw_plane, ccl_mask, ccr_mask)
+    _check_walk_args(*args)
+    if _on_cpu(*args):
+        return backend_torch.walk_level(*args)
+    if not all(t.is_contiguous() for t in args):
+        raise InvalidArgumentError(f"{K6.name}: operands must be contiguous")
+    out_planes = torch.empty_like(planes)
+    out_control = torch.empty_like(control)
+    if planes.shape[0] == 0 or planes.shape[2] == 0:
+        return out_planes, out_control
+    library().walk_level(*args, out_planes, out_control)
+    K6.launches += 1
+    return out_planes, out_control
+
+
+def walk_levels(planes, control, path_masks, cw_planes, ccl, ccr):
+    """Every level of the point walk, one K6 launch per level: path_masks
+    int32[L, W], cw_planes int32[K, L, 128], ccl/ccr int32[K, L] (as
+    ``backend_torch.walk_levels``, the plain version)."""
+    if path_masks.dim() != 2:
+        raise InvalidArgumentError(f"path_masks must be [L, W], got {tuple(path_masks.shape)}")
+    # Level-major once, so that each level's per-key tables are contiguous.
+    cw, cl, cr = (t.transpose(0, 1).contiguous() for t in (cw_planes, ccl, ccr))
+    for lvl in range(path_masks.shape[0]):
+        planes, control = walk_level(planes, control, path_masks[lvl], cw[lvl], cl[lvl], cr[lvl])
+    return planes, control
+
+
+def walk_megakernel(
+    seed_planes, path_masks, cw_planes, ccl, ccr, corrections, sel_bits, *,
+    bits: int, party: int, xor_group: bool, keep: int, captures=None,
+):
+    """K7, the walk megakernel in its EvaluateAt form: one launch for a chunk
+    of K keys.
+
+    seed_planes int32[K, 128] root-seed plane masks, path_masks int32[L, Wp],
+    cw_planes int32[K, L, 128], ccl/ccr int32[K, L], corrections int32[K,
+    epb, lpe], sel_bits int32[keep, Wp] -> int32[K, lpe * 32, Wp] value rows
+    (row l * 32 + i at word w is limb l of point 32 w + i). Every level of
+    the walk and the leaf capture (value hash, transpose, correction,
+    element select) run in the kernel. Replaces
+    aes_pallas.py:walk_megakernel_pallas_batched with ``captures=None``;
+    the plain version is ``backend_torch.walk_megakernel``. The DCF form (a
+    ``captures`` tuple) is not ported yet and raises.
+
+    Bound on the H100: integer operations, L + 1 MMO hashes per lane word
+    against the path and select words and a few hundred bytes per key
+    (csrc/walk_megakernel.cu).
+    """
+    if captures is not None:
+        raise UnimplementedError(backend_torch.CAPTURES_NOT_PORTED)
+    if bits % 32:
+        raise NotImplementedError(
+            f"K7's value correction handles 32-bit-multiple widths, got {bits}"
+        )
+    if party not in (0, 1):
+        raise InvalidArgumentError(f"party must be 0 or 1, got {party}")
+    lpe, epb = bits // 32, 128 // bits
+    if keep < 1 or keep > epb or keep & (keep - 1):
+        raise InvalidArgumentError(f"keep must be a power of two <= {epb}, got {keep}")
+    if seed_planes.dim() != 2 or path_masks.dim() != 2:
+        raise InvalidArgumentError(
+            f"seed_planes must be [K, 128] and path_masks [L, Wp], got "
+            f"{tuple(seed_planes.shape)} and {tuple(path_masks.shape)}"
+        )
+    k = seed_planes.shape[0]
+    levels, wp = path_masks.shape
+    if levels < 1:
+        raise InvalidArgumentError("the walk megakernel needs at least one tree level")
+    _check(seed_planes, (k, 128), "seed_planes")
+    _check(path_masks, (levels, wp), "path_masks")
+    _check(cw_planes, (k, levels, 128), "cw_planes")
+    _check(ccl, (k, levels), "ccl")
+    _check(ccr, (k, levels), "ccr")
+    _check(corrections, (k, epb, lpe), "corrections")
+    _check(sel_bits, (keep, wp), "sel_bits")
+    args = (seed_planes, path_masks, cw_planes, ccl, ccr, corrections, sel_bits)
+    kw = dict(bits=bits, party=party, xor_group=xor_group, keep=keep)
+    if _on_cpu(*args):
+        return backend_torch.walk_megakernel(*args, **kw)
+    if not all(t.is_contiguous() for t in args):
+        raise InvalidArgumentError(f"{K7.name}: operands must be contiguous")
+    out = torch.empty((k, lpe * 32, wp), dtype=torch.int32, device=seed_planes.device)
+    if k == 0 or wp == 0:
+        return out
+    library().walk_megakernel(*args, out, lpe, keep, party, xor_group)
+    K7.launches += 1
     return out

@@ -1,9 +1,10 @@
-"""The DPF expansion primitives in plain PyTorch, on bit-planes.
+"""The DPF expansion and point-walk primitives in plain PyTorch, on bit-planes.
 
 The port's counterpart of the JAX package's ``ops/backend_jax.py``, cut to
-the full-domain slice. ``expand_one_level``, ``expand_and_hash_last_level``,
-``hash_value_planes`` and ``megakernel_fold`` are the *plain versions* of
-the CUDA kernels K2, K3, K4 and K5 (ops/aes_cuda.py): same arguments, same
+the full-domain and point-walk slices. ``expand_one_level``,
+``expand_and_hash_last_level``, ``hash_value_planes``, ``megakernel_fold``,
+``walk_level`` and ``walk_megakernel`` are the *plain versions* of the CUDA
+kernels K2, K3, K4, K5, K6 and K7 (ops/aes_cuda.py): same arguments, same
 outputs, written as tensor algebra over a leading key axis. The wrappers in ops/aes_cuda.py run
 them for CPU tensors; chip_smoke.py holds the kernels against them on the
 card. The JAX package's functions take one key and are vmapped; these take
@@ -187,6 +188,115 @@ def megakernel_fold(
     folds = torch.stack(acc, dim=1)  # [K * s, lpe, wf]
     folds = folds.reshape(k, s, lpe, wf // plan.fold_words, plan.fold_words)
     return xor_reduce(xor_reduce(folds, dim=3), dim=1)
+
+
+def path_bit_masks(paths: np.ndarray, num_levels: int, padded: int) -> np.ndarray:
+    """uint32[N, 4] tree indices (uint128 limbs) -> uint32[L, padded // 32]
+    per-level lane masks: bit i of word w at level l is bit num_levels - 1 -
+    l of point 32 w + i's tree index (1 = right child), 0 for the padded
+    points. The JAX package's ``backend_jax._path_bit_masks``."""
+    n = paths.shape[0]
+    bits = np.zeros((num_levels, padded), dtype=bool)
+    for level in range(num_levels):
+        bit_index = num_levels - 1 - level
+        if bit_index < 128:
+            bits[level, :n] = (paths[:, bit_index // 32] >> (bit_index % 32)) & 1
+    return aes_torch.pack_bit_mask(bits)
+
+
+def walk_level(planes, control, path_mask, cw_plane, ccl_mask, ccr_mask):
+    """One level of the point walk for K keys: the plain version of K6.
+
+    planes int32[K, 128, W] (32 points per lane word), control int32[K, W],
+    path_mask int32[W] (this level's path bits, shared by the keys; 1 =
+    right), cw_plane int32[K, 128], ccl_mask/ccr_mask int32[K] (0 / ~0).
+    Each lane is hashed under the PRG key its path bit selects, the seed
+    correction ``cw & control`` is applied, and the new control is ``h[0] ^
+    (control & cc)`` with cc the per-lane select of ccl and ccr, plane 0
+    then cleared: the scan body of ``backend_jax.evaluate_seeds_planes``.
+    Returns (int32[K, 128, W], int32[K, W]).
+    """
+    h = aes_torch.hash_planes(planes, _rk_np("left"), _rk_np("lr_diff"), path_mask)
+    h = h ^ (cw_plane[..., :, None] & control[..., None, :])
+    cc = (ccl_mask[..., None] & ~path_mask) | (ccr_mask[..., None] & path_mask)
+    new_control = h[..., 0, :] ^ (control & cc)
+    h[..., 0, :] = 0
+    return h, new_control
+
+
+def walk_levels(planes, control, path_masks, cw_planes, ccl, ccr):
+    """Every level of the point walk: ``walk_level`` once per row of
+    path_masks int32[L, W], with cw_planes int32[K, L, 128] and ccl/ccr
+    int32[K, L]. The JAX package's ``evaluate_seeds_planes`` over a key
+    axis."""
+    for lvl in range(path_masks.shape[0]):
+        planes, control = walk_level(
+            planes, control, path_masks[lvl], cw_planes[:, lvl], ccl[:, lvl], ccr[:, lvl]
+        )
+    return planes, control
+
+
+CAPTURES_NOT_PORTED = (
+    "the walk megakernel's DCF capture form (captures=...) comes with the "
+    "port's DCF slice (ROADMAP Queue 1 item 1); only captures=None "
+    "(EvaluateAt) is ported"
+)
+
+
+def walk_megakernel(
+    seed_planes,  # int32[K, 128] root-seed plane masks (0 / ~0)
+    path_masks,  # int32[L, Wp] packed path bits, shared by the keys
+    cw_planes,  # int32[K, L, 128]
+    ccl,  # int32[K, L]
+    ccr,  # int32[K, L]
+    corrections,  # int32[K, epb, lpe]
+    sel_bits,  # int32[keep, Wp] packed element-select bits
+    *,
+    bits: int,
+    party: int,
+    xor_group: bool,
+    keep: int,
+    captures=None,
+):
+    """The walk megakernel in its EvaluateAt form: the plain version of K7
+    -> int32[K, lpe * 32, Wp] value rows (row l * 32 + i at word w is limb l
+    of point 32 w + i).
+
+    The root seed is broadcast to every point, the walk runs all L levels
+    (``walk_levels``), and the leaf capture follows: the value hash, the
+    32x32 transposes to limbs, ``rows_correct_element`` of each kept element
+    under the point's control bit with the party's correction, the AND with
+    the element's select row, and the XOR over the elements. The JAX
+    package's ``walk_megakernel_reference_rows`` with ``captures=None``,
+    over a key axis; its DCF form (a ``captures`` tuple) comes with the DCF
+    slice of the port.
+    """
+    if captures is not None:
+        raise errors.UnimplementedError(CAPTURES_NOT_PORTED)
+    k = seed_planes.shape[0]
+    wp = path_masks.shape[1]
+    lpe = bits // 32
+    planes = seed_planes[:, :, None].expand(k, 128, wp).contiguous()
+    control = torch.full((k, wp), -1 if party else 0, dtype=torch.int32,
+                         device=seed_planes.device)
+    planes, control = walk_levels(planes, control, path_masks, cw_planes, ccl, ccr)
+    hashed = hash_value_planes(planes)
+    del planes
+    # limbs[:, q, i, w] = 32-bit limb q of point 32 w + i's hash block
+    limbs = aes_torch.transpose32_rows(hashed.reshape(k, 4, 32, wp))
+    shifts = torch.arange(32, dtype=torch.int32, device=control.device)[:, None]
+    ctrl_mask = -((control[:, None, :] >> shifts) & 1)  # [K, 32, Wp]: 0 / ~0
+    sel_mask = -((sel_bits[:, None, :] >> shifts) & 1)  # [keep, 32, Wp]
+    out = [torch.zeros((k, 32, wp), dtype=torch.int32, device=control.device)] * lpe
+    for e in range(keep):
+        vals = value_codec.rows_correct_element(
+            [limbs[:, e * lpe + l] for l in range(lpe)],
+            ctrl_mask,
+            [corrections[:, e, l, None, None] for l in range(lpe)],
+            bits, party, xor_group,
+        )
+        out = [out[l] ^ (vals[l] & sel_mask[e]) for l in range(lpe)]
+    return torch.stack(out, dim=1).reshape(k, lpe * 32, wp)
 
 
 def unpack_mask_device(mask_words: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,14 @@ the value hash, the transpose to limbs, the correction and the fold (or the
 AND with a megakernel-order database) on chip, sized by a
 ``MegakernelPlan`` (``plan_megakernel``).
 
+``evaluate_at_batch`` is batched EvaluateAt: every key of a batch at every
+point of a list. ``mode="walk"`` walks the points down the tree with one K6
+launch per level (ops/aes_cuda.walk_levels), hashes the leaves with K4 and
+corrects the values in plain PyTorch; ``mode="walkkernel"`` runs the walk
+and the leaf capture in one launch of the walk megakernel K7 per chunk
+(ops/aes_cuda.walk_megakernel), sized by a ``WalkkernelPlan``
+(``plan_walkkernel``).
+
 Chunks run one after another (no prefetch pipeline yet). Words are int32
 tensors carrying uint32 bit patterns (ops/aes_torch.py); limb carries are
 computed in int64.
@@ -41,7 +49,7 @@ from ..core.dpf import DistributedPointFunction
 from ..core.keys import DpfKey
 from ..core.value_types import Int, XorWrapper
 from ..utils.devices import resolve_device
-from ..utils.errors import InvalidArgumentError
+from ..utils.errors import InvalidArgumentError, UnimplementedError
 from . import aes_cuda, aes_torch, backend_torch, value_codec
 
 # ---------------------------------------------------------------------------
@@ -323,7 +331,7 @@ def _prepare_chunk(kb: KeyBatch, valid: int, host_levels: int, bits: int) -> _Ch
     corr = _correction_limbs(kb.value_corrections, bits)
 
     def up(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(aes_torch.as_words(a)).to(kb.device)
+        return _upload(a, kb.device)
 
     return _Chunk(
         valid=valid,
@@ -334,6 +342,11 @@ def _prepare_chunk(kb: KeyBatch, valid: int, host_levels: int, bits: int) -> _Ch
         ccr=up(ccr.T),
         corr=up(corr),
     )
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A uint32 host array as an int32 tensor of the same bits on `device`."""
+    return torch.from_numpy(aes_torch.as_words(a)).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -785,6 +798,265 @@ def _megakernel_fold_chunk(
         keep=keep,
     )
     return backend_torch.xor_reduce(folds, dim=2)
+
+
+# ---------------------------------------------------------------------------
+# Batched point evaluation (EvaluateAt): K6 per level, or the walk megakernel
+# ---------------------------------------------------------------------------
+
+# The budget ``plan_walkkernel`` sizes a point tile from (the JAX package's
+# DPF_TPU_WALKKERNEL_VMEM, 8 MiB of a v5e core's VMEM there). On the card a
+# tile has no role but the padding: K7 runs one thread per (key, padded
+# word) whatever the tile. The budget makes one tile what one SM holds in
+# flight: K7's 64-thread blocks at 255 registers a thread fit four to an SM
+# (65,536 registers), 256 lane words, and the plan charges 4 x (128 x 4 + 32
+# x lpe x 2 + levels) bytes a word, 2,684 at Int(64) and 31 levels: 256 x
+# 2,684 = 687,104 bytes. Up to 256 words (8,192 points) then pad to 8 words;
+# more to whole tiles of 256 words (128 at Int(128)).
+WALKKERNEL_BUDGET = 256 * 2684
+
+
+class WalkkernelPlan(NamedTuple):
+    """Static shape plan of the walk megakernel (ops/aes_cuda.walk_megakernel
+    and its plain version), field for field the JAX package's.
+
+      levels        tree levels walked in the kernel (the whole tree)
+      tile_words    point-tile width in packed 32-lane words
+      num_tiles     point tiles per key
+      padded_words  num_tiles * tile_words, the kernel's lane-word width;
+                    points are padded to padded_words * 32 and trimmed
+    """
+
+    levels: int
+    tile_words: int
+    num_tiles: int
+    padded_words: int
+
+
+def plan_walkkernel(
+    num_points: int, levels: int, lpe: int, budget: Optional[int] = None
+) -> WalkkernelPlan:
+    """Sizes the walk megakernel's point tiles from a byte budget.
+
+    The JAX package's ``plan_walkkernel`` arithmetic (EvaluateAt form, no
+    DCF accumulator), with the budget an argument instead of an environment
+    variable: for the same budget the two packages plan the same tiles. Per
+    lane word the budget is charged the 128 seed planes with 4x temporaries,
+    the lpe * 32 value rows twice and the per-level path words; a multi-tile
+    plan has power-of-two tiles of at least 128 words, and a point count
+    below one tile rounds up to 8 words. ``None`` takes
+    ``WALKKERNEL_BUDGET``, sized for K7's blocks on the card.
+    """
+    if levels < 1:
+        raise InvalidArgumentError(
+            f"walk megakernel needs at least one tree level, got {levels}"
+        )
+    if budget is None:
+        budget = WALKKERNEL_BUDGET
+    w = -(-max(1, num_points) // 32)
+    per_word = 4 * (128 * 4 + 32 * max(1, lpe) * 2 + levels)
+    cap = _floor_pow2(max(128, budget // per_word))
+    if w <= cap:
+        tile = max(8, -(-w // 8) * 8)
+        return WalkkernelPlan(levels, tile, 1, tile)
+    num_tiles = -(-w // cap)
+    return WalkkernelPlan(levels, cap, num_tiles, num_tiles * cap)
+
+
+def values_to_numpy(values: np.ndarray, bits: int) -> np.ndarray:
+    """uint32[..., lpe] limb values -> numpy uint array (object for 128)."""
+    values = np.asarray(values)
+    if bits <= 32:
+        return values[..., 0].astype(f"uint{max(bits, 8)}" if bits != 32 else "uint32")
+    if bits == 64:
+        return values[..., 0].astype(np.uint64) | (
+            values[..., 1].astype(np.uint64) << np.uint64(32)
+        )
+    out = np.zeros(values.shape[:-1], dtype=object)
+    for l in range(values.shape[-1]):
+        out |= values[..., l].astype(object) << (32 * l)
+    return out
+
+
+@dataclasses.dataclass
+class WalkChunk:
+    """One key chunk's device-resident walk inputs."""
+
+    party: int
+    seed_planes: torch.Tensor  # int32[K, 128] root-seed plane masks
+    cw: torch.Tensor  # int32[K, L, 128]
+    ccl: torch.Tensor  # int32[K, L]
+    ccr: torch.Tensor  # int32[K, L]
+    corr: torch.Tensor  # int32[K, epb, lpe]
+
+
+def prepare_walk_chunk(kb: KeyBatch, bits: int) -> WalkChunk:
+    """One chunk's walk tables on the host (numpy), one upload each."""
+    return WalkChunk(
+        kb.party, _upload(backend_torch.cw_seed_planes(kb.seeds), kb.device),
+        *(_upload(a, kb.device) for a in kb.device_cw_arrays()),
+        _upload(_correction_limbs(kb.value_corrections, bits), kb.device),
+    )
+
+
+@dataclasses.dataclass
+class WalkPoints:
+    """The point side of one ``evaluate_at_batch`` call, shared by all its
+    key chunks (``prepare_walk_points``)."""
+
+    mode: str  # "walk" or "walkkernel"
+    num_points: int
+    bits: int
+    xor_group: bool
+    keep: int  # elements per block
+    path_masks: torch.Tensor  # int32[L, Wp]: lane i of word w is point 32 w + i
+    # "walk": int64[P], each point's element in its block; "walkkernel":
+    # int32[keep, Wp], row e selecting the points whose element is e.
+    select: torch.Tensor
+    plan: Optional[WalkkernelPlan]  # "walkkernel" only
+
+
+def prepare_walk_points(
+    dpf: DistributedPointFunction,
+    points: Sequence[int],
+    hierarchy_level: int = -1,
+    mode: str = "walk",
+    device=None,
+) -> WalkPoints:
+    """Checks an EvaluateAt request and builds its point tables on the host:
+    each point's path bits and element select, packed 32 points a word and
+    uploaded once. Raises as ``evaluate_at_batch`` documents."""
+    v = dpf.validator
+    if hierarchy_level < 0:
+        hierarchy_level = v.num_hierarchy_levels - 1
+    if mode not in ("walk", "walkkernel"):
+        raise InvalidArgumentError(f"mode must be 'walk' or 'walkkernel', got {mode!r}")
+    value_type = v.parameters[hierarchy_level].value_type
+    if not isinstance(value_type, (Int, XorWrapper)) or v.blocks_needed[hierarchy_level] != 1:
+        raise UnimplementedError(
+            f"the port's evaluate_at_batch handles scalar Int/XorWrapper values; "
+            f"{value_type} needs the codec walk (ROADMAP Queue 1 item 3)"
+        )
+    bits, xor_group = _value_kind(value_type)
+    if mode == "walkkernel" and bits % 32:
+        raise NotImplementedError(
+            "mode='walkkernel' handles scalar Int/XorWrapper values with "
+            f"32-bit-multiple widths, got {bits}-bit values; use mode='walk'"
+        )
+    lds = v.parameters[hierarchy_level].log_domain_size
+    points = [int(pt) for pt in points]
+    for i, pt in enumerate(points):
+        if pt < 0 or pt >> lds:
+            raise InvalidArgumentError(
+                f"`points[{i}]` = {pt} is outside the domain of hierarchy level "
+                f"{hierarchy_level} (log size {lds})"
+            )
+    device = resolve_device(device)
+    num_levels, p = v.hierarchy_to_tree[hierarchy_level], len(points)
+    low = v.block_index_bits(hierarchy_level)
+    keep = 1 << low
+    paths = uint128.array_to_limbs([pt >> low for pt in points])
+    block_sel = np.array([pt & (keep - 1) for pt in points], dtype=np.int64)
+    plan = None
+    if mode == "walkkernel":
+        plan = plan_walkkernel(p, num_levels, bits // 32)
+        p_pad = plan.padded_words * 32
+        # Row e selects the points whose addressed block element is e; the
+        # padded points select nothing.
+        sel_bool = np.zeros((keep, p_pad), dtype=bool)
+        sel_bool[block_sel, np.arange(p)] = True
+        select = _upload(aes_torch.pack_bit_mask(sel_bool), device)
+    else:
+        p_pad = -(-p // 32) * 32
+        select = torch.from_numpy(block_sel).to(device)
+    path_masks = _upload(backend_torch.path_bit_masks(paths, num_levels, p_pad), device)
+    return WalkPoints(mode, p, bits, xor_group, keep, path_masks, select, plan)
+
+
+def evaluate_walk_chunk(ch: WalkChunk, wp: WalkPoints) -> torch.Tensor:
+    """One key chunk at every point -> int32[K, P, lpe], in ``wp.mode``."""
+    if wp.mode == "walkkernel":
+        return _walkkernel_chunk(ch, wp)
+    return _walk_chunk(ch, wp)
+
+
+def _walk_chunk(ch: WalkChunk, wp: WalkPoints) -> torch.Tensor:
+    """Mode "walk": the root seeds broadcast to every point, one K6 launch
+    per level, K4 on the leaves, then unpack, correction and the element
+    select in plain PyTorch (the JAX package's ``_evaluate_points_jit``
+    with ``use_pallas``)."""
+    (k, _), w = ch.seed_planes.shape, wp.path_masks.shape[1]
+    dev = ch.seed_planes.device
+    planes = ch.seed_planes[:, :, None].expand(k, 128, w).contiguous()
+    control = torch.full((k, w), -1 if ch.party else 0, dtype=torch.int32, device=dev)
+    planes, control = aes_cuda.walk_levels(planes, control, wp.path_masks, ch.cw, ch.ccl, ch.ccr)
+    hashed = aes_cuda.hash_value_planes(planes)
+    del planes
+    blocks = aes_torch.unpack_from_planes(hashed)  # [K, 32 w, 4]
+    del hashed
+    ctrl = backend_torch.unpack_mask_device(control)  # [K, 32 w]
+    values = _correct_values(blocks, ctrl, ch.corr[:, None], wp.bits, ch.party, wp.xor_group)
+    return values[:, torch.arange(wp.num_points, device=dev), wp.select]
+
+
+def _walkkernel_chunk(ch: WalkChunk, wp: WalkPoints) -> torch.Tensor:
+    """Mode "walkkernel": one K7 launch and the value-row transpose (the JAX
+    package's ``_walk_megakernel_chunk_jit``)."""
+    k, lpe, words = ch.seed_planes.shape[0], wp.bits // 32, wp.plan.padded_words
+    out = aes_cuda.walk_megakernel(
+        ch.seed_planes, wp.path_masks, ch.cw, ch.ccl, ch.ccr, ch.corr, wp.select,
+        bits=wp.bits, party=ch.party, xor_group=wp.xor_group, keep=wp.keep,
+    )
+    # Row l * 32 + i at word w is limb l of point 32 w + i.
+    out = out.reshape(k, lpe, 32, words).permute(0, 3, 2, 1)
+    return out.reshape(k, words * 32, lpe)[:, : wp.num_points]
+
+
+def evaluate_at_batch(
+    dpf: DistributedPointFunction,
+    keys: Sequence[DpfKey],
+    points: Sequence[int],
+    hierarchy_level: int = -1,
+    device_output: bool = False,
+    key_chunk: Optional[int] = None,
+    mode: str = "walk",
+    device=None,
+):
+    """Evaluates every key at every point: batched EvaluateAt.
+
+    The port of the JAX package's ``evaluate_at_batch`` for scalar
+    Int/XorWrapper outputs. Returns the values as uint32[K, P, lpe] limbs
+    (lpe = max(bits // 32, 1)) in numpy, or, with ``device_output``, as an
+    int32 tensor of the same bits on the device. ``values_to_numpy`` turns
+    limbs into integers.
+
+    Args:
+      keys: DpfKeys of one party.
+      points: domain indices at ``hierarchy_level``, any number, repeats
+        allowed.
+      key_chunk: keys per chunk (default: the whole batch in one chunk).
+      mode: "walk" (one K6 launch per tree level, then K4 and the
+        correction in plain PyTorch) or "walkkernel" (one K7 launch per
+        chunk under ``plan_walkkernel``; value widths that are multiples of
+        32 bits, at least one tree level).
+      device: ``None`` = CUDA; ``"cpu"`` runs the plain PyTorch versions.
+
+    IntModN and tuple outputs (the JAX package's codec walk) are not ported
+    yet and raise UnimplementedError.
+    """
+    wp = prepare_walk_points(dpf, points, hierarchy_level, mode, device)
+    batch = KeyBatch.from_keys(dpf, keys, hierarchy_level, device=wp.path_masks.device)
+    num_keys = batch.seeds.shape[0]
+    if key_chunk is None:
+        key_chunk = num_keys
+    if key_chunk < 1:
+        raise InvalidArgumentError(f"key_chunk must be positive, got {key_chunk}")
+    outs = [
+        evaluate_walk_chunk(prepare_walk_chunk(kb, wp.bits), wp)[:valid]
+        for kb, valid in _key_chunks(batch, num_keys, key_chunk)
+    ]
+    out = torch.cat(outs) if len(outs) > 1 else outs[0]
+    return out if device_output else aes_torch.from_words(out)
 
 
 def _value_kind(value_type) -> Tuple[int, bool]:

@@ -1,6 +1,7 @@
 """The PyTorch/CUDA port on a CUDA card: kernels against their plain
 versions, and the fold and PIR paths through the kernels (K2-K4, and K5 in
-mode="megakernel") against the same paths on the CPU.
+mode="megakernel") and batched EvaluateAt (K6 and K4 in mode="walk", K7 in
+mode="walkkernel") against the same paths on the CPU.
 
 Every test here needs a card and skips without one. The file imports no
 JAX, so on a machine without JAX it runs without the suite's conftest:
@@ -14,7 +15,7 @@ import torch
 
 import distributed_point_functions_tpu_torch as port
 from distributed_point_functions_tpu_torch.ops import aes_cuda, backend_torch, evaluator
-from distributed_point_functions_tpu_torch.ops.aes_torch import as_words, from_words
+from distributed_point_functions_tpu_torch.ops.aes_torch import as_words, from_words, pack_bit_mask
 from distributed_point_functions_tpu_torch.parallel import pir
 from distributed_point_functions_tpu_torch.utils.errors import InvalidArgumentError
 
@@ -55,7 +56,7 @@ def test_kernels_match_plain_versions(cuda, w):
     assert torch.equal(
         aes_cuda.hash_value_planes(args[0]), backend_torch.hash_value_planes(args[0])
     )
-    assert [k.launches for k in aes_cuda.KERNELS] == [1, 1, 1, 0]
+    assert [k.launches for k in aes_cuda.KERNELS] == [1, 1, 1, 0, 0, 0]
 
 
 def megakernel_plan(lds, value_type, budget, host_levels=None):
@@ -189,7 +190,7 @@ def test_megakernel_fold_on_the_card_matches_the_cpu(cuda, party, monkeypatch):
 
     aes_cuda.reset_launch_counts()
     on_card = fold(cuda)
-    assert [k.launches for k in aes_cuda.KERNELS] == [0, 0, 0, 3]
+    assert [k.launches for k in aes_cuda.KERNELS] == [0, 0, 0, 3, 0, 0]
     assert np.array_equal(on_card, fold("cpu"))
     assert np.array_equal(on_card, fold("cpu", mode="fold"))
     assert np.array_equal(fold(cuda, db), fold("cpu", db))
@@ -206,3 +207,71 @@ def test_pir_on_the_card_reconstructs(cuda):
     ra = pir.pir_query_batch_chunked(dpf, ka, prepared)
     rb = pir.pir_query_batch_chunked(dpf, kb, prepared)
     assert np.array_equal(ra ^ rb, db[targets])
+
+
+@pytest.mark.parametrize("w", [1, 3, 40, 1037])
+def test_walk_level_matches_plain_version(cuda, w):
+    """K6 on the card equals its plain version, ragged widths and a mixed
+    path mask included; one launch per call."""
+    args = expand_inputs(3, w, cuda)
+    path = args[1][0].contiguous()
+    aes_cuda.reset_launch_counts()
+    got = aes_cuda.walk_level(args[0], args[1], path, *args[2:])
+    assert aes_cuda.K6.launches == 1
+    want = backend_torch.walk_level(args[0], args[1], path, *args[2:])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize(
+    "levels, w, bits, keep, party, xor_group",
+    [(1, 1, 32, 4, 1, False), (5, 3, 64, 2, 0, False), (4, 37, 64, 1, 1, False),
+     (3, 8, 128, 1, 1, True), (6, 40, 128, 1, 1, False)],
+)
+def test_walk_megakernel_matches_plain_version(cuda, levels, w, bits, keep, party, xor_group):
+    """K7 on the card equals its plain version for every limb layout, kept
+    element count, party and group; one launch per call."""
+    rng = np.random.default_rng(levels * w)
+
+    def r(*shape):
+        return rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+
+    block_sel = rng.integers(0, keep, size=32 * w)
+    arrays = (backend_torch.cw_seed_planes(r(3, 4)), r(levels, w),
+              backend_torch.cw_seed_planes(r(3, levels, 4)),
+              backend_torch.control_masks(rng.integers(0, 2, size=(3, levels))),
+              backend_torch.control_masks(rng.integers(0, 2, size=(3, levels))),
+              r(3, 128 // bits, bits // 32),
+              pack_bit_mask(block_sel[None, :] == np.arange(keep)[:, None]))
+    args = [torch.from_numpy(as_words(a)).to(cuda) for a in arrays]
+    kw = dict(bits=bits, party=party, xor_group=xor_group, keep=keep)
+    aes_cuda.reset_launch_counts()
+    got = aes_cuda.walk_megakernel(*args, **kw)
+    assert aes_cuda.K7.launches == 1
+    assert torch.equal(got, backend_torch.walk_megakernel(*args, **kw))
+
+
+@pytest.mark.parametrize("party", [0, 1])
+@pytest.mark.parametrize("mode", ["walk", "walkkernel"])
+def test_evaluate_at_batch_on_the_card_matches_the_cpu(cuda, mode, party):
+    """Both modes on the card equal the same call on the CPU, in chunks of 2
+    keys (3 chunks, the last padded): one K6 launch per tree level and one
+    K4 per chunk in mode "walk", one K7 per chunk and nothing else in mode
+    "walkkernel"; the result stays on the card with device_output."""
+    dpf = port.DistributedPointFunction.create(port.DpfParameters(13, port.Int(64)))
+    rng = np.random.default_rng(13)
+    alphas = [0, 1, 77, 4000, 8191]
+    seeds = rng.integers(0, 2**32, size=(5, 2, 4), dtype=np.uint32)
+    keys = dpf.generate_keys_batch(alphas, [[3, 4, 5, 6, 7]], seeds=seeds)[party]
+    points = alphas + [int(p) for p in rng.integers(0, 1 << 13, size=95)]
+
+    def run(device, **kw):
+        return evaluator.evaluate_at_batch(dpf, keys, points, key_chunk=2, mode=mode,
+                                           device=device, **kw)
+
+    aes_cuda.reset_launch_counts()
+    on_card = run(cuda, device_output=True)
+    assert on_card.is_cuda
+    levels = dpf.validator.hierarchy_to_tree[0]
+    want = [3 * levels, 3, 0] if mode == "walk" else [0, 0, 3]
+    assert [aes_cuda.K6.launches, aes_cuda.K4.launches, aes_cuda.K7.launches] == want
+    assert np.array_equal(from_words(on_card), run("cpu"))

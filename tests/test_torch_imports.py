@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import distributed_point_functions_tpu_torch as port
+from distributed_point_functions_tpu_torch.ops import evaluator
 from distributed_point_functions_tpu_torch.parallel import pir
 from distributed_point_functions_tpu_torch.utils.devices import resolve_device
 from distributed_point_functions_tpu_torch.utils.errors import (
@@ -32,6 +33,9 @@ dpf = port.DistributedPointFunction.create(port.DpfParameters(6, port.Int(64)))
 keys, _ = dpf.generate_keys_batch([3], [[5]], seeds=np.ones((1, 2, 4), np.uint32))
 folds = list(evaluator.full_domain_fold_chunks(dpf, keys, device="cpu"))
 assert len(folds) == 1
+for mode in ("walk", "walkkernel"):
+    assert evaluator.evaluate_at_batch(dpf, keys, [3, 4], mode=mode, device="cpu").shape == (1, 2, 2)
+assert len(dpf.evaluate_at(keys[0], 0, [3, 4])) == 2
 jax_package = "distributed_point_functions_tpu"
 bad = sorted(
     m for m in sys.modules
@@ -60,6 +64,14 @@ def test_device_rule(monkeypatch):
         resolve_device(None)
     with pytest.raises(UnavailableError):
         resolve_device("cuda:0")
+
+
+def test_evaluate_at_batch_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dpf = port.DistributedPointFunction.create(port.DpfParameters(6, port.Int(64)))
+    keys, _ = dpf.generate_keys_batch([1], [[1]])
+    with pytest.raises(UnavailableError):
+        evaluator.evaluate_at_batch(dpf, keys, [1])
 
 
 def test_pir_entry_points_without_a_card_raise(monkeypatch):

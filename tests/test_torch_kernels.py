@@ -266,13 +266,18 @@ def test_megakernel_plain_version_matches_jax_replay(name):
 
 
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
-    """On CPU tensors the wrappers run the plain versions and launch
-    nothing; operands they cannot take are refused before any dispatch."""
+    """On CPU tensors the wrappers (K2, K4, K6 and K7 among them) run the
+    plain versions and launch nothing; operands they cannot take are
+    refused before any dispatch."""
     aes_cuda.reset_launch_counts()
     args = [words(a) for a in expand_inputs(3, 1)]
     aes_cuda.expand_one_level(*args)
     aes_cuda.hash_value_planes(args[0])
-    assert [k.launches for k in aes_cuda.KERNELS] == [0, 0, 0, 0]
+    path = args[1][0]
+    aes_cuda.walk_level(args[0], args[1], path, *args[2:])
+    ops, _ = walk_inputs(2, 1, 64, 2, seed=1)
+    aes_cuda.walk_megakernel(*map(words, ops), bits=64, party=1, xor_group=False, keep=2)
+    assert [k.launches for k in aes_cuda.KERNELS] == [0, 0, 0, 0, 0, 0]
     with pytest.raises(InvalidArgumentError, match="int32"):
         aes_cuda.hash_value_planes(args[0].to(torch.int64))
     with pytest.raises(InvalidArgumentError, match="shape"):
@@ -281,6 +286,11 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
         aes_cuda.hash_value_planes(torch.empty((1, 128, 1), dtype=torch.int32, device="meta"))
     with pytest.raises(InvalidArgumentError, match="one CUDA device"):
         aes_cuda.expand_one_level(args[0].to("meta"), *args[1:])
+    with pytest.raises(InvalidArgumentError, match="path_mask"):
+        aes_cuda.walk_level(args[0], args[1], path[:0], *args[2:])
+    with pytest.raises(InvalidArgumentError, match="sel_bits"):
+        aes_cuda.walk_megakernel(*map(words, ops[:6]), words(ops[6][:1]), bits=64, party=1,
+                                 xor_group=False, keep=2)
 
 
 def test_round_key_header_holds_the_plain_versions_tables():
@@ -299,6 +309,7 @@ _HARNESS = r"""
 #include <vector>
 #include "expand_rows.cuh"
 #include "megakernel_rows.cuh"
+#include "walk_rows.cuh"
 // stdin: mode K W, then the operands; stdout: the outputs.
 static std::vector<uint32_t> rd(size_t n) {
   std::vector<uint32_t> v(n);
@@ -342,12 +353,62 @@ static int correction(int N) {
   fwrite(v.data(), 4, v.size(), stdout);
   return 0;
 }
+// K6 (mode 5): planes, control, path [W], cw, ccl, ccr; out: planes, control.
+static int walk_level(int K, int W) {
+  uint32_t stash[128];
+  auto planes = rd(size_t(K) * 128 * W), control = rd(size_t(K) * W), path = rd(W);
+  auto cw = rd(size_t(K) * 128), ccl = rd(K), ccr = rd(K);
+  std::vector<uint32_t> op(planes.size()), oc(control.size());
+  for (int k = 0; k < K; ++k)
+    for (int w = 0; w < W; ++w)
+      dpf::walk_level_word(planes.data(), control.data(), path.data(), cw.data(), ccl.data(),
+                           ccr.data(), op.data(), oc.data(), k, w, W, stash, 1);
+  fwrite(op.data(), 4, op.size(), stdout);
+  fwrite(oc.data(), 4, oc.size(), stdout);
+  return 0;
+}
+// K7 (mode 6): 5 ints (levels, lpe, keep, party, xor_group), the operands;
+// out: the value rows.
+static int walk_megakernel(int K, int W) {
+  int f[5];
+  if (fread(f, 4, 5, stdin) != 5) return 1;
+  uint32_t stash[128];
+  dpf::WalkMegakernelArgs a{};
+  a.levels = f[0]; a.words = W; a.lpe = f[1]; a.keep = f[2]; a.party = f[3]; a.xor_group = f[4];
+  const int L = a.levels;
+  auto seed = rd(size_t(K) * 128), path = rd(size_t(L) * W), cw = rd(size_t(K) * L * 128);
+  auto ccl = rd(size_t(K) * L), ccr = rd(size_t(K) * L), corr = rd(size_t(K) * 4);
+  auto sel = rd(size_t(a.keep) * W);
+  std::vector<uint32_t> out(size_t(K) * a.lpe * 32 * W);
+  a.seed_planes = seed.data(); a.path = path.data(); a.cw = cw.data(); a.ccl = ccl.data();
+  a.ccr = ccr.data(); a.corr = corr.data(); a.sel = sel.data(); a.out = out.data();
+  for (int k = 0; k < K; ++k)
+    for (int w = 0; w < W; ++w) dpf::walk_megakernel_word(a, k, w, stash, 1);
+  fwrite(out.data(), 4, out.size(), stdout);
+  return 0;
+}
+// K1's masked form (mode 7): planes, mask [W]; out: the hashed planes.
+static int masked_hash(int K, int W) {
+  uint32_t stash[128], s[128];
+  auto planes = rd(size_t(K) * 128 * W), mask = rd(W);
+  for (int k = 0; k < K; ++k)
+    for (int w = 0; w < W; ++w) {
+      for (int p = 0; p < 128; ++p) s[p] = planes[(size_t(k) * 128 + p) * W + w];
+      dpf::mmo_hash_rows_masked(s, mask[w], stash, 1);
+      for (int p = 0; p < 128; ++p) planes[(size_t(k) * 128 + p) * W + w] = s[p];
+    }
+  fwrite(planes.data(), 4, planes.size(), stdout);
+  return 0;
+}
 int main() {
   int hdr[3];
   if (fread(hdr, 4, 3, stdin) != 3) return 1;
   const int mode = hdr[0], K = hdr[1], W = hdr[2];
   if (mode == 3) return megakernel(K);
   if (mode == 4) return correction(K);
+  if (mode == 5) return walk_level(K, W);
+  if (mode == 6) return walk_megakernel(K, W);
+  if (mode == 7) return masked_hash(K, W);
   uint32_t stash[128];
   auto planes = rd(size_t(K) * 128 * W);
   if (mode == 2) {
@@ -411,17 +472,13 @@ def megakernel_inputs(plan, bits, keep, with_db, seed):
             r(K, levels), r(K, levels), r(K, 128 // bits, lpe), db)
 
 
-def test_csrc_kernel_bodies_on_the_host_compiler(tmp_path):
-    """csrc/expand_rows.cuh and aes_rows.cuh — the bodies K2, K3 and K4
-    launch per lane word — built with g++ and run over every (key, child,
-    word) equal the plain versions, ragged width included; and
-    csrc/megakernel_rows.cuh, K5's per-key body (phase A, phase B, the
-    tail's transpose, correction, database AND and fold), run as a block of
-    one thread per key, equals K5's plain version on each plan of
-    ``megakernel_cases``."""
+@pytest.fixture(scope="module")
+def host_harness(tmp_path_factory):
+    """_HARNESS and the csrc/ headers built with g++, once for the module."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ on this host")
+    tmp_path = tmp_path_factory.mktemp("csrc")
     (tmp_path / "dpf_round_keys.h").write_text(aes_cuda.round_key_header())
     (tmp_path / "harness.cpp").write_text(_HARNESS)
     exe = tmp_path / "harness"
@@ -430,16 +487,33 @@ def test_csrc_kernel_bodies_on_the_host_compiler(tmp_path):
          "-I", str(aes_cuda.CSRC), "-o", str(exe), str(tmp_path / "harness.cpp")],
         check=True, capture_output=True, timeout=300,
     )
+    return exe
+
+
+def run_harness(exe, header, *arrays) -> np.ndarray:
+    """The harness's output words for int32 `header` and uint32 operands."""
+    out = subprocess.run(
+        [str(exe)],
+        input=np.asarray(header, np.int32).tobytes() + b"".join(a.tobytes() for a in arrays),
+        check=True, capture_output=True, timeout=60,
+    ).stdout
+    return np.frombuffer(out, np.uint32)
+
+
+def test_csrc_kernel_bodies_on_the_host_compiler(host_harness):
+    """csrc/expand_rows.cuh and aes_rows.cuh — the bodies K2, K3 and K4
+    launch per lane word — built with g++ and run over every (key, child,
+    word) equal the plain versions, ragged width included; and
+    csrc/megakernel_rows.cuh, K5's per-key body (phase A, phase B, the
+    tail's transpose, correction, database AND and fold), run as a block of
+    one thread per key, equals K5's plain version on each plan of
+    ``megakernel_cases``."""
+    exe = host_harness
     w = WIDTHS[0]
     planes, control, cw, ccl, ccr = expand_inputs(w, 7)
 
     def run(mode, *arrays):
-        head = np.array([mode, K, w], np.int32).tobytes()
-        out = subprocess.run(
-            [str(exe)], input=head + b"".join(a.tobytes() for a in arrays),
-            check=True, capture_output=True, timeout=60,
-        ).stdout
-        return np.frombuffer(out, np.uint32)
+        return run_harness(exe, [mode, K, w], *arrays)
 
     plain = {
         0: backend_torch.expand_one_level,
@@ -460,18 +534,13 @@ def test_csrc_kernel_bodies_on_the_host_compiler(tmp_path):
         fields = [plan.levels_a, plan.levels_b, plan.entry_words, plan.mid_words,
                   plan.slab_words, plan.final_words, plan.fold_words, plan.num_slabs,
                   bits // 32, keep, party, int(xor_group), int(with_db)]
-        out = subprocess.run(
-            [str(exe)],
-            input=np.array([3, K, 0] + fields, np.int32).tobytes()
-            + b"".join(a.tobytes() for a in ops if a is not None),
-            check=True, capture_output=True, timeout=60,
-        ).stdout
+        out = run_harness(exe, [3, K, 0] + fields, *[a for a in ops if a is not None])
         want = backend_torch.megakernel_fold(
             *[None if a is None else words(a) for a in ops], plan=plan, bits=bits,
             party=party, xor_group=xor_group, keep=keep,
         )
         assert np.array_equal(
-            np.frombuffer(out, np.uint32).reshape(K, bits // 32, plan.fold_words),
+            out.reshape(K, bits // 32, plan.fold_words),
             aes_torch.from_words(want),
         ), plan
 
@@ -490,13 +559,9 @@ def test_csrc_kernel_bodies_on_the_host_compiler(tmp_path):
     for bits, party, xor_group in ((32, 1, False), (64, 0, False), (64, 1, False),
                                    (128, 1, False), (128, 0, True)):
         lpe = bits // 32
-        out = subprocess.run(
-            [str(exe)],
-            input=np.array([4, n, 0, lpe, party, int(xor_group)], np.int32).tobytes()
-            + limbs.tobytes() + gate.tobytes() + corr.tobytes(),
-            check=True, capture_output=True, timeout=60,
-        ).stdout
-        got = np.frombuffer(out, np.uint32).reshape(n, 4)
+        got = run_harness(
+            exe, [4, n, 0, lpe, party, int(xor_group)], limbs, gate, corr
+        ).reshape(n, 4)
         for e in range(4 // lpe):
             q = slice(e * lpe, (e + 1) * lpe)
             want = value_codec.rows_correct_element(
@@ -504,3 +569,83 @@ def test_csrc_kernel_bodies_on_the_host_compiler(tmp_path):
                 [int(c) for c in corr[q].view(np.int32)], bits, party, xor_group,
             )
             assert np.array_equal(got[:, q], np.stack([aes_torch.from_words(w) for w in want], 1))
+
+
+def walk_inputs(levels, w, bits, keep, seed):
+    """uint32 numpy operands of K7 for K keys at W words, and each point's
+    block element (-1 for the last point: padding, selected by no row)."""
+    rng = np.random.default_rng(seed)
+
+    def r(*shape):
+        return rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+
+    block_sel = rng.integers(0, keep, size=32 * w)
+    block_sel[-1] = -1
+    sel = aes_torch.pack_bit_mask(block_sel[None, :] == np.arange(keep)[:, None])
+    return [backend_torch.cw_seed_planes(r(K, 4)), r(levels, w),
+            backend_torch.cw_seed_planes(r(K, levels, 4)),
+            backend_torch.control_masks(rng.integers(0, 2, size=(K, levels))),
+            backend_torch.control_masks(rng.integers(0, 2, size=(K, levels))),
+            r(K, 128 // bits, bits // 32), sel], block_sel
+
+
+def carrying_corrections(ops, bits, party, block_sel):
+    """Corrections under which, for each key and element, one point whose
+    control bit is set sums to exactly 0 mod 2^bits: a carry out of every
+    limb, and for party 1 a negation whose + 1 carries through every limb
+    (a random hash almost never gives either)."""
+    seed_planes, path, cw, ccl, ccr, corr, _ = map(words, ops)
+    k, w, lpe = seed_planes.shape[0], path.shape[1], bits // 32
+    planes = seed_planes[:, :, None].expand(k, 128, w).contiguous()
+    control = torch.full((k, w), -1 if party else 0, dtype=torch.int32)
+    planes, control = backend_torch.walk_levels(planes, control, path, cw, ccl, ccr)
+    blocks = aes_torch.from_words(
+        aes_torch.unpack_from_planes(backend_torch.hash_value_planes(planes))
+    ).astype(np.uint64)  # [K, 32 W, 4]
+    ctrl = aes_torch.from_words(backend_torch.unpack_mask_device(control))
+    out = aes_torch.from_words(corr).copy()
+    for key in range(k):
+        for e in range(out.shape[1]):
+            hits = np.nonzero((ctrl[key] == 1) & (block_sel == e))[0]
+            if hits.size:
+                value = sum(int(blocks[key, hits[0], e * lpe + l]) << (32 * l) for l in range(lpe))
+                neg = -value % (1 << bits)
+                out[key, e] = [(neg >> (32 * l)) & 0xFFFFFFFF for l in range(lpe)]
+    return out
+
+
+def test_csrc_walk_bodies_on_the_host_compiler(host_harness):
+    """csrc/walk_rows.cuh — K6's and K7's per-word bodies — and K1's masked
+    hash (aes_rows.cuh ``mmo_hash_rows_masked``), built with g++ and run as
+    one-thread blocks over every (key, word), equal the plain versions: a
+    ragged width, mixed path masks, both parties, keep 1, 2 and 4, every
+    limb layout, the XOR group, and corrections whose limbs carry."""
+    exe = host_harness
+    w = WIDTHS[0]
+    rng = np.random.default_rng(56)
+    planes = rng.integers(0, 2**32, size=(K, 128, w), dtype=np.uint32)
+    mask = rng.integers(0, 2**32, size=w, dtype=np.uint32)
+    want = aes_torch.hash_planes(
+        words(planes), backend_torch._rk_np("left"), backend_torch._rk_np("lr_diff"), words(mask)
+    )
+    got = run_harness(exe, [7, K, w], planes, mask).reshape(K, 128, w)
+    assert np.array_equal(got, aes_torch.from_words(want))
+
+    planes, control, cw, ccl, ccr = expand_inputs(w, 9)
+    out = run_harness(exe, [5, K, w], planes, control, mask, cw, ccl, ccr)
+    want_p, want_c = backend_torch.walk_level(*map(words, (planes, control, mask, cw, ccl, ccr)))
+    n = K * 128 * w
+    assert np.array_equal(out[:n].reshape(K, 128, w), aes_torch.from_words(want_p))
+    assert np.array_equal(out[n:].reshape(K, w), aes_torch.from_words(want_c))
+
+    for i, (levels, bits, keep, party, xor_group) in enumerate((
+        (3, 32, 4, 1, False), (2, 64, 2, 0, False), (2, 64, 1, 1, False),
+        (1, 128, 1, 1, True), (2, 128, 1, 1, False),
+    )):
+        ops, block_sel = walk_inputs(levels, w, bits, keep, seed=i)
+        if not xor_group:
+            ops[5] = carrying_corrections(ops, bits, party, block_sel)
+        kw = dict(bits=bits, party=party, xor_group=xor_group, keep=keep)
+        got = run_harness(exe, [6, K, w, levels, bits // 32, keep, party, int(xor_group)], *ops)
+        want = backend_torch.walk_megakernel(*map(words, ops), **kw)
+        assert np.array_equal(got.reshape(K, bits // 32 * 32, w), aes_torch.from_words(want)), kw
