@@ -38,12 +38,25 @@ Phases (any failure raises and exits non-zero before the result line):
    K6 launches and one K4 per chunk) and mode="walkkernel" (one K7 launch
    per chunk); every share pair reconstructs beta at its alpha and 0
    elsewhere, the modes agree, and the port's host ``dpf.evaluate_at``
-   equals both for 4 keys at all 4096 points.
+   equals both for 4 keys at all 4096 points;
+7. DCF kernels: K7's DCF form against its plain version on the card
+   (exact), at odd shapes (W = 1, 3, 37 words, both parties, Int(32),
+   Int(64) with keep 1 and 2, XorWrapper(128), Int(128), captures tuples
+   with depths that do not capture) and at BASELINE config 4's shape (K =
+   512 keys, W = 16 words, L = 23 levels, Int(64)), with K4 and K6 at that
+   shape, each timed beside its plain version and its bound;
+8. DCF: BASELINE config 4 (benchmarks/bench_dcf.py: 512 Int(64) key pairs at
+   log-domain 24, 512 points that hold every alpha and every alpha - 1 in
+   the domain) through ``dcf.batch.batch_evaluate`` in mode="walk" (23 K6
+   and 24 K4 launches per chunk) and mode="walkkernel" (one launch of K7's
+   DCF form per chunk); every share pair reconstructs beta where x < alpha
+   and 0 elsewhere, the modes agree, and the port's host ``dcf.evaluate``
+   equals both for 4 keys at 16 points.
 
 Each path of the main path (fold default, fused and megakernel; PIR fold
-and megakernel; EvaluateAt walk and walkkernel) runs with every launch
-count set to 0 just before it, and every kernel of that path must have
-launched just after it. The line before
+and megakernel; EvaluateAt walk and walkkernel; DCF walk and walkkernel)
+runs with every launch count set to 0 just before it, and every kernel of
+that path must have launched just after it. The line before
 the last is the ``{"kernels": [...]}`` JSON, the last line ``{"ok": true,
 "device": ...}``. Imports nothing of JAX or of the JAX package.
 """
@@ -69,6 +82,11 @@ EVAL_LOG_DOMAIN = 32
 EVAL_KEYS = 1024
 EVAL_POINTS = 4096
 ORACLE_KEYS = 4
+# DCF: BASELINE config 4 (benchmarks/bench_dcf.py:24-26,41).
+DCF_LOG_DOMAIN = 24
+DCF_KEYS = 512
+DCF_POINTS = 512
+DCF_ORACLE_POINTS = 16
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 at 3.35 TB/s; 32-bit integer
 # logic at 64 lanes per SM per clock, 132 SMs, 1980 MHz boost clock.
@@ -177,20 +195,34 @@ def walk_level_cost(key_planes, k: int, w: int):
 
 
 def walk_megakernel_cost(key_planes, k: int, w: int, levels: int, bits: int, keep: int,
-                         party: int, xor_group: bool):
+                         party: int, xor_group: bool, captures=None):
     """(bytes, gates) of K7 on K keys of W words: every level of the walk
-    per lane word, the value hash, the transposes, and per point the
-    control mask, each kept element's select mask, and per kept limb the
-    gate (AND), the correction (XOR; or add with carry, 3, and for party 1
-    the negation, 3 more), the select (AND) and the XOR over elements.
+    per lane word (L masked hashes), then each capture: the value hash, the
+    transposes, and per point the control mask, each kept element's select
+    mask, and per kept limb the gate (AND), the correction (XOR; or add with
+    carry, 3, and for party 1 of the EvaluateAt form the negation, 3 more),
+    the select (AND) and the XOR over elements. The EvaluateAt form
+    (``captures=None``) captures the leaves once; the DCF form once per
+    flagged depth, and adds the captures (per limb and point an add with
+    carry, 3, or an XOR), party 1 negating the sum once (3 per limb).
     Bytes: the seed planes, path words, key tables, corrections and select
     words read once, the value rows written once."""
     lpe = bits // 32
-    per_limb = 1 + (1 if xor_group else 3 + (3 if party else 0)) + 1 + 1
-    per_word = (levels * (masked_mmo_gates(key_planes) + WALK_LEVEL_EXTRA)
-                + mmo_gates(key_planes["value"]) + TRANSPOSE_OPS
-                + 32 * (CONTROL_MASK_OPS + keep * (CONTROL_MASK_OPS + lpe * per_limb)))
-    nbytes = 4 * (k * 128 + levels * w + k * levels * 130 + k * 4 + keep * w
+    walk = levels * (masked_mmo_gates(key_planes) + WALK_LEVEL_EXTRA)
+    negate = 3 if party and not xor_group else 0
+    n = 1 if captures is None else sum(bool(f) for f in captures)
+    per_limb = 1 + (1 if xor_group else 3) + 1 + 1
+    if captures is None:
+        per_limb += negate
+    per_capture = (mmo_gates(key_planes["value"]) + TRANSPOSE_OPS
+                   + 32 * (CONTROL_MASK_OPS + keep * (CONTROL_MASK_OPS + lpe * per_limb)))
+    per_word = walk + n * per_capture
+    corr_words, sel_words = k * 4, keep * w
+    if captures is not None:
+        per_word += 32 * lpe * ((n - 1) * (1 if xor_group else 3) + negate)
+        corr_words = k * (levels + 1) * keep * lpe
+        sel_words = (levels + 1) * keep * w
+    nbytes = 4 * (k * 128 + levels * w + k * levels * 130 + corr_words + sel_words
                   + k * lpe * 32 * w)
     return nbytes, k * w * per_word
 
@@ -230,6 +262,7 @@ def main() -> None:
         from distributed_point_functions_tpu_torch.ops import (
             aes_cuda, aes_torch, backend_torch, evaluator,
         )
+        from distributed_point_functions_tpu_torch.dcf import batch as dcf_batch
         from distributed_point_functions_tpu_torch.parallel import pir
     except ImportError as e:
         fail(f"the port is not in this checkout: {e}")
@@ -681,6 +714,174 @@ def main() -> None:
     del evals, wch, got
     torch.cuda.empty_cache()
 
+    # -- 7. K7's DCF form against its plain version --------------------------
+    # BASELINE config 4: log-domain 24, so the DCF's incremental DPF has 24
+    # hierarchy levels on 23 tree levels, every depth capturing; 512 points
+    # are W = 16 words.
+    dlevels = DCF_LOG_DOMAIN - 1
+    dw = DCF_POINTS // 32
+
+    def dcf_mk_args(k, w, levels, bits, keep):
+        rows = (levels + 1) * keep
+        return (rnd(k, 128), rnd(levels, w), rnd(k, levels, 128), rnd(k, levels),
+                rnd(k, levels), rnd(k, rows, bits // 32), rnd(rows, w))
+
+    dcf_cases = (
+        (T.Int(32), 4, 1, 1, (True, False, True)), (T.Int(64), 2, 0, 3, (False, True, True, True)),
+        (T.Int(64), 1, 1, 37, (True, True, False, True, True, False)),
+        (T.Int(64), 2, 1, 1, (True,) * 5), (T.XorWrapper(128), 1, 1, 3, (True, False, True, True)),
+        (T.Int(128), 1, 0, 37, (True, True, False, True)), (T.Int(128), 1, 1, 3, (True,) * 4),
+        (T.Int(32), 2, 0, 37, (False, True, True, True, False)),
+    )
+    for vt, keep, party, w, captures in dcf_cases:
+        kw = dict(bits=vt.bitsize, party=party, xor_group=isinstance(vt, T.XorWrapper),
+                  keep=keep, captures=captures)
+        a = dcf_mk_args(5, w, len(captures) - 1, vt.bitsize, keep)
+        hold("K7 DCF", aes_cuda.walk_megakernel(*a, **kw), backend_torch.walk_megakernel(*a, **kw))
+    print(f"K7 DCF form == plain at {len(dcf_cases)} shapes (W = 1, 3, 37; Int(32) keep 4 "
+          "and 2, Int(64) keep 1 and 2, XorWrapper(128), Int(128), both parties, captures "
+          "with depths that do not capture)")
+    a = walk_level_args(DCF_KEYS, dw)
+    hold("K6", aes_cuda.walk_level(*a), backend_torch.walk_level(*a))
+    ms = time_ms(torch, lambda: aes_cuda.walk_level(*a), 10)
+    plain_ms = time_ms(torch, lambda: backend_torch.walk_level(*a), 2)
+    b_ms, b_by = bound_ms(*walk_level_cost(key_planes, DCF_KEYS, dw))
+    rows["K6 dcf"] = dict(kernel=aes_cuda.K6, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by)
+    print(f"K6 at the DCF's shape K={DCF_KEYS}, W={dw}: {ms:.4f} ms (plain {plain_ms:.2f} ms, "
+          f"bound {b_ms:.4f} ms by {b_by})")
+    planes_d = a[0]
+    hold("K4", aes_cuda.hash_value_planes(planes_d), backend_torch.hash_value_planes(planes_d))
+    ms = time_ms(torch, lambda: aes_cuda.hash_value_planes(planes_d), 10)
+    plain_ms = time_ms(torch, lambda: backend_torch.hash_value_planes(planes_d), 2)
+    b_ms, b_by = bound_ms(*hash_cost(key_planes, DCF_KEYS, dw))
+    rows["K4 dcf"] = dict(kernel=aes_cuda.K4, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by)
+    print(f"K4 at the DCF's shape K={DCF_KEYS}, W={dw}: {ms:.4f} ms (plain {plain_ms:.2f} ms, "
+          f"bound {b_ms:.4f} ms by {b_by})")
+    del a, planes_d
+    dcaps = (True,) * (dlevels + 1)
+    kw = dict(bits=64, party=1, xor_group=False, keep=2, captures=dcaps)
+    a = dcf_mk_args(DCF_KEYS, dw, dlevels, 64, 2)
+    hold("K7 DCF", aes_cuda.walk_megakernel(*a, **kw), backend_torch.walk_megakernel(*a, **kw))
+    plain_ms = time_ms(torch, lambda: backend_torch.walk_megakernel(*a, **kw), 1)
+    ms = time_ms(torch, lambda: aes_cuda.walk_megakernel(*a, **kw), 10)
+    b_ms, b_by = bound_ms(*walk_megakernel_cost(key_planes, DCF_KEYS, dw, dlevels, 64, 2, 1,
+                                                False, dcaps))
+    rows["K7 DCF"] = dict(kernel=aes_cuda.K7_DCF, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by)
+    print(f"K7 DCF form at K={DCF_KEYS}, W={dw}, L={dlevels}, Int(64) keep 2, party 1, "
+          f"{dlevels + 1} captures: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
+          f"by {b_by}); {aes_cuda.K7_DCF.ptxas}")
+    del a
+    torch.cuda.empty_cache()
+
+    # -- 8. the main path: DCF BatchEvaluate, BASELINE config 4 --------------
+    dcf = T.DistributedComparisonFunction.create(DCF_LOG_DOMAIN, T.Int(64))
+    dv = dcf.dpf.validator
+    if dv.hierarchy_to_tree[-1] != dlevels:
+        fail(f"a log-domain-{DCF_LOG_DOMAIN} DCF should have {dlevels} tree levels")
+    # 256 alphas, each the point of two keys; the points are every alpha
+    # and every alpha - 1 (a fresh point where alpha is 0): 512 in all.
+    drng = np.random.default_rng(SEED + DCF_LOG_DOMAIN)
+    distinct = [int(x) for x in drng.choice(1 << DCF_LOG_DOMAIN, size=DCF_KEYS // 2,
+                                            replace=False)]
+    dalphas = distinct + distinct
+    dbetas = [int(b) for b in drng.integers(1, 2**63, size=DCF_KEYS, dtype=np.uint64)]
+    dseeds = drng.integers(0, 2**32, size=(DCF_KEYS, 2, 4), dtype=np.uint32)
+    t = time.perf_counter()
+    dkeys = dcf.generate_keys_batch(dalphas, dbetas, seeds=dseeds)
+    print(f"keygen: {DCF_KEYS} Int(64) DCF key pairs at log-domain {DCF_LOG_DOMAIN} in "
+          f"{time.perf_counter() - t:.2f} s (host)")
+    below = [a - 1 if a > 0 else (1 << DCF_LOG_DOMAIN) - 1 for a in distinct]
+    xs = distinct + below
+    if len(set(xs)) != DCF_POINTS:
+        fail(f"the DCF points should be {DCF_POINTS} distinct points")
+    dcf_kernels = {"walk": (aes_cuda.K6, aes_cuda.K4), "walkkernel": (aes_cuda.K7_DCF,)}
+    dcf_counts = {
+        "walk": {aes_cuda.K6.name: 2 * dlevels, aes_cuda.K4.name: 2 * (dlevels + 1)},
+        "walkkernel": {aes_cuda.K7_DCF.name: 2},
+    }
+    shares = {}
+    dcf_launches = {}
+    dcf_rates = {}
+    for mode, need in dcf_kernels.items():
+        aes_cuda.reset_launch_counts()
+        secs = []
+        for party in (0, 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            shares[(mode, party)] = dcf_batch.batch_evaluate(dcf, dkeys[party], xs, mode=mode)
+            secs.append(time.perf_counter() - t)
+        counts = {k.name: k.launches for k in aes_cuda.KERNELS}
+        for kern in need:
+            if kern.launches == 0:
+                fail(f"DCF mode {mode} ran without launching {kern.name}")
+            main_launches[kern.name] = main_launches.get(kern.name, 0) + kern.launches
+            dcf_launches[kern.name] = dcf_launches.get(kern.name, 0) + kern.launches
+        if counts != {k.name: dcf_counts[mode].get(k.name, 0) for k in aes_cuda.KERNELS}:
+            fail(f"DCF mode {mode}: launches {counts}, expected {dcf_counts[mode]} for one "
+                 "chunk per party")
+        dcf_rates[mode] = [DCF_KEYS * DCF_POINTS / x for x in secs]
+        print(f"DCF, mode {mode}: {DCF_KEYS} keys x {DCF_POINTS} points per party in "
+              f"{secs[0]:.3f} s / {secs[1]:.3f} s = {dcf_rates[mode][0]:.4e} / "
+              f"{dcf_rates[mode][1]:.4e} comparisons/s; launches {counts}")
+    lt = np.array(xs)[None, :] < np.array(dalphas)[:, None]
+    want_sum = np.where(lt, np.array(dbetas, np.uint64)[:, None], np.uint64(0))
+    for mode in dcf_kernels:
+        total = (evaluator.values_to_numpy(shares[(mode, 0)], 64)
+                 + evaluator.values_to_numpy(shares[(mode, 1)], 64))
+        if not np.array_equal(total, want_sum):
+            bad = int((total != want_sum).sum())
+            fail(f"DCF mode {mode}: {bad} share pairs do not reconstruct [x < alpha] * beta")
+    t = time.perf_counter()
+    # Host oracle: the 4 keys' own alphas and alphas - 1, and 8 other points.
+    opoints = sorted({i for key in range(ORACLE_KEYS)
+                      for i in (key % (DCF_KEYS // 2), DCF_KEYS // 2 + key % (DCF_KEYS // 2))}
+                     | set(range(100, 100 + DCF_ORACLE_POINTS - 2 * ORACLE_KEYS)))
+    for party in (0, 1):
+        if not np.array_equal(shares[("walk", party)], shares[("walkkernel", party)]):
+            fail(f"DCF modes walk and walkkernel differ (party {party})")
+        for i in range(ORACLE_KEYS):
+            host = np.array([dcf.evaluate(dkeys[party][i], xs[j]) for j in opoints], np.uint64)
+            got = evaluator.values_to_numpy(shares[("walk", party)][i, opoints], 64)
+            if not np.array_equal(got, host):
+                fail(f"DCF differs from the host dcf.evaluate (key {i}, party {party})")
+    print(f"DCF: every share pair reconstructs (r0 + r1 == beta where x < alpha, 0 elsewhere) "
+          f"in both modes, the modes agree, and the host dcf.evaluate equals them for "
+          f"{ORACLE_KEYS} keys at {len(opoints)} points per party "
+          f"({time.perf_counter() - t:.2f} s on the host)")
+    # Where one pass's time goes (party 0): the host steps of batch_evaluate,
+    # then each mode's device part on the prepared chunk, held against the
+    # entry point's result.
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    dbatch, dcorr = dcf_batch.prepare_keys(dcf, dkeys[0], device=dev)
+    dch = dcf_batch.prepare_chunk(dbatch, dcorr, np.arange(DCF_KEYS))
+    torch.cuda.synchronize()
+    dkeys_s = time.perf_counter() - t
+    dprep_s, dpass_ms = {}, {}
+    for mode in dcf_kernels:
+        t = time.perf_counter()
+        dp = dcf_batch.prepare_points(dcf, xs, mode=mode, device=dev)
+        torch.cuda.synchronize()
+        dprep_s[mode] = time.perf_counter() - t
+        dpass_ms[mode] = time_ms(torch, lambda: dcf_batch.evaluate_chunk(dch, dp), 3)
+        got = dcf_batch.evaluate_chunk(dch, dp)
+        if not np.array_equal(aes_torch.from_words(got), shares[(mode, 0)]):
+            fail(f"the timed DCF {mode} chunk differs from the entry point's result")
+    print(f"one DCF pass ({DCF_KEYS} keys x {DCF_POINTS} points, party 0): host KeyBatch + "
+          f"corrections + upload {dkeys_s * 1e3:.1f} ms, point tables + upload "
+          f"{dprep_s['walk'] * 1e3:.1f} ms (walk) / {dprep_s['walkkernel'] * 1e3:.1f} ms "
+          f"(walkkernel); device, mode walk {dpass_ms['walk']:.2f} ms (K6 x {dlevels} + "
+          f"(K4 + capture) x {dlevels + 1}), mode walkkernel {dpass_ms['walkkernel']:.2f} ms "
+          f"(K7 DCF form + transpose); {dp.plan}")
+    print(f"DCF comparisons/s, walk / walkkernel (parties 0 / 1): "
+          f"{dcf_rates['walk'][0]:.4e} / {dcf_rates['walk'][1]:.4e}, "
+          f"{dcf_rates['walkkernel'][0]:.4e} / {dcf_rates['walkkernel'][1]:.4e}")
+    del shares, dch, got
+    torch.cuda.empty_cache()
+
     if "jax" in sys.modules:
         fail("JAX was imported")
     if any(m == "distributed_point_functions_tpu" or m.startswith("distributed_point_functions_tpu.")
@@ -703,12 +904,13 @@ def main() -> None:
         "library_ms": None,
     }]
     kernels.append({
-        "name": "K1 aes_rows, per-lane key select (device function inlined in K6 and K7; "
-                "timed as K6)",
+        "name": "K1 aes_rows, per-lane key select (device function inlined in K6 and both "
+                "forms of K7; timed as K6)",
         "route": "cuda",
         "source": "distributed_point_functions_tpu_torch/csrc/aes_rows.cuh",
         "replaces": "distributed_point_functions_tpu/ops/aes_pallas.py:182",
-        "launches": walk_launches[aes_cuda.K6.name] + walk_launches[aes_cuda.K7.name],
+        "launches": (walk_launches[aes_cuda.K6.name] + walk_launches[aes_cuda.K7.name]
+                     + dcf_launches[aes_cuda.K6.name] + dcf_launches[aes_cuda.K7_DCF.name]),
         "max_abs_err": checks["K6"],
         "ms": rows["K6"]["ms"],
         "plain_ms": rows["K6"]["plain_ms"],
@@ -716,21 +918,30 @@ def main() -> None:
         "bound_by": rows["K6"]["bound_by"],
         "library_ms": None,
     })
+    shapes = {"K4 walk": ("EvaluateAt's shape", walk_launches),
+              "K4 dcf": ("the DCF's shape", dcf_launches),
+              "K6 dcf": ("the DCF's shape", dcf_launches)}
     for name, line, source in (("K2", 315, "expand.cu"), ("K3", 421, "expand.cu"),
                                ("K4", 462, "expand.cu"), ("K4 walk", 462, "expand.cu"),
+                               ("K4 dcf", 462, "expand.cu"),
                                ("K5", 872, "megakernel.cu"), ("K6", 522, "walk.cu"),
-                               ("K7", 1518, "walk_megakernel.cu")):
+                               ("K6 dcf", 522, "walk.cu"),
+                               ("K7", 1518, "walk_megakernel.cu"),
+                               ("K7 DCF", 1518, "walk_megakernel.cu")):
         r = rows[name]
         launches = main_launches.get(r["kernel"].name, 0)
-        if name == "K4 walk":
-            launches = walk_launches[r["kernel"].name]
+        label = r["kernel"].name
+        if name in shapes:
+            shape, counts = shapes[name]
+            launches = counts[r["kernel"].name]
+            label += f" ({shape})"
         kernels.append({
-            "name": r["kernel"].name + (" (EvaluateAt's shape)" if name == "K4 walk" else ""),
+            "name": label,
             "route": "cuda",
             "source": f"distributed_point_functions_tpu_torch/csrc/{source}",
             "replaces": f"distributed_point_functions_tpu/ops/aes_pallas.py:{line}",
             "launches": launches,
-            "max_abs_err": checks[name.split()[0]],
+            "max_abs_err": checks["K7 DCF" if name == "K7 DCF" else name.split()[0]],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],

@@ -4,10 +4,13 @@ The PyTorch/CUDA port of ``distributed_point_functions_tpu``, beside it in
 the same repository. It imports neither JAX nor that package: the host
 protocol layers it needs (``core/``) are its own copies. Slice by slice it
 ports the JAX package's paths; so far full-domain evaluation folded on the
-device, its two-server PIR inner product, and batched EvaluateAt:
+device, its two-server PIR inner product, batched EvaluateAt and batched
+DCF evaluation:
 
     from distributed_point_functions_tpu_torch import (
-        DistributedPointFunction, DpfParameters, Int)
+        DistributedComparisonFunction, DistributedPointFunction, DpfParameters,
+        Int)
+    from distributed_point_functions_tpu_torch.dcf import batch as dcf_batch
     from distributed_point_functions_tpu_torch.ops import evaluator
 
     dpf = DistributedPointFunction.create(DpfParameters(20, Int(64)))
@@ -15,6 +18,11 @@ device, its two-server PIR inner product, and batched EvaluateAt:
     for valid, fold in evaluator.full_domain_fold_chunks(dpf, keys_a):
         ...
     shares = evaluator.evaluate_at_batch(dpf, keys_a, points, mode="walkkernel")
+
+    dcf = DistributedComparisonFunction.create(24, Int(64))
+    dcf_a, dcf_b = dcf.generate_keys_batch(alphas, betas, seeds=seeds)
+    shares = dcf_batch.batch_evaluate(dcf, dcf_a, xs, mode="walkkernel")
+    # shares of party 0 + party 1 == beta where x < alpha, else 0
 
 Entry points run on the first CUDA device unless the caller passes
 ``device="cpu"``; with no card and no ``device="cpu"`` they raise.
@@ -24,9 +32,12 @@ from .core.dpf import DistributedPointFunction
 from .core.keys import CorrectionWord, DpfKey
 from .core.params import DpfParameters
 from .core.value_types import Int, IntModN, TupleType, XorWrapper
+from .dcf.dcf import DcfKey, DistributedComparisonFunction
 
 __all__ = [
     "CorrectionWord",
+    "DcfKey",
+    "DistributedComparisonFunction",
     "DistributedPointFunction",
     "DpfKey",
     "DpfParameters",

@@ -2,13 +2,14 @@
 host EvaluateAt.
 
 The port's counterpart of the JAX package's ``core/dpf.py``, cut to what the
-full-domain and point-walk slices need: construction, the validated tree
-structure, host key generation (core/keygen.py) and ``evaluate_at``, the
-scalar host EvaluateAt over numpy (core/backend_numpy.py), which is also the
-oracle the card is checked against. Batched evaluation runs through the GPU
-evaluator (ops/evaluator.py), which takes this object for its validated
-parameters. The hierarchical host walk (EvaluateUntil, EvaluationContext)
-is a later slice of the port.
+full-domain, point-walk and DCF slices need: construction (incremental too),
+the validated tree structure, host key generation (core/keygen.py) and
+``evaluate_at``, the scalar host EvaluateAt over numpy
+(core/backend_numpy.py), which is also the oracle the card is checked
+against. Batched evaluation runs through the GPU evaluator
+(ops/evaluator.py), which takes this object for its validated parameters.
+The hierarchical host walk (EvaluateUntil, EvaluationContext) is a later
+slice of the port.
 """
 
 from __future__ import annotations
@@ -35,6 +36,14 @@ class DistributedPointFunction:
     @classmethod
     def create(cls, parameters: DpfParameters) -> "DistributedPointFunction":
         return cls([parameters])
+
+    @classmethod
+    def create_incremental(
+        cls, parameters: Sequence[DpfParameters]
+    ) -> "DistributedPointFunction":
+        """An incremental DPF: one hierarchy level per entry of
+        `parameters`, log-domain sizes increasing (the DCF builds one)."""
+        return cls(parameters)
 
     @property
     def validator(self) -> ParameterValidator:

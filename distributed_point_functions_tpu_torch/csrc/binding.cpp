@@ -121,13 +121,16 @@ void walk_level(const torch::Tensor& planes, const torch::Tensor& control,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// K7 (EvaluateAt form). The caller (ops/aes_cuda.py) has checked the shapes.
+// K7: the EvaluateAt form with no capture words, else the DCF form with
+// the four words of its captures bitmask. The caller (ops/aes_cuda.py) has
+// checked the shapes.
 void walk_megakernel(const torch::Tensor& seed_planes,
                      const torch::Tensor& path, const torch::Tensor& cw,
                      const torch::Tensor& ccl, const torch::Tensor& ccr,
                      const torch::Tensor& corr, const torch::Tensor& sel,
                      torch::Tensor out, int64_t lpe, int64_t keep,
-                     int64_t party, bool xor_group) {
+                     int64_t party, bool xor_group,
+                     const std::vector<int64_t>& capture_words) {
   const c10::cuda::CUDAGuard guard(seed_planes.device());
   dpf::WalkMegakernelArgs a{};
   a.seed_planes = words_of(seed_planes);
@@ -144,8 +147,16 @@ void walk_megakernel(const torch::Tensor& seed_planes,
   a.keep = static_cast<int>(keep);
   a.party = static_cast<int>(party);
   a.xor_group = xor_group ? 1 : 0;
-  dpf::launch_walk_megakernel(a, static_cast<int>(seed_planes.size(0)),
-                              at::cuda::getCurrentCUDAStream());
+  if (capture_words.empty()) {
+    dpf::launch_walk_megakernel(a, static_cast<int>(seed_planes.size(0)),
+                                at::cuda::getCurrentCUDAStream());
+  } else {
+    for (int i = 0; i < 4; ++i) {
+      a.captures[i] = static_cast<uint32_t>(capture_words[i]);
+    }
+    dpf::launch_walk_megakernel_dcf(a, static_cast<int>(seed_planes.size(0)),
+                                    at::cuda::getCurrentCUDAStream());
+  }
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -158,7 +169,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("megakernel_smem_bytes", &megakernel_smem_bytes,
         "K5's shared memory per block under a plan");
   m.def("walk_level", &walk_level, "K6");
-  m.def("walk_megakernel", &walk_megakernel, "K7 (EvaluateAt form)");
+  m.def("walk_megakernel", &walk_megakernel, "K7 (EvaluateAt or DCF form)");
   m.def("max_shared_memory_per_block", &max_shared_memory_per_block,
         "the card's opt-in shared memory limit per block");
 }

@@ -47,4 +47,8 @@ void launch_walk_level(const uint32_t* planes, const uint32_t* control,
 void launch_walk_megakernel(const WalkMegakernelArgs& a, int num_keys,
                             cudaStream_t stream);
 
+// K7 (DCF form, a.captures): as the EvaluateAt form; a.levels < 128.
+void launch_walk_megakernel_dcf(const WalkMegakernelArgs& a, int num_keys,
+                                cudaStream_t stream);
+
 }  // namespace dpf

@@ -1,6 +1,7 @@
 // The operands of the megakernels: K5, the slab megakernel (what the
 // launcher in megakernel.cu passes to the body in megakernel_rows.cuh), and
-// K7, the walk megakernel (walk_megakernel.cu, body in walk_rows.cuh). Plain
+// K7, the walk megakernel in both its forms (walk_megakernel.cu, bodies in
+// walk_rows.cuh). Plain
 // C++ (no CUDA header), so the binding and the host-compiler test build it
 // too.
 
@@ -45,20 +46,25 @@ inline int64_t megakernel_smem_words(const MegakernelArgs& a, int threads) {
   return words;
 }
 
-// K7 in its EvaluateAt form. uint32 words, row-major; L = levels, Wp =
-// words (the WalkkernelPlan's padded width), n_rows = 128 / (32 * lpe)
-// elements of a block.
+// K7, the walk megakernel. uint32 words, row-major; L = levels, Wp = words
+// (the WalkkernelPlan's padded width), n_rows = 128 / (32 * lpe) elements of
+// a block. The EvaluateAt form reads `corr` as [K, n_rows, lpe] and `sel`
+// as [keep, Wp]; the DCF form reads them as [K, (L + 1) * keep, lpe] and
+// [(L + 1) * keep, Wp], row d * keep + e for element e at depth d, and
+// captures at the depths whose bit is set in `captures` (bit d % 32 of word
+// d / 32, depths 0 .. L, L < 128).
 struct WalkMegakernelArgs {
   const uint32_t* seed_planes;  // [K, 128] root-seed plane masks (0 / ~0)
   const uint32_t* path;         // [L, Wp] packed path bits of each level
   const uint32_t* cw;           // [K, L, 128] correction-seed plane masks
   const uint32_t* ccl;          // [K, L] control-correction masks
   const uint32_t* ccr;          // [K, L]
-  const uint32_t* corr;         // [K, n_rows, lpe]: 4 correction limbs a key
-  const uint32_t* sel;          // [keep, Wp] packed element-select bits
+  const uint32_t* corr;         // correction limbs (see above)
+  const uint32_t* sel;          // packed element-select bits (see above)
   uint32_t* out;                // [K, lpe * 32, Wp] value rows
   int levels, words;
   int lpe, keep, party, xor_group;
+  uint32_t captures[4];         // DCF form: the depths that capture
 };
 
 }  // namespace dpf

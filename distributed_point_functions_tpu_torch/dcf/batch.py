@@ -1,0 +1,345 @@
+"""Batched DCF evaluation on the card: every key of a batch at every point.
+
+The port of the JAX package's ``dcf/batch.py`` ``batch_evaluate`` for
+scalar Int/XorWrapper values. The reference evaluates a DCF with one
+EvaluateAt per domain bit, each re-walking the tree from the root (O(n^2)
+AES per point); here ONE walk per point goes from the root to the leaf and,
+at every tree depth d that holds a hierarchy level, captures the walked
+seed: the value hash, the block element the point addresses, that level's
+value correction under the point's control bit, and the "accumulate iff the
+point's bit at this level is 0" mask, summed over the depths; party 1
+negates the sum once at the end.
+
+Depth bookkeeping (hierarchy level i -> tree depth hierarchy_to_tree[i])
+follows the incremental DPF's packing rules (core/params.py); for a DCF the
+map is the identity, so a domain of n bits has T = n - 1 tree levels and
+n capturing depths.
+
+Two modes, per key chunk:
+
+- ``"walk"``: one K6 launch per tree level (ops/aes_cuda.walk_level) and,
+  at each of the T + 1 depths, one K4 launch (ops/aes_cuda.hash_value_planes)
+  and the rest of the capture in plain PyTorch (unpack, element select,
+  correction, mask, limb add). Every Int/XorWrapper width, sub-word ones
+  included.
+- ``"walkkernel"``: one launch of K7's DCF form (ops/aes_cuda.walk_megakernel
+  with a ``captures`` tuple): the walk, every capture and the sum in the
+  kernel, under ``evaluator.plan_walkkernel(..., captures=True)``. Widths
+  that are multiples of 32 bits, at least one tree level.
+
+``prepare_points`` (the call's point tables), ``prepare_keys`` (the key
+tables), ``prepare_chunk`` (one chunk's upload) and ``evaluate_chunk``
+(one chunk on the device) are the steps of ``batch_evaluate``; chip_smoke.py
+times them apart.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core import uint128
+from ..core.value_types import Int, TupleType, XorWrapper
+from ..ops import aes_cuda, aes_torch, backend_torch, evaluator
+from ..utils.devices import resolve_device
+from ..utils.errors import InvalidArgumentError, UnimplementedError
+
+MODES = ("walk", "walkkernel")
+
+
+def _payload_kind(value_type) -> Tuple[int, bool]:
+    """(bits, xor_group) of a scalar Int/XorWrapper; tuples (the JAX
+    package's vector payloads) and other types are refused."""
+    if isinstance(value_type, TupleType):
+        raise UnimplementedError(
+            f"the port's DCF batch_evaluate handles scalar Int/XorWrapper values; "
+            f"the tuple payload {value_type} comes with the tuple codec "
+            "(ROADMAP Queue 1 item 3)"
+        )
+    if isinstance(value_type, Int):
+        return value_type.bitsize, False
+    if isinstance(value_type, XorWrapper):
+        return value_type.bitsize, True
+    raise NotImplementedError(
+        f"the DCF batch_evaluate supports Int/XorWrapper outputs, got {value_type}; "
+        "use the host path (DistributedComparisonFunction.evaluate) instead"
+    )
+
+
+def _depth_to_hierarchy(dcf) -> list:
+    """The hierarchy level each tree depth 0 .. T captures, -1 for none."""
+    v = dcf.dpf.validator
+    out = [-1] * (v.hierarchy_to_tree[v.num_hierarchy_levels - 1] + 1)
+    for i, d in enumerate(v.hierarchy_to_tree):
+        out[d] = i
+    return out
+
+
+def _capture_tables(dcf, xs: Sequence[int], p_pad: int):
+    """Per-depth capture tables of the points (padded to p_pad): acc_mask
+    uint32[T+1, p_pad], 1 where the point's bit at the depth's hierarchy
+    level is 0, and block_sel int32[T+1, p_pad], the block element the point
+    addresses there."""
+    n = dcf.log_domain_size
+    depth_to_hierarchy = _depth_to_hierarchy(dcf)
+    acc_mask = np.zeros((len(depth_to_hierarchy), p_pad), dtype=np.uint32)
+    block_sel = np.zeros((len(depth_to_hierarchy), p_pad), dtype=np.int32)
+    for d, i in enumerate(depth_to_hierarchy):
+        if i < 0:
+            continue
+        bits_d = i - d  # block-index bits at this level
+        for j, x in enumerate(xs):
+            block_sel[d, j] = (x >> (n - i)) & ((1 << bits_d) - 1)
+            acc_mask[d, j] = 0 if (x >> (n - 1 - i)) & 1 else 1
+    return acc_mask, block_sel
+
+
+def _value_corrections_all(dcf, keys) -> np.ndarray:
+    """uint32[K, T+1, epb, 4]: each key's value-correction limbs by tree
+    depth (zero at a depth without a hierarchy level)."""
+    epb = dcf.value_type.elements_per_block()
+    last = dcf.dpf.validator.num_hierarchy_levels - 1
+    depth_to_hierarchy = _depth_to_hierarchy(dcf)
+    values = []
+    for key in keys:
+        dpf_key = key.key
+        for d, i in enumerate(depth_to_hierarchy):
+            if i < 0:
+                values.extend([0] * epb)
+                continue
+            if i == last:
+                corrections = dpf_key.last_level_value_correction
+            else:
+                corrections = dpf_key.correction_words[d].value_correction
+            values.extend(int(c) for c in corrections)
+    ints = np.array(values, dtype=object).reshape(len(keys), len(depth_to_hierarchy), epb)
+    return np.stack(
+        [((ints >> (32 * l)) & 0xFFFFFFFF).astype(np.uint32) for l in range(4)], axis=-1
+    )
+
+
+@dataclasses.dataclass
+class DcfPoints:
+    """The point side of one ``batch_evaluate`` call, shared by all its key
+    chunks (``prepare_points``). Lane i of word w is point 32 w + i."""
+
+    mode: str  # "walk" or "walkkernel"
+    num_points: int
+    bits: int
+    xor_group: bool
+    epb: int  # elements per block
+    path_masks: torch.Tensor  # int32[T, Wp]
+    # "walk": acc_mask int32[T+1, P_pad] (0 / 1) and block_sel int64[T+1,
+    # P_pad]; "walkkernel": select int32[(T+1) * epb, Wp], row d * epb + e
+    # selecting the points that address element e at depth d and
+    # accumulate there, captures the depths that hold a hierarchy level,
+    # plan the kernel's WalkkernelPlan.
+    acc_mask: Optional[torch.Tensor] = None
+    block_sel: Optional[torch.Tensor] = None
+    select: Optional[torch.Tensor] = None
+    captures: Optional[Tuple[bool, ...]] = None
+    plan: Optional[evaluator.WalkkernelPlan] = None
+
+
+def prepare_points(dcf, xs: Sequence[int], mode: str = "walk", device=None) -> DcfPoints:
+    """Checks a request and builds its point tables on the host (each
+    point's path bits, capture masks and element selects, packed 32 points a
+    word), uploaded once. Raises as ``batch_evaluate`` documents."""
+    if mode not in MODES:
+        raise InvalidArgumentError(f"mode must be 'walk' or 'walkkernel', got {mode!r}")
+    bits, xor_group = _payload_kind(dcf.value_type)
+    v = dcf.dpf.validator
+    t = v.hierarchy_to_tree[v.num_hierarchy_levels - 1]
+    if mode == "walkkernel" and bits % 32:
+        raise NotImplementedError(
+            "mode='walkkernel' handles scalar Int/XorWrapper values with "
+            f"32-bit-multiple widths, got {bits}-bit values; use mode='walk'"
+        )
+    n = dcf.log_domain_size
+    xs = [int(x) for x in xs]
+    for x in xs:
+        if x < 0 or (n < 128 and x >= (1 << n)):
+            raise InvalidArgumentError(f"evaluation point {x} outside the domain")
+    device = resolve_device(device)
+    num_points = len(xs)
+    epb = dcf.value_type.elements_per_block()
+    plan = None
+    if mode == "walkkernel":
+        plan = evaluator.plan_walkkernel(num_points, t, bits // 32, captures=True)
+        p_pad = plan.padded_words * 32
+    else:
+        p_pad = max(32, -(-num_points // 32) * 32)
+    acc_mask, block_sel = _capture_tables(dcf, xs, p_pad)
+    # Tree path of each point: its index at the last hierarchy level.
+    last = v.num_hierarchy_levels - 1
+    paths = uint128.array_to_limbs([v.domain_to_tree_index(x >> 1, last) for x in xs])
+    path_masks = evaluator._upload(backend_torch.path_bit_masks(paths, t, p_pad), device)
+    dp = DcfPoints(mode, num_points, bits, xor_group, epb, path_masks)
+    if mode == "walk":
+        dp.acc_mask = torch.from_numpy(acc_mask.astype(np.int32)).to(device)
+        dp.block_sel = torch.from_numpy(block_sel.astype(np.int64)).to(device)
+        return dp
+    # Select rows: bit j of row d * epb + e = [point j addresses element e
+    # at depth d] AND [depth d's accumulate mask]; the padded points and the
+    # depths without a level select nothing.
+    dp.captures = tuple(i >= 0 for i in _depth_to_hierarchy(dcf))
+    sel_bool = np.zeros((t + 1, epb, p_pad), dtype=bool)
+    pts = np.arange(num_points)
+    for d in range(t + 1):
+        if dp.captures[d]:
+            sel_bool[d, block_sel[d, :num_points], pts] = acc_mask[d, :num_points].astype(bool)
+    dp.select = evaluator._upload(
+        aes_torch.pack_bit_mask(sel_bool.reshape((t + 1) * epb, p_pad)), device
+    )
+    dp.plan = plan
+    return dp
+
+
+def prepare_keys(dcf, keys, device=None):
+    """The key side of a call on the host: the keys' KeyBatch (the walk's
+    correction words) and their value corrections by depth as uint32[K,
+    T+1, epb, lpe] limbs."""
+    keys = list(keys)
+    bits, _ = _payload_kind(dcf.value_type)
+    batch = evaluator.KeyBatch.from_keys(dcf.dpf, [k.key for k in keys], device=device)
+    vc = _value_corrections_all(dcf, keys)
+    k, depths, epb, _ = vc.shape
+    corr = evaluator._correction_limbs(vc.reshape(k * depths, epb, 4), bits)
+    return batch, np.ascontiguousarray(corr.reshape(k, depths, epb, -1))
+
+
+@dataclasses.dataclass
+class DcfChunk:
+    """One key chunk's device-resident walk inputs."""
+
+    party: int
+    seed_planes: torch.Tensor  # int32[K, 128] root-seed plane masks
+    cw: torch.Tensor  # int32[K, T, 128]
+    ccl: torch.Tensor  # int32[K, T]
+    ccr: torch.Tensor  # int32[K, T]
+    corr: torch.Tensor  # int32[K, T+1, epb, lpe]
+
+
+def prepare_chunk(batch: evaluator.KeyBatch, corr: np.ndarray, idx: np.ndarray) -> DcfChunk:
+    """Rows `idx` of the key tables (``prepare_keys``), one upload each."""
+    kb = batch.take(idx)
+
+    def up(a: np.ndarray) -> torch.Tensor:
+        return evaluator._upload(a, batch.device)
+
+    return DcfChunk(
+        kb.party, up(backend_torch.cw_seed_planes(kb.seeds)),
+        *(up(a) for a in kb.device_cw_arrays()), up(corr[idx]),
+    )
+
+
+def evaluate_chunk(ch: DcfChunk, dp: DcfPoints) -> torch.Tensor:
+    """One key chunk at every point -> int32[K, P, lpe], in ``dp.mode``."""
+    if dp.mode == "walkkernel":
+        return _walkkernel_chunk(ch, dp)
+    return _walk_chunk(ch, dp)
+
+
+def _capture(planes, control, corr_d, block_sel_d, acc_mask_d, bits: int, xor_group: bool):
+    """One depth's capture of mode "walk" -> int32[K, P_pad, lpe]: K4 on
+    the walked seeds, then in plain PyTorch the element each point
+    addresses, the correction under its control bit (no party negation)
+    and the accumulate mask (the JAX package's ``_capture_batched``)."""
+    blocks = aes_torch.unpack_from_planes(aes_cuda.hash_value_planes(planes))
+    elems = evaluator._split_elements(blocks, bits)  # [K, P_pad, epb, lpe]
+    points = torch.arange(elems.shape[1], device=elems.device)
+    sel = elems[:, points, block_sel_d]  # [K, P_pad, lpe]
+    ctrl = backend_torch.unpack_mask_device(control)  # [K, P_pad]: 0 / 1
+    gated = corr_d[:, block_sel_d] & -ctrl[..., None]
+    value = sel ^ gated if xor_group else evaluator._limb_add(sel, gated, bits)
+    return value & -acc_mask_d[None, :, None]
+
+
+def _walk_chunk(ch: DcfChunk, dp: DcfPoints) -> torch.Tensor:
+    """Mode "walk": the root seeds broadcast to every point; at each depth
+    the capture (``_capture``, with K4) summed into the accumulator, then
+    one K6 launch for the next level; party 1 negated once (the JAX
+    package's ``_dcf_batch_pallas_jit``)."""
+    (k, _), w = ch.seed_planes.shape, dp.path_masks.shape[1]
+    dev = ch.seed_planes.device
+    planes = ch.seed_planes[:, :, None].expand(k, 128, w).contiguous()
+    control = torch.full((k, w), -1 if ch.party else 0, dtype=torch.int32, device=dev)
+    # Level-major once, so that each level's per-key tables are contiguous.
+    cw, cl, cr = (t.transpose(0, 1).contiguous() for t in (ch.cw, ch.ccl, ch.ccr))
+    levels = dp.path_masks.shape[0]
+    acc = torch.zeros((k, w * 32, ch.corr.shape[-1]), dtype=torch.int32, device=dev)
+    for d in range(levels + 1):
+        value = _capture(planes, control, ch.corr[:, d], dp.block_sel[d], dp.acc_mask[d],
+                         dp.bits, dp.xor_group)
+        acc = acc ^ value if dp.xor_group else evaluator._limb_add(acc, value, dp.bits)
+        if d < levels:
+            planes, control = aes_cuda.walk_level(
+                planes, control, dp.path_masks[d], cw[d], cl[d], cr[d]
+            )
+    if ch.party == 1 and not dp.xor_group:
+        acc = evaluator._limb_neg(acc, dp.bits)
+    return acc[:, : dp.num_points]
+
+
+def _walkkernel_chunk(ch: DcfChunk, dp: DcfPoints) -> torch.Tensor:
+    """Mode "walkkernel": one launch of K7's DCF form and the value-row
+    transpose (the JAX package's ``_batch_evaluate_walkkernel``)."""
+    k, depths, epb, lpe = ch.corr.shape
+    words = dp.plan.padded_words
+    out = aes_cuda.walk_megakernel(
+        ch.seed_planes, dp.path_masks, ch.cw, ch.ccl, ch.ccr,
+        ch.corr.reshape(k, depths * epb, lpe), dp.select,
+        bits=dp.bits, party=ch.party, xor_group=dp.xor_group, keep=epb,
+        captures=dp.captures,
+    )
+    # Row l * 32 + i at word w is limb l of point 32 w + i.
+    out = out.reshape(k, lpe, 32, words).permute(0, 3, 2, 1)
+    return out.reshape(k, words * 32, lpe)[:, : dp.num_points]
+
+
+def batch_evaluate(
+    dcf,
+    keys,
+    xs: Sequence[int],
+    key_chunk: Optional[int] = None,
+    mode: str = "walk",
+    device=None,
+    device_output: bool = False,
+):
+    """Evaluates every DCF key at every point x: the shares of [x < alpha]
+    * beta.
+
+    Returns uint32[K, P, lpe] limbs (lpe = max(bits // 32, 1)) in numpy, as
+    the JAX package does, or, with ``device_output``, an int32 tensor of
+    the same bits on the device. ``evaluator.values_to_numpy`` turns limbs
+    into integers.
+
+    Args:
+      keys: DcfKeys of one party.
+      xs: points of the domain, any number, repeats allowed.
+      key_chunk: keys per chunk (default: the whole batch in one chunk).
+      mode: "walk" (T K6 and T + 1 K4 launches per chunk, the captures in
+        plain PyTorch) or "walkkernel" (one launch of K7's DCF form per
+        chunk; widths that are multiples of 32 bits, at least one tree
+        level).
+      device: ``None`` = CUDA; ``"cpu"`` runs the plain PyTorch versions.
+
+    IntModN raises NotImplementedError and tuple payloads
+    UnimplementedError (ROADMAP Queue 1 item 3).
+    """
+    dp = prepare_points(dcf, xs, mode, device)
+    batch, corr = prepare_keys(dcf, keys, device=dp.path_masks.device)
+    num_keys = batch.seeds.shape[0]
+    if key_chunk is None:
+        key_chunk = num_keys
+    if key_chunk < 1:
+        raise InvalidArgumentError(f"key_chunk must be positive, got {key_chunk}")
+    outs = [
+        evaluate_chunk(prepare_chunk(batch, corr, idx), dp)[:valid]
+        for idx, valid in evaluator.chunk_indices(num_keys, key_chunk)
+    ]
+    out = torch.cat(outs) if len(outs) > 1 else outs[0]
+    return out if device_output else aes_torch.from_words(out)

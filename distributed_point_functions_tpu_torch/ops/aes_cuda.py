@@ -1,4 +1,4 @@
-"""Wrappers of the hand-written Hopper kernels K2 to K7.
+"""Wrappers of the hand-written Hopper kernels K2 to K7 (K7 in two forms).
 
 Each wrapper takes the same tensors as its plain version in
 ops/backend_torch.py and returns the same result:
@@ -19,12 +19,14 @@ K6     ``walk_level`` (and          ops/aes_pallas.py
        launch per level)
 K7     ``walk_megakernel``          ops/aes_pallas.py
                                     walk_megakernel_pallas_batched
-                                    (EvaluateAt form)
+                                    (EvaluateAt form, ``captures=None``; DCF
+                                    form, a ``captures`` tuple: its own
+                                    kernel and count, ``K7_DCF``)
 =====  ===========================  ==========================================
 
 K1, the bitsliced AES row circuit (csrc/aes_rows.cuh, replacing
-``_aes_rows`` / ``_sbox_rows``), is inlined into all six; K6 and K7 use its
-form with the PRG key selected per lane.
+``_aes_rows`` / ``_sbox_rows``), is inlined into all of them; K6 and K7 use
+its form with the PRG key selected per lane.
 
 Device rule: a wrapper given CPU tensors runs the plain version, because the
 tensors lie on the CPU; given CUDA tensors it launches its kernel or raises.
@@ -58,7 +60,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..utils.errors import InternalError, InvalidArgumentError, UnimplementedError
+from ..utils.errors import InternalError, InvalidArgumentError
 from . import backend_torch
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -87,13 +89,14 @@ K4 = Kernel("K4 hash_value_planes", "dpf_value_hash_kernel")
 K5 = Kernel("K5 megakernel_fold", "dpf_megakernel_fold_kernel")
 K6 = Kernel("K6 walk_level", "dpf_walk_level_kernel")
 K7 = Kernel("K7 walk_megakernel", "dpf_walk_megakernel_kernel")
-KERNELS = (K2, K3, K4, K5, K6, K7)
+K7_DCF = Kernel("K7 walk_megakernel, DCF form", "dpf_walk_dcf_kernel")
+KERNELS = (K2, K3, K4, K5, K6, K7, K7_DCF)
 # Each .cu source and the kernels ptxas reports for it.
 CUDA_SOURCES = {
     "expand.cu": (K2, K3, K4),
     "megakernel.cu": (K5,),
     "walk.cu": (K6,),
-    "walk_megakernel.cu": (K7,),
+    "walk_megakernel.cu": (K7, K7_DCF),
 }
 SOURCES = ("binding.cpp",) + tuple(CUDA_SOURCES)
 
@@ -452,25 +455,32 @@ def walk_megakernel(
     seed_planes, path_masks, cw_planes, ccl, ccr, corrections, sel_bits, *,
     bits: int, party: int, xor_group: bool, keep: int, captures=None,
 ):
-    """K7, the walk megakernel in its EvaluateAt form: one launch for a chunk
-    of K keys.
+    """K7, the walk megakernel: one launch for a chunk of K keys.
 
     seed_planes int32[K, 128] root-seed plane masks, path_masks int32[L, Wp],
-    cw_planes int32[K, L, 128], ccl/ccr int32[K, L], corrections int32[K,
-    epb, lpe], sel_bits int32[keep, Wp] -> int32[K, lpe * 32, Wp] value rows
-    (row l * 32 + i at word w is limb l of point 32 w + i). Every level of
-    the walk and the leaf capture (value hash, transpose, correction,
-    element select) run in the kernel. Replaces
-    aes_pallas.py:walk_megakernel_pallas_batched with ``captures=None``;
-    the plain version is ``backend_torch.walk_megakernel``. The DCF form (a
-    ``captures`` tuple) is not ported yet and raises.
+    cw_planes int32[K, L, 128], ccl/ccr int32[K, L] -> int32[K, lpe * 32,
+    Wp] value rows (row l * 32 + i at word w is limb l of point 32 w + i).
+    Every level of the walk and the captures (value hash, transpose,
+    correction, element select) run in the kernel. The plain version is
+    ``backend_torch.walk_megakernel``.
+
+    ``captures=None``, the EvaluateAt form (K7): corrections int32[K, epb,
+    lpe] and sel_bits int32[keep, Wp]; the leaves are captured once.
+    Replaces aes_pallas.py:walk_megakernel_pallas_batched with
+    ``captures=None``.
+
+    A tuple of L + 1 flags, the DCF form (K7_DCF, dcf.batch_evaluate):
+    corrections int32[K, (L + 1) * keep, lpe] and sel_bits int32[(L + 1) *
+    keep, Wp], rows d * keep + e; each flagged depth d is captured before
+    level d with its correction rows (no party negation) and select rows,
+    the captures are summed in the kernel (limb add with carry; XOR for an
+    XOR group) and party 1 negates the sum once. Replaces the same Pallas
+    kernel with ``captures``.
 
     Bound on the H100: integer operations, L + 1 MMO hashes per lane word
-    against the path and select words and a few hundred bytes per key
-    (csrc/walk_megakernel.cu).
+    (the DCF form: L + one per flagged depth) against the path and select
+    words and a few hundred bytes per key (csrc/walk_megakernel.cu).
     """
-    if captures is not None:
-        raise UnimplementedError(backend_torch.CAPTURES_NOT_PORTED)
     if bits % 32:
         raise NotImplementedError(
             f"K7's value correction handles 32-bit-multiple widths, got {bits}"
@@ -489,22 +499,41 @@ def walk_megakernel(
     levels, wp = path_masks.shape
     if levels < 1:
         raise InvalidArgumentError("the walk megakernel needs at least one tree level")
+    rows = epb
+    sel_rows = keep
+    kernel = K7
+    if captures is not None:
+        captures = tuple(bool(f) for f in captures)
+        if len(captures) != levels + 1:
+            raise InvalidArgumentError(
+                f"captures must hold levels + 1 = {levels + 1} flags, got {len(captures)}"
+            )
+        if levels >= 128:
+            raise InvalidArgumentError(
+                f"the DCF form takes at most 127 tree levels, got {levels}"
+            )
+        rows = sel_rows = (levels + 1) * keep
+        kernel = K7_DCF
     _check(seed_planes, (k, 128), "seed_planes")
     _check(path_masks, (levels, wp), "path_masks")
     _check(cw_planes, (k, levels, 128), "cw_planes")
     _check(ccl, (k, levels), "ccl")
     _check(ccr, (k, levels), "ccr")
-    _check(corrections, (k, epb, lpe), "corrections")
-    _check(sel_bits, (keep, wp), "sel_bits")
+    _check(corrections, (k, rows, lpe), "corrections")
+    _check(sel_bits, (sel_rows, wp), "sel_bits")
     args = (seed_planes, path_masks, cw_planes, ccl, ccr, corrections, sel_bits)
     kw = dict(bits=bits, party=party, xor_group=xor_group, keep=keep)
     if _on_cpu(*args):
-        return backend_torch.walk_megakernel(*args, **kw)
+        return backend_torch.walk_megakernel(*args, captures=captures, **kw)
     if not all(t.is_contiguous() for t in args):
-        raise InvalidArgumentError(f"{K7.name}: operands must be contiguous")
+        raise InvalidArgumentError(f"{kernel.name}: operands must be contiguous")
     out = torch.empty((k, lpe * 32, wp), dtype=torch.int32, device=seed_planes.device)
     if k == 0 or wp == 0:
         return out
-    library().walk_megakernel(*args, out, lpe, keep, party, xor_group)
-    K7.launches += 1
+    capture_words = []
+    if captures is not None:  # bit d of the mask: depth d captures
+        mask = sum(1 << d for d, flag in enumerate(captures) if flag)
+        capture_words = [(mask >> (32 * i)) & 0xFFFFFFFF for i in range(4)]
+    library().walk_megakernel(*args, out, lpe, keep, party, xor_group, capture_words)
+    kernel.launches += 1
     return out

@@ -1,14 +1,15 @@
 """The DPF expansion and point-walk primitives in plain PyTorch, on bit-planes.
 
 The port's counterpart of the JAX package's ``ops/backend_jax.py``, cut to
-the full-domain and point-walk slices. ``expand_one_level``,
+the full-domain, point-walk and DCF slices. ``expand_one_level``,
 ``expand_and_hash_last_level``, ``hash_value_planes``, ``megakernel_fold``,
 ``walk_level`` and ``walk_megakernel`` are the *plain versions* of the CUDA
-kernels K2, K3, K4, K5, K6 and K7 (ops/aes_cuda.py): same arguments, same
-outputs, written as tensor algebra over a leading key axis. The wrappers in ops/aes_cuda.py run
-them for CPU tensors; chip_smoke.py holds the kernels against them on the
-card. The JAX package's functions take one key and are vmapped; these take
-the key axis explicitly, as the kernels do.
+kernels K2, K3, K4, K5, K6 and K7 in both its forms (ops/aes_cuda.py): same
+arguments, same outputs, written as tensor algebra over a leading key axis.
+The wrappers in ops/aes_cuda.py run them for CPU tensors; chip_smoke.py
+holds the kernels against them on the card. The JAX package's functions
+take one key and are vmapped; these take the key axis explicitly, as the
+kernels do.
 
 Words are int32 tensors carrying uint32 bit patterns (see ops/aes_torch.py).
 Layouts are the JAX package's: planes [K, 128, W], lane-word control masks
@@ -236,52 +237,17 @@ def walk_levels(planes, control, path_masks, cw_planes, ccl, ccr):
     return planes, control
 
 
-CAPTURES_NOT_PORTED = (
-    "the walk megakernel's DCF capture form (captures=...) comes with the "
-    "port's DCF slice (ROADMAP Queue 1 item 1); only captures=None "
-    "(EvaluateAt) is ported"
-)
-
-
-def walk_megakernel(
-    seed_planes,  # int32[K, 128] root-seed plane masks (0 / ~0)
-    path_masks,  # int32[L, Wp] packed path bits, shared by the keys
-    cw_planes,  # int32[K, L, 128]
-    ccl,  # int32[K, L]
-    ccr,  # int32[K, L]
-    corrections,  # int32[K, epb, lpe]
-    sel_bits,  # int32[keep, Wp] packed element-select bits
-    *,
-    bits: int,
-    party: int,
-    xor_group: bool,
-    keep: int,
-    captures=None,
-):
-    """The walk megakernel in its EvaluateAt form: the plain version of K7
-    -> int32[K, lpe * 32, Wp] value rows (row l * 32 + i at word w is limb l
-    of point 32 w + i).
-
-    The root seed is broadcast to every point, the walk runs all L levels
-    (``walk_levels``), and the leaf capture follows: the value hash, the
-    32x32 transposes to limbs, ``rows_correct_element`` of each kept element
-    under the point's control bit with the party's correction, the AND with
-    the element's select row, and the XOR over the elements. The JAX
-    package's ``walk_megakernel_reference_rows`` with ``captures=None``,
-    over a key axis; its DCF form (a ``captures`` tuple) comes with the DCF
-    slice of the port.
-    """
-    if captures is not None:
-        raise errors.UnimplementedError(CAPTURES_NOT_PORTED)
-    k = seed_planes.shape[0]
-    wp = path_masks.shape[1]
+def _capture_rows(planes, control, corrections, sel_bits, *, bits: int, party: int,
+                  xor_group: bool, keep: int):
+    """One capture of the walk megakernel -> lpe int32[K, 32, Wp] limb rows
+    (row i at word w is point 32 w + i): the value hash of the walked seeds,
+    the 32x32 transposes to limbs, ``rows_correct_element`` of each of the
+    ``keep`` elements under the point's control bit with `party`'s
+    correction (corrections int32[K, keep, lpe]), the AND with the element's
+    select row (sel_bits int32[keep, Wp]), and the XOR over the elements."""
+    k, _, wp = planes.shape
     lpe = bits // 32
-    planes = seed_planes[:, :, None].expand(k, 128, wp).contiguous()
-    control = torch.full((k, wp), -1 if party else 0, dtype=torch.int32,
-                         device=seed_planes.device)
-    planes, control = walk_levels(planes, control, path_masks, cw_planes, ccl, ccr)
     hashed = hash_value_planes(planes)
-    del planes
     # limbs[:, q, i, w] = 32-bit limb q of point 32 w + i's hash block
     limbs = aes_torch.transpose32_rows(hashed.reshape(k, 4, 32, wp))
     shifts = torch.arange(32, dtype=torch.int32, device=control.device)[:, None]
@@ -296,7 +262,69 @@ def walk_megakernel(
             bits, party, xor_group,
         )
         out = [out[l] ^ (vals[l] & sel_mask[e]) for l in range(lpe)]
-    return torch.stack(out, dim=1).reshape(k, lpe * 32, wp)
+    return out
+
+
+def walk_megakernel(
+    seed_planes,  # int32[K, 128] root-seed plane masks (0 / ~0)
+    path_masks,  # int32[L, Wp] packed path bits, shared by the keys
+    cw_planes,  # int32[K, L, 128]
+    ccl,  # int32[K, L]
+    ccr,  # int32[K, L]
+    corrections,  # int32[K, epb, lpe]; DCF form: int32[K, (L + 1) * keep, lpe]
+    sel_bits,  # int32[keep, Wp] packed element-select bits; DCF: [(L + 1) * keep, Wp]
+    *,
+    bits: int,
+    party: int,
+    xor_group: bool,
+    keep: int,
+    captures=None,
+):
+    """The walk megakernel: the plain version of K7 -> int32[K, lpe * 32,
+    Wp] value rows (row l * 32 + i at word w is limb l of point 32 w + i).
+    The JAX package's ``walk_megakernel_reference_rows`` over a key axis.
+
+    The root seed is broadcast to every point and walked down all L levels
+    (``walk_level``). With ``captures=None`` (EvaluateAt) the leaves are
+    captured once, with the party's correction (``_capture_rows``). With a
+    ``captures`` tuple of L + 1 flags (the DCF form) every flagged depth d
+    is captured before level d is walked: correction rows and select rows
+    d * keep + e, the correction WITHOUT the party's negation, the select
+    rows carrying the DCF's accumulate mask; the captures are summed
+    (``rows_limb_add``; XOR for an XOR group) and party 1 negates the sum
+    once at the end (``rows_limb_neg``).
+    """
+    k = seed_planes.shape[0]
+    levels, wp = path_masks.shape
+    lpe = bits // 32
+    planes = seed_planes[:, :, None].expand(k, 128, wp).contiguous()
+    control = torch.full((k, wp), -1 if party else 0, dtype=torch.int32,
+                         device=seed_planes.device)
+    kw = dict(bits=bits, xor_group=xor_group, keep=keep)
+    if captures is None:
+        planes, control = walk_levels(planes, control, path_masks, cw_planes, ccl, ccr)
+        out = _capture_rows(planes, control, corrections, sel_bits, party=party, **kw)
+        return torch.stack(out, dim=1).reshape(k, lpe * 32, wp)
+    if len(captures) != levels + 1:
+        raise errors.InvalidArgumentError(
+            f"captures must hold levels + 1 = {levels + 1} flags, got {len(captures)}"
+        )
+    acc = [torch.zeros((k, 32, wp), dtype=torch.int32, device=seed_planes.device)] * lpe
+    for d in range(levels + 1):
+        if captures[d]:
+            rows = slice(d * keep, (d + 1) * keep)
+            vals = _capture_rows(planes, control, corrections[:, rows], sel_bits[rows],
+                                 party=0, **kw)
+            if xor_group:
+                acc = [a ^ v for a, v in zip(acc, vals)]
+            else:
+                acc = value_codec.rows_limb_add(acc, vals, bits)
+        if d < levels:
+            planes, control = walk_level(planes, control, path_masks[d], cw_planes[:, d],
+                                         ccl[:, d], ccr[:, d])
+    if party == 1 and not xor_group:
+        acc = value_codec.rows_limb_neg(acc, bits)
+    return torch.stack(acc, dim=1).reshape(k, lpe * 32, wp)
 
 
 def unpack_mask_device(mask_words: torch.Tensor) -> torch.Tensor:

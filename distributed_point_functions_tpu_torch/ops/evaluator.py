@@ -293,16 +293,22 @@ def _host_expand(
     return seeds, control
 
 
-def _key_chunks(batch: KeyBatch, num_keys: int, key_chunk: int):
-    """Yields (key_batch, num_valid_keys) in key_chunk-sized chunks, padding
-    the last chunk with key 0 so every chunk has one shape (no pad when the
-    whole batch is smaller than key_chunk). Padded rows are trimmed by the
-    caller."""
+def chunk_indices(num_keys: int, key_chunk: int) -> Iterator[Tuple[np.ndarray, int]]:
+    """Yields (key indices, num_valid_keys) in key_chunk-sized chunks,
+    padding the last chunk with key 0 so every chunk has one shape (no pad
+    when the whole batch is smaller than key_chunk). Padded rows are
+    trimmed by the caller."""
     for start in range(0, num_keys, key_chunk):
         idx = np.arange(start, min(start + key_chunk, num_keys))
         valid = idx.shape[0]
         if num_keys > key_chunk and valid < key_chunk:
             idx = np.concatenate([idx, np.zeros(key_chunk - valid, dtype=np.int64)])
+        yield idx, valid
+
+
+def _key_chunks(batch: KeyBatch, num_keys: int, key_chunk: int):
+    """Yields (key_batch, num_valid_keys) per chunk of ``chunk_indices``."""
+    for idx, valid in chunk_indices(num_keys, key_chunk):
         yield batch.take(idx), valid
 
 
@@ -812,7 +818,9 @@ def _megakernel_fold_chunk(
 # (65,536 registers), 256 lane words, and the plan charges 4 x (128 x 4 + 32
 # x lpe x 2 + levels) bytes a word, 2,684 at Int(64) and 31 levels: 256 x
 # 2,684 = 687,104 bytes. Up to 256 words (8,192 points) then pad to 8 words;
-# more to whole tiles of 256 words (128 at Int(128)).
+# more to whole tiles of 256 words (128 at Int(128)). The DCF form charges the
+# value rows three times (2,908 bytes a word at Int(64) and 23 levels), so
+# its tiles are 128 words (4,096 points).
 WALKKERNEL_BUDGET = 256 * 2684
 
 
@@ -834,15 +842,20 @@ class WalkkernelPlan(NamedTuple):
 
 
 def plan_walkkernel(
-    num_points: int, levels: int, lpe: int, budget: Optional[int] = None
+    num_points: int,
+    levels: int,
+    lpe: int,
+    captures: bool = False,
+    budget: Optional[int] = None,
 ) -> WalkkernelPlan:
     """Sizes the walk megakernel's point tiles from a byte budget.
 
-    The JAX package's ``plan_walkkernel`` arithmetic (EvaluateAt form, no
-    DCF accumulator), with the budget an argument instead of an environment
-    variable: for the same budget the two packages plan the same tiles. Per
-    lane word the budget is charged the 128 seed planes with 4x temporaries,
-    the lpe * 32 value rows twice and the per-level path words; a multi-tile
+    The JAX package's ``plan_walkkernel`` arithmetic, with the budget an
+    argument instead of an environment variable: for the same budget the
+    two packages plan the same tiles. Per lane word the budget is charged
+    the 128 seed planes with 4x temporaries, the lpe * 32 value rows twice
+    (three times with ``captures``, the DCF form, which carries an
+    accumulator across depths) and the per-level path words; a multi-tile
     plan has power-of-two tiles of at least 128 words, and a point count
     below one tile rounds up to 8 words. ``None`` takes
     ``WALKKERNEL_BUDGET``, sized for K7's blocks on the card.
@@ -854,7 +867,7 @@ def plan_walkkernel(
     if budget is None:
         budget = WALKKERNEL_BUDGET
     w = -(-max(1, num_points) // 32)
-    per_word = 4 * (128 * 4 + 32 * max(1, lpe) * 2 + levels)
+    per_word = 4 * (128 * 4 + 32 * max(1, lpe) * (3 if captures else 2) + levels)
     cap = _floor_pow2(max(128, budget // per_word))
     if w <= cap:
         tile = max(8, -(-w // 8) * 8)

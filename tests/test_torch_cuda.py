@@ -1,7 +1,8 @@
 """The PyTorch/CUDA port on a CUDA card: kernels against their plain
 versions, and the fold and PIR paths through the kernels (K2-K4, and K5 in
-mode="megakernel") and batched EvaluateAt (K6 and K4 in mode="walk", K7 in
-mode="walkkernel") against the same paths on the CPU.
+mode="megakernel"), batched EvaluateAt (K6 and K4 in mode="walk", K7 in
+mode="walkkernel") and the DCF's batch_evaluate (K6 and K4 in mode="walk",
+K7's DCF form in mode="walkkernel") against the same paths on the CPU.
 
 Every test here needs a card and skips without one. The file imports no
 JAX, so on a machine without JAX it runs without the suite's conftest:
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 import distributed_point_functions_tpu_torch as port
+from distributed_point_functions_tpu_torch.dcf import batch as dcf_batch
 from distributed_point_functions_tpu_torch.ops import aes_cuda, backend_torch, evaluator
 from distributed_point_functions_tpu_torch.ops.aes_torch import as_words, from_words, pack_bit_mask
 from distributed_point_functions_tpu_torch.parallel import pir
@@ -56,7 +58,7 @@ def test_kernels_match_plain_versions(cuda, w):
     assert torch.equal(
         aes_cuda.hash_value_planes(args[0]), backend_torch.hash_value_planes(args[0])
     )
-    assert [k.launches for k in aes_cuda.KERNELS] == [1, 1, 1, 0, 0, 0]
+    assert [k.launches for k in aes_cuda.KERNELS] == [1, 1, 1, 0, 0, 0, 0]
 
 
 def megakernel_plan(lds, value_type, budget, host_levels=None):
@@ -190,7 +192,7 @@ def test_megakernel_fold_on_the_card_matches_the_cpu(cuda, party, monkeypatch):
 
     aes_cuda.reset_launch_counts()
     on_card = fold(cuda)
-    assert [k.launches for k in aes_cuda.KERNELS] == [0, 0, 0, 3, 0, 0]
+    assert [k.launches for k in aes_cuda.KERNELS] == [0, 0, 0, 3, 0, 0, 0]
     assert np.array_equal(on_card, fold("cpu"))
     assert np.array_equal(on_card, fold("cpu", mode="fold"))
     assert np.array_equal(fold(cuda, db), fold("cpu", db))
@@ -274,4 +276,64 @@ def test_evaluate_at_batch_on_the_card_matches_the_cpu(cuda, mode, party):
     levels = dpf.validator.hierarchy_to_tree[0]
     want = [3 * levels, 3, 0] if mode == "walk" else [0, 0, 3]
     assert [aes_cuda.K6.launches, aes_cuda.K4.launches, aes_cuda.K7.launches] == want
+    assert np.array_equal(from_words(on_card), run("cpu"))
+
+
+@pytest.mark.parametrize(
+    "captures, w, bits, keep, party, xor_group",
+    [((True, True), 1, 32, 4, 1, False), ((True, False, True, True), 3, 64, 2, 1, False),
+     ((False, True, True, False, True), 37, 64, 1, 0, False),
+     ((True, False, True), 8, 128, 1, 1, True), ((True,) * 7, 40, 128, 1, 1, False),
+     ((False, False, False), 3, 64, 2, 1, False)],
+)
+def test_walk_megakernel_dcf_matches_plain_version(cuda, captures, w, bits, keep, party, xor_group):
+    """K7's DCF form on the card equals its plain version for every limb
+    layout, kept element count, party and group, with depths that do not
+    capture and with none that does; one launch of the DCF form per call
+    and none of the EvaluateAt form."""
+    levels = len(captures) - 1
+    rng = np.random.default_rng(levels * w + bits)
+
+    def r(*shape):
+        return rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+
+    rows = (levels + 1) * keep
+    arrays = (backend_torch.cw_seed_planes(r(3, 4)), r(levels, w),
+              backend_torch.cw_seed_planes(r(3, levels, 4)),
+              backend_torch.control_masks(rng.integers(0, 2, size=(3, levels))),
+              backend_torch.control_masks(rng.integers(0, 2, size=(3, levels))),
+              r(3, rows, bits // 32), r(rows, w))
+    args = [torch.from_numpy(as_words(a)).to(cuda) for a in arrays]
+    kw = dict(bits=bits, party=party, xor_group=xor_group, keep=keep, captures=captures)
+    aes_cuda.reset_launch_counts()
+    got = aes_cuda.walk_megakernel(*args, **kw)
+    assert (aes_cuda.K7_DCF.launches, aes_cuda.K7.launches) == (1, 0)
+    assert torch.equal(got, backend_torch.walk_megakernel(*args, **kw))
+
+
+@pytest.mark.parametrize("party", [0, 1])
+@pytest.mark.parametrize("mode", ["walk", "walkkernel"])
+def test_dcf_batch_evaluate_on_the_card_matches_the_cpu(cuda, mode, party):
+    """Both modes of the DCF's batch_evaluate on the card equal the same call
+    on the CPU, in chunks of 2 keys (3 chunks, the last padded): T K6 and T
+    + 1 K4 launches per chunk in mode "walk", one launch of K7's DCF form
+    per chunk and nothing else in mode "walkkernel"."""
+    dcf = port.DistributedComparisonFunction.create(12, port.Int(64))
+    rng = np.random.default_rng(12)
+    alphas = [0, 1, 77, 4000, 4095]
+    seeds = rng.integers(0, 2**32, size=(5, 2, 4), dtype=np.uint32)
+    keys = dcf.generate_keys_batch(alphas, [3, 4, 5, 6, 7], seeds=seeds)[party]
+    xs = alphas + [76, 3999] + [int(x) for x in rng.integers(0, 1 << 12, size=60)]
+
+    def run(device, **kw):
+        return dcf_batch.batch_evaluate(dcf, keys, xs, key_chunk=2, mode=mode, device=device, **kw)
+
+    aes_cuda.reset_launch_counts()
+    on_card = run(cuda, device_output=True)
+    assert on_card.is_cuda
+    t = 11
+    want = {"walk": [3 * t, 3 * (t + 1), 0, 0], "walkkernel": [0, 0, 0, 3]}[mode]
+    got = [aes_cuda.K6.launches, aes_cuda.K4.launches, aes_cuda.K7.launches,
+           aes_cuda.K7_DCF.launches]
+    assert got == want
     assert np.array_equal(from_words(on_card), run("cpu"))

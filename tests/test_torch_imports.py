@@ -1,5 +1,6 @@
 """The PyTorch/CUDA port stands alone: it imports neither JAX nor the JAX
-package, and its entry points do not run on the CPU unless asked to.
+package (its fold, PIR, EvaluateAt and DCF paths driven in a fresh
+process), and its entry points do not run on the CPU unless asked to.
 
 The import guard runs in a subprocess: tests/conftest.py imports jax into
 every pytest process.
@@ -36,6 +37,12 @@ assert len(folds) == 1
 for mode in ("walk", "walkkernel"):
     assert evaluator.evaluate_at_batch(dpf, keys, [3, 4], mode=mode, device="cpu").shape == (1, 2, 2)
 assert len(dpf.evaluate_at(keys[0], 0, [3, 4])) == 2
+from distributed_point_functions_tpu_torch.dcf import batch as dcf_batch
+dcf = port.DistributedComparisonFunction.create(6, port.Int(64))
+dkeys, _ = dcf.generate_keys_batch([3], 5, seeds=np.ones((1, 2, 4), np.uint32))
+for mode in ("walk", "walkkernel"):
+    assert dcf_batch.batch_evaluate(dcf, dkeys, [3, 4], mode=mode, device="cpu").shape == (1, 2, 2)
+assert dcf.evaluate(dkeys[0], 2) >= 0
 jax_package = "distributed_point_functions_tpu"
 bad = sorted(
     m for m in sys.modules
@@ -72,6 +79,14 @@ def test_evaluate_at_batch_without_a_card_raises(monkeypatch):
     keys, _ = dpf.generate_keys_batch([1], [[1]])
     with pytest.raises(UnavailableError):
         evaluator.evaluate_at_batch(dpf, keys, [1])
+
+
+def test_dcf_batch_evaluate_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dcf = port.DistributedComparisonFunction.create(6, port.Int(64))
+    keys, _ = dcf.generate_keys_batch([1], 1)
+    with pytest.raises(UnavailableError):
+        dcf.batch_evaluate(keys, [1])
 
 
 def test_pir_entry_points_without_a_card_raise(monkeypatch):

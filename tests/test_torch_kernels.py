@@ -277,7 +277,7 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     aes_cuda.walk_level(args[0], args[1], path, *args[2:])
     ops, _ = walk_inputs(2, 1, 64, 2, seed=1)
     aes_cuda.walk_megakernel(*map(words, ops), bits=64, party=1, xor_group=False, keep=2)
-    assert [k.launches for k in aes_cuda.KERNELS] == [0, 0, 0, 0, 0, 0]
+    assert [k.launches for k in aes_cuda.KERNELS] == [0, 0, 0, 0, 0, 0, 0]
     with pytest.raises(InvalidArgumentError, match="int32"):
         aes_cuda.hash_value_planes(args[0].to(torch.int64))
     with pytest.raises(InvalidArgumentError, match="shape"):
@@ -387,6 +387,29 @@ static int walk_megakernel(int K, int W) {
   fwrite(out.data(), 4, out.size(), stdout);
   return 0;
 }
+// K7's DCF form (mode 8): 5 ints (levels, lpe, keep, party, xor_group), the
+// 4 words of the captures bitmask, the operands (corrections and select rows
+// (levels + 1) * keep); out: the value rows.
+static int walk_dcf(int K, int W) {
+  int f[5];
+  if (fread(f, 4, 5, stdin) != 5) return 1;
+  auto caps = rd(4);
+  uint32_t stash[128];
+  dpf::WalkMegakernelArgs a{};
+  a.levels = f[0]; a.words = W; a.lpe = f[1]; a.keep = f[2]; a.party = f[3]; a.xor_group = f[4];
+  for (int i = 0; i < 4; ++i) a.captures[i] = caps[i];
+  const int L = a.levels, rows = (L + 1) * a.keep;
+  auto seed = rd(size_t(K) * 128), path = rd(size_t(L) * W), cw = rd(size_t(K) * L * 128);
+  auto ccl = rd(size_t(K) * L), ccr = rd(size_t(K) * L), corr = rd(size_t(K) * rows * a.lpe);
+  auto sel = rd(size_t(rows) * W);
+  std::vector<uint32_t> out(size_t(K) * a.lpe * 32 * W);
+  a.seed_planes = seed.data(); a.path = path.data(); a.cw = cw.data(); a.ccl = ccl.data();
+  a.ccr = ccr.data(); a.corr = corr.data(); a.sel = sel.data(); a.out = out.data();
+  for (int k = 0; k < K; ++k)
+    for (int w = 0; w < W; ++w) dpf::walk_megakernel_dcf_word(a, k, w, stash, 1);
+  fwrite(out.data(), 4, out.size(), stdout);
+  return 0;
+}
 // K1's masked form (mode 7): planes, mask [W]; out: the hashed planes.
 static int masked_hash(int K, int W) {
   uint32_t stash[128], s[128];
@@ -409,6 +432,7 @@ int main() {
   if (mode == 5) return walk_level(K, W);
   if (mode == 6) return walk_megakernel(K, W);
   if (mode == 7) return masked_hash(K, W);
+  if (mode == 8) return walk_dcf(K, W);
   uint32_t stash[128];
   auto planes = rd(size_t(K) * 128 * W);
   if (mode == 2) {
@@ -614,12 +638,69 @@ def carrying_corrections(ops, bits, party, block_sel):
     return out
 
 
+def dcf_walk_inputs(levels, w, bits, keep, seed):
+    """uint32 numpy operands of K7's DCF form for K keys at W words: at each
+    depth every point selects one element and accumulates at three depths
+    in four; the last point is padding and selects nothing."""
+    rng = np.random.default_rng(seed)
+
+    def r(*shape):
+        return rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+
+    rows = (levels + 1) * keep
+    block_sel = rng.integers(0, keep, size=(levels + 1, 32 * w))
+    block_sel[:, -1] = -1
+    accumulate = rng.integers(0, 4, size=(levels + 1, 32 * w)) > 0
+    sel = (block_sel[:, None, :] == np.arange(keep)[None, :, None]) & accumulate[:, None, :]
+    return [backend_torch.cw_seed_planes(r(K, 4)), r(levels, w),
+            backend_torch.cw_seed_planes(r(K, levels, 4)),
+            backend_torch.control_masks(rng.integers(0, 2, size=(K, levels))),
+            backend_torch.control_masks(rng.integers(0, 2, size=(K, levels))),
+            r(K, rows, bits // 32), aes_torch.pack_bit_mask(sel.reshape(rows, 32 * w))]
+
+
+def dcf_carrying_corrections(ops, bits, party, keep, captures):
+    """Corrections of K7's DCF form under which, for each key and element,
+    one point that the last capturing depth corrects sums to exactly 0 mod
+    2^bits over the depths: the last add carries out of every limb, and
+    party 1's negation of that 0 carries through every limb (its other
+    points negate sums that are not 0)."""
+    lpe, last = bits // 32, max(d for d, f in enumerate(captures) if f)
+    kw = dict(bits=bits, party=party, xor_group=False, keep=keep, captures=captures)
+
+    def sums(corr):  # [K, 32 W] python ints
+        rows = aes_torch.from_words(backend_torch.walk_megakernel(
+            *map(words, ops[:5] + [corr, ops[6]]), **kw)).astype(object)
+        k, _, w = rows.shape
+        limbs = rows.reshape(k, lpe, 32, w).transpose(0, 3, 2, 1).reshape(k, 32 * w, lpe)
+        return sum(limbs[..., l] << (32 * l) for l in range(lpe))
+
+    out = ops[5].copy()
+    for e in range(keep):
+        out[:, last * keep + e] = 0
+        base = sums(out)
+        probe = out.copy()
+        probe[:, last * keep + e, 0] = 1
+        moved = sums(probe) != base
+        for key in range(out.shape[0]):
+            hits = np.nonzero(moved[key])[0]
+            if hits.size:
+                total = base[key, hits[0]]
+                total = -total if party else total  # party 1's sum comes out negated
+                value = -total % (1 << bits)
+                out[key, last * keep + e] = [(value >> (32 * l)) & 0xFFFFFFFF for l in range(lpe)]
+    return out
+
+
 def test_csrc_walk_bodies_on_the_host_compiler(host_harness):
-    """csrc/walk_rows.cuh — K6's and K7's per-word bodies — and K1's masked
-    hash (aes_rows.cuh ``mmo_hash_rows_masked``), built with g++ and run as
-    one-thread blocks over every (key, word), equal the plain versions: a
-    ragged width, mixed path masks, both parties, keep 1, 2 and 4, every
-    limb layout, the XOR group, and corrections whose limbs carry."""
+    """csrc/walk_rows.cuh — K6's and K7's per-word bodies, K7 in both its
+    forms — and K1's masked hash (aes_rows.cuh ``mmo_hash_rows_masked``),
+    built with g++ and run as one-thread blocks over every (key, word),
+    equal the plain versions: a ragged width, mixed path masks, both
+    parties, keep 1, 2 and 4, every limb layout, the XOR group, and
+    corrections whose limbs carry. The DCF form also with depths that do not
+    capture, none that does, and sums that wrap to 0 before party 1's
+    negation."""
     exe = host_harness
     w = WIDTHS[0]
     rng = np.random.default_rng(56)
@@ -649,3 +730,21 @@ def test_csrc_walk_bodies_on_the_host_compiler(host_harness):
         got = run_harness(exe, [6, K, w, levels, bits // 32, keep, party, int(xor_group)], *ops)
         want = backend_torch.walk_megakernel(*map(words, ops), **kw)
         assert np.array_equal(got.reshape(K, bits // 32 * 32, w), aes_torch.from_words(want)), kw
+
+    for i, (bits, keep, party, xor_group, captures) in enumerate((
+        (64, 2, 1, False, (True, False, True, True)), (64, 1, 0, False, (True, True, True)),
+        (32, 4, 1, False, (False, True, True)), (128, 1, 1, False, (True, True)),
+        (128, 1, 0, True, (True, False, True)), (64, 2, 1, False, (False, False, False)),
+    )):
+        levels = len(captures) - 1
+        ops = dcf_walk_inputs(levels, w, bits, keep, seed=10 + i)
+        if not xor_group and any(captures):
+            ops[5] = dcf_carrying_corrections(ops, bits, party, keep, captures)
+        kw = dict(bits=bits, party=party, xor_group=xor_group, keep=keep, captures=captures)
+        words4 = np.array([sum(1 << d for d, f in enumerate(captures) if f), 0, 0, 0], np.uint32)
+        got = run_harness(exe, [8, K, w, levels, bits // 32, keep, party, int(xor_group)],
+                          words4, *ops)
+        want = aes_torch.from_words(backend_torch.walk_megakernel(*map(words, ops), **kw))
+        assert np.array_equal(got.reshape(K, bits // 32 * 32, w), want), kw
+        if not any(captures):
+            assert not want.any()

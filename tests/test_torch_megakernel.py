@@ -4,8 +4,10 @@ the CPU.
 ``full_domain_fold_chunks(mode="megakernel", device="cpu")`` runs K5's plain
 version (ops/backend_torch.megakernel_fold, what ops/aes_cuda.megakernel_fold
 runs for CPU tensors). The reference is the JAX package's
-``full_domain_fold_chunks(mode="fold", use_pallas=False, pipeline=False)``:
-the XOR fold does not depend on lane order, and a database laid out by
+``full_domain_fold_chunks(mode="fold", use_pallas=False, pipeline=False)``
+(party 1, with the database) and the XOR of its host full-domain values
+(party 0), from the case tests/torch_fold_case.py shares with
+tests/test_torch_fold.py: the XOR fold does not depend on lane order, and a database laid out by
 ``megakernel_db_rows`` holds the same records as the lane-order one. Plans
 with one, two and four slabs, both parties of Int(64) keys, the database AND
 and a padded last chunk are covered (the entry points plan with
@@ -30,21 +32,10 @@ import distributed_point_functions_tpu_torch as port
 from distributed_point_functions_tpu_torch.ops import aes_cuda, backend_torch, evaluator
 from distributed_point_functions_tpu_torch.ops.aes_torch import as_words, from_words
 from distributed_point_functions_tpu_torch.utils.errors import InvalidArgumentError
+from torch_fold_case import KEY_CHUNK, LOG_DOMAIN, int64_case
 
-LOG_DOMAIN = 8
-KEY_CHUNK = 2  # 3 keys: one full chunk and one padded one
 # Budgets that plan log-domain 8 with one slab (the default), two and four.
 BUDGETS = (evaluator.MEGAKERNEL_BUDGET, 8192, 4096)
-
-
-def jax_fold(dpf, keys, db=None) -> np.ndarray:
-    return np.concatenate([
-        np.asarray(fold)[:valid]
-        for valid, fold in jax_ev.full_domain_fold_chunks(
-            dpf, keys, key_chunk=KEY_CHUNK, db_lane=db, mode="fold",
-            use_pallas=False, pipeline=False,
-        )
-    ])
 
 
 def megakernel_fold(dpf, keys, db=None, **kw) -> np.ndarray:
@@ -58,39 +49,12 @@ def megakernel_fold(dpf, keys, db=None, **kw) -> np.ndarray:
     ])
 
 
-def make_case(jax_vt, port_vt, limbs, seed):
-    """Both packages' DPFs and keys (3 keys, from the same seeds), a natural
-    database and its lane-order layout."""
-    rng = np.random.default_rng(seed)
-    alphas = [0, int(rng.integers(1, (1 << LOG_DOMAIN) - 1)), (1 << LOG_DOMAIN) - 1]
-    betas = [int(b) for b in rng.integers(1, 2**63, size=3, dtype=np.uint64)]
-    seeds = rng.integers(0, 2**32, size=(3, 2, 4), dtype=np.uint32)
-    jax_dpf = JaxDpf.create(JaxParams(LOG_DOMAIN, jax_vt))
-    port_dpf = port.DistributedPointFunction.create(port.DpfParameters(LOG_DOMAIN, port_vt))
-    db = rng.integers(0, 2**32, size=(1 << LOG_DOMAIN, limbs), dtype=np.uint32)
-    lane_map = evaluator.lane_order_map(port_dpf)
-    db_lane = np.zeros((lane_map.shape[0], limbs), np.uint32)
-    db_lane[lane_map >= 0] = db[lane_map[lane_map >= 0]]
-    return dict(
-        jax_dpf=jax_dpf, port_dpf=port_dpf,
-        jax_keys=jax_dpf.generate_keys_batch(alphas, [betas], seeds=seeds),
-        port_keys=port_dpf.generate_keys_batch(alphas, [betas], seeds=seeds),
-        db=db, db_lane=db_lane,
-    )
-
-
 @pytest.fixture(scope="module")
 def int64():
-    """Int(64) keys and the JAX package's folds: party 0 plain (under an
-    all-ones mask), party 1 masked by the database (one XLA compile for
-    both)."""
-    case = make_case(JaxInt(64), port.Int(64), 2, seed=64)
-    ones = np.full(case["db_lane"].shape, 0xFFFFFFFF, np.uint32)
-    case["want"] = {
-        0: jax_fold(case["jax_dpf"], case["jax_keys"][0], ones),
-        1: jax_fold(case["jax_dpf"], case["jax_keys"][1], case["db_lane"]),
-    }
-    return case
+    """Int(64) keys and the JAX package's folds: party 0 plain, party 1
+    masked by the database; the case tests/test_torch_fold.py shares
+    (tests/torch_fold_case.py)."""
+    return int64_case()
 
 
 # ---------------------------------------------------------------------------
@@ -190,7 +154,7 @@ def test_megakernel_fold_of_a_carried_key_batch_at_host_levels_6(int64, monkeypa
 def test_megakernel_fold_runs_no_kernel_on_the_cpu(int64):
     aes_cuda.reset_launch_counts()
     megakernel_fold(int64["port_dpf"], int64["port_keys"][0])
-    assert [k.launches for k in aes_cuda.KERNELS] == [0, 0, 0, 0, 0, 0]
+    assert [k.launches for k in aes_cuda.KERNELS] == [0, 0, 0, 0, 0, 0, 0]
 
 
 def test_megakernel_fold_rejects_what_it_cannot_fold(int64):

@@ -111,7 +111,7 @@ def test_evaluate_at_batch_matches_jax(int64, mode, party):
     chunked = run(key_chunk=5, device_output=True)
     assert isinstance(chunked, torch.Tensor) and chunked.device.type == "cpu"
     assert np.array_equal(aes_torch.from_words(chunked), got)
-    assert [k.launches for k in aes_cuda.KERNELS] == [0] * 6
+    assert [k.launches for k in aes_cuda.KERNELS] == [0] * 7
     if party == 1:
         total = port_ev.values_to_numpy(int64["want"][0], 64) + port_ev.values_to_numpy(got, 64)
         hit = np.array(int64["alphas"])[:, None] == np.array(int64["points"])[None, :]
@@ -259,14 +259,16 @@ def test_path_bit_masks_match_jax():
 @pytest.mark.parametrize("budget", [port_ev.WALKKERNEL_BUDGET, 8 << 20, 1 << 16])
 def test_plan_walkkernel_matches_jax(budget):
     """For the same budget the port plans the JAX package's tiles, over
-    point counts from one to several tiles, tree depths and limb counts; a
-    tree without levels is refused."""
-    for points in (0, 1, 31, 100, 4096, 8193, 20000, 70000):
-        for levels in (1, 12, 31):
+    point counts from one to several tiles, tree depths and limb counts, in
+    the EvaluateAt form and with the DCF form's captures; a tree without
+    levels is refused."""
+    for points in (0, 1, 31, 100, 512, 4096, 8193, 20000, 70000):
+        for levels in (1, 12, 23, 31):
             for lpe in (1, 2, 4):
-                got = port_ev.plan_walkkernel(points, levels, lpe, budget=budget)
-                want = jax_ev.plan_walkkernel(points, levels, lpe, vmem_budget=budget)
-                assert tuple(got) == tuple(want), (points, levels, lpe)
+                for captures in (False, True):
+                    got = port_ev.plan_walkkernel(points, levels, lpe, captures, budget=budget)
+                    want = jax_ev.plan_walkkernel(points, levels, lpe, captures, vmem_budget=budget)
+                    assert tuple(got) == tuple(want), (points, levels, lpe, captures)
     with pytest.raises(InvalidArgumentError, match="at least one tree level"):
         port_ev.plan_walkkernel(100, 0, 2)
 
@@ -275,8 +277,9 @@ def test_evaluate_at_edges_and_refusals(int64):
     """Refusals: mode "walkkernel" on a sub-word type, IntModN (not ported
     yet), an unknown mode, a tree without levels in mode "walkkernel", a
     point outside the domain, keys of two parties, a context on the host
-    EvaluateAt and K7's DCF form. Edges: no points, and mode "walk" on a
-    tree without levels."""
+    EvaluateAt and a captures tuple of K7's DCF form that does not hold a
+    flag per depth. Edges: no points, and mode "walk" on a tree without
+    levels."""
     dpf, keys = int64["port_dpf"], int64["port_keys"]
     int16 = port.DistributedPointFunction.create(port.DpfParameters(10, port.Int(16)))
     k16, _ = int16.generate_keys_batch([3], [[4]])
@@ -301,8 +304,10 @@ def test_evaluate_at_edges_and_refusals(int64):
     with pytest.raises(UnimplementedError, match="Queue 1 item 8"):
         dpf.evaluate_at(keys[0][0], 0, [1], ctx=EvaluationContext(
             parameters=list(dpf.validator.parameters), key=keys[0][0]))
-    with pytest.raises(UnimplementedError, match="DCF"):
-        aes_cuda.walk_megakernel(*[None] * 7, bits=64, party=0, xor_group=False, keep=2,
+    ops = [torch.zeros(s, dtype=torch.int32) for s in ((1, 128), (2, 1), (1, 2, 128), (1, 2),
+                                                        (1, 2), (1, 6, 2), (6, 1))]
+    with pytest.raises(InvalidArgumentError, match=r"levels \+ 1 = 3 flags"):
+        aes_cuda.walk_megakernel(*ops, bits=64, party=0, xor_group=False, keep=2,
                                  captures=(True,))
     for mode in MODES:
         got = port_ev.evaluate_at_batch(dpf, keys[0], [], mode=mode, device="cpu")
