@@ -51,18 +51,37 @@ Phases (any failure raises and exits non-zero before the result line):
    and 24 K4 launches per chunk) and mode="walkkernel" (one launch of K7's
    DCF form per chunk); every share pair reconstructs beta where x < alpha
    and 0 elsewhere, the modes agree, and the port's host ``dcf.evaluate``
-   equals both for 4 keys at 16 points.
+   equals both for 4 keys at 16 points;
+9. hierarchical kernel: K8 against its plain version on the card (exact), at
+   odd shapes (W = 1, 3, 37 words, depths 1, 5 and 16, depths that do not
+   capture, slots in any order, both parties, Int(64), XorWrapper(128),
+   Int(32)) and on a full-width window of the heavy-hitters configuration
+   (below) at a key chunk of 4; then timed at the main path's chunk of 32
+   beside its plain version and its bound, with K2 and K4 at the fused
+   mode's widest shape;
+10. heavy hitters: BM_HeavyHitters at the top of its sweep (128 hierarchy
+   levels, log-domain i + 1 at level i, Int(64), the prefixes of 10,000
+   uniform leaves and the keys' alphas; benchmarks/bench_heavy_hitters.py),
+   128 keys a party, through ``hierarchical.evaluate_levels_fused`` in
+   mode="fused" (one K2 launch per tree level, one K4 per hierarchy level)
+   and mode="hierkernel" (one K8 launch per prefix window of 16 levels and
+   key chunk of 32); every level's share pair reconstructs beta at alpha's
+   prefix and 0 at every other candidate, the modes agree bit for bit, and
+   the port's CPU path on 2 keys equals the card.
 
 Each path of the main path (fold default, fused and megakernel; PIR fold
-and megakernel; EvaluateAt walk and walkkernel; DCF walk and walkkernel)
-runs with every launch count set to 0 just before it, and every kernel of
-that path must have launched just after it. The line before
+and megakernel; EvaluateAt walk and walkkernel; DCF walk and walkkernel;
+heavy hitters fused and hierkernel) runs with every launch count set to 0
+just before it, and every kernel of that path must have launched just after
+it. The line before
 the last is the ``{"kernels": [...]}`` JSON, the last line ``{"ok": true,
 "device": ...}``. Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import bisect
+import functools
 import json
 import statistics
 import subprocess
@@ -87,6 +106,15 @@ DCF_LOG_DOMAIN = 24
 DCF_KEYS = 512
 DCF_POINTS = 512
 DCF_ORACLE_POINTS = 16
+# Heavy hitters: BM_HeavyHitters at the top of its sweep
+# (distributed_point_function_benchmark.cc:306-340 of the reference;
+# benchmarks/bench_heavy_hitters.py and tests/test_hierkernel.py:271 here).
+HH_LEVELS = 128
+HH_NONZEROS = 10_000
+HH_KEYS = 128
+HH_CHUNK = 32
+HH_GROUP = 16
+HH_CPU_KEYS = 2
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 at 3.35 TB/s; 32-bit integer
 # logic at 64 lanes per SM per clock, 132 SMs, 1980 MHz boost clock.
@@ -227,6 +255,30 @@ def walk_megakernel_cost(key_planes, k: int, w: int, levels: int, bits: int, kee
     return nbytes, k * w * per_word
 
 
+def hier_megakernel_cost(key_planes, k: int, levels: int, wp: int, n_rows: int, hot: int,
+                         bits: int, keep: int, party: int, xor_group: bool):
+    """(bytes, gates) of K8 on K keys and one window of W words: every level
+    of the walk per lane word (L masked hashes), then per (capture slot,
+    word) that the select rows make hot (`hot` of them, counted from this
+    window's tables: a word no lane of which a slot selects needs nothing
+    from that capture) the value hash, the transposes, and per lane the
+    control mask, each kept element's select mask, and per kept limb the
+    gate (AND), the correction (XOR; or add with carry, 3, and for party 1
+    the negation, 3 more), the select (AND) and the placement (XOR). Bytes:
+    the entry planes and control, path, key tables, corrections and select
+    words read once; the value rows, exit planes and exit control written
+    once."""
+    lpe = bits // 32
+    walk = levels * (masked_mmo_gates(key_planes) + WALK_LEVEL_EXTRA)
+    per_limb = 1 + (1 if xor_group else 3 + (3 if party else 0)) + 1 + 1
+    per_capture = (mmo_gates(key_planes["value"]) + TRANSPOSE_OPS
+                   + 32 * (CONTROL_MASK_OPS + keep * (CONTROL_MASK_OPS + lpe * per_limb)))
+    gates = k * (wp * walk + hot * per_capture)
+    nbytes = 4 * (2 * k * 129 * wp + levels * wp + k * levels * 130 + k * n_rows * lpe
+                  + n_rows * wp + k * keep * lpe * 32 * wp)
+    return nbytes, gates
+
+
 def megakernel_cost(key_planes, plan, k: int, bits: int, keep: int, party: int,
                     xor_group: bool, with_db: bool):
     """(bytes, gates) of K5 on K keys under `plan`: every child word hashes
@@ -263,6 +315,7 @@ def main() -> None:
             aes_cuda, aes_torch, backend_torch, evaluator,
         )
         from distributed_point_functions_tpu_torch.dcf import batch as dcf_batch
+        from distributed_point_functions_tpu_torch.ops import hierarchical
         from distributed_point_functions_tpu_torch.parallel import pir
     except ImportError as e:
         fail(f"the port is not in this checkout: {e}")
@@ -882,6 +935,209 @@ def main() -> None:
     del shares, dch, got
     torch.cuda.empty_cache()
 
+    # -- 9. K8 against its plain version -------------------------------------
+    # The heavy-hitters configuration first (host): its keys, its plan and
+    # the hierkernel windows, whose full-width tables K8 is held at.
+    hdpf = T.DistributedPointFunction.create_incremental(
+        [T.DpfParameters(i + 1, T.Int(64)) for i in range(HH_LEVELS)])
+    hrng = np.random.default_rng(SEED + HH_LEVELS)
+    halphas = hierarchical.draw_random_finals(HH_LEVELS, HH_KEYS, hrng)
+    hbetas = [[int(b) for b in hrng.integers(1, 2**63, size=HH_KEYS, dtype=np.uint64)]
+              for _ in range(HH_LEVELS)]
+    hseeds = hrng.integers(0, 2**32, size=(HH_KEYS, 2, 4), dtype=np.uint32)
+    t = time.perf_counter()
+    hkeys = hdpf.generate_keys_batch(halphas, hbetas, seeds=hseeds)
+    hkeygen_s = time.perf_counter() - t
+    finals = hierarchical.draw_random_finals(HH_LEVELS, HH_NONZEROS, np.random.default_rng(7))
+    t = time.perf_counter()
+    hplan = hierarchical.bitwise_hierarchy_plan(HH_LEVELS, finals + halphas)
+    hplan_s = time.perf_counter() - t
+    hprepared = {mode: hierarchical.prepare_levels_fused(
+        hierarchical.BatchedContext.create(hdpf, hkeys[0]), hplan, HH_GROUP, mode, device=dev)
+        for mode in hierarchical.MODES}
+    windows = hprepared["hierkernel"].hier_windows
+    hh_values = sum(int(g.shape[0]) for win in windows for g in win.gsels)
+    print(f"heavy hitters: {HH_KEYS} Int(64) key pairs of {HH_LEVELS} hierarchy levels in "
+          f"{hkeygen_s:.2f} s, the plan of {HH_NONZEROS} leaves in {hplan_s:.2f} s (host); "
+          f"{hh_values} values a key; {len(windows)} windows, "
+          f"{[w.plan for w in windows[:1]]}, state_cap {windows[0].state_cap}")
+
+    def hier_args(k, w, captures, bits, keep):
+        """K8's operands: random words, and select rows that put the lanes in
+        contiguous segments, one a slot (the last lane in none)."""
+        levels, slots = len(captures) - 1, max(captures) + 1
+        lanes = 32 * w
+        lane_slot = np.minimum(np.arange(lanes) * slots // lanes, slots - 1)
+        lane_slot[-1] = -1
+        row_slot = np.repeat(np.arange(slots), keep)[:, None]
+        sel = aes_torch.pack_bit_mask(lane_slot[None, :] == row_slot)
+        return (rnd(k, 128, w), rnd(k, w), rnd(levels, w), rnd(k, levels, 128), rnd(k, levels),
+                rnd(k, levels), rnd(k, slots * keep, bits // 32),
+                torch.from_numpy(aes_torch.as_words(sel)).to(dev))
+
+    hier_cases = (
+        (T.Int(64), 2, 0, 1, (0, 1)), (T.Int(64), 2, 1, 3, (1, -1, 0, -1, 2, 3)),
+        (T.Int(32), 4, 1, 37, (0,) + (-1,) * 15 + (1,)),
+        (T.XorWrapper(128), 1, 1, 37, (-1, 0, 1, -1, -1, 2)),
+        (T.XorWrapper(128), 1, 0, 3, (2, 0, -1, 1)), (T.Int(32), 2, 0, 1, tuple(range(17))),
+        (T.Int(64), 2, 1, 37, tuple(range(15, -1, -1)) + (-1,)),
+    )
+    for vt, keep, party, w, captures in hier_cases:
+        kw = dict(bits=vt.bitsize, party=party, xor_group=isinstance(vt, T.XorWrapper),
+                  keep=keep, captures=captures)
+        a = hier_args(5, w, captures, vt.bitsize, keep)
+        hold("K8", aes_cuda.hier_megakernel(*a, **kw), backend_torch.hier_megakernel(*a, **kw))
+    print(f"K8 == plain at {len(hier_cases)} shapes (W = 1, 3, 37; depths 1, 5, 16; Int(64), "
+          "Int(32) keep 4 and 2, XorWrapper(128), both parties, depths that do not capture)")
+    # A full-width window of the configuration (window 4, levels 64-79, in
+    # the U128 regime): its tables and the keys' own tables, random entry
+    # state.
+    win = windows[4]
+    lo, hi = win.start_level, win.start_level + win.depth
+    wpw, n_rows = win.plan.padded_words, win.sel.shape[0]
+    keep_g = hprepared["hierkernel"].hier_keep
+    slots = win.sel.reshape(n_rows // keep_g, keep_g, wpw)
+    hot = int(functools.reduce(torch.bitwise_or, slots.unbind(1)).ne(0).sum())
+    hctx = hierarchical.BatchedContext.create(hdpf, hkeys[1][:HH_CHUNK])
+    hlk = hierarchical.prepare_level_keys(hctx, hprepared["hierkernel"])
+    kw = dict(bits=64, party=1, xor_group=False, keep=keep_g, captures=win.captures)
+
+    def window_args(k):
+        return (rnd(k, 128, wpw), rnd(k, wpw), win.path, hlk.cw[:k, lo:hi].contiguous(),
+                hlk.ccl[:k, lo:hi].contiguous(), hlk.ccr[:k, lo:hi].contiguous(),
+                hlk.corrections[4][:k].contiguous(), win.sel)
+
+    a = window_args(4)
+    hold("K8", aes_cuda.hier_megakernel(*a, **kw), backend_torch.hier_megakernel(*a, **kw))
+    a = window_args(HH_CHUNK)
+    hold("K8", aes_cuda.hier_megakernel(*a, **kw), backend_torch.hier_megakernel(*a, **kw))
+    ms = time_ms(torch, lambda: aes_cuda.hier_megakernel(*a, **kw), 5)
+    plain_ms = time_ms(torch, lambda: backend_torch.hier_megakernel(*a, **kw), 1)
+    b_ms, b_by = bound_ms(*hier_megakernel_cost(key_planes, HH_CHUNK, win.depth, wpw, n_rows,
+                                                hot, 64, keep_g, 1, False))
+    rows["K8"] = dict(kernel=aes_cuda.K8, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"K8 == plain on window 4 of the configuration at K = 4 and {HH_CHUNK}; at "
+          f"K={HH_CHUNK}, W={wpw}, L={win.depth}, {n_rows // keep_g} slots ({hot} hot slot words), "
+          f"Int(64) keep 2, party 1: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
+          f"by {b_by}); {aes_cuda.K8.ptxas}")
+    del a
+    # K2 and K4 at mode "fused"'s widest step: all keys, the parents' words.
+    fw = max(step.pos.shape[0] for step in hprepared["fused"].steps) // 32
+    a = expand_args(HH_KEYS, fw)
+    hold("K2", aes_cuda.expand_one_level(*a), backend_torch.expand_one_level(*a))
+    ms = time_ms(torch, lambda: aes_cuda.expand_one_level(*a), 10)
+    plain_ms = time_ms(torch, lambda: backend_torch.expand_one_level(*a), 2)
+    b_ms, b_by = bound_ms(*expand_cost(key_planes, HH_KEYS, fw, False))
+    rows["K2 hh"] = dict(kernel=aes_cuda.K2, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"K2 at the hierarchy's shape K={HH_KEYS}, W={fw}: {ms:.4f} ms (plain {plain_ms:.2f} ms, "
+          f"bound {b_ms:.4f} ms by {b_by})")
+    planes_h = rnd(HH_KEYS, 128, 2 * fw)
+    hold("K4", aes_cuda.hash_value_planes(planes_h), backend_torch.hash_value_planes(planes_h))
+    ms = time_ms(torch, lambda: aes_cuda.hash_value_planes(planes_h), 10)
+    plain_ms = time_ms(torch, lambda: backend_torch.hash_value_planes(planes_h), 2)
+    b_ms, b_by = bound_ms(*hash_cost(key_planes, HH_KEYS, 2 * fw))
+    rows["K4 hh"] = dict(kernel=aes_cuda.K4, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"K4 at the hierarchy's shape K={HH_KEYS}, W={2 * fw}: {ms:.4f} ms (plain "
+          f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
+    del a, planes_h, hlk
+    torch.cuda.empty_cache()
+
+    # -- 10. the main path: heavy hitters ------------------------------------
+    tree_levels = hdpf.validator.hierarchy_to_tree[-1]
+    chunks_hh = -(-HH_KEYS // HH_CHUNK)
+    hh_counts = {
+        "fused": {aes_cuda.K2.name: 2 * tree_levels, aes_cuda.K4.name: 2 * HH_LEVELS},
+        "hierkernel": {aes_cuda.K8.name: 2 * len(windows) * chunks_hh},
+    }
+    hh_kernels = {"fused": (aes_cuda.K2, aes_cuda.K4), "hierkernel": (aes_cuda.K8,)}
+    hh_out, hh_launches, hh_rates = {}, {}, {}
+    for mode, need in hh_kernels.items():
+        aes_cuda.reset_launch_counts()
+        secs = []
+        for party in (0, 1):
+            ctx = hierarchical.BatchedContext.create(hdpf, hkeys[party])
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            hh_out[(mode, party)] = hierarchical.evaluate_levels_fused(
+                ctx, hplan, group=HH_GROUP, mode=mode, key_chunk=HH_CHUNK)
+            secs.append(time.perf_counter() - t)
+        counts = {k.name: k.launches for k in aes_cuda.KERNELS}
+        for kern in need:
+            if kern.launches == 0:
+                fail(f"heavy hitters mode {mode} ran without launching {kern.name}")
+            main_launches[kern.name] = main_launches.get(kern.name, 0) + kern.launches
+            hh_launches[kern.name] = hh_launches.get(kern.name, 0) + kern.launches
+        if counts != {k.name: hh_counts[mode].get(k.name, 0) for k in aes_cuda.KERNELS}:
+            fail(f"heavy hitters mode {mode}: launches {counts}, expected {hh_counts[mode]}")
+        hh_rates[mode] = [HH_KEYS * hh_values / x for x in secs]
+        print(f"heavy hitters, mode {mode}: {HH_KEYS} keys x {hh_values} values per party in "
+              f"{secs[0]:.3f} s / {secs[1]:.3f} s = {hh_rates[mode][0]:.4e} / "
+              f"{hh_rates[mode][1]:.4e} values/s; launches {counts}")
+    t = time.perf_counter()
+    leaves = sorted(set(finals + halphas))
+    for h in range(HH_LEVELS):
+        cols = []
+        if h == 0:
+            cols = [a >> (HH_LEVELS - 1) for a in halphas]
+        else:
+            parents = sorted({f >> (HH_LEVELS - h) for f in leaves})
+            for a in halphas:
+                prefix = a >> (HH_LEVELS - h - 1)
+                cols.append(2 * bisect.bisect_left(parents, prefix >> 1) + (prefix & 1))
+        betas_h = np.array(hbetas[h], np.uint64)
+        for mode in hh_kernels:
+            total = (evaluator.values_to_numpy(hh_out[(mode, 0)][h], 64)
+                     + evaluator.values_to_numpy(hh_out[(mode, 1)][h], 64))
+            total[np.arange(HH_KEYS), cols] -= betas_h
+            if total.any():
+                fail(f"heavy hitters mode {mode}: level {h}: {int((total != 0).sum())} share "
+                     "pairs do not reconstruct")
+    for party in (0, 1):
+        if not all(np.array_equal(a, b) for a, b in zip(hh_out[("fused", party)],
+                                                        hh_out[("hierkernel", party)])):
+            fail(f"heavy hitters modes fused and hierkernel differ (party {party})")
+    check_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cctx = hierarchical.BatchedContext.create(hdpf, hkeys[0][:HH_CPU_KEYS])
+    cpu_out = hierarchical.evaluate_levels_fused(cctx, hplan, mode="fused", device="cpu")
+    if not all(np.array_equal(a, b[:HH_CPU_KEYS]) for a, b in zip(cpu_out, hh_out[("fused", 0)])):
+        fail("heavy hitters: the port's CPU path differs from the card")
+    print(f"heavy hitters: every level's share pairs reconstruct (r0 + r1 == beta at alpha's "
+          f"prefix, 0 at the other candidates) in both modes and the modes agree "
+          f"({check_s:.2f} s on the host); the CPU path (mode fused) on {HH_CPU_KEYS} keys equals "
+          f"the card ({time.perf_counter() - t:.2f} s)")
+    del cpu_out
+    # Where one pass's time goes (party 0): the entry point's steps.
+    for mode in hh_kernels:
+        ctx = hierarchical.BatchedContext.create(hdpf, hkeys[0])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prepared = hierarchical.prepare_levels_fused(ctx, hplan, HH_GROUP, mode, device=dev)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t
+        t = time.perf_counter()
+        lk = hierarchical.prepare_level_keys(ctx, prepared)
+        torch.cuda.synchronize()
+        keys_s = time.perf_counter() - t
+        dev_ms = time_ms(torch, lambda: hierarchical.advance(ctx, prepared, lk, HH_CHUNK), 3)
+        outs = hierarchical.advance(ctx, prepared, lk, HH_CHUNK)[0]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pulled = hierarchical.pull(outs)
+        pull_s = time.perf_counter() - t
+        if not all(np.array_equal(a, b) for a, b in zip(pulled, hh_out[(mode, 0)])):
+            fail(f"the timed heavy-hitters {mode} pass differs from the entry point's result")
+        print(f"one heavy-hitters pass, mode {mode} ({HH_KEYS} keys, party 0): host prepare "
+              f"(plan tables, upload) {prep_s * 1e3:.1f} ms, KeyBatch + corrections + upload "
+              f"{keys_s * 1e3:.1f} ms; device {dev_ms:.2f} ms (CUDA events over advance); pull "
+              f"{pull_s * 1e3:.1f} ms")
+        del outs, pulled, lk, prepared
+    print(f"heavy hitters values/s, fused / hierkernel (parties 0 / 1): "
+          f"{hh_rates['fused'][0]:.4e} / {hh_rates['fused'][1]:.4e}, "
+          f"{hh_rates['hierkernel'][0]:.4e} / {hh_rates['hierkernel'][1]:.4e}")
+    del hh_out
+    torch.cuda.empty_cache()
+
     if "jax" in sys.modules:
         fail("JAX was imported")
     if any(m == "distributed_point_functions_tpu" or m.startswith("distributed_point_functions_tpu.")
@@ -904,13 +1160,14 @@ def main() -> None:
         "library_ms": None,
     }]
     kernels.append({
-        "name": "K1 aes_rows, per-lane key select (device function inlined in K6 and both "
-                "forms of K7; timed as K6)",
+        "name": "K1 aes_rows, per-lane key select (device function inlined in K6, both "
+                "forms of K7 and K8; timed as K6)",
         "route": "cuda",
         "source": "distributed_point_functions_tpu_torch/csrc/aes_rows.cuh",
         "replaces": "distributed_point_functions_tpu/ops/aes_pallas.py:182",
         "launches": (walk_launches[aes_cuda.K6.name] + walk_launches[aes_cuda.K7.name]
-                     + dcf_launches[aes_cuda.K6.name] + dcf_launches[aes_cuda.K7_DCF.name]),
+                     + dcf_launches[aes_cuda.K6.name] + dcf_launches[aes_cuda.K7_DCF.name]
+                     + hh_launches[aes_cuda.K8.name]),
         "max_abs_err": checks["K6"],
         "ms": rows["K6"]["ms"],
         "plain_ms": rows["K6"]["plain_ms"],
@@ -920,14 +1177,18 @@ def main() -> None:
     })
     shapes = {"K4 walk": ("EvaluateAt's shape", walk_launches),
               "K4 dcf": ("the DCF's shape", dcf_launches),
-              "K6 dcf": ("the DCF's shape", dcf_launches)}
+              "K6 dcf": ("the DCF's shape", dcf_launches),
+              "K2 hh": ("the hierarchy's shape", hh_launches),
+              "K4 hh": ("the hierarchy's shape", hh_launches)}
     for name, line, source in (("K2", 315, "expand.cu"), ("K3", 421, "expand.cu"),
                                ("K4", 462, "expand.cu"), ("K4 walk", 462, "expand.cu"),
                                ("K4 dcf", 462, "expand.cu"),
                                ("K5", 872, "megakernel.cu"), ("K6", 522, "walk.cu"),
                                ("K6 dcf", 522, "walk.cu"),
                                ("K7", 1518, "walk_megakernel.cu"),
-                               ("K7 DCF", 1518, "walk_megakernel.cu")):
+                               ("K7 DCF", 1518, "walk_megakernel.cu"),
+                               ("K2 hh", 315, "expand.cu"), ("K4 hh", 462, "expand.cu"),
+                               ("K8", 1393, "hier_megakernel.cu")):
         r = rows[name]
         launches = main_launches.get(r["kernel"].name, 0)
         label = r["kernel"].name

@@ -4,8 +4,8 @@ The PyTorch/CUDA port of ``distributed_point_functions_tpu``, beside it in
 the same repository. It imports neither JAX nor that package: the host
 protocol layers it needs (``core/``) are its own copies. Slice by slice it
 ports the JAX package's paths; so far full-domain evaluation folded on the
-device, its two-server PIR inner product, batched EvaluateAt and batched
-DCF evaluation:
+device, its two-server PIR inner product, batched EvaluateAt, batched DCF
+evaluation and the heavy-hitters hierarchical advance:
 
     from distributed_point_functions_tpu_torch import (
         DistributedComparisonFunction, DistributedPointFunction, DpfParameters,
@@ -23,6 +23,15 @@ DCF evaluation:
     dcf_a, dcf_b = dcf.generate_keys_batch(alphas, betas, seeds=seeds)
     shares = dcf_batch.batch_evaluate(dcf, dcf_a, xs, mode="walkkernel")
     # shares of party 0 + party 1 == beta where x < alpha, else 0
+
+    from distributed_point_functions_tpu_torch.ops import hierarchical
+    hh = DistributedPointFunction.create_incremental(
+        [DpfParameters(i + 1, Int(64)) for i in range(128)])
+    hh_a, hh_b = hh.generate_keys_batch(alphas, betas_by_level, seeds=seeds)
+    ctx = hierarchical.BatchedContext.create(hh, hh_a)
+    plan = hierarchical.bitwise_hierarchy_plan(128, finals)
+    shares = hierarchical.evaluate_levels_fused(ctx, plan, mode="hierkernel")
+    # per level: shares of beta at alpha's prefix, 0 at the other candidates
 
 Entry points run on the first CUDA device unless the caller passes
 ``device="cpu"``; with no card and no ``device="cpu"`` they raise.

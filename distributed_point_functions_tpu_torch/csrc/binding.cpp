@@ -1,5 +1,6 @@
-// PyTorch binding of the kernels in expand.cu, megakernel.cu, walk.cu and
-// walk_megakernel.cu: the only source that includes PyTorch's headers. ops/aes_cuda.py checks the
+// PyTorch binding of the kernels in expand.cu, megakernel.cu, walk.cu,
+// walk_megakernel.cu and hier_megakernel.cu: the only source that includes
+// PyTorch's headers. ops/aes_cuda.py checks the
 // operands, allocates the outputs and counts launches; each function here
 // makes the operands' device current, launches on PyTorch's current stream
 // for it and checks the launch.
@@ -160,6 +161,47 @@ void walk_megakernel(const torch::Tensor& seed_planes,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// K8: one prefix window. `slots` holds the capture slot of each depth 0 ..
+// levels (-1 for none); the caller (ops/aes_cuda.py) has checked the shapes,
+// the depth (1 .. kHierMaxLevels) and that some depth captures.
+void hier_megakernel(const torch::Tensor& planes, const torch::Tensor& control,
+                     const torch::Tensor& path, const torch::Tensor& cw,
+                     const torch::Tensor& ccl, const torch::Tensor& ccr,
+                     const torch::Tensor& corr, const torch::Tensor& sel,
+                     torch::Tensor out, torch::Tensor exit_planes,
+                     torch::Tensor exit_control, int64_t lpe, int64_t keep,
+                     int64_t party, bool xor_group,
+                     const std::vector<int64_t>& slots) {
+  const c10::cuda::CUDAGuard guard(planes.device());
+  dpf::HierMegakernelArgs a{};
+  a.planes = words_of(planes);
+  a.control = words_of(control);
+  a.path = words_of(path);
+  a.cw = words_of(cw);
+  a.ccl = words_of(ccl);
+  a.ccr = words_of(ccr);
+  a.corr = words_of(corr);
+  a.sel = words_of(sel);
+  a.out = words_of(out);
+  a.exit_planes = words_of(exit_planes);
+  a.exit_control = words_of(exit_control);
+  a.levels = static_cast<int>(path.size(0));
+  a.words = static_cast<int>(path.size(1));
+  a.n_rows = static_cast<int>(sel.size(0));
+  a.lpe = static_cast<int>(lpe);
+  a.keep = static_cast<int>(keep);
+  a.party = static_cast<int>(party);
+  a.xor_group = xor_group ? 1 : 0;
+  for (int d = 0; d < dpf::kHierMaxLevels + 2; ++d) {
+    a.slots[d] = d < static_cast<int>(slots.size())
+                     ? static_cast<int32_t>(slots[d])
+                     : -1;
+  }
+  dpf::launch_hier_megakernel(a, static_cast<int>(planes.size(0)),
+                              at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -170,6 +212,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "K5's shared memory per block under a plan");
   m.def("walk_level", &walk_level, "K6");
   m.def("walk_megakernel", &walk_megakernel, "K7 (EvaluateAt or DCF form)");
+  m.def("hier_megakernel", &hier_megakernel, "K8");
   m.def("max_shared_memory_per_block", &max_shared_memory_per_block,
         "the card's opt-in shared memory limit per block");
 }

@@ -1,5 +1,5 @@
-// Host launchers of the kernels in expand.cu, megakernel.cu, walk.cu and
-// walk_megakernel.cu, called by binding.cpp.
+// Host launchers of the kernels in expand.cu, megakernel.cu, walk.cu,
+// walk_megakernel.cu and hier_megakernel.cu, called by binding.cpp.
 //
 // Each launches on `stream` and returns without synchronising; the caller
 // checks the launch (C10_CUDA_KERNEL_LAUNCH_CHECK) and guarantees
@@ -50,5 +50,10 @@ void launch_walk_megakernel(const WalkMegakernelArgs& a, int num_keys,
 // K7 (DCF form, a.captures): as the EvaluateAt form; a.levels < 128.
 void launch_walk_megakernel_dcf(const WalkMegakernelArgs& a, int num_keys,
                                 cudaStream_t stream);
+
+// K8: one thread per (key, word of a.words); 1 <= a.levels <= kHierMaxLevels,
+// a.slots holds a.levels + 1 entries and at least one slot.
+void launch_hier_megakernel(const HierMegakernelArgs& a, int num_keys,
+                            cudaStream_t stream);
 
 }  // namespace dpf

@@ -1,9 +1,9 @@
 // The operands of the megakernels: K5, the slab megakernel (what the
-// launcher in megakernel.cu passes to the body in megakernel_rows.cuh), and
-// K7, the walk megakernel in both its forms (walk_megakernel.cu, bodies in
-// walk_rows.cuh). Plain
-// C++ (no CUDA header), so the binding and the host-compiler test build it
-// too.
+// launcher in megakernel.cu passes to the body in megakernel_rows.cuh), K7,
+// the walk megakernel in both its forms (walk_megakernel.cu, bodies in
+// walk_rows.cuh), and K8, the hierarchical megakernel (hier_megakernel.cu,
+// body in hier_rows.cuh). Plain C++ (no CUDA header), so the binding and the
+// host-compiler test build it too.
 
 #pragma once
 
@@ -65,6 +65,30 @@ struct WalkMegakernelArgs {
   int levels, words;
   int lpe, keep, party, xor_group;
   uint32_t captures[4];         // DCF form: the depths that capture
+};
+
+// K8, the hierarchical megakernel: one prefix window. uint32 words,
+// row-major; L = levels (1 .. kHierMaxLevels), Wp = words (the window's lane
+// words), n_rows = slots * keep correction and select rows, row s * keep +
+// e for element e of capture slot s. slots[d] is the slot captured at depth
+// d = 0 .. L, or -1.
+constexpr int kHierMaxLevels = 62;
+
+struct HierMegakernelArgs {
+  const uint32_t* planes;   // [K, 128, Wp] gathered window-entry seed planes
+  const uint32_t* control;  // [K, Wp] packed entry control
+  const uint32_t* path;     // [L, Wp] packed per-lane path bits of each level
+  const uint32_t* cw;       // [K, L, 128] correction-seed plane masks
+  const uint32_t* ccl;      // [K, L] control-correction masks
+  const uint32_t* ccr;      // [K, L]
+  const uint32_t* corr;     // [K, n_rows, lpe] correction limbs
+  const uint32_t* sel;      // [n_rows, Wp] packed slot-lane select bits
+  uint32_t* out;            // [K, keep * lpe * 32, Wp] value rows
+  uint32_t* exit_planes;    // [K, 128, Wp] seed planes after the window
+  uint32_t* exit_control;   // [K, Wp]
+  int levels, words, n_rows;
+  int lpe, keep, party, xor_group;
+  int32_t slots[kHierMaxLevels + 2];  // depths 0 .. L, -1 past L
 };
 
 }  // namespace dpf

@@ -1,4 +1,4 @@
-"""Wrappers of the hand-written Hopper kernels K2 to K7 (K7 in two forms).
+"""Wrappers of the hand-written Hopper kernels K2 to K8 (K7 in two forms).
 
 Each wrapper takes the same tensors as its plain version in
 ops/backend_torch.py and returns the same result:
@@ -22,11 +22,13 @@ K7     ``walk_megakernel``          ops/aes_pallas.py
                                     (EvaluateAt form, ``captures=None``; DCF
                                     form, a ``captures`` tuple: its own
                                     kernel and count, ``K7_DCF``)
+K8     ``hier_megakernel``          ops/aes_pallas.py
+                                    hier_megakernel_pallas_batched
 =====  ===========================  ==========================================
 
 K1, the bitsliced AES row circuit (csrc/aes_rows.cuh, replacing
 ``_aes_rows`` / ``_sbox_rows``), is inlined into all of them; K6 and K7 use
-its form with the PRG key selected per lane.
+its form with the PRG key selected per lane, and so does K8.
 
 Device rule: a wrapper given CPU tensors runs the plain version, because the
 tensors lie on the CPU; given CUDA tensors it launches its kernel or raises.
@@ -38,8 +40,8 @@ each way), so the kernels keep the AES state in registers and touch each
 plane word once in each direction; see csrc/expand.cu and csrc/megakernel.cu.
 
 Build: the first launch builds csrc/binding.cpp (the one source with
-PyTorch's headers), csrc/expand.cu, csrc/megakernel.cu, csrc/walk.cu and
-csrc/walk_megakernel.cu with ``torch.utils.cpp_extension.load`` for
+PyTorch's headers), csrc/expand.cu, csrc/megakernel.cu, csrc/walk.cu,
+csrc/walk_megakernel.cu and csrc/hier_megakernel.cu with ``torch.utils.cpp_extension.load`` for
 ``sm_90a`` into the package's ``_build/`` directory; ninja compiles the
 sources in parallel, rebuilds what changed and reuses the rest. ``-Xptxas -v`` reports each kernel's registers
 and spills, kept in ``Kernel.ptxas``. The binding makes the operands' device
@@ -90,13 +92,15 @@ K5 = Kernel("K5 megakernel_fold", "dpf_megakernel_fold_kernel")
 K6 = Kernel("K6 walk_level", "dpf_walk_level_kernel")
 K7 = Kernel("K7 walk_megakernel", "dpf_walk_megakernel_kernel")
 K7_DCF = Kernel("K7 walk_megakernel, DCF form", "dpf_walk_dcf_kernel")
-KERNELS = (K2, K3, K4, K5, K6, K7, K7_DCF)
+K8 = Kernel("K8 hier_megakernel", "dpf_hier_megakernel_kernel")
+KERNELS = (K2, K3, K4, K5, K6, K7, K7_DCF, K8)
 # Each .cu source and the kernels ptxas reports for it.
 CUDA_SOURCES = {
     "expand.cu": (K2, K3, K4),
     "megakernel.cu": (K5,),
     "walk.cu": (K6,),
     "walk_megakernel.cu": (K7, K7_DCF),
+    "hier_megakernel.cu": (K8,),
 }
 SOURCES = ("binding.cpp",) + tuple(CUDA_SOURCES)
 
@@ -537,3 +541,94 @@ def walk_megakernel(
     library().walk_megakernel(*args, out, lpe, keep, party, xor_group, capture_words)
     kernel.launches += 1
     return out
+
+
+HIER_MAX_LEVELS = 62  # csrc/megakernel_args.h kHierMaxLevels
+
+
+def hier_megakernel(
+    entry_planes, entry_control, path_masks, cw_planes, ccl, ccr, corrections, sel_bits, *,
+    bits: int, party: int, xor_group: bool, keep: int, captures,
+):
+    """K8, the hierarchical megakernel: one launch for a chunk of K keys and
+    one prefix window of the heavy-hitters advance.
+
+    entry_planes int32[K, 128, Wp] (the window-entry seeds each lane
+    starts from), entry_control int32[K, Wp], path_masks int32[L, Wp] (each
+    lane's path from its entry ancestor, shared by the keys), cw_planes
+    int32[K, L, 128], ccl/ccr int32[K, L], corrections int32[K, n_rows,
+    lpe] and sel_bits int32[n_rows, Wp] (row s * keep + e: element e of
+    capture slot s), captures: L + 1 slots, the slot captured at each depth
+    or -1, at least one -> (int32[K, keep * lpe * 32, Wp] value rows, row
+    (e * lpe + l) * 32 + i at word w is limb l of element e of lane 32 w +
+    i; int32[K, 128, Wp] exit planes; int32[K, Wp] exit control). Each
+    capture applies the full correction, party 1's negation included, and
+    places the selected lanes by XOR. Replaces
+    aes_pallas.py:hier_megakernel_pallas_batched; the plain version is
+    ``backend_torch.hier_megakernel``.
+
+    Bound on the H100: integer operations, L masked MMO hashes per lane
+    word and one value hash per slot that selects a lane of it, against the
+    entry and exit planes, the path and select words and the value rows
+    (csrc/hier_megakernel.cu).
+    """
+    if bits % 32:
+        raise NotImplementedError(
+            f"K8's value correction handles 32-bit-multiple widths, got {bits}"
+        )
+    if party not in (0, 1):
+        raise InvalidArgumentError(f"party must be 0 or 1, got {party}")
+    lpe = bits // 32
+    if keep < 1 or keep * lpe > 4:
+        raise InvalidArgumentError(
+            f"keep * lpe must be 1 .. 4 (one 128-bit block), got keep={keep}, lpe={lpe}"
+        )
+    if entry_planes.dim() != 3 or path_masks.dim() != 2 or sel_bits.dim() != 2:
+        raise InvalidArgumentError(
+            f"entry_planes must be [K, 128, Wp], path_masks [L, Wp] and sel_bits "
+            f"[n_rows, Wp], got {tuple(entry_planes.shape)}, {tuple(path_masks.shape)} "
+            f"and {tuple(sel_bits.shape)}"
+        )
+    k = entry_planes.shape[0]
+    levels, wp = path_masks.shape
+    n_rows = sel_bits.shape[0]
+    if not 1 <= levels <= HIER_MAX_LEVELS:
+        raise InvalidArgumentError(
+            f"a window walks 1 .. {HIER_MAX_LEVELS} tree levels, got {levels}"
+        )
+    captures = tuple(int(s) for s in captures)
+    if len(captures) != levels + 1:
+        raise InvalidArgumentError(
+            f"captures must hold levels + 1 = {levels + 1} slots, got {len(captures)}"
+        )
+    if n_rows % keep or not all(-1 <= s < n_rows // keep for s in captures):
+        raise InvalidArgumentError(
+            f"capture slots must be -1 or index one of the {n_rows} // {keep} slots of "
+            f"sel_bits, got {captures}"
+        )
+    if max(captures) < 0:
+        raise InvalidArgumentError("a window captures at least one depth")
+    _check(entry_planes, (k, 128, wp), "entry_planes")
+    _check(entry_control, (k, wp), "entry_control")
+    _check(path_masks, (levels, wp), "path_masks")
+    _check(cw_planes, (k, levels, 128), "cw_planes")
+    _check(ccl, (k, levels), "ccl")
+    _check(ccr, (k, levels), "ccr")
+    _check(corrections, (k, n_rows, lpe), "corrections")
+    _check(sel_bits, (n_rows, wp), "sel_bits")
+    args = (entry_planes, entry_control, path_masks, cw_planes, ccl, ccr, corrections, sel_bits)
+    kw = dict(bits=bits, party=party, xor_group=xor_group, keep=keep, captures=captures)
+    if _on_cpu(*args):
+        return backend_torch.hier_megakernel(*args, **kw)
+    if not all(t.is_contiguous() for t in args):
+        raise InvalidArgumentError(f"{K8.name}: operands must be contiguous")
+    dev = entry_planes.device
+    out = torch.empty((k, keep * lpe * 32, wp), dtype=torch.int32, device=dev)
+    exit_planes = torch.empty_like(entry_planes)
+    exit_control = torch.empty_like(entry_control)
+    if k == 0 or wp == 0:
+        return out, exit_planes, exit_control
+    library().hier_megakernel(*args, out, exit_planes, exit_control, lpe, keep, party,
+                              xor_group, list(captures))
+    K8.launches += 1
+    return out, exit_planes, exit_control

@@ -1,10 +1,11 @@
 """The DPF expansion and point-walk primitives in plain PyTorch, on bit-planes.
 
 The port's counterpart of the JAX package's ``ops/backend_jax.py``, cut to
-the full-domain, point-walk and DCF slices. ``expand_one_level``,
-``expand_and_hash_last_level``, ``hash_value_planes``, ``megakernel_fold``,
-``walk_level`` and ``walk_megakernel`` are the *plain versions* of the CUDA
-kernels K2, K3, K4, K5, K6 and K7 in both its forms (ops/aes_cuda.py): same
+the full-domain, point-walk, DCF and hierarchical slices.
+``expand_one_level``, ``expand_and_hash_last_level``, ``hash_value_planes``,
+``megakernel_fold``, ``walk_level``, ``walk_megakernel`` and
+``hier_megakernel`` are the *plain versions* of the CUDA kernels K2, K3, K4,
+K5, K6, K7 in both its forms, and K8 (ops/aes_cuda.py): same
 arguments, same outputs, written as tensor algebra over a leading key axis.
 The wrappers in ops/aes_cuda.py run them for CPU tensors; chip_smoke.py
 holds the kernels against them on the card. The JAX package's functions
@@ -237,23 +238,23 @@ def walk_levels(planes, control, path_masks, cw_planes, ccl, ccr):
     return planes, control
 
 
-def _capture_rows(planes, control, corrections, sel_bits, *, bits: int, party: int,
-                  xor_group: bool, keep: int):
-    """One capture of the walk megakernel -> lpe int32[K, 32, Wp] limb rows
-    (row i at word w is point 32 w + i): the value hash of the walked seeds,
-    the 32x32 transposes to limbs, ``rows_correct_element`` of each of the
-    ``keep`` elements under the point's control bit with `party`'s
-    correction (corrections int32[K, keep, lpe]), the AND with the element's
-    select row (sel_bits int32[keep, Wp]), and the XOR over the elements."""
+def _capture_elements(planes, control, corrections, sel_bits, *, bits: int, party: int,
+                      xor_group: bool, keep: int):
+    """One capture of the walk and hierarchical megakernels -> per kept
+    element e, lpe int32[K, 32, Wp] limb rows (row i at word w is lane 32 w
+    + i): the value hash of the walked seeds, the 32x32 transposes to limbs,
+    ``rows_correct_element`` of the element under the lane's control bit
+    with `party`'s correction (corrections int32[K, keep, lpe]), and the AND
+    with the element's select row (sel_bits int32[keep, Wp])."""
     k, _, wp = planes.shape
     lpe = bits // 32
     hashed = hash_value_planes(planes)
-    # limbs[:, q, i, w] = 32-bit limb q of point 32 w + i's hash block
+    # limbs[:, q, i, w] = 32-bit limb q of lane 32 w + i's hash block
     limbs = aes_torch.transpose32_rows(hashed.reshape(k, 4, 32, wp))
     shifts = torch.arange(32, dtype=torch.int32, device=control.device)[:, None]
     ctrl_mask = -((control[:, None, :] >> shifts) & 1)  # [K, 32, Wp]: 0 / ~0
     sel_mask = -((sel_bits[:, None, :] >> shifts) & 1)  # [keep, 32, Wp]
-    out = [torch.zeros((k, 32, wp), dtype=torch.int32, device=control.device)] * lpe
+    out = []
     for e in range(keep):
         vals = value_codec.rows_correct_element(
             [limbs[:, e * lpe + l] for l in range(lpe)],
@@ -261,8 +262,17 @@ def _capture_rows(planes, control, corrections, sel_bits, *, bits: int, party: i
             [corrections[:, e, l, None, None] for l in range(lpe)],
             bits, party, xor_group,
         )
-        out = [out[l] ^ (vals[l] & sel_mask[e]) for l in range(lpe)]
+        out.append([v & sel_mask[e] for v in vals])
     return out
+
+
+def _capture_rows(planes, control, corrections, sel_bits, *, bits: int, party: int,
+                  xor_group: bool, keep: int):
+    """``_capture_elements`` XORed over the elements -> lpe int32[K, 32, Wp]
+    limb rows, the walk megakernel's capture."""
+    elements = _capture_elements(planes, control, corrections, sel_bits, bits=bits,
+                                 party=party, xor_group=xor_group, keep=keep)
+    return [functools.reduce(torch.bitwise_xor, limb) for limb in zip(*elements)]
 
 
 def walk_megakernel(
@@ -325,6 +335,66 @@ def walk_megakernel(
     if party == 1 and not xor_group:
         acc = value_codec.rows_limb_neg(acc, bits)
     return torch.stack(acc, dim=1).reshape(k, lpe * 32, wp)
+
+
+def hier_megakernel(
+    entry_planes,  # int32[K, 128, Wp] gathered window-entry seed planes
+    entry_control,  # int32[K, Wp] packed entry control
+    path_masks,  # int32[L, Wp] packed per-lane path bits, shared by the keys
+    cw_planes,  # int32[K, L, 128]
+    ccl,  # int32[K, L]
+    ccr,  # int32[K, L]
+    corrections,  # int32[K, n_rows, lpe], row slot * keep + e
+    sel_bits,  # int32[n_rows, Wp] packed slot-lane select bits
+    *,
+    bits: int,
+    party: int,
+    xor_group: bool,
+    keep: int,
+    captures,  # L + 1 capture slots, one per depth, -1 for none
+):
+    """One prefix window of the hierarchical megakernel: the plain version
+    of K8 -> (int32[K, keep * lpe * 32, Wp] value rows, int32[K, 128, Wp]
+    exit planes, int32[K, Wp] exit control). The JAX package's
+    ``hier_megakernel_reference_rows`` over a key axis.
+
+    At each depth d = 0 .. L with a slot s = captures[d] >= 0 the walked
+    seeds are captured (``_capture_elements`` with the FULL correction of
+    rows s * keep + e, party 1's negation included, and their select rows),
+    and XORed into value row (e * lpe + l) * 32 + i: each lane is selected
+    in at most one slot, so the XOR places. A capture contributes zeros to
+    a word that none of its select rows selects, so it runs on the other
+    words only, as the kernel does. Then level d is walked
+    (``walk_level``). The exit state is the seeds and control after all L
+    levels.
+    """
+    k, _, wp = entry_planes.shape
+    levels = path_masks.shape[0]
+    lpe = bits // 32
+    planes, control = entry_planes, entry_control
+    acc = torch.zeros((k, keep * lpe, 32, wp), dtype=torch.int32, device=planes.device)
+    for d in range(levels + 1):
+        slot = captures[d]
+        if slot >= 0:
+            sel = sel_bits[slot * keep : (slot + 1) * keep]
+            hot = sel.ne(0).any(dim=0).nonzero().flatten()
+            elements = _capture_elements(
+                planes[:, :, hot], control[:, hot], corrections[:, slot * keep : (slot + 1) * keep],
+                sel[:, hot], bits=bits, party=party, xor_group=xor_group, keep=keep,
+            )
+            acc[..., hot] ^= torch.stack([v for element in elements for v in element], dim=1)
+        if d < levels:
+            planes, control = walk_level(planes, control, path_masks[d], cw_planes[:, d],
+                                         ccl[:, d], ccr[:, d])
+    return acc.reshape(k, keep * lpe * 32, wp), planes, control
+
+
+def pack_mask_device(bits: torch.Tensor) -> torch.Tensor:
+    """int32[..., 32*W] of 0/1 -> int32[..., W] lane masks (bit i of word w =
+    lane 32 w + i), on their device: the inverse of ``unpack_mask_device``."""
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    lanes = bits.reshape(*bits.shape[:-1], -1, 32).to(torch.int64)
+    return (lanes << shifts).sum(dim=-1).to(torch.int32)
 
 
 def unpack_mask_device(mask_words: torch.Tensor) -> torch.Tensor:

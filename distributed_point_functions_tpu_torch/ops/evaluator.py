@@ -876,6 +876,66 @@ def plan_walkkernel(
     return WalkkernelPlan(levels, cap, num_tiles, num_tiles * cap)
 
 
+# The JAX package's hierarchical-megakernel budget (DPF_TPU_HIERKERNEL_VMEM's
+# default): 8 MB of a v5e core's VMEM. Only ``plan_hierkernel`` reads it, so
+# that the tests can hold the two packages' plans equal; nothing on the
+# card's path is sized by it (``hier_window_words``).
+TPU_HIERKERNEL_VMEM = 8 << 20
+
+
+class HierkernelPlan(NamedTuple):
+    """Static shape plan of one prefix window of the hierarchical
+    megakernel (ops/aes_cuda.hier_megakernel), field for field the JAX
+    package's.
+
+      levels        tree levels the window walks in the kernel
+      tile_words    lane-tile width in packed 32-lane words
+      num_tiles     lane tiles per key
+      padded_words  num_tiles * tile_words, the kernel's lane-word width
+    """
+
+    levels: int
+    tile_words: int
+    num_tiles: int
+    padded_words: int
+
+
+def plan_hierkernel(
+    num_lanes: int,
+    levels: int,
+    n_rows: int,
+    lpe: int,
+    keep: int = 1,
+    vmem_budget: int = TPU_HIERKERNEL_VMEM,
+) -> HierkernelPlan:
+    """The JAX package's ``plan_hierkernel``: lane tiles sized from a TPU
+    VMEM budget. Kept so that a test can hold the two packages' plans
+    equal; the port's windows are sized by ``hier_window_words``, since K8
+    runs one thread per (key, lane word) and a tile would only add
+    padding."""
+    if levels < 1:
+        raise InvalidArgumentError(
+            f"hier megakernel needs at least one tree level per window, got {levels}"
+        )
+    w = -(-max(1, num_lanes) // 32)
+    per_word = 4 * (
+        128 * 5 + 32 * max(1, lpe) * max(1, keep) * 2 + levels + n_rows + 8
+    )
+    cap = _floor_pow2(max(128, vmem_budget // per_word))
+    if w <= cap:
+        tile = max(8, -(-w // 8) * 8)
+        return HierkernelPlan(levels, tile, 1, tile)
+    num_tiles = -(-w // cap)
+    return HierkernelPlan(levels, cap, num_tiles, num_tiles * cap)
+
+
+def hier_window_words(num_lanes: int) -> int:
+    """The lane-word width of the port's prefix windows: ceil(lanes / 32)
+    rounded up to 8 words. Never wider than ``plan_hierkernel``'s, whose
+    extra lanes are padding."""
+    return max(8, -(-max(1, num_lanes) // 256) * 8)
+
+
 def values_to_numpy(values: np.ndarray, bits: int) -> np.ndarray:
     """uint32[..., lpe] limb values -> numpy uint array (object for 128)."""
     values = np.asarray(values)

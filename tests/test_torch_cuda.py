@@ -1,8 +1,10 @@
 """The PyTorch/CUDA port on a CUDA card: kernels against their plain
 versions, and the fold and PIR paths through the kernels (K2-K4, and K5 in
 mode="megakernel"), batched EvaluateAt (K6 and K4 in mode="walk", K7 in
-mode="walkkernel") and the DCF's batch_evaluate (K6 and K4 in mode="walk",
-K7's DCF form in mode="walkkernel") against the same paths on the CPU.
+mode="walkkernel"), the DCF's batch_evaluate (K6 and K4 in mode="walk",
+K7's DCF form in mode="walkkernel") and the hierarchical advance (K2 and K4
+in mode="fused", K8 in mode="hierkernel") against the same paths on the
+CPU.
 
 Every test here needs a card and skips without one. The file imports no
 JAX, so on a machine without JAX it runs without the suite's conftest:
@@ -17,6 +19,7 @@ import torch
 import distributed_point_functions_tpu_torch as port
 from distributed_point_functions_tpu_torch.dcf import batch as dcf_batch
 from distributed_point_functions_tpu_torch.ops import aes_cuda, backend_torch, evaluator
+from distributed_point_functions_tpu_torch.ops import hierarchical
 from distributed_point_functions_tpu_torch.ops.aes_torch import as_words, from_words, pack_bit_mask
 from distributed_point_functions_tpu_torch.parallel import pir
 from distributed_point_functions_tpu_torch.utils.errors import InvalidArgumentError
@@ -58,7 +61,7 @@ def test_kernels_match_plain_versions(cuda, w):
     assert torch.equal(
         aes_cuda.hash_value_planes(args[0]), backend_torch.hash_value_planes(args[0])
     )
-    assert [k.launches for k in aes_cuda.KERNELS] == [1, 1, 1, 0, 0, 0, 0]
+    assert [k.launches for k in aes_cuda.KERNELS] == [1, 1, 1, 0, 0, 0, 0, 0]
 
 
 def megakernel_plan(lds, value_type, budget, host_levels=None):
@@ -192,7 +195,7 @@ def test_megakernel_fold_on_the_card_matches_the_cpu(cuda, party, monkeypatch):
 
     aes_cuda.reset_launch_counts()
     on_card = fold(cuda)
-    assert [k.launches for k in aes_cuda.KERNELS] == [0, 0, 0, 3, 0, 0, 0]
+    assert [k.launches for k in aes_cuda.KERNELS] == [0, 0, 0, 3, 0, 0, 0, 0]
     assert np.array_equal(on_card, fold("cpu"))
     assert np.array_equal(on_card, fold("cpu", mode="fold"))
     assert np.array_equal(fold(cuda, db), fold("cpu", db))
@@ -337,3 +340,79 @@ def test_dcf_batch_evaluate_on_the_card_matches_the_cpu(cuda, mode, party):
            aes_cuda.K7_DCF.launches]
     assert got == want
     assert np.array_equal(from_words(on_card), run("cpu"))
+
+
+@pytest.mark.parametrize(
+    "captures, w, bits, keep, party, xor_group",
+    [((0, 1), 1, 64, 2, 0, False), ((1, -1, 0, -1, 2, 3), 3, 64, 2, 1, False),
+     ((0,) + (-1,) * 15 + (1,), 37, 32, 4, 1, False), ((-1, 0, 1, -1, -1, 2), 40, 128, 1, 1, False),
+     ((2, 0, -1, 1), 8, 128, 1, 0, True), ((-1, 0), 3, 32, 2, 0, False)],
+)
+def test_hier_megakernel_matches_plain_version(cuda, captures, w, bits, keep, party, xor_group):
+    """K8 on the card equals its plain version (value rows, exit planes, exit
+    control) for every limb layout, kept element count, party and group,
+    with slots in any order, depths that do not capture and lanes in
+    contiguous segments (so that some words skip a capture); one launch per
+    call."""
+    levels, slots = len(captures) - 1, max(captures) + 1
+    rng = np.random.default_rng(levels * w + bits)
+
+    def r(*shape):
+        return rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+
+    n = 32 * w
+    lane_slot = np.minimum(np.arange(n) * slots // n, slots - 1)
+    lane_slot[-1] = -1
+    sel = lane_slot[None, :] == np.repeat(np.arange(slots), keep)[:, None]
+    arrays = (r(3, 128, w), r(3, w), r(levels, w), backend_torch.cw_seed_planes(r(3, levels, 4)),
+              backend_torch.control_masks(rng.integers(0, 2, size=(3, levels))),
+              backend_torch.control_masks(rng.integers(0, 2, size=(3, levels))),
+              r(3, slots * keep, bits // 32), pack_bit_mask(sel))
+    args = [torch.from_numpy(as_words(a)).to(cuda) for a in arrays]
+    kw = dict(bits=bits, party=party, xor_group=xor_group, keep=keep, captures=captures)
+    aes_cuda.reset_launch_counts()
+    got = aes_cuda.hier_megakernel(*args, **kw)
+    assert aes_cuda.K8.launches == 1
+    for a, b in zip(got, backend_torch.hier_megakernel(*args, **kw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("party", [0, 1])
+@pytest.mark.parametrize("mode", hierarchical.MODES)
+def test_evaluate_levels_fused_on_the_card_matches_the_cpu(cuda, mode, party):
+    """Both modes of the hierarchical advance on the card equal the same call
+    on the CPU, on a 66-level bit-wise Int(64) hierarchy (U128 prefixes from
+    level 64) of 5 keys: in mode "fused" one K2 launch per tree level and
+    one K4 launch per hierarchy level, in mode "hierkernel" one K8 launch per
+    window and chunk of 2 keys (3 chunks, the last padded), and nothing
+    else; the contexts end in the same state."""
+    levels = 66
+    dpf = port.DistributedPointFunction.create_incremental(
+        [port.DpfParameters(i + 1, port.Int(64)) for i in range(levels)])
+    rng = np.random.default_rng(66)
+    alphas = hierarchical.draw_random_finals(levels, 5, rng)
+    plan = hierarchical.bitwise_hierarchy_plan(
+        levels, hierarchical.draw_random_finals(levels, 20, rng) + alphas)
+    seeds = rng.integers(0, 2**32, size=(5, 2, 4), dtype=np.uint32)
+    keys = dpf.generate_keys_batch(alphas, [[7] * 5] * levels, seeds=seeds)[party]
+
+    def run(device, **kw):
+        ctx = hierarchical.BatchedContext.create(dpf, keys)
+        outs = hierarchical.evaluate_levels_fused(ctx, plan[:-1], group=16, mode=mode,
+                                                  key_chunk=2, device=device, **kw)
+        return outs, ctx
+
+    aes_cuda.reset_launch_counts()
+    on_card, card_ctx = run(cuda, device_output=True)
+    windows = -(-(levels - 1) // 16)
+    want = {"fused": [levels - 2, 0, levels - 1, 0], "hierkernel": [0, 0, 0, 3 * windows]}[mode]
+    counts = {k.name: k.launches for k in aes_cuda.KERNELS}
+    assert [aes_cuda.K2.launches, aes_cuda.K3.launches, aes_cuda.K4.launches,
+            aes_cuda.K8.launches] == want, counts
+    assert sum(counts.values()) == sum(want)
+    on_cpu, cpu_ctx = run("cpu")
+    for a, b in zip(on_card, on_cpu):
+        assert a.is_cuda and np.array_equal(from_words(a), b)
+    assert card_ctx.seeds.is_cuda and np.array_equal(from_words(card_ctx.seeds),
+                                                     from_words(cpu_ctx.seeds))
+    assert np.array_equal(from_words(card_ctx.control), from_words(cpu_ctx.control))

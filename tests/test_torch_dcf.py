@@ -40,6 +40,7 @@ from distributed_point_functions_tpu_torch.utils.errors import (
     InvalidArgumentError,
     UnimplementedError,
 )
+from torch_fold_case import one_torch_thread  # noqa: F401 (autouse fixture)
 
 MODES = port_batch.MODES
 NUM_KEYS = 7

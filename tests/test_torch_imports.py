@@ -1,6 +1,6 @@
 """The PyTorch/CUDA port stands alone: it imports neither JAX nor the JAX
-package (its fold, PIR, EvaluateAt and DCF paths driven in a fresh
-process), and its entry points do not run on the CPU unless asked to.
+package (its fold, PIR, EvaluateAt, DCF and hierarchical paths driven in a
+fresh process), and its entry points do not run on the CPU unless asked to.
 
 The import guard runs in a subprocess: tests/conftest.py imports jax into
 every pytest process.
@@ -43,6 +43,15 @@ dkeys, _ = dcf.generate_keys_batch([3], 5, seeds=np.ones((1, 2, 4), np.uint32))
 for mode in ("walk", "walkkernel"):
     assert dcf_batch.batch_evaluate(dcf, dkeys, [3, 4], mode=mode, device="cpu").shape == (1, 2, 2)
 assert dcf.evaluate(dkeys[0], 2) >= 0
+from distributed_point_functions_tpu_torch.ops import hierarchical
+hdpf = port.DistributedPointFunction.create_incremental(
+    [port.DpfParameters(i + 1, port.Int(64)) for i in range(3)])
+hkeys, _ = hdpf.generate_keys_batch([5], [[1]] * 3, seeds=np.ones((1, 2, 4), np.uint32))
+hplan = hierarchical.bitwise_hierarchy_plan(3, [5, 2])
+for mode in ("fused", "hierkernel"):
+    ctx = hierarchical.BatchedContext.create(hdpf, hkeys)
+    outs = hierarchical.evaluate_levels_fused(ctx, hplan, mode=mode, device="cpu")
+    assert [o.shape for o in outs] == [(1, 2, 2), (1, 4, 2), (1, 4, 2)]
 jax_package = "distributed_point_functions_tpu"
 bad = sorted(
     m for m in sys.modules
@@ -87,6 +96,20 @@ def test_dcf_batch_evaluate_without_a_card_raises(monkeypatch):
     keys, _ = dcf.generate_keys_batch([1], 1)
     with pytest.raises(UnavailableError):
         dcf.batch_evaluate(keys, [1])
+
+
+def test_evaluate_levels_fused_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from distributed_point_functions_tpu_torch.ops import hierarchical
+
+    dpf = port.DistributedPointFunction.create_incremental(
+        [port.DpfParameters(i + 1, port.Int(64)) for i in range(2)])
+    keys, _ = dpf.generate_keys_batch([1], [[1]] * 2)
+    for mode in hierarchical.MODES:
+        ctx = hierarchical.BatchedContext.create(dpf, keys)
+        with pytest.raises(UnavailableError):
+            hierarchical.evaluate_levels_fused(ctx, [(0, []), (1, [0])], mode=mode)
+        assert ctx.previous_hierarchy_level == -1
 
 
 def test_pir_entry_points_without_a_card_raise(monkeypatch):

@@ -39,6 +39,7 @@ from distributed_point_functions_tpu_torch.ops import (
     aes_cuda, aes_torch, backend_torch, evaluator, value_codec,
 )
 from distributed_point_functions_tpu_torch.utils.errors import InvalidArgumentError
+from torch_fold_case import one_torch_thread  # noqa: F401 (autouse fixture)
 
 RNG_SEED = 20261016
 K = 3  # keys
@@ -266,7 +267,7 @@ def test_megakernel_plain_version_matches_jax_replay(name):
 
 
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
-    """On CPU tensors the wrappers (K2, K4, K6 and K7 among them) run the
+    """On CPU tensors the wrappers (K2, K4, K6, K7 and K8 among them) run the
     plain versions and launch nothing; operands they cannot take are
     refused before any dispatch."""
     aes_cuda.reset_launch_counts()
@@ -277,7 +278,10 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     aes_cuda.walk_level(args[0], args[1], path, *args[2:])
     ops, _ = walk_inputs(2, 1, 64, 2, seed=1)
     aes_cuda.walk_megakernel(*map(words, ops), bits=64, party=1, xor_group=False, keep=2)
-    assert [k.launches for k in aes_cuda.KERNELS] == [0, 0, 0, 0, 0, 0, 0]
+    hops, _ = hier_inputs(2, 1, 64, 2, seed=1)
+    aes_cuda.hier_megakernel(*map(words, hops), bits=64, party=1, xor_group=False, keep=2,
+                             captures=(0, 1, -1))
+    assert [k.launches for k in aes_cuda.KERNELS] == [0, 0, 0, 0, 0, 0, 0, 0]
     with pytest.raises(InvalidArgumentError, match="int32"):
         aes_cuda.hash_value_planes(args[0].to(torch.int64))
     with pytest.raises(InvalidArgumentError, match="shape"):
@@ -310,6 +314,7 @@ _HARNESS = r"""
 #include "expand_rows.cuh"
 #include "megakernel_rows.cuh"
 #include "walk_rows.cuh"
+#include "hier_rows.cuh"
 // stdin: mode K W, then the operands; stdout: the outputs.
 static std::vector<uint32_t> rd(size_t n) {
   std::vector<uint32_t> v(n);
@@ -410,6 +415,34 @@ static int walk_dcf(int K, int W) {
   fwrite(out.data(), 4, out.size(), stdout);
   return 0;
 }
+// K8 (mode 9): 6 ints (levels, n_rows, lpe, keep, party, xor_group), the
+// levels + 1 capture slots, the operands; out: the value rows, the exit
+// planes and the exit control.
+static int hier(int K, int W) {
+  int f[6];
+  if (fread(f, 4, 6, stdin) != 6) return 1;
+  uint32_t stash[128];
+  dpf::HierMegakernelArgs a{};
+  a.levels = f[0]; a.words = W; a.n_rows = f[1]; a.lpe = f[2]; a.keep = f[3];
+  a.party = f[4]; a.xor_group = f[5];
+  const int L = a.levels;
+  auto slots = rd(L + 1);
+  for (int d = 0; d <= L; ++d) a.slots[d] = static_cast<int32_t>(slots[d]);
+  auto planes = rd(size_t(K) * 128 * W), control = rd(size_t(K) * W), path = rd(size_t(L) * W);
+  auto cw = rd(size_t(K) * L * 128), ccl = rd(size_t(K) * L), ccr = rd(size_t(K) * L);
+  auto corr = rd(size_t(K) * a.n_rows * a.lpe), sel = rd(size_t(a.n_rows) * W);
+  std::vector<uint32_t> out(size_t(K) * a.keep * a.lpe * 32 * W), xp(planes.size()),
+      xc(control.size());
+  a.planes = planes.data(); a.control = control.data(); a.path = path.data(); a.cw = cw.data();
+  a.ccl = ccl.data(); a.ccr = ccr.data(); a.corr = corr.data(); a.sel = sel.data();
+  a.out = out.data(); a.exit_planes = xp.data(); a.exit_control = xc.data();
+  for (int k = 0; k < K; ++k)
+    for (int w = 0; w < W; ++w) dpf::hier_megakernel_word(a, k, w, stash, 1);
+  fwrite(out.data(), 4, out.size(), stdout);
+  fwrite(xp.data(), 4, xp.size(), stdout);
+  fwrite(xc.data(), 4, xc.size(), stdout);
+  return 0;
+}
 // K1's masked form (mode 7): planes, mask [W]; out: the hashed planes.
 static int masked_hash(int K, int W) {
   uint32_t stash[128], s[128];
@@ -433,6 +466,7 @@ int main() {
   if (mode == 6) return walk_megakernel(K, W);
   if (mode == 7) return masked_hash(K, W);
   if (mode == 8) return walk_dcf(K, W);
+  if (mode == 9) return hier(K, W);
   uint32_t stash[128];
   auto planes = rd(size_t(K) * 128 * W);
   if (mode == 2) {
@@ -748,3 +782,89 @@ def test_csrc_walk_bodies_on_the_host_compiler(host_harness):
         assert np.array_equal(got.reshape(K, bits // 32 * 32, w), want), kw
         if not any(captures):
             assert not want.any()
+
+
+def hier_inputs(levels, w, bits, keep, seed, slots=2):
+    """uint32 numpy operands of K8 for K keys at W words, and each lane's
+    slot (-1: selected by none). The lanes fall into contiguous segments,
+    one per slot, as a window's advances do, so that some words hold no
+    lane of a slot; the last lane is padding."""
+    rng = np.random.default_rng(seed)
+
+    def r(*shape):
+        return rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+
+    n = 32 * w
+    bounds = np.sort(rng.choice(np.arange(1, n - 1), size=slots - 1, replace=False))
+    lane_slot = np.searchsorted(bounds, np.arange(n), side="right")
+    lane_slot[-1] = -1
+    # Row s * keep + e selects the lanes of slot s (every kept element).
+    sel = lane_slot[None, :] == np.repeat(np.arange(slots), keep)[:, None]
+    return [r(K, 128, w), r(K, w), r(levels, w), backend_torch.cw_seed_planes(r(K, levels, 4)),
+            backend_torch.control_masks(rng.integers(0, 2, size=(K, levels))),
+            backend_torch.control_masks(rng.integers(0, 2, size=(K, levels))),
+            r(K, slots * keep, bits // 32), aes_torch.pack_bit_mask(sel)], lane_slot
+
+
+def hier_carrying_corrections(ops, bits, keep, captures):
+    """Corrections of K8 under which, for each key and row (slot, element),
+    one lane of the slot whose control bit is set at its capture sums to
+    exactly 0 mod 2^bits: the add carries out of every limb, and party 1's
+    negation of that 0 carries through every limb, at every capture."""
+    lpe = bits // 32
+    kw = dict(bits=bits, party=0, xor_group=False, keep=keep, captures=captures)
+
+    def values(corr):  # [K, keep, 32 W] python ints
+        rows = aes_torch.from_words(backend_torch.hier_megakernel(
+            *map(words, ops[:6] + [corr, ops[7]]), **kw)[0]).astype(object)
+        k, _, w = rows.shape
+        limbs = rows.reshape(k, keep, lpe, 32, w).transpose(0, 1, 4, 3, 2).reshape(
+            k, keep, 32 * w, lpe)
+        return sum(limbs[..., l] << (32 * l) for l in range(lpe))
+
+    zero = np.zeros_like(ops[6])
+    base = values(zero)
+    probe = zero.copy()
+    probe[:, :, 0] = 1
+    moved = values(probe) != base  # selected lanes whose control bit is set
+    sel = np.stack([backend_torch.unpack_mask_device(words(row)).numpy() for row in ops[7]]) == 1
+    out = zero.copy()
+    for key in range(out.shape[0]):
+        for row in range(out.shape[1]):
+            e = row % keep
+            hits = np.nonzero(moved[key, e] & sel[row])[0]
+            if hits.size:
+                value = -base[key, e, hits[0]] % (1 << bits)
+                out[key, row] = [(value >> (32 * l)) & 0xFFFFFFFF for l in range(lpe)]
+    return out
+
+
+def test_csrc_hier_body_on_the_host_compiler(host_harness):
+    """csrc/hier_rows.cuh, K8's per-word body, built with g++ and run over
+    every (key, word), equals K8's plain version (value rows, exit planes,
+    exit control): slots placed at several depths in any order, depths
+    that do not capture, words that hold no lane of a slot (the capture they
+    skip), both parties, keep 1, 2 and 4, every limb layout, the XOR group,
+    and corrections that wrap to exactly 0 at each capture, so that the add
+    carries out of every limb and party 1's negation through every limb."""
+    exe = host_harness
+    w = WIDTHS[0]
+    for i, (bits, keep, party, xor_group, captures) in enumerate((
+        (64, 2, 1, False, (1, -1, 0, 2)), (64, 2, 0, False, (0, 1, -1)),
+        (32, 4, 1, False, (-1, 1, 0)), (128, 1, 1, False, (2, 0, -1, 1)),
+        (128, 1, 0, True, (0, -1, 1)), (32, 2, 1, False, (0,) + (-1,) * 3 + (1,)),
+    )):
+        levels, slots = len(captures) - 1, max(captures) + 1
+        ops, _ = hier_inputs(levels, w, bits, keep, seed=20 + i, slots=slots)
+        if not xor_group:
+            ops[6] = hier_carrying_corrections(ops, bits, keep, captures)
+            assert ops[6].any()
+        kw = dict(bits=bits, party=party, xor_group=xor_group, keep=keep, captures=captures)
+        got = run_harness(exe, [9, K, w, levels, slots * keep, bits // 32, keep, party,
+                                int(xor_group)], np.array(captures, np.int32).view(np.uint32),
+                          *ops)
+        want = [aes_torch.from_words(t)
+                for t in backend_torch.hier_megakernel(*map(words, ops), **kw)]
+        sizes = np.cumsum([a.size for a in want])[:-1]
+        for g, a in zip(np.split(got, sizes), want):
+            assert np.array_equal(g.reshape(a.shape), a), kw

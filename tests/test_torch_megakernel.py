@@ -32,7 +32,7 @@ import distributed_point_functions_tpu_torch as port
 from distributed_point_functions_tpu_torch.ops import aes_cuda, backend_torch, evaluator
 from distributed_point_functions_tpu_torch.ops.aes_torch import as_words, from_words
 from distributed_point_functions_tpu_torch.utils.errors import InvalidArgumentError
-from torch_fold_case import KEY_CHUNK, LOG_DOMAIN, int64_case
+from torch_fold_case import KEY_CHUNK, LOG_DOMAIN, int64_case, one_torch_thread  # noqa: F401
 
 # Budgets that plan log-domain 8 with one slab (the default), two and four.
 BUDGETS = (evaluator.MEGAKERNEL_BUDGET, 8192, 4096)
@@ -154,7 +154,7 @@ def test_megakernel_fold_of_a_carried_key_batch_at_host_levels_6(int64, monkeypa
 def test_megakernel_fold_runs_no_kernel_on_the_cpu(int64):
     aes_cuda.reset_launch_counts()
     megakernel_fold(int64["port_dpf"], int64["port_keys"][0])
-    assert [k.launches for k in aes_cuda.KERNELS] == [0, 0, 0, 0, 0, 0, 0]
+    assert [k.launches for k in aes_cuda.KERNELS] == [0, 0, 0, 0, 0, 0, 0, 0]
 
 
 def test_megakernel_fold_rejects_what_it_cannot_fold(int64):

@@ -26,6 +26,7 @@ from distributed_point_functions_tpu_torch.utils.errors import (
     InvalidArgumentError,
     UnimplementedError,
 )
+from torch_fold_case import one_torch_thread  # noqa: F401 (autouse fixture)
 
 LOG_DOMAIN = 8
 KEY_CHUNK = 2

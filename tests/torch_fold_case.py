@@ -1,13 +1,22 @@
-"""The Int(64) full-domain fold case that tests/test_torch_fold.py and
-tests/test_torch_megakernel.py share: both packages' DPFs and keys from the
-same seeds, a database in natural and in lane order, and the JAX package's
-folds, computed once per process (the JAX fold compiles for seconds on the
-CPU, and both modules compare against the same one).
+"""What the port's test modules share.
+
+- ``one_torch_thread``: an autouse module fixture that the modules import.
+  The port's plain versions issue many small tensor operations; with the
+  suite's parallel workers on a shared CPU, PyTorch's intra-op threads made
+  them 2-3x slower, so each module runs them on one thread and restores the
+  count after.
+- The Int(64) full-domain fold case that tests/test_torch_fold.py and
+  tests/test_torch_megakernel.py share: both packages' DPFs and keys from
+  the same seeds, a database in natural and in lane order, and the JAX
+  package's folds, computed once per process (the JAX fold compiles for
+  seconds on the CPU, and both modules compare against the same one).
 """
 
 import functools
 
 import numpy as np
+import pytest
+import torch
 
 from distributed_point_functions_tpu.core import host_eval
 from distributed_point_functions_tpu.core.dpf import DistributedPointFunction as JaxDpf
@@ -16,6 +25,16 @@ from distributed_point_functions_tpu.core.value_types import Int as JaxInt
 from distributed_point_functions_tpu.ops import evaluator as jax_ev
 import distributed_point_functions_tpu_torch as port
 from distributed_point_functions_tpu_torch.ops import evaluator
+
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 LOG_DOMAIN = 8
 KEY_CHUNK = 2  # 3 keys: one full chunk and one padded one
