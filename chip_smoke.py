@@ -67,11 +67,31 @@ Phases (any failure raises and exits non-zero before the result line):
    and mode="hierkernel" (one K8 launch per prefix window of 16 levels and
    key chunk of 32); every level's share pair reconstructs beta at alpha's
    prefix and 0 at every other candidate, the modes agree bit for bit, and
-   the port's CPU path on 2 keys equals the card.
+   the port's CPU path on 2 keys equals the card;
+11. keygen kernels: K9 against its plain version on the card (exact), at
+   odd shapes (W = 1, 3, 37 words, 1-5 levels, depths that do and do not
+   capture) and on BM_KeyGeneration's 1024-key batch at depth 20 (below);
+   K9 timed at 1024 keys at depths 20 and 128, at 16,384 keys at depth 128
+   and at BASELINE config 4's DCF dealer, beside its plain version and its
+   bound; K2's one-key view (the legacy [128, W] kernel) against its plain
+   version at benchmarks/micro_tpu.py's W = 8192, timed;
+12. keygen: BM_KeyGeneration (benchmarks/bench_keygen.py: single-level
+   Int(64) DPFs, 1024 keys at log-domains 20, 64 and 128, draws from
+   default_rng(23)) and config 4's DCF dealer (512 keys, log-domain 24)
+   through ``keygen_batch.generate_keys_batch`` (the DCF through
+   ``generate_keys_batch(mode=...)``) in mode="megakernel" (one K9 launch a
+   batch), mode="perlevel" (one K2 a tree level, through its one-key view,
+   and one K4 a capture) and mode="numpy-threaded"; every key of both
+   parties equals the host numpy dealer's field by field, with keys/s per
+   mode and where mode megakernel's and mode perlevel's time goes;
+13. end to end: the depth-20 megakernel keys through
+   ``evaluate_at_batch(mode="walkkernel")`` at every alpha and 63 other
+   points; every share pair reconstructs beta at its alpha and 0 elsewhere.
 
 Each path of the main path (fold default, fused and megakernel; PIR fold
 and megakernel; EvaluateAt walk and walkkernel; DCF walk and walkkernel;
-heavy hitters fused and hierkernel) runs with every launch count set to 0
+heavy hitters fused and hierkernel; keygen megakernel, perlevel and
+numpy-threaded at each configuration) runs with every launch count set to 0
 just before it, and every kernel of that path must have launched just after
 it. The line before
 the last is the ``{"kernels": [...]}`` JSON, the last line ``{"ok": true,
@@ -115,6 +135,16 @@ HH_KEYS = 128
 HH_CHUNK = 32
 HH_GROUP = 16
 HH_CPU_KEYS = 2
+# Keygen: BM_KeyGeneration (reference distributed_point_function_benchmark.cc
+# 228-260; benchmarks/bench_keygen.py:31-60 here): single-level Int(64) DPFs,
+# 1024 keys, log-domains 20, 64 and 128, draws from default_rng(23); and the
+# dealer of BASELINE config 4 (the DCF above: 512 keys, log-domain 24).
+KG_KEYS = 1024
+KG_DEPTHS = (20, 64, 128)
+KG_SEED = 23
+KG_WIDE_KEYS = 16384  # K9 timed at 512 lane words as well
+KG_E2E_POINTS = 63  # other points besides the alphas in the end-to-end check
+LEGACY_W = 8192  # benchmarks/micro_tpu.py:163, the K2 legacy kernel's width
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 at 3.35 TB/s; 32-bit integer
 # logic at 64 lanes per SM per clock, 132 SMs, 1980 MHz boost clock.
@@ -279,6 +309,27 @@ def hier_megakernel_cost(key_planes, k: int, levels: int, wp: int, n_rows: int, 
     return nbytes, gates
 
 
+# One dealer level per lane word besides its four hashes, per plane: for
+# each party both children from the two hashes by the alpha bit (d = hl ^
+# hr, lose = hl ^ (d & path), keep = lose ^ d: 4), sc = lose0 ^ lose1 (1),
+# and each party's new seed keep ^ (sc & c) (2 each); and ~20 operations of
+# control-bit algebra.
+KEYGEN_LEVEL_EXTRA = 128 * (2 * 4 + 1 + 2 * 2) + 20
+
+
+def keygen_megakernel_cost(key_planes, w: int, levels: int, slots: int):
+    """(bytes, gates) of K9 on W lane words of keys: per level and party the
+    left and the right MMO hash, the selects and corrections; per capture
+    and party one value hash. Bytes: both parties' seed planes and the path
+    words read once; the correction planes, control corrections, value
+    hashes and control rows written once."""
+    per_word = (levels * (2 * (mmo_gates(key_planes["left"]) + mmo_gates(key_planes["right"]))
+                          + KEYGEN_LEVEL_EXTRA)
+                + slots * 2 * mmo_gates(key_planes["value"]))
+    nbytes = 4 * w * (2 * 128 + levels + levels * 130 + slots * 257)
+    return nbytes, w * per_word
+
+
 def megakernel_cost(key_planes, plan, k: int, bits: int, keep: int, party: int,
                     xor_group: bool, with_db: bool):
     """(bytes, gates) of K5 on K keys under `plan`: every child word hashes
@@ -315,7 +366,7 @@ def main() -> None:
             aes_cuda, aes_torch, backend_torch, evaluator,
         )
         from distributed_point_functions_tpu_torch.dcf import batch as dcf_batch
-        from distributed_point_functions_tpu_torch.ops import hierarchical
+        from distributed_point_functions_tpu_torch.ops import hierarchical, keygen_batch
         from distributed_point_functions_tpu_torch.parallel import pir
     except ImportError as e:
         fail(f"the port is not in this checkout: {e}")
@@ -1138,6 +1189,197 @@ def main() -> None:
     del hh_out
     torch.cuda.empty_cache()
 
+    # -- 11. K9 and K2's one-key view against their plain versions -----------
+    # BM_KeyGeneration's batches first (host): the draws of
+    # benchmarks/bench_keygen.py, depth by depth from one generator.
+    krng = np.random.default_rng(KG_SEED)
+    kg = {}
+    for depth in KG_DEPTHS:
+        kdpf = T.DistributedPointFunction.create(T.DpfParameters(depth, T.Int(64)))
+        kalphas = [int.from_bytes(krng.bytes(16), "little") % (1 << depth)
+                   for _ in range(KG_KEYS)]
+        kbetas = [int(x) for x in krng.integers(1, 1 << 62, size=KG_KEYS)]
+        kseeds = krng.integers(0, 2**32, size=(KG_KEYS, 2, 4), dtype=np.uint32)
+        kg[depth] = (kdpf, kalphas, kbetas, kseeds)
+
+    def keygen_mk_args(w, levels):
+        return rnd(128, w), rnd(128, w), rnd(levels, w)
+
+    k9_cases = ((1, (True, True)), (3, (True, False, True, True)),
+                (37, (False, True, False, False, True, True)), (3, (False,) * 5 + (True,)))
+    for w, captures in k9_cases:
+        a = keygen_mk_args(w, len(captures) - 1)
+        hold("K9", aes_cuda.keygen_megakernel(*a, captures=captures),
+             backend_torch.keygen_megakernel(*a, captures=captures))
+    print(f"K9 == plain at {len(k9_cases)} shapes (W = 1, 3, 37; 1-5 levels; depths that do "
+          "and do not capture)")
+    k9_batches = {name: keygen_batch.prepare_megakernel_batch(
+        kg[d][0], kg[d][1], [kg[d][2]], seeds=kg[d][3], device=dev)
+        for name, d in (("K9", 20), ("K9 d128", 128))}
+    walpha = [int(x) for x in np.random.default_rng(SEED + 128).integers(
+        0, 2**63, size=KG_WIDE_KEYS, dtype=np.uint64)]
+    k9_batches["K9 wide"] = keygen_batch.prepare_megakernel_batch(
+        kg[128][0], walpha, [1], seeds=np.random.default_rng(SEED).integers(
+            0, 2**32, size=(KG_WIDE_KEYS, 2, 4), dtype=np.uint32), device=dev)
+    dcf_kg = T.DistributedComparisonFunction.create(DCF_LOG_DOMAIN, T.Int(64))
+    k9_batches["K9 dcf"] = keygen_batch.prepare_megakernel_batch(
+        dcf_kg.dpf, [x >> 1 for x in dalphas], [0] * DCF_LOG_DOMAIN, seeds=dseeds, device=dev)
+    b = k9_batches["K9"]
+    hold("K9", keygen_batch.megakernel_outputs(b), backend_torch.keygen_megakernel(
+        b.planes0, b.planes1, b.path_masks, captures=b.captures))
+    for name, b in k9_batches.items():
+        wp, levels, slots = b.planes0.shape[1], b.path_masks.shape[0], sum(b.captures)
+        ms = time_ms(torch, lambda: keygen_batch.megakernel_outputs(b), 5)
+        plain_ms = None  # the plain version at the timing-only width: not run
+        if name != "K9 wide":
+            plain_ms = time_ms(torch, lambda: backend_torch.keygen_megakernel(
+                b.planes0, b.planes1, b.path_masks, captures=b.captures), 1)
+        b_ms, b_by = bound_ms(*keygen_megakernel_cost(key_planes, wp, levels, slots))
+        rows[name] = dict(kernel=aes_cuda.K9, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by)
+        print(f"{name} at {b.k} keys (W={wp}), L={levels}, {slots} captures: {ms:.4f} ms "
+              f"(bound {b_ms:.4f} ms by {b_by}, {b_ms / ms * 100:.1f} %; plain "
+              f"{'not run' if plain_ms is None else f'{plain_ms:.2f} ms'})"
+              + (f"; {aes_cuda.K9.ptxas}" if name == "K9" else ""))
+    del k9_batches, b
+    # K2's one-key view (the legacy [128, W] kernel) at micro_tpu's width.
+    a = [t[0] for t in expand_args(1, LEGACY_W)]
+    hold("K2 legacy", aes_cuda.expand_one_level_single(*a),
+         backend_torch.expand_one_level_single(*a))
+    ms = time_ms(torch, lambda: aes_cuda.expand_one_level_single(*a), 10)
+    plain_ms = time_ms(torch, lambda: backend_torch.expand_one_level_single(*a), 2)
+    b_ms, b_by = bound_ms(*expand_cost(key_planes, 1, LEGACY_W, False))
+    rows["K2 legacy"] = dict(kernel=aes_cuda.K2, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by)
+    print(f"K2 one-key view == plain at W={LEGACY_W}: {ms:.4f} ms (plain {plain_ms:.2f} ms, "
+          f"bound {b_ms:.4f} ms by {b_by})")
+    del a
+    torch.cuda.empty_cache()
+
+    # -- 12. the main path: batched keygen ----------------------------------
+    class TimedPrg(keygen_batch.DeviceKeygenPrg):
+        """Mode perlevel's provider, timing its calls: each uploads, packs,
+        launches and pulls, so its time is the level loop's card side."""
+
+        seconds = 0.0
+
+        def expand(self, flat, want_value):
+            t = time.perf_counter()
+            out = super().expand(flat, want_value)
+            self.seconds += time.perf_counter() - t
+            return out
+
+        def value_hash(self, inputs):
+            t = time.perf_counter()
+            out = super().value_hash(inputs)
+            self.seconds += time.perf_counter() - t
+            return out
+
+    kg_cases = {f"log-domain {d}": (kg[d][0], kg[d][1], [kg[d][2]], kg[d][3]) for d in KG_DEPTHS}
+    kg_cases["DCF config 4"] = (dcf_kg, dalphas, dbetas, dseeds)
+    kg_kernels = {"megakernel": (aes_cuda.K9,), "perlevel": (aes_cuda.K2, aes_cuda.K4),
+                  "numpy-threaded": ()}
+    kg_launches, kg_rates = {}, {}
+    for case, (obj, al, be, sd) in kg_cases.items():
+        is_dcf = case.startswith("DCF")
+        v = (obj.dpf if is_dcf else obj).validator
+        levels = v.tree_levels_needed - 1
+        captures = v.num_hierarchy_levels
+        t = time.perf_counter()
+        want = obj.generate_keys_batch(al, be, seeds=sd)  # the host numpy dealer
+        host_s = time.perf_counter() - t
+        rates = {"numpy": len(al) / host_s}
+        want_counts = {"megakernel": {aes_cuda.K9.name: 1},
+                       "perlevel": {aes_cuda.K2.name: levels, aes_cuda.K4.name: captures},
+                       "numpy-threaded": {}}
+        for mode, need in kg_kernels.items():
+            aes_cuda.reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if is_dcf:
+                got = obj.generate_keys_batch(al, be, seeds=sd, mode=mode)
+            else:
+                got = keygen_batch.generate_keys_batch(obj, al, be, mode=mode, seeds=sd)
+            secs = time.perf_counter() - t
+            counts = {k.name: k.launches for k in aes_cuda.KERNELS}
+            for kern in need:
+                if kern.launches == 0:
+                    fail(f"keygen {case}, mode {mode} ran without launching {kern.name}")
+                main_launches[kern.name] = main_launches.get(kern.name, 0) + kern.launches
+                key = (kern.name, mode)
+                kg_launches[key] = kg_launches.get(key, 0) + kern.launches
+            if counts != {k.name: want_counts[mode].get(k.name, 0) for k in aes_cuda.KERNELS}:
+                fail(f"keygen {case}, mode {mode}: launches {counts}, expected "
+                     f"{want_counts[mode]}")
+            for party in (0, 1):
+                if got[party] != want[party]:
+                    bad = sum(a != b for a, b in zip(got[party], want[party]))
+                    fail(f"keygen {case}, mode {mode}: {bad} keys of party {party} differ from "
+                         "the host dealer's")
+            rates[mode] = len(al) / secs
+            if (case, mode) == ("log-domain 20", "megakernel"):
+                e2e_keys = got
+            del got
+        kg_rates[case] = rates
+        print(f"keygen {case} ({len(al)} keys, {levels} levels, {captures} captures): keys "
+              f"equal the host dealer's in every mode; keys/s " + ", ".join(
+                  f"{m} {r:.4e}" for m, r in rates.items()))
+        # Where the time goes: mode megakernel's steps, mode perlevel's card side.
+        dpf_k = obj.dpf if is_dcf else obj
+        betas_k = be if not is_dcf else None
+        if is_dcf:
+            betas_k = [[b if (a >> (DCF_LOG_DOMAIN - i - 1)) & 1 else 0 for a, b in zip(al, be)]
+                       for i in range(DCF_LOG_DOMAIN)]
+        al_k = [a >> 1 for a in al] if is_dcf else al
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        kb = keygen_batch.prepare_megakernel_batch(dpf_k, al_k, betas_k, seeds=sd, device=dev)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t
+        dev_ms = time_ms(torch, lambda: keygen_batch.megakernel_outputs(kb), 3)
+        outs = keygen_batch.megakernel_outputs(kb)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs = [aes_torch.from_words(o) for o in outs]
+        pull_s = time.perf_counter() - t
+        t = time.perf_counter()
+        records = keygen_batch.megakernel_records(kb, *outs)
+        rec_s = time.perf_counter() - t
+        t = time.perf_counter()
+        keys_k = keygen_batch.assemble_megakernel_keys(kb, records)
+        asm_s = time.perf_counter() - t
+        if [list(p) for p in keys_k] != [[x.key for x in p] if is_dcf else list(p) for p in want]:
+            fail(f"keygen {case}: the timed megakernel steps differ from the host dealer")
+        prg = TimedPrg(dev)
+        t = time.perf_counter()
+        dpf_k.generate_keys_batch(al_k, betas_k, seeds=sd, prg=prg)
+        pl_s = time.perf_counter() - t
+        print(f"  mode megakernel: host pack + upload {prep_s * 1e3:.1f} ms, device (K9) "
+              f"{dev_ms:.2f} ms, pull {pull_s * 1e3:.1f} ms, unpack + typed corrections "
+              f"{rec_s * 1e3:.1f} ms, assembly {asm_s * 1e3:.1f} ms; mode perlevel: "
+              f"{pl_s * 1e3:.1f} ms, of which pack + K2/K4 + pull {prg.seconds * 1e3:.1f} ms")
+        del outs, records, keys_k, kb, want
+    torch.cuda.empty_cache()
+
+    # -- 13. end to end: K9's keys through EvaluateAt ------------------------
+    e2e_dpf, e2e_alphas, e2e_betas, _ = kg[20]
+    e2e_points = e2e_alphas + [int(x) for x in np.random.default_rng(SEED + 20).integers(
+        0, 1 << 20, size=KG_E2E_POINTS)]
+    t = time.perf_counter()
+    e2e = [evaluator.evaluate_at_batch(e2e_dpf, e2e_keys[p], e2e_points, mode="walkkernel")
+           for p in (0, 1)]
+    total = evaluator.values_to_numpy(e2e[0], 64) + evaluator.values_to_numpy(e2e[1], 64)
+    hit = np.array(e2e_alphas)[:, None] == np.array(e2e_points)[None, :]
+    if not np.array_equal(total, np.where(hit, np.array(e2e_betas, np.uint64)[:, None],
+                                          np.uint64(0))):
+        fail("the megakernel keys do not reconstruct beta at alpha and 0 elsewhere")
+    print(f"end to end: {KG_KEYS} megakernel key pairs at log-domain 20 through "
+          f"evaluate_at_batch(mode='walkkernel') at their {KG_KEYS} alphas and "
+          f"{KG_E2E_POINTS} other points: r0 + r1 == beta at alpha, 0 elsewhere "
+          f"({time.perf_counter() - t:.2f} s)")
+    del e2e, e2e_keys, kg
+    torch.cuda.empty_cache()
+
     if "jax" in sys.modules:
         fail("JAX was imported")
     if any(m == "distributed_point_functions_tpu" or m.startswith("distributed_point_functions_tpu.")
@@ -1147,7 +1389,7 @@ def main() -> None:
     # -- result -------------------------------------------------------------
     k1_bound, k1_by = bound_ms(0, hash_cost(key_planes, KEY_CHUNK, 2 * max_w)[1])
     kernels = [{
-        "name": "K1 aes_rows (device function inlined in K2-K7; timed as K4)",
+        "name": "K1 aes_rows (device function inlined in K2-K9; timed as K4)",
         "route": "cuda",
         "source": "distributed_point_functions_tpu_torch/csrc/aes_rows.cuh",
         "replaces": "distributed_point_functions_tpu/ops/aes_pallas.py:182",
@@ -1203,6 +1445,32 @@ def main() -> None:
             "replaces": f"distributed_point_functions_tpu/ops/aes_pallas.py:{line}",
             "launches": launches,
             "max_abs_err": checks["K7 DCF" if name == "K7 DCF" else name.split()[0]],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+        })
+    k9_total = kg_launches[(aes_cuda.K9.name, "megakernel")]
+    for name, label, launches in (
+        ("K9", "K9 keygen_megakernel (BM_KeyGeneration, 1024 keys, depth 20)", k9_total),
+        ("K9 d128", "K9 keygen_megakernel (1024 keys, depth 128)", 1),
+        ("K9 dcf", "K9 keygen_megakernel (BASELINE config 4's DCF dealer)", 1),
+        ("K2 legacy", "K2 one-key view, the legacy [128, W] kernel (W = 8192; mode "
+                      "perlevel's K2 launches go through it)",
+         kg_launches[(aes_cuda.K2.name, "perlevel")]),
+    ):
+        r = rows[name]
+        legacy = name == "K2 legacy"
+        kernels.append({
+            "name": label,
+            "route": "cuda",
+            "source": "distributed_point_functions_tpu_torch/csrc/"
+                      + ("expand.cu" if legacy else "keygen_megakernel.cu"),
+            "replaces": "distributed_point_functions_tpu/ops/aes_pallas.py:"
+                        + ("105" if legacy else "1802"),
+            "launches": launches,
+            "max_abs_err": checks["K2 legacy" if legacy else "K9"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],

@@ -5,7 +5,8 @@ the same repository. It imports neither JAX nor that package: the host
 protocol layers it needs (``core/``) are its own copies. Slice by slice it
 ports the JAX package's paths; so far full-domain evaluation folded on the
 device, its two-server PIR inner product, batched EvaluateAt, batched DCF
-evaluation and the heavy-hitters hierarchical advance:
+evaluation, the heavy-hitters hierarchical advance and batched two-party
+key generation:
 
     from distributed_point_functions_tpu_torch import (
         DistributedComparisonFunction, DistributedPointFunction, DpfParameters,
@@ -32,6 +33,10 @@ evaluation and the heavy-hitters hierarchical advance:
     plan = hierarchical.bitwise_hierarchy_plan(128, finals)
     shares = hierarchical.evaluate_levels_fused(ctx, plan, mode="hierkernel")
     # per level: shares of beta at alpha's prefix, 0 at the other candidates
+
+    from distributed_point_functions_tpu_torch.ops import keygen_batch
+    keys_a, keys_b = keygen_batch.generate_keys_batch(
+        dpf, alphas, [betas], mode="megakernel")  # one K9 launch
 
 Entry points run on the first CUDA device unless the caller passes
 ``device="cpu"``; with no card and no ``device="cpu"`` they raise.

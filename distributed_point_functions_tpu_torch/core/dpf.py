@@ -59,15 +59,18 @@ class DistributedPointFunction:
     ) -> Tuple[DpfKey, DpfKey]:
         return self._keygen.generate_keys_incremental(alpha, betas, seeds=seeds)
 
-    def generate_keys_batch(self, alphas, betas, seeds=None):
+    def generate_keys_batch(self, alphas, betas, seeds=None, prg=None):
         """K key pairs at once; one vectorized AES call per tree level.
 
         `betas` is per hierarchy level, scalar or length-K. `seeds` is an
         optional uint32[K, 2, 4] array replacing the CSPRNG — draw it from a
         ``numpy.random.Generator`` for reproducible keys. With the same
-        seeds the keys are byte-identical to the JAX package's.
+        seeds the keys are byte-identical to the JAX package's. `prg`
+        overrides the AES provider (core/keygen.KeygenPrg;
+        ops/keygen_batch.DeviceKeygenPrg runs it on the card's kernels):
+        the keys stay byte-identical by construction.
         """
-        return self._keygen.generate_keys_batch(alphas, betas, seeds=seeds)
+        return self._keygen.generate_keys_batch(alphas, betas, seeds=seeds, prg=prg)
 
     def evaluate_at(
         self,

@@ -4,8 +4,9 @@ Faithful re-implementation of DistributedPointFunction::GenerateKeysIncremental
 and GenerateNext (reference dpf/distributed_point_function.cc:619-687,
 103-204), which follow Fig. 11 of the Incremental DPF paper
 (https://arxiv.org/pdf/2012.14884.pdf). Key generation is sequential in tree
-depth with only 4-6 AES blocks per level, so it stays on the CPU; evaluation is
-what runs on the GPU (ops/evaluator.py).
+depth with only 4-6 AES blocks per level and key; the batched dealer here
+runs every key of a batch level-major on numpy, and ops/keygen_batch.py runs
+the same loop on the card (per level on K2 + K4, or whole on K9).
 
 Keys produced here are bit-exact with the reference implementation given the
 same random seeds, so they can be exchanged with C++ evaluators.
@@ -45,8 +46,8 @@ class KeygenPrg:
 
     ``generate_keys_batch`` is pure level-major algebra around three AES
     fixed-key hashes; this seam is the ONLY place those hashes run, so a
-    provider that computes the same circuits elsewhere (a device dealer on
-    the batched AES kernels, still to be ported) yields byte-identical keys
+    provider that computes the same circuits elsewhere (the device dealer on
+    the card's kernels, ops/keygen_batch.py) yields byte-identical keys
     by construction — the correction-word algebra is literally the same
     code.
     """

@@ -1,6 +1,6 @@
 // PyTorch binding of the kernels in expand.cu, megakernel.cu, walk.cu,
-// walk_megakernel.cu and hier_megakernel.cu: the only source that includes
-// PyTorch's headers. ops/aes_cuda.py checks the
+// walk_megakernel.cu, hier_megakernel.cu and keygen_megakernel.cu: the only
+// source that includes PyTorch's headers. ops/aes_cuda.py checks the
 // operands, allocates the outputs and counts launches; each function here
 // makes the operands' device current, launches on PyTorch's current stream
 // for it and checks the launch.
@@ -202,6 +202,33 @@ void hier_megakernel(const torch::Tensor& planes, const torch::Tensor& control,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// K9: one key batch. `capture_words` are the five words of the captures
+// bitmask; the caller (ops/aes_cuda.py) has checked the shapes, the depth
+// (1 .. kKeygenMaxLevels) and that the last depth captures.
+void keygen_megakernel(const torch::Tensor& planes0,
+                       const torch::Tensor& planes1, const torch::Tensor& path,
+                       torch::Tensor cw, torch::Tensor cc, torch::Tensor vh,
+                       torch::Tensor ctrl,
+                       const std::vector<int64_t>& capture_words) {
+  const c10::cuda::CUDAGuard guard(planes0.device());
+  dpf::KeygenMegakernelArgs a{};
+  a.planes0 = words_of(planes0);
+  a.planes1 = words_of(planes1);
+  a.path = words_of(path);
+  a.cw = words_of(cw);
+  a.cc = words_of(cc);
+  a.vh = words_of(vh);
+  a.ctrl = words_of(ctrl);
+  a.levels = static_cast<int>(path.size(0));
+  a.words = static_cast<int>(path.size(1));
+  a.slots = static_cast<int>(ctrl.size(0));
+  for (int i = 0; i < 5; ++i) {
+    a.captures[i] = static_cast<uint32_t>(capture_words[i]);
+  }
+  dpf::launch_keygen_megakernel(a, at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -213,6 +240,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("walk_level", &walk_level, "K6");
   m.def("walk_megakernel", &walk_megakernel, "K7 (EvaluateAt or DCF form)");
   m.def("hier_megakernel", &hier_megakernel, "K8");
+  m.def("keygen_megakernel", &keygen_megakernel, "K9");
   m.def("max_shared_memory_per_block", &max_shared_memory_per_block,
         "the card's opt-in shared memory limit per block");
 }

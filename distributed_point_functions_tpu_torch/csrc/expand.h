@@ -1,5 +1,6 @@
 // Host launchers of the kernels in expand.cu, megakernel.cu, walk.cu,
-// walk_megakernel.cu and hier_megakernel.cu, called by binding.cpp.
+// walk_megakernel.cu, hier_megakernel.cu and keygen_megakernel.cu, called
+// by binding.cpp.
 //
 // Each launches on `stream` and returns without synchronising; the caller
 // checks the launch (C10_CUDA_KERNEL_LAUNCH_CHECK) and guarantees
@@ -55,5 +56,10 @@ void launch_walk_megakernel_dcf(const WalkMegakernelArgs& a, int num_keys,
 // a.slots holds a.levels + 1 entries and at least one slot.
 void launch_hier_megakernel(const HierMegakernelArgs& a, int num_keys,
                             cudaStream_t stream);
+
+// K9: one thread per word of a.words; 1 <= a.levels <= kKeygenMaxLevels,
+// depth a.levels captures, a.slots counts the depths that capture.
+void launch_keygen_megakernel(const KeygenMegakernelArgs& a,
+                              cudaStream_t stream);
 
 }  // namespace dpf

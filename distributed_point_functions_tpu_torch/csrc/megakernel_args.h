@@ -1,9 +1,10 @@
 // The operands of the megakernels: K5, the slab megakernel (what the
 // launcher in megakernel.cu passes to the body in megakernel_rows.cuh), K7,
 // the walk megakernel in both its forms (walk_megakernel.cu, bodies in
-// walk_rows.cuh), and K8, the hierarchical megakernel (hier_megakernel.cu,
-// body in hier_rows.cuh). Plain C++ (no CUDA header), so the binding and the
-// host-compiler test build it too.
+// walk_rows.cuh), K8, the hierarchical megakernel (hier_megakernel.cu,
+// body in hier_rows.cuh), and K9, the keygen megakernel
+// (keygen_megakernel.cu, body in keygen_rows.cuh). Plain C++ (no CUDA
+// header), so the binding and the host-compiler test build it too.
 
 #pragma once
 
@@ -89,6 +90,26 @@ struct HierMegakernelArgs {
   int levels, words, n_rows;
   int lpe, keep, party, xor_group;
   int32_t slots[kHierMaxLevels + 2];  // depths 0 .. L, -1 past L
+};
+
+// K9, the keygen megakernel: one key batch, keys in lanes. uint32 words,
+// row-major; L = levels (1 .. kKeygenMaxLevels: a 128-bit domain of
+// one-element blocks has 128), Wp = words (32 keys a word), `slots`
+// captures, the last at depth L. Depth d = 0 .. L captures where bit d % 32
+// of captures[d / 32] is set; slot s is the s-th depth that captures.
+constexpr int kKeygenMaxLevels = 128;
+
+struct KeygenMegakernelArgs {
+  const uint32_t* planes0;  // [128, Wp] party-0 seed planes
+  const uint32_t* planes1;  // [128, Wp] party-1 seed planes
+  const uint32_t* path;     // [L, Wp] packed alpha bits of each level
+  uint32_t* cw;             // [L * 128, Wp] seed-correction planes
+  uint32_t* cc;             // [L * 2, Wp] rows 2 d (ccl) and 2 d + 1 (ccr)
+  uint32_t* vh;             // [slots * 256, Wp] value hashes: slot s, party
+                            // p, plane q at row s * 256 + p * 128 + q
+  uint32_t* ctrl;           // [slots, Wp] party 1's control at each capture
+  int levels, words, slots;
+  uint32_t captures[5];
 };
 
 }  // namespace dpf

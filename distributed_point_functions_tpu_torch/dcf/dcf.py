@@ -90,15 +90,25 @@ class DistributedComparisonFunction:
         return DcfKey(key_a), DcfKey(key_b)
 
     def generate_keys_batch(
-        self, alphas: Sequence[int], betas, seeds=None
+        self, alphas: Sequence[int], betas, seeds=None, mode: Optional[str] = None,
+        device=None,
     ) -> Tuple[List[DcfKey], List[DcfKey]]:
-        """K DCF key pairs at once through the batched DPF keygen (one
-        vectorized AES call per tree level across all keys).
+        """K DCF key pairs at once through the batched DPF keygen.
 
         `betas` is one value (broadcast) or a length-K sequence. `seeds` is
         an optional uint32[K, 2, 4] array replacing the CSPRNG; with the
         same seeds the keys are byte-identical to the JAX package's.
+
+        `mode=None` runs the host batched path (one vectorized numpy AES
+        call per tree level across all keys). A mode of
+        ``ops.keygen_batch.KEYGEN_MODES`` runs that dealer, on `device` for
+        the card modes ("megakernel": one K9 launch for the batch); every
+        mode gives byte-identical keys. `device` without a mode is refused.
         """
+        if mode is None and device is not None:
+            raise InvalidArgumentError(
+                "`device` needs a keygen mode; mode=None runs the host batched path"
+            )
         n = self.log_domain_size
         k = len(alphas)
         try:
@@ -115,9 +125,15 @@ class DistributedComparisonFunction:
             [betas[j] if (alphas[j] >> (n - i - 1)) & 1 else zero for j in range(k)]
             for i in range(n)
         ]
-        keys_a, keys_b = self._dpf.generate_keys_batch(
-            [a >> 1 for a in alphas], per_level, seeds=seeds
-        )
+        shifted = [a >> 1 for a in alphas]
+        if mode is None:
+            keys_a, keys_b = self._dpf.generate_keys_batch(shifted, per_level, seeds=seeds)
+        else:
+            from ..ops import keygen_batch
+
+            keys_a, keys_b = keygen_batch.generate_keys_batch(
+                self._dpf, shifted, per_level, mode=mode, seeds=seeds, device=device
+            )
         return [DcfKey(x) for x in keys_a], [DcfKey(x) for x in keys_b]
 
     def evaluate(self, key: DcfKey, x: int):

@@ -1,4 +1,4 @@
-"""Wrappers of the hand-written Hopper kernels K2 to K8 (K7 in two forms).
+"""Wrappers of the hand-written Hopper kernels K2 to K9 (K7 in two forms).
 
 Each wrapper takes the same tensors as its plain version in
 ops/backend_torch.py and returns the same result:
@@ -24,11 +24,19 @@ K7     ``walk_megakernel``          ops/aes_pallas.py
                                     kernel and count, ``K7_DCF``)
 K8     ``hier_megakernel``          ops/aes_pallas.py
                                     hier_megakernel_pallas_batched
+K9     ``keygen_megakernel``        ops/aes_pallas.py
+                                    keygen_megakernel_pallas_batched
 =====  ===========================  ==========================================
+
+``expand_one_level_single``, one key in the ``[128, W]`` layout, replaces
+aes_pallas.py:expand_one_level_pallas, the legacy one-key kernel; it is a
+view of K2 (a batch of one key) with no kernel body and no count of its
+own.
 
 K1, the bitsliced AES row circuit (csrc/aes_rows.cuh, replacing
 ``_aes_rows`` / ``_sbox_rows``), is inlined into all of them; K6 and K7 use
-its form with the PRG key selected per lane, and so does K8.
+its form with the PRG key selected per lane, and so does K8. K9 uses the
+table form, as K2-K5 do.
 
 Device rule: a wrapper given CPU tensors runs the plain version, because the
 tensors lie on the CPU; given CUDA tensors it launches its kernel or raises.
@@ -41,7 +49,8 @@ plane word once in each direction; see csrc/expand.cu and csrc/megakernel.cu.
 
 Build: the first launch builds csrc/binding.cpp (the one source with
 PyTorch's headers), csrc/expand.cu, csrc/megakernel.cu, csrc/walk.cu,
-csrc/walk_megakernel.cu and csrc/hier_megakernel.cu with ``torch.utils.cpp_extension.load`` for
+csrc/walk_megakernel.cu, csrc/hier_megakernel.cu and
+csrc/keygen_megakernel.cu with ``torch.utils.cpp_extension.load`` for
 ``sm_90a`` into the package's ``_build/`` directory; ninja compiles the
 sources in parallel, rebuilds what changed and reuses the rest. ``-Xptxas -v`` reports each kernel's registers
 and spills, kept in ``Kernel.ptxas``. The binding makes the operands' device
@@ -93,7 +102,8 @@ K6 = Kernel("K6 walk_level", "dpf_walk_level_kernel")
 K7 = Kernel("K7 walk_megakernel", "dpf_walk_megakernel_kernel")
 K7_DCF = Kernel("K7 walk_megakernel, DCF form", "dpf_walk_dcf_kernel")
 K8 = Kernel("K8 hier_megakernel", "dpf_hier_megakernel_kernel")
-KERNELS = (K2, K3, K4, K5, K6, K7, K7_DCF, K8)
+K9 = Kernel("K9 keygen_megakernel", "dpf_keygen_megakernel_kernel")
+KERNELS = (K2, K3, K4, K5, K6, K7, K7_DCF, K8, K9)
 # Each .cu source and the kernels ptxas reports for it.
 CUDA_SOURCES = {
     "expand.cu": (K2, K3, K4),
@@ -101,6 +111,7 @@ CUDA_SOURCES = {
     "walk.cu": (K6,),
     "walk_megakernel.cu": (K7, K7_DCF),
     "hier_megakernel.cu": (K8,),
+    "keygen_megakernel.cu": (K9,),
 }
 SOURCES = ("binding.cpp",) + tuple(CUDA_SOURCES)
 
@@ -282,6 +293,28 @@ def expand_one_level(planes, control, cw_plane, ccl_mask, ccr_mask):
     if _on_cpu(*args):
         return backend_torch.expand_one_level(*args)
     return _expand(K2, *args)
+
+
+def expand_one_level_single(planes, control, cw_plane, ccl_mask, ccr_mask):
+    """K2 for one key in the legacy ``[128, W]`` layout: planes int32[128,
+    W], control int32[W], cw_plane int32[128], ccl_mask/ccr_mask int32
+    scalars (0-dim or one element) -> (int32[128, 2W], int32[2W]) in [left |
+    right] order. A view of ``expand_one_level`` on a batch of one key: K2's
+    launch and count, no kernel of its own. Replaces
+    aes_pallas.py:expand_one_level_pallas, which refuses a width with no
+    divisor block; K2 takes any width, so this view refuses none. The plain
+    version is ``backend_torch.expand_one_level_single``."""
+    if planes.dim() != 2 or control.dim() != 1 or cw_plane.dim() != 1:
+        raise InvalidArgumentError(
+            f"planes must be [128, W], control [W] and cw_plane [128], got "
+            f"{tuple(planes.shape)}, {tuple(control.shape)} and {tuple(cw_plane.shape)}"
+        )
+    if ccl_mask.numel() != 1 or ccr_mask.numel() != 1:
+        raise InvalidArgumentError("ccl_mask and ccr_mask must be one word each")
+    out, new_control = expand_one_level(
+        planes[None], control[None], cw_plane[None], ccl_mask.reshape(1), ccr_mask.reshape(1)
+    )
+    return out[0], new_control[0]
 
 
 def expand_and_hash_last_level(planes, control, cw_plane, ccl_mask, ccr_mask):
@@ -632,3 +665,61 @@ def hier_megakernel(
                               xor_group, list(captures))
     K8.launches += 1
     return out, exit_planes, exit_control
+
+
+KEYGEN_MAX_LEVELS = 128  # csrc/megakernel_args.h kKeygenMaxLevels
+
+
+def keygen_megakernel(planes0, planes1, path_masks, *, captures):
+    """K9, the keygen megakernel: the whole two-party dealer loop for one key
+    batch in one launch.
+
+    planes0/planes1 int32[128, Wp] both parties' seed planes (keys in lanes:
+    bit i of word w is key 32 w + i), path_masks int32[L, Wp] each level's
+    packed alpha bits, captures: L + 1 flags, the last set -> (cw int32[L *
+    128, Wp] seed-correction planes, cc int32[L * 2, Wp] rows ccl and ccr of
+    each level, vh int32[slots * 256, Wp] value hashes, slot s, party p,
+    plane q at row s * 256 + p * 128 + q, ctrl int32[slots, Wp] party 1's
+    control at each capture). Replaces
+    aes_pallas.py:keygen_megakernel_pallas_batched with the same boundary
+    layouts; the plain version is ``backend_torch.keygen_megakernel``.
+
+    Bound on the H100: integer operations, four MMO hashes per word and
+    level and two per capture against the seed planes in and the
+    corrections and value hashes out (csrc/keygen_megakernel.cu).
+    """
+    if path_masks.dim() != 2:
+        raise InvalidArgumentError(f"path_masks must be [L, Wp], got {tuple(path_masks.shape)}")
+    levels, wp = path_masks.shape
+    if not 1 <= levels <= KEYGEN_MAX_LEVELS:
+        raise InvalidArgumentError(
+            f"the keygen megakernel runs 1 .. {KEYGEN_MAX_LEVELS} tree levels, got {levels}"
+        )
+    captures = tuple(bool(f) for f in captures)
+    if len(captures) != levels + 1:
+        raise InvalidArgumentError(
+            f"captures must hold levels + 1 = {levels + 1} flags, got {len(captures)}"
+        )
+    if not captures[levels]:
+        raise InvalidArgumentError("the last depth is always a value capture")
+    _check(planes0, (128, wp), "planes0")
+    _check(planes1, (128, wp), "planes1")
+    _check(path_masks, (levels, wp), "path_masks")
+    args = (planes0, planes1, path_masks)
+    if _on_cpu(*args):
+        return backend_torch.keygen_megakernel(*args, captures=captures)
+    if not all(t.is_contiguous() for t in args):
+        raise InvalidArgumentError(f"{K9.name}: operands must be contiguous")
+    slots = sum(captures)
+    dev = planes0.device
+    cw = torch.empty((levels * 128, wp), dtype=torch.int32, device=dev)
+    cc = torch.empty((levels * 2, wp), dtype=torch.int32, device=dev)
+    vh = torch.empty((slots * 256, wp), dtype=torch.int32, device=dev)
+    ctrl = torch.empty((slots, wp), dtype=torch.int32, device=dev)
+    if wp == 0:
+        return cw, cc, vh, ctrl
+    mask = sum(1 << d for d, flag in enumerate(captures) if flag)
+    capture_words = [(mask >> (32 * i)) & 0xFFFFFFFF for i in range(5)]
+    library().keygen_megakernel(*args, cw, cc, vh, ctrl, capture_words)
+    K9.launches += 1
+    return cw, cc, vh, ctrl

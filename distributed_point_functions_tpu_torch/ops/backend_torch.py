@@ -1,12 +1,14 @@
 """The DPF expansion and point-walk primitives in plain PyTorch, on bit-planes.
 
 The port's counterpart of the JAX package's ``ops/backend_jax.py``, cut to
-the full-domain, point-walk, DCF and hierarchical slices.
+the full-domain, point-walk, DCF, hierarchical and keygen slices.
 ``expand_one_level``, ``expand_and_hash_last_level``, ``hash_value_planes``,
-``megakernel_fold``, ``walk_level``, ``walk_megakernel`` and
-``hier_megakernel`` are the *plain versions* of the CUDA kernels K2, K3, K4,
-K5, K6, K7 in both its forms, and K8 (ops/aes_cuda.py): same
-arguments, same outputs, written as tensor algebra over a leading key axis.
+``megakernel_fold``, ``walk_level``, ``walk_megakernel``,
+``hier_megakernel`` and ``keygen_megakernel`` are the *plain versions* of
+the CUDA kernels K2, K3, K4, K5, K6, K7 in both its forms, K8 and K9
+(ops/aes_cuda.py), and ``expand_one_level_single`` that of K2's one-key
+view: same arguments, same outputs, written as tensor algebra over a
+leading key axis (K9's lanes are keys: it has none).
 The wrappers in ops/aes_cuda.py run them for CPU tensors; chip_smoke.py
 holds the kernels against them on the card. The JAX package's functions
 take one key and are vmapped; these take the key axis explicitly, as the
@@ -89,6 +91,19 @@ def expand_one_level(planes, control, cw_plane, ccl_mask, ccr_mask):
     new_control = h[..., 0, :] ^ cc
     h[..., 0, :] = 0
     return h, new_control
+
+
+def expand_one_level_single(planes, control, cw_plane, ccl_mask, ccr_mask):
+    """``expand_one_level`` for one key in the JAX package's legacy
+    ``[128, W]`` layout: planes int32[128, W], control int32[W], cw_plane
+    int32[128], ccl_mask/ccr_mask int32 scalars (0-dim) -> (int32[128, 2W],
+    int32[2W]) in [left | right] order. The plain version of K2's one-key
+    view (``aes_cuda.expand_one_level_single``); the JAX package's
+    ``backend_jax.expand_one_level``."""
+    out, new_control = expand_one_level(
+        planes[None], control[None], cw_plane[None], ccl_mask.reshape(1), ccr_mask.reshape(1)
+    )
+    return out[0], new_control[0]
 
 
 def hash_value_planes(planes):
@@ -387,6 +402,66 @@ def hier_megakernel(
             planes, control = walk_level(planes, control, path_masks[d], cw_planes[:, d],
                                          ccl[:, d], ccr[:, d])
     return acc.reshape(k, keep * lpe * 32, wp), planes, control
+
+
+def keygen_megakernel(
+    planes0,  # int32[128, Wp] party-0 seed planes (keys in lanes)
+    planes1,  # int32[128, Wp] party-1 seed planes
+    path_masks,  # int32[L, Wp] packed alpha bits of each level
+    *,
+    captures,  # L + 1 flags: the depths whose seeds are value-hashed
+):
+    """The keygen megakernel: the plain version of K9 -> (cw int32[L * 128,
+    Wp], cc int32[L * 2, Wp], vh int32[slots * 256, Wp], ctrl int32[slots,
+    Wp]). The JAX package's ``keygen_megakernel_reference_rows``.
+
+    Keys are in lanes (bit i of word w = key 32 w + i). Party 0's control
+    starts at 0 and party 1's at ~0 on every lane. At each depth d = 0 .. L
+    that captures, both parties' seeds are hashed under the value key (bit 0
+    kept) into slot rows s * 256 + p * 128 + q, and party 1's control into
+    ctrl row s. Below depth L, level d: both parties' seeds hashed under
+    the left and the right PRG key (one masked hash at doubled width), bit
+    0 of each split out and cleared, the lost and the kept child selected
+    per lane by the alpha bit (1 keeps the right child), the seed correction
+    sc = lose0 ^ lose1 (cw rows d * 128 + q), the control corrections ccl =
+    ~(ebl0 ^ ebl1 ^ path) and ccr = ebr0 ^ ebr1 ^ path (cc rows 2 d, 2 d +
+    1), the new seeds keep ^ (sc & c) under the OLD control, then c = ebk ^
+    (c & keep_cc).
+    """
+    levels, wp = path_masks.shape
+    dev = planes0.device
+    seeds = torch.stack([planes0, planes1])  # [party, 128, Wp]
+    control = torch.stack([torch.zeros(wp, dtype=torch.int32, device=dev),
+                           torch.full((wp,), -1, dtype=torch.int32, device=dev)])
+    key_mask = torch.cat([torch.zeros(wp, dtype=torch.int32, device=dev),
+                          torch.full((wp,), -1, dtype=torch.int32, device=dev)])
+    cw, cc, vh, ctrl = [], [], [], []
+    for d in range(levels + 1):
+        if captures[d]:
+            vh.append(hash_value_planes(seeds).reshape(256, wp))
+            ctrl.append(control[1])
+        if d == levels:
+            break
+        path = path_masks[d]
+        # [left | right] hashes of both parties in one AES at doubled width.
+        h = aes_torch.hash_planes(torch.cat([seeds, seeds], dim=-1), _rk_np("left"),
+                                  _rk_np("lr_diff"), key_mask)
+        hl, hr = h[..., :wp], h[..., wp:]
+        ebl, ebr = hl[:, 0].clone(), hr[:, 0].clone()  # [party, Wp]
+        hl[:, 0] = 0
+        hr[:, 0] = 0
+        lose = (hl & path) | (hr & ~path)
+        keep = (hr & path) | (hl & ~path)
+        ebk = (ebr & path) | (ebl & ~path)
+        sc = lose[0] ^ lose[1]
+        ccl = ~(ebl[0] ^ ebl[1] ^ path)
+        ccr = ebr[0] ^ ebr[1] ^ path
+        keep_cc = (ccr & path) | (ccl & ~path)
+        seeds = keep ^ (sc[None] & control[:, None, :])
+        control = ebk ^ (control & keep_cc)
+        cw.append(sc)
+        cc += [ccl, ccr]
+    return torch.cat(cw), torch.stack(cc), torch.cat(vh), torch.stack(ctrl)
 
 
 def pack_mask_device(bits: torch.Tensor) -> torch.Tensor:

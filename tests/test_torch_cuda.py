@@ -2,9 +2,10 @@
 versions, and the fold and PIR paths through the kernels (K2-K4, and K5 in
 mode="megakernel"), batched EvaluateAt (K6 and K4 in mode="walk", K7 in
 mode="walkkernel"), the DCF's batch_evaluate (K6 and K4 in mode="walk",
-K7's DCF form in mode="walkkernel") and the hierarchical advance (K2 and K4
-in mode="fused", K8 in mode="hierkernel") against the same paths on the
-CPU.
+K7's DCF form in mode="walkkernel"), the hierarchical advance (K2 and K4
+in mode="fused", K8 in mode="hierkernel") and batched keygen (K2's one-key
+view and K4 in mode="perlevel", K9 in mode="megakernel") against the same
+paths on the CPU.
 
 Every test here needs a card and skips without one. The file imports no
 JAX, so on a machine without JAX it runs without the suite's conftest:
@@ -19,7 +20,7 @@ import torch
 import distributed_point_functions_tpu_torch as port
 from distributed_point_functions_tpu_torch.dcf import batch as dcf_batch
 from distributed_point_functions_tpu_torch.ops import aes_cuda, backend_torch, evaluator
-from distributed_point_functions_tpu_torch.ops import hierarchical
+from distributed_point_functions_tpu_torch.ops import hierarchical, keygen_batch
 from distributed_point_functions_tpu_torch.ops.aes_torch import as_words, from_words, pack_bit_mask
 from distributed_point_functions_tpu_torch.parallel import pir
 from distributed_point_functions_tpu_torch.utils.errors import InvalidArgumentError
@@ -61,7 +62,7 @@ def test_kernels_match_plain_versions(cuda, w):
     assert torch.equal(
         aes_cuda.hash_value_planes(args[0]), backend_torch.hash_value_planes(args[0])
     )
-    assert [k.launches for k in aes_cuda.KERNELS] == [1, 1, 1, 0, 0, 0, 0, 0]
+    assert [k.launches for k in aes_cuda.KERNELS] == [1, 1, 1, 0, 0, 0, 0, 0, 0]
 
 
 def megakernel_plan(lds, value_type, budget, host_levels=None):
@@ -195,7 +196,7 @@ def test_megakernel_fold_on_the_card_matches_the_cpu(cuda, party, monkeypatch):
 
     aes_cuda.reset_launch_counts()
     on_card = fold(cuda)
-    assert [k.launches for k in aes_cuda.KERNELS] == [0, 0, 0, 3, 0, 0, 0, 0]
+    assert [k.launches for k in aes_cuda.KERNELS] == [0, 0, 0, 3, 0, 0, 0, 0, 0]
     assert np.array_equal(on_card, fold("cpu"))
     assert np.array_equal(on_card, fold("cpu", mode="fold"))
     assert np.array_equal(fold(cuda, db), fold("cpu", db))
@@ -416,3 +417,56 @@ def test_evaluate_levels_fused_on_the_card_matches_the_cpu(cuda, mode, party):
     assert card_ctx.seeds.is_cuda and np.array_equal(from_words(card_ctx.seeds),
                                                      from_words(cpu_ctx.seeds))
     assert np.array_equal(from_words(card_ctx.control), from_words(cpu_ctx.control))
+
+
+@pytest.mark.parametrize(
+    "captures, w",
+    [((True, True), 1), ((True, False, True, True), 3), ((False,) * 4 + (True,), 37),
+     (tuple(d in (0, 33, 40) for d in range(41)), 2), ((False,) * 127 + (True,), 32)],
+)
+def test_keygen_megakernel_matches_plain_version(cuda, captures, w):
+    """K9 on the card equals its plain version: one to 127 levels, depths
+    that do not capture, captures past depth 32, ragged widths; one launch."""
+    rng = np.random.default_rng(w + len(captures))
+    levels = len(captures) - 1
+    ops = [torch.from_numpy(as_words(rng.integers(0, 2**32, size=shape, dtype=np.uint32))).to(cuda)
+           for shape in ((128, w), (128, w), (levels, w))]
+    aes_cuda.reset_launch_counts()
+    got = aes_cuda.keygen_megakernel(*ops, captures=captures)
+    assert aes_cuda.K9.launches == 1
+    want = backend_torch.keygen_megakernel(*ops, captures=captures)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_k2_one_key_view_matches_plain_version(cuda):
+    args = [a[0] for a in expand_inputs(1, 33, cuda)]
+    aes_cuda.reset_launch_counts()
+    got = aes_cuda.expand_one_level_single(*args)
+    assert aes_cuda.K2.launches == 1
+    want = backend_torch.expand_one_level_single(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("log_domain, value_type", [(20, port.Int(64)), (128, port.XorWrapper(128))])
+def test_keygen_modes_on_the_card_match_the_host_dealer(cuda, log_domain, value_type):
+    """Modes perlevel (one K2 a level, one K4 a capture) and megakernel (one
+    K9) on the card give the host dealer's keys; so does the DCF's dealer."""
+    dpf = port.DistributedPointFunction.create(port.DpfParameters(log_domain, value_type))
+    rng = np.random.default_rng(log_domain)
+    k = 70
+    alphas = [int.from_bytes(rng.bytes(16), "little") % (1 << log_domain) for _ in range(k)]
+    betas = [int(x) for x in rng.integers(1, 2**62, size=k)]
+    seeds = rng.integers(0, 2**32, size=(k, 2, 4), dtype=np.uint32)
+    want = dpf.generate_keys_batch(alphas, [betas], seeds=seeds)
+    levels = dpf.validator.tree_levels_needed - 1
+    for mode, counts in (("perlevel", {aes_cuda.K2: levels, aes_cuda.K4: 1}),
+                         ("megakernel", {aes_cuda.K9: 1})):
+        aes_cuda.reset_launch_counts()
+        got = keygen_batch.generate_keys_batch(dpf, alphas, [betas], mode=mode, seeds=seeds)
+        assert got == want, mode
+        assert {k: k.launches for k in aes_cuda.KERNELS if k.launches} == counts
+    dcf = port.DistributedComparisonFunction.create(12, port.Int(64))
+    dalphas = [a % 4096 for a in alphas[:9]]
+    want = dcf.generate_keys_batch(dalphas, betas[:9], seeds=seeds[:9])
+    got = dcf.generate_keys_batch(dalphas, betas[:9], seeds=seeds[:9], mode="megakernel")
+    assert got == want

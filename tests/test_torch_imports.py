@@ -1,6 +1,7 @@
 """The PyTorch/CUDA port stands alone: it imports neither JAX nor the JAX
-package (its fold, PIR, EvaluateAt, DCF and hierarchical paths driven in a
-fresh process), and its entry points do not run on the CPU unless asked to.
+package (its fold, PIR, EvaluateAt, DCF, hierarchical and keygen paths
+driven in a fresh process), and its entry points do not run on the CPU
+unless asked to.
 
 The import guard runs in a subprocess: tests/conftest.py imports jax into
 every pytest process.
@@ -52,6 +53,11 @@ for mode in ("fused", "hierkernel"):
     ctx = hierarchical.BatchedContext.create(hdpf, hkeys)
     outs = hierarchical.evaluate_levels_fused(ctx, hplan, mode=mode, device="cpu")
     assert [o.shape for o in outs] == [(1, 2, 2), (1, 4, 2), (1, 4, 2)]
+from distributed_point_functions_tpu_torch.ops import keygen_batch
+for mode in keygen_batch.KEYGEN_MODES:
+    pair = keygen_batch.generate_keys_batch(dpf, [3], [[5]], mode=mode,
+                                            seeds=np.ones((1, 2, 4), np.uint32), device="cpu")
+    assert pair[0] == keys, mode
 jax_package = "distributed_point_functions_tpu"
 bad = sorted(
     m for m in sys.modules

@@ -46,6 +46,7 @@ K = 3  # keys
 WIDTHS = (3, 40)  # lane words: a ragged width and one past a warp
 
 _jax_expand = jax.jit(jax.vmap(backend_jax.expand_one_level))
+_jax_expand_one_key = jax.jit(backend_jax.expand_one_level)
 _jax_hash = jax.jit(jax.vmap(backend_jax.hash_value_planes))
 
 
@@ -131,6 +132,19 @@ def test_k2_expand_one_level_matches_jax(w):
     args = expand_inputs(w, RNG_SEED + w)
     want = [np.asarray(a) for a in _jax_expand(*map(jnp.asarray, args))]
     for fn in (backend_torch.expand_one_level, aes_cuda.expand_one_level):
+        got = fn(*map(words, args))
+        assert np.array_equal(aes_torch.from_words(got[0]), want[0])
+        assert np.array_equal(aes_torch.from_words(got[1]), want[1])
+
+
+def test_k2_one_key_view_matches_jax():
+    """K2's one-key view in the legacy [128, W] layout (the replacement of
+    aes_pallas.expand_one_level_pallas) equals its stated twin,
+    ``backend_jax.expand_one_level``, jitted at W = 32: the plain version
+    and the wrapper on CPU tensors."""
+    args = [a[0] for a in expand_inputs(32, RNG_SEED + 32)]
+    want = [np.asarray(a) for a in _jax_expand_one_key(*map(jnp.asarray, args))]
+    for fn in (backend_torch.expand_one_level_single, aes_cuda.expand_one_level_single):
         got = fn(*map(words, args))
         assert np.array_equal(aes_torch.from_words(got[0]), want[0])
         assert np.array_equal(aes_torch.from_words(got[1]), want[1])
@@ -267,9 +281,9 @@ def test_megakernel_plain_version_matches_jax_replay(name):
 
 
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
-    """On CPU tensors the wrappers (K2, K4, K6, K7 and K8 among them) run the
-    plain versions and launch nothing; operands they cannot take are
-    refused before any dispatch."""
+    """On CPU tensors the wrappers (K2 and its one-key view, K4, K6, K7, K8
+    and K9 among them) run the plain versions and launch nothing; operands
+    they cannot take are refused before any dispatch."""
     aes_cuda.reset_launch_counts()
     args = [words(a) for a in expand_inputs(3, 1)]
     aes_cuda.expand_one_level(*args)
@@ -281,7 +295,18 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     hops, _ = hier_inputs(2, 1, 64, 2, seed=1)
     aes_cuda.hier_megakernel(*map(words, hops), bits=64, party=1, xor_group=False, keep=2,
                              captures=(0, 1, -1))
-    assert [k.launches for k in aes_cuda.KERNELS] == [0, 0, 0, 0, 0, 0, 0, 0]
+    aes_cuda.expand_one_level_single(*[a[0] for a in args])
+    kops = list(map(words, keygen_inputs(2, 1, seed=1)))
+    aes_cuda.keygen_megakernel(*kops, captures=(True, False, True))
+    assert [k.launches for k in aes_cuda.KERNELS] == [0] * len(aes_cuda.KERNELS)
+    with pytest.raises(InvalidArgumentError, match="last depth"):
+        aes_cuda.keygen_megakernel(*kops, captures=(True, True, False))
+    with pytest.raises(InvalidArgumentError, match="tree levels"):
+        aes_cuda.keygen_megakernel(*kops[:2], kops[2][:0], captures=(True,))
+    with pytest.raises(InvalidArgumentError, match="planes1"):
+        aes_cuda.keygen_megakernel(kops[0], kops[1][:, :0], kops[2], captures=(True, False, True))
+    with pytest.raises(InvalidArgumentError, match="one word"):
+        aes_cuda.expand_one_level_single(*[a[0] for a in args[:3]], args[3], args[4][0])
     with pytest.raises(InvalidArgumentError, match="int32"):
         aes_cuda.hash_value_planes(args[0].to(torch.int64))
     with pytest.raises(InvalidArgumentError, match="shape"):
@@ -315,6 +340,7 @@ _HARNESS = r"""
 #include "megakernel_rows.cuh"
 #include "walk_rows.cuh"
 #include "hier_rows.cuh"
+#include "keygen_rows.cuh"
 // stdin: mode K W, then the operands; stdout: the outputs.
 static std::vector<uint32_t> rd(size_t n) {
   std::vector<uint32_t> v(n);
@@ -443,6 +469,27 @@ static int hier(int K, int W) {
   fwrite(xc.data(), 4, xc.size(), stdout);
   return 0;
 }
+// K9 (mode 10): levels, the 5 words of the captures bitmask, planes0,
+// planes1, path [levels, W]; out: cw, cc, vh, ctrl. Each word runs as a
+// block of one thread.
+static int keygen(int W) {
+  int levels;
+  if (fread(&levels, 4, 1, stdin) != 1) return 1;
+  auto caps = rd(5);
+  dpf::KeygenMegakernelArgs a{};
+  a.levels = levels; a.words = W;
+  for (int i = 0; i < 5; ++i) a.captures[i] = caps[i];
+  for (int d = 0; d <= levels; ++d) a.slots += (caps[d >> 5] >> (d & 31)) & 1;
+  auto p0 = rd(size_t(128) * W), p1 = rd(size_t(128) * W), path = rd(size_t(levels) * W);
+  std::vector<uint32_t> cw(size_t(levels) * 128 * W), cc(size_t(levels) * 2 * W),
+      vh(size_t(a.slots) * 256 * W), ctrl(size_t(a.slots) * W);
+  a.planes0 = p0.data(); a.planes1 = p1.data(); a.path = path.data(); a.cw = cw.data();
+  a.cc = cc.data(); a.vh = vh.data(); a.ctrl = ctrl.data();
+  uint32_t stash[128];
+  for (int w = 0; w < W; ++w) dpf::keygen_megakernel_word(a, w, stash, 1);
+  for (auto* v : {&cw, &cc, &vh, &ctrl}) fwrite(v->data(), 4, v->size(), stdout);
+  return 0;
+}
 // K1's masked form (mode 7): planes, mask [W]; out: the hashed planes.
 static int masked_hash(int K, int W) {
   uint32_t stash[128], s[128];
@@ -467,6 +514,7 @@ int main() {
   if (mode == 7) return masked_hash(K, W);
   if (mode == 8) return walk_dcf(K, W);
   if (mode == 9) return hier(K, W);
+  if (mode == 10) return keygen(W);
   uint32_t stash[128];
   auto planes = rd(size_t(K) * 128 * W);
   if (mode == 2) {
@@ -868,3 +916,50 @@ def test_csrc_hier_body_on_the_host_compiler(host_harness):
         sizes = np.cumsum([a.size for a in want])[:-1]
         for g, a in zip(np.split(got, sizes), want):
             assert np.array_equal(g.reshape(a.shape), a), kw
+
+
+def keygen_inputs(levels, w, seed):
+    """uint32 numpy operands of K9 at W words: both parties' seed planes,
+    random but for lanes 0-7 of word 0, where party 1 has party 0's seeds
+    (their seed corrections are 0), and lanes 8-15, where both seeds are 0;
+    and path rows of all zeros (level 0), all ones (level 1) and random
+    bits."""
+    rng = np.random.default_rng(seed)
+    p0, p1 = rng.integers(0, 2**32, size=(2, 128, w), dtype=np.uint32)
+    same, zero = np.uint32(0x000000FF), np.uint32(0x0000FF00)
+    p1[:, 0] = (p1[:, 0] & ~same) | (p0[:, 0] & same)
+    p0[:, 0] &= ~zero
+    p1[:, 0] &= ~zero
+    path = rng.integers(0, 2**32, size=(levels, w), dtype=np.uint32)
+    path[0] = 0
+    if levels > 1:
+        path[1] = 0xFFFFFFFF
+    return p0, p1, path
+
+
+def test_csrc_keygen_body_on_the_host_compiler(host_harness):
+    """csrc/keygen_rows.cuh, K9's per-word body, built with g++ and run over
+    every word, equals K9's plain version (cw, cc, vh, ctrl): one and
+    several levels, depths that capture and depths that do not (the last
+    always does), captures past depth 32 (the second word of the bitmask),
+    path rows of all zeros, all ones and random bits, lanes whose parties
+    share a seed and zero seeds. K9 has no limb arithmetic (its corrections
+    are XORs and selects; the typed value corrections are the host's), so
+    there is no carry to force."""
+    exe = host_harness
+    w = WIDTHS[0]
+    for i, captures in enumerate((
+        (True, True), (True, False, True, True), (False, False, False, True),
+        (True,) * 5, tuple(d in (0, 33, 40) for d in range(41)),
+    )):
+        levels = len(captures) - 1
+        ops = keygen_inputs(levels, w, seed=30 + i)
+        mask = sum(1 << d for d, flag in enumerate(captures) if flag)
+        mask_words = np.array([(mask >> (32 * j)) & 0xFFFFFFFF for j in range(5)], np.uint32)
+        got = run_harness(exe, [10, 1, w, levels], mask_words, *ops)
+        want = [aes_torch.from_words(t) for t in
+                backend_torch.keygen_megakernel(*map(words, ops), captures=captures)]
+        sizes = np.cumsum([a.size for a in want])[:-1]
+        assert got.size == sum(a.size for a in want)
+        for g, a in zip(np.split(got, sizes), want):
+            assert np.array_equal(g.reshape(a.shape), a), captures

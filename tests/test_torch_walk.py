@@ -112,7 +112,7 @@ def test_evaluate_at_batch_matches_jax(int64, mode, party):
     chunked = run(key_chunk=5, device_output=True)
     assert isinstance(chunked, torch.Tensor) and chunked.device.type == "cpu"
     assert np.array_equal(aes_torch.from_words(chunked), got)
-    assert [k.launches for k in aes_cuda.KERNELS] == [0] * 8
+    assert [k.launches for k in aes_cuda.KERNELS] == [0] * len(aes_cuda.KERNELS)
     if party == 1:
         total = port_ev.values_to_numpy(int64["want"][0], 64) + port_ev.values_to_numpy(got, 64)
         hit = np.array(int64["alphas"])[:, None] == np.array(int64["points"])[None, :]
