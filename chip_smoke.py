@@ -52,13 +52,17 @@ Phases (any failure raises and exits non-zero before the result line):
    DCF form per chunk); every share pair reconstructs beta where x < alpha
    and 0 elsewhere, the modes agree, and the port's host ``dcf.evaluate``
    equals both for 4 keys at 16 points;
-9. hierarchical kernel: K8 against its plain version on the card (exact), at
-   odd shapes (W = 1, 3, 37 words, depths 1, 5 and 16, depths that do not
-   capture, slots in any order, both parties, Int(64), XorWrapper(128),
-   Int(32)) and on a full-width window of the heavy-hitters configuration
-   (below) at a key chunk of 4; then timed at the main path's chunk of 32
-   beside its plain version and its bound, with K2 and K4 at the fused
-   mode's widest shape;
+9. hierarchical kernel: K8 against its plain version on the card (exact:
+   every value row and the exit state, pad lanes included) on the seven
+   windows of small hierarchies in ops/hier_cases.py (Int(32)
+   keeping 2 and 4, Int(64), Int(128), XorWrapper(128), both parties, a
+   zero-level first step, steps of two and three tree levels, corrections
+   that carry through every limb) and on window 4 of the heavy-hitters
+   configuration (below) from an entry state of random context seeds, at
+   key chunks of 4 and 32; then timed at the main path's chunk of 32 beside
+   its plain version and its bound (counted at the function's work: a walk
+   hash per tree node and level), every window timed at that chunk, with
+   K2 and K4 at the fused mode's widest shape;
 10. heavy hitters: BM_HeavyHitters at the top of its sweep (128 hierarchy
    levels, log-domain i + 1 at level i, Int(64), the prefixes of 10,000
    uniform leaves and the keys' alphas; benchmarks/bench_heavy_hitters.py),
@@ -285,27 +289,34 @@ def walk_megakernel_cost(key_planes, k: int, w: int, levels: int, bits: int, kee
     return nbytes, k * w * per_word
 
 
-def hier_megakernel_cost(key_planes, k: int, levels: int, wp: int, n_rows: int, hot: int,
-                         bits: int, keep: int, party: int, xor_group: bool):
-    """(bytes, gates) of K8 on K keys and one window of W words: every level
-    of the walk per lane word (L masked hashes), then per (capture slot,
-    word) that the select rows make hot (`hot` of them, counted from this
-    window's tables: a word no lane of which a slot selects needs nothing
-    from that capture) the value hash, the transposes, and per lane the
-    control mask, each kept element's select mask, and per kept limb the
-    gate (AND), the correction (XOR; or add with carry, 3, and for party 1
-    the negation, 3 more), the select (AND) and the placement (XOR). Bytes:
-    the entry planes and control, path, key tables, corrections and select
-    words read once; the value rows, exit planes and exit control written
+def hier_megakernel_cost(key_planes, k: int, segments, hot: int, entry_read: int, wp: int,
+                         n_rows: int, state_cap: int, bits: int, keep: int, party: int,
+                         xor_group: bool):
+    """(bytes, gates) of K8's function on K keys and one window of W words,
+    counted at what this window's inputs need, whatever implements it: per
+    (segment, lane word) one masked walk hash and the walk's other
+    operations per tree level it advances from its parent (each tree node
+    is reached once, from its parent; ``segments`` holds (base, lanes,
+    depth, levels_d)); then per (capture slot, word) that the select rows
+    make hot (`hot` of them, counted from this window's tables) the value
+    hash, the transposes, and per lane the control mask, each kept
+    element's select mask, and per kept limb the gate (AND), the
+    correction (XOR; or add with carry, 3, and for party 1 the negation, 3
+    more), the select (AND) and the placement (XOR). Bytes: the entry lanes
+    that segment 0 reads (`entry_read` a key: 16 B of seed and 4 of
+    control), the tables (parent, path and select words, key tables,
+    corrections) read once; the value rows and the exit state written
     once."""
     lpe = bits // 32
-    walk = levels * (masked_mmo_gates(key_planes) + WALK_LEVEL_EXTRA)
+    walk = sum((-(-(b + n) // 32) - b // 32) * ld for b, n, _, ld in segments)
     per_limb = 1 + (1 if xor_group else 3 + (3 if party else 0)) + 1 + 1
     per_capture = (mmo_gates(key_planes["value"]) + TRANSPOSE_OPS
                    + 32 * (CONTROL_MASK_OPS + keep * (CONTROL_MASK_OPS + lpe * per_limb)))
-    gates = k * (wp * walk + hot * per_capture)
-    nbytes = 4 * (2 * k * 129 * wp + levels * wp + k * levels * 130 + k * n_rows * lpe
-                  + n_rows * wp + k * keep * lpe * 32 * wp)
+    gates = k * (walk * (masked_mmo_gates(key_planes) + WALK_LEVEL_EXTRA) + hot * per_capture)
+    levels = segments[-1][2]
+    nbytes = 4 * (k * 5 * entry_read + 32 * wp + levels * wp + n_rows * wp
+                  + k * levels * 130 + k * n_rows * lpe + k * keep * lpe * 32 * wp
+                  + k * 5 * state_cap)
     return nbytes, gates
 
 
@@ -366,7 +377,7 @@ def main() -> None:
             aes_cuda, aes_torch, backend_torch, evaluator,
         )
         from distributed_point_functions_tpu_torch.dcf import batch as dcf_batch
-        from distributed_point_functions_tpu_torch.ops import hierarchical, keygen_batch
+        from distributed_point_functions_tpu_torch.ops import hier_cases, hierarchical, keygen_batch
         from distributed_point_functions_tpu_torch.parallel import pir
     except ImportError as e:
         fail(f"the port is not in this checkout: {e}")
@@ -500,7 +511,9 @@ def main() -> None:
         w = 1 << lv
         a = expand_args(KEY_CHUNK, w)
         k2_widths[w] = round(time_ms(torch, lambda: aes_cuda.expand_one_level(*a), 5), 4)
-    print(f"K2 ms per input width at K={KEY_CHUNK}: {json.dumps(k2_widths)}")
+    print(f"K2 ms per input width at K={KEY_CHUNK}: {json.dumps(k2_widths)}; bound ms: "
+          + json.dumps({w: round(bound_ms(*expand_cost(key_planes, KEY_CHUNK, w, False))[0], 4)
+                        for w in k2_widths}))
     torch.cuda.empty_cache()
 
     # -- 3. the main path: full-domain fold ---------------------------------
@@ -1013,65 +1026,93 @@ def main() -> None:
           f"{hh_values} values a key; {len(windows)} windows, "
           f"{[w.plan for w in windows[:1]]}, state_cap {windows[0].state_cap}")
 
-    def hier_args(k, w, captures, bits, keep):
-        """K8's operands: random words, and select rows that put the lanes in
-        contiguous segments, one a slot (the last lane in none)."""
-        levels, slots = len(captures) - 1, max(captures) + 1
-        lanes = 32 * w
-        lane_slot = np.minimum(np.arange(lanes) * slots // lanes, slots - 1)
-        lane_slot[-1] = -1
-        row_slot = np.repeat(np.arange(slots), keep)[:, None]
-        sel = aes_torch.pack_bit_mask(lane_slot[None, :] == row_slot)
-        return (rnd(k, 128, w), rnd(k, w), rnd(levels, w), rnd(k, levels, 128), rnd(k, levels),
-                rnd(k, levels), rnd(k, slots * keep, bits // 32),
-                torch.from_numpy(aes_torch.as_words(sel)).to(dev))
+    def hier_plain(a, kw):  # K8's plain version takes its operands but the parent table
+        return backend_torch.hier_window(*a[:3], *a[4:], **kw)
 
-    hier_cases = (
-        (T.Int(64), 2, 0, 1, (0, 1)), (T.Int(64), 2, 1, 3, (1, -1, 0, -1, 2, 3)),
-        (T.Int(32), 4, 1, 37, (0,) + (-1,) * 15 + (1,)),
-        (T.XorWrapper(128), 1, 1, 37, (-1, 0, 1, -1, -1, 2)),
-        (T.XorWrapper(128), 1, 0, 3, (2, 0, -1, 1)), (T.Int(32), 2, 0, 1, tuple(range(17))),
-        (T.Int(64), 2, 1, 37, tuple(range(15, -1, -1)) + (-1,)),
-    )
-    for vt, keep, party, w, captures in hier_cases:
-        kw = dict(bits=vt.bitsize, party=party, xor_group=isinstance(vt, T.XorWrapper),
-                  keep=keep, captures=captures)
-        a = hier_args(5, w, captures, vt.bitsize, keep)
-        hold("K8", aes_cuda.hier_megakernel(*a, **kw), backend_torch.hier_megakernel(*a, **kw))
-    print(f"K8 == plain at {len(hier_cases)} shapes (W = 1, 3, 37; depths 1, 5, 16; Int(64), "
-          "Int(32) keep 4 and 2, XorWrapper(128), both parties, depths that do not capture)")
-    # A full-width window of the configuration (window 4, levels 64-79, in
-    # the U128 regime): its tables and the keys' own tables, random entry
-    # state.
+    # Windows of real small hierarchies (ops/hier_cases.py): Int(32)
+    # keeping 2 and 4, Int(64), Int(128), XorWrapper(128), both parties, a
+    # zero-level first step, steps of two and three tree levels, words that
+    # straddle segments, pad lanes, corrections that carry through every limb.
+    for name in hier_cases.CASES:
+        case = hier_cases.window_case(name, device=dev)
+        hold("K8", aes_cuda.hier_megakernel(*case["args"], **case["kw"]),
+             hier_plain(case["args"], case["kw"]))
+    print(f"K8 == plain on {len(hier_cases.CASES)} windows of small hierarchies "
+          f"({'; '.join(hier_cases.CASES)})")
+    # Window 4 of the configuration (levels 64-79, in the U128 regime): its
+    # tables, the keys' own tables, and an entry state of random context
+    # seeds and control bits, which K8 reads through the parent table and the
+    # plain version gathers through entry_pos.
     win = windows[4]
     lo, hi = win.start_level, win.start_level + win.depth
     wpw, n_rows = win.plan.padded_words, win.sel.shape[0]
     keep_g = hprepared["hierkernel"].hier_keep
     slots = win.sel.reshape(n_rows // keep_g, keep_g, wpw)
     hot = int(functools.reduce(torch.bitwise_or, slots.unbind(1)).ne(0).sum())
+    seg0 = win.segments[0]
+    entry_read = int(win.parent[seg0[0]:seg0[0] + seg0[1]].unique().numel())
     hctx = hierarchical.BatchedContext.create(hdpf, hkeys[1][:HH_CHUNK])
     hlk = hierarchical.prepare_level_keys(hctx, hprepared["hierkernel"])
-    kw = dict(bits=64, party=1, xor_group=False, keep=keep_g, captures=win.captures)
+    kw = dict(segments=win.segments, state_cap=win.state_cap, bits=64, party=1,
+              xor_group=False, keep=keep_g)
 
-    def window_args(k):
-        return (rnd(k, 128, wpw), rnd(k, wpw), win.path, hlk.cw[:k, lo:hi].contiguous(),
-                hlk.ccl[:k, lo:hi].contiguous(), hlk.ccr[:k, lo:hi].contiguous(),
-                hlk.corrections[4][:k].contiguous(), win.sel)
+    def window_args(k, j=4, lk=hlk):
+        wj = windows[j]
+        lj, hj = wj.start_level, wj.start_level + wj.depth
+        control = torch.randint(0, 2, (k, wj.state_cap), dtype=torch.int32, device=dev,
+                                generator=g)
+        return [rnd(k, wj.state_cap, 4), control, wj.entry_pos, wj.parent, wj.path,
+                lk.cw[:k, lj:hj].contiguous(), lk.ccl[:k, lj:hj].contiguous(),
+                lk.ccr[:k, lj:hj].contiguous(), lk.corrections[j][:k].contiguous(), wj.sel]
 
     a = window_args(4)
-    hold("K8", aes_cuda.hier_megakernel(*a, **kw), backend_torch.hier_megakernel(*a, **kw))
+    hold("K8", aes_cuda.hier_megakernel(*a, **kw), hier_plain(a, kw))
     a = window_args(HH_CHUNK)
-    hold("K8", aes_cuda.hier_megakernel(*a, **kw), backend_torch.hier_megakernel(*a, **kw))
+    hold("K8", aes_cuda.hier_megakernel(*a, **kw), hier_plain(a, kw))
     ms = time_ms(torch, lambda: aes_cuda.hier_megakernel(*a, **kw), 5)
-    plain_ms = time_ms(torch, lambda: backend_torch.hier_megakernel(*a, **kw), 1)
-    b_ms, b_by = bound_ms(*hier_megakernel_cost(key_planes, HH_CHUNK, win.depth, wpw, n_rows,
-                                                hot, 64, keep_g, 1, False))
+    plain_ms = time_ms(torch, lambda: hier_plain(a, kw), 1)
+    b_ms, b_by = bound_ms(*hier_megakernel_cost(key_planes, HH_CHUNK, win.segments, hot,
+                                                entry_read, wpw, n_rows, win.state_cap, 64,
+                                                keep_g, 1, False))
     rows["K8"] = dict(kernel=aes_cuda.K8, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    walked = sum((-(-(b + n) // 32) - b // 32) * ld for b, n, _, ld in win.segments)
     print(f"K8 == plain on window 4 of the configuration at K = 4 and {HH_CHUNK}; at "
-          f"K={HH_CHUNK}, W={wpw}, L={win.depth}, {n_rows // keep_g} slots ({hot} hot slot words), "
-          f"Int(64) keep 2, party 1: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
-          f"by {b_by}); {aes_cuda.K8.ptxas}")
-    del a
+          f"K={HH_CHUNK}, W={wpw}, L={win.depth}, {len(win.segments)} segments ({walked} walked "
+          f"segment words, {hot} hot slot words, {entry_read} entry lanes read), Int(64) keep 2, "
+          f"party 1: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by}); "
+          f"{aes_cuda.K8.ptxas}")
+    # Every window of the configuration at the main path's chunk: where the
+    # K8 launches of a pass go.
+    per_window, per_bound = [], []
+    for j, wj in enumerate(windows):
+        aj = window_args(HH_CHUNK, j)
+        kj = dict(kw, segments=wj.segments, state_cap=wj.state_cap)
+        per_window.append(time_ms(torch, lambda: aes_cuda.hier_megakernel(*aj, **kj), 3))
+        sj = wj.sel.reshape(wj.sel.shape[0] // keep_g, keep_g, wpw)
+        hot_j = int(functools.reduce(torch.bitwise_or, sj.unbind(1)).ne(0).sum())
+        s0 = wj.segments[0]
+        read_j = int(wj.parent[s0[0]:s0[0] + s0[1]].unique().numel())
+        per_bound.append(bound_ms(*hier_megakernel_cost(
+            key_planes, HH_CHUNK, wj.segments, hot_j, read_j, wpw, wj.sel.shape[0],
+            wj.state_cap, 64, keep_g, 1, False))[0])
+    print(f"K8 per window at K={HH_CHUNK}: {', '.join(f'{t:.4f}' for t in per_window)} ms "
+          f"(sum {sum(per_window):.4f} ms a key chunk); bound "
+          f"{', '.join(f'{t:.4f}' for t in per_bound)} ms")
+    # Timing only (the outputs are not the window's): what the scattered
+    # parent loads cost (every lane's parent lane 0: the same arithmetic,
+    # one parent a segment), and all keys in one launch (more warps a depth).
+    zero_parent = torch.zeros_like(win.parent)
+    a0 = a[:3] + [zero_parent] + a[4:]
+    ms_zero = time_ms(torch, lambda: aes_cuda.hier_megakernel(*a0, **kw), 5)
+    del a0
+    hlk_all = hierarchical.prepare_level_keys(
+        hierarchical.BatchedContext.create(hdpf, hkeys[1]), hprepared["hierkernel"])
+    a_all = window_args(HH_KEYS, lk=hlk_all)
+    ms_all = time_ms(torch, lambda: aes_cuda.hier_megakernel(*a_all, **kw), 3)
+    print(f"K8 at window 4, timing only: every parent lane 0 {ms_zero:.4f} ms at K={HH_CHUNK} "
+          f"(the table's: {ms:.4f}); all {HH_KEYS} keys in one launch {ms_all:.4f} ms "
+          f"({ms_all / HH_KEYS * HH_CHUNK:.4f} ms a {HH_CHUNK} keys)")
+    del a, a_all, hlk_all
     # K2 and K4 at mode "fused"'s widest step: all keys, the parents' words.
     fw = max(step.pos.shape[0] for step in hprepared["fused"].steps) // 32
     a = expand_args(HH_KEYS, fw)

@@ -161,21 +161,26 @@ void walk_megakernel(const torch::Tensor& seed_planes,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// K8: one prefix window. `slots` holds the capture slot of each depth 0 ..
-// levels (-1 for none); the caller (ops/aes_cuda.py) has checked the shapes,
-// the depth (1 .. kHierMaxLevels) and that some depth captures.
-void hier_megakernel(const torch::Tensor& planes, const torch::Tensor& control,
-                     const torch::Tensor& path, const torch::Tensor& cw,
-                     const torch::Tensor& ccl, const torch::Tensor& ccr,
-                     const torch::Tensor& corr, const torch::Tensor& sel,
-                     torch::Tensor out, torch::Tensor exit_planes,
-                     torch::Tensor exit_control, int64_t lpe, int64_t keep,
-                     int64_t party, bool xor_group,
-                     const std::vector<int64_t>& slots) {
-  const c10::cuda::CUDAGuard guard(planes.device());
+// K8: one prefix window. `segments` holds (base, lanes, depth) of each
+// segment; the caller (ops/aes_cuda.py) has checked the shapes, the depth
+// (1 .. kHierMaxLevels) and the segment table. Returns "" or the launch's
+// error, which the caller raises: a refusal thrown here would cross the
+// binding as a C++ exception.
+std::string hier_megakernel(const torch::Tensor& entry_seeds,
+                            const torch::Tensor& entry_control,
+                            const torch::Tensor& parent, const torch::Tensor& path,
+                            const torch::Tensor& cw, const torch::Tensor& ccl,
+                            const torch::Tensor& ccr, const torch::Tensor& corr,
+                            const torch::Tensor& sel, torch::Tensor out,
+                            torch::Tensor state_seeds, torch::Tensor state_control,
+                            torch::Tensor exit_seeds, torch::Tensor exit_control,
+                            int64_t lpe, int64_t keep, int64_t party, bool xor_group,
+                            const std::vector<int64_t>& segments) {
+  const c10::cuda::CUDAGuard guard(entry_seeds.device());
   dpf::HierMegakernelArgs a{};
-  a.planes = words_of(planes);
-  a.control = words_of(control);
+  a.entry_seeds = words_of(entry_seeds);
+  a.entry_control = words_of(entry_control);
+  a.parent = parent.data_ptr<int32_t>();
   a.path = words_of(path);
   a.cw = words_of(cw);
   a.ccl = words_of(ccl);
@@ -183,23 +188,33 @@ void hier_megakernel(const torch::Tensor& planes, const torch::Tensor& control,
   a.corr = words_of(corr);
   a.sel = words_of(sel);
   a.out = words_of(out);
-  a.exit_planes = words_of(exit_planes);
+  a.state_seeds = words_of(state_seeds);
+  a.state_control = words_of(state_control);
+  a.exit_seeds = words_of(exit_seeds);
   a.exit_control = words_of(exit_control);
   a.levels = static_cast<int>(path.size(0));
   a.words = static_cast<int>(path.size(1));
   a.n_rows = static_cast<int>(sel.size(0));
+  a.entry_lanes = static_cast<int>(entry_seeds.size(1));
+  a.exit_lanes = static_cast<int>(exit_seeds.size(1));
+  a.segments = static_cast<int>(segments.size() / 3);
   a.lpe = static_cast<int>(lpe);
   a.keep = static_cast<int>(keep);
   a.party = static_cast<int>(party);
   a.xor_group = xor_group ? 1 : 0;
-  for (int d = 0; d < dpf::kHierMaxLevels + 2; ++d) {
-    a.slots[d] = d < static_cast<int>(slots.size())
-                     ? static_cast<int32_t>(slots[d])
-                     : -1;
+  for (int t = 0; t < a.segments; ++t) {
+    a.seg_base[t] = static_cast<int32_t>(segments[3 * t]);
+    a.seg_lanes[t] = static_cast<int32_t>(segments[3 * t + 1]);
+    a.seg_depth[t] = static_cast<int32_t>(segments[3 * t + 2]);
   }
-  dpf::launch_hier_megakernel(a, static_cast<int>(planes.size(0)),
-                              at::cuda::getCurrentCUDAStream());
+  const cudaError_t err = dpf::launch_hier_megakernel(
+      a, static_cast<int>(entry_seeds.size(0)), at::cuda::getCurrentCUDAStream());
+  if (err != cudaSuccess) {
+    (void)cudaGetLastError();  // the launch never ran; nothing is left behind
+    return cudaGetErrorString(err);
+  }
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return "";
 }
 
 // K9: one key batch. `capture_words` are the five words of the captures

@@ -52,10 +52,13 @@ void launch_walk_megakernel(const WalkMegakernelArgs& a, int num_keys,
 void launch_walk_megakernel_dcf(const WalkMegakernelArgs& a, int num_keys,
                                 cudaStream_t stream);
 
-// K8: one thread per (key, word of a.words); 1 <= a.levels <= kHierMaxLevels,
-// a.slots holds a.levels + 1 entries and at least one slot.
-void launch_hier_megakernel(const HierMegakernelArgs& a, int num_keys,
-                            cudaStream_t stream);
+// K8: one cooperative launch of at most the co-resident blocks, the grid
+// striding over each depth's (key, lane word) items with a grid barrier
+// between depths; a.segments, a.levels and the segment table as
+// HierMegakernelArgs states. Returns the error of the occupancy query or of
+// the launch (the caller raises), with cudaGetLastError still to clear.
+cudaError_t launch_hier_megakernel(const HierMegakernelArgs& a, int num_keys,
+                                   cudaStream_t stream);
 
 // K9: one thread per word of a.words; 1 <= a.levels <= kKeygenMaxLevels,
 // depth a.levels captures, a.slots counts the depths that capture.

@@ -5,27 +5,31 @@
 // Replaces distributed_point_functions_tpu/ops/aes_pallas.py
 // hier_megakernel_pallas_batched (kernel _hier_megakernel_body over
 // _hier_megakernel_core): for a chunk of keys and one prefix window of the
-// heavy-hitters advance, in one launch, every tree level of the window
-// walked per lane, every hierarchy level's values captured (value hash,
-// transpose to limbs, full correction, select) and placed into
-// [K, keep * lpe * 32, Wp] value rows, and the exit seed planes and control
-// that the next window (or the resumable context) gathers.
+// heavy-hitters advance, in one launch, every hierarchy level's values
+// captured (value hash, transpose to limbs, full correction, select) and
+// placed into [K, keep * lpe * 32, Wp] value rows, and the exit state (the
+// window's last segment and its pad lanes) that the next window (or the
+// resumable context) reads.
 //
-// Mapping. One thread per (key, lane word) of the window's width, the word
-// fastest, 64 threads a block with a 32 KiB MMO stash, as K7. The Pallas
-// grid (keys, lane tiles) runs one tile per step; on Hopper a tile has no
-// role, so the grid is 1-D and the port sizes a window at ceil(lanes / 32)
-// words rounded up to 8 (evaluator.hier_window_words). The body is in
-// hier_rows.cuh.
+// Design. The TPU kernel starts every lane at its window-entry ancestor
+// and walks it all L levels, one (key, lane tile) a grid step. Its lanes
+// form a tree, though: each lane of segment t is a child of a lane of
+// segment t - 1. The body (hier_rows.cuh) walks each node once, from its
+// parent, depth by depth: a thread per (key, lane word of the segment),
+// grid-stride, the walked seeds stored lane-major in a device scratch
+// between depths, and a grid barrier between depths. So the launch is
+// cooperative, on a grid no larger than the blocks that fit on the card at
+// once (the barrier would wait forever for a block that never runs): 64
+// threads a block with a 32 KiB MMO stash, as K7, at 255 registers about 4
+// blocks an SM.
 //
-// Bound. Integer operations: L masked MMO hashes per lane word, and one
-// value hash per capture slot that selects a lane of the word (~25k logic
-// operations each), against the entry and exit planes (129 words each way
-// per lane word), the path and select words, and the value rows (keep *
-// lpe * 32 words per lane word) out. On the TPU every lane of a tile runs
-// every capture; here a word whose lanes no slot of a depth selects skips
-// that capture, so a window of G advances costs a word its L walk levels
-// and one or two value hashes rather than G.
+// Bound. Integer operations: per (segment, lane word) one masked MMO hash
+// per tree level it advances from its parent and one value hash (~25k
+// logic operations each), against the entry lanes segment 0 reads, the
+// tables, the value rows (keep * lpe * 32 words per lane word) and the
+// exit state. The scratch adds 20 B a lane each way, in L2 at the
+// heavy-hitters windows' sizes. The TPU kernel's form walked L levels per
+// lane word: at a window of 16 one-level advances, ~8x the hashes.
 
 #include <cstdint>
 
@@ -41,22 +45,39 @@ constexpr int kThreads = 64;  // 64 x 128 x 4 B = 32 KiB of static stash
 __global__ void __launch_bounds__(kThreads)
     dpf_hier_megakernel_kernel(const dpf::HierMegakernelArgs a, int num_keys) {
   __shared__ uint32_t stash[128 * kThreads];
-  const int64_t tid = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (tid >= int64_t(num_keys) * a.words) return;
-  dpf::hier_megakernel_word(a, tid / a.words, tid % a.words,
-                            stash + threadIdx.x, kThreads);
+  dpf::hier_megakernel_grid(a, num_keys, int64_t(blockIdx.x) * blockDim.x + threadIdx.x,
+                            int64_t(gridDim.x) * blockDim.x, stash + threadIdx.x, kThreads);
 }
 
 }  // namespace
 
 namespace dpf {
 
-void launch_hier_megakernel(const HierMegakernelArgs& a, int num_keys,
-                            cudaStream_t stream) {
-  const int64_t threads = int64_t(num_keys) * a.words;
+cudaError_t launch_hier_megakernel(const HierMegakernelArgs& a, int num_keys,
+                                   cudaStream_t stream) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dpf_hier_megakernel_kernel,
+                                                        kThreads, 0);
+  }
+  if (err != cudaSuccess) return err;
+  int64_t items = 1;
+  for (int t = 0; t <= a.segments; ++t) {
+    const int64_t n = hier_phase_items(a, num_keys, t);
+    items = n > items ? n : items;
+  }
+  const int64_t needed = (items + kThreads - 1) / kThreads;
+  const int64_t resident = int64_t(per_sm) * sms;
   const unsigned int grid =
-      static_cast<unsigned int>((threads + kThreads - 1) / kThreads);
-  dpf_hier_megakernel_kernel<<<grid, kThreads, 0, stream>>>(a, num_keys);
+      static_cast<unsigned int>(needed < resident ? needed : resident);
+  HierMegakernelArgs args = a;
+  void* params[] = {&args, &num_keys};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(dpf_hier_megakernel_kernel),
+                                     dim3(grid), dim3(kThreads), params, 0, stream);
 }
 
 }  // namespace dpf

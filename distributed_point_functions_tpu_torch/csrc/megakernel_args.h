@@ -69,27 +69,39 @@ struct WalkMegakernelArgs {
 };
 
 // K8, the hierarchical megakernel: one prefix window. uint32 words,
-// row-major; L = levels (1 .. kHierMaxLevels), Wp = words (the window's lane
-// words), n_rows = slots * keep correction and select rows, row s * keep +
-// e for element e of capture slot s. slots[d] is the slot captured at depth
-// d = 0 .. L, or -1.
+// row-major; L = levels (1 .. kHierMaxLevels), Wp = words, 32 Wp lanes, G =
+// segments (1 .. kHierMaxSegments). Segment t holds the window's lanes
+// [seg_base[t], seg_base[t] + seg_lanes[t]) (contiguous from lane 0, none
+// empty), lies at depth seg_depth[t] (strictly increasing, seg_depth[G - 1]
+// = L; only seg_depth[0] may be 0) and is captured in slot t: n_rows = G *
+// keep correction and select rows, row t * keep + e for element e. Each
+// lane's parent is a lane of the entry state (segment 0) or of segment t -
+// 1, reached from it in seg_depth[t] - seg_depth[t - 1] levels along the
+// lane's own path rows. The exit state is segment G - 1 and, past it up to
+// exit_lanes, pad lanes: entry lane 0 walked L levels along path 0.
 constexpr int kHierMaxLevels = 62;
+constexpr int kHierMaxSegments = kHierMaxLevels + 1;
 
 struct HierMegakernelArgs {
-  const uint32_t* planes;   // [K, 128, Wp] gathered window-entry seed planes
-  const uint32_t* control;  // [K, Wp] packed entry control
-  const uint32_t* path;     // [L, Wp] packed per-lane path bits of each level
-  const uint32_t* cw;       // [K, L, 128] correction-seed plane masks
-  const uint32_t* ccl;      // [K, L] control-correction masks
-  const uint32_t* ccr;      // [K, L]
-  const uint32_t* corr;     // [K, n_rows, lpe] correction limbs
-  const uint32_t* sel;      // [n_rows, Wp] packed slot-lane select bits
-  uint32_t* out;            // [K, keep * lpe * 32, Wp] value rows
-  uint32_t* exit_planes;    // [K, 128, Wp] seed planes after the window
-  uint32_t* exit_control;   // [K, Wp]
-  int levels, words, n_rows;
+  const uint32_t* entry_seeds;    // [K, M, 4] window-entry seeds, lane-major
+  const uint32_t* entry_control;  // [K, M] window-entry control bits (0 / 1)
+  const int32_t* parent;          // [32 Wp] each lane's parent lane (see above)
+  const uint32_t* path;           // [L, Wp] packed per-lane path bits of each level
+  const uint32_t* cw;             // [K, L, 128] correction-seed plane masks
+  const uint32_t* ccl;            // [K, L] control-correction masks
+  const uint32_t* ccr;            // [K, L]
+  const uint32_t* corr;           // [K, n_rows, lpe] correction limbs
+  const uint32_t* sel;            // [n_rows, Wp] packed slot-lane select bits
+  uint32_t* out;                  // [K, keep * lpe * 32, Wp] value rows
+  uint32_t* state_seeds;          // [K, seg_base[G - 1], 4] segments 0 .. G - 2
+  uint32_t* state_control;        // [K, seg_base[G - 1]]
+  uint32_t* exit_seeds;           // [K, exit_lanes, 4] segment G - 1, then pad
+  uint32_t* exit_control;         // [K, exit_lanes]
+  int levels, words, n_rows, entry_lanes, exit_lanes, segments;
   int lpe, keep, party, xor_group;
-  int32_t slots[kHierMaxLevels + 2];  // depths 0 .. L, -1 past L
+  int32_t seg_base[kHierMaxSegments];
+  int32_t seg_lanes[kHierMaxSegments];
+  int32_t seg_depth[kHierMaxSegments];
 };
 
 // K9, the keygen megakernel: one key batch, keys in lanes. uint32 words,

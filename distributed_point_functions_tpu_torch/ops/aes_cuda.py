@@ -579,31 +579,70 @@ def walk_megakernel(
 HIER_MAX_LEVELS = 62  # csrc/megakernel_args.h kHierMaxLevels
 
 
+def _check_hier_segments(segments, levels: int, lanes: int, state_cap: int) -> None:
+    """Refuses a segment table K8 cannot walk (HierMegakernelArgs): the
+    segments contiguous from lane 0, none empty, their depths strictly
+    increasing from >= 0 to L with levels_d the step to each, and the exit
+    (the last segment and its pad lanes) inside the window."""
+    if not 1 <= len(segments) <= levels + 1:
+        raise InvalidArgumentError(
+            f"a window of {levels} levels has 1 .. {levels + 1} segments, got {len(segments)}"
+        )
+    base, depth = 0, 0
+    for t, seg in enumerate(segments):
+        if len(seg) != 4:
+            raise InvalidArgumentError(f"segment {t} must be (base, lanes, depth, levels_d)")
+        b, n, d, ld = (int(x) for x in seg)
+        if b != base or n < 1 or ld != d - depth or ld < (0 if t == 0 else 1):
+            raise InvalidArgumentError(
+                f"segment {t} {tuple(seg)} does not follow the last (which ended at lane "
+                f"{base}, depth {depth})"
+            )
+        base, depth = b + n, d
+    if depth != levels:
+        raise InvalidArgumentError(f"the last segment lies at depth {depth}, not {levels}")
+    if base > lanes or not segments[-1][1] <= state_cap <= lanes - segments[-1][0]:
+        raise InvalidArgumentError(
+            f"{base} segment lanes and an exit of {state_cap} from lane {segments[-1][0]} "
+            f"must fit the window's {lanes} lanes and hold the last segment"
+        )
+
+
 def hier_megakernel(
-    entry_planes, entry_control, path_masks, cw_planes, ccl, ccr, corrections, sel_bits, *,
-    bits: int, party: int, xor_group: bool, keep: int, captures,
+    entry_seeds, entry_control, entry_pos, parent, path_masks, cw_planes, ccl, ccr,
+    corrections, sel_bits, *, segments, state_cap: int, bits: int, party: int,
+    xor_group: bool, keep: int,
 ):
     """K8, the hierarchical megakernel: one launch for a chunk of K keys and
     one prefix window of the heavy-hitters advance.
 
-    entry_planes int32[K, 128, Wp] (the window-entry seeds each lane
-    starts from), entry_control int32[K, Wp], path_masks int32[L, Wp] (each
-    lane's path from its entry ancestor, shared by the keys), cw_planes
-    int32[K, L, 128], ccl/ccr int32[K, L], corrections int32[K, n_rows,
-    lpe] and sel_bits int32[n_rows, Wp] (row s * keep + e: element e of
-    capture slot s), captures: L + 1 slots, the slot captured at each depth
-    or -1, at least one -> (int32[K, keep * lpe * 32, Wp] value rows, row
-    (e * lpe + l) * 32 + i at word w is limb l of element e of lane 32 w +
-    i; int32[K, 128, Wp] exit planes; int32[K, Wp] exit control). Each
-    capture applies the full correction, party 1's negation included, and
-    places the selected lanes by XOR. Replaces
-    aes_pallas.py:hier_megakernel_pallas_batched; the plain version is
-    ``backend_torch.hier_megakernel``.
+    entry_seeds int32[K, M, 4] and entry_control int32[K, M] (0 / 1), the
+    window-entry state lane-major; entry_pos int64[Wp * 32], each lane's
+    entry ancestor, which only the plain version reads (the kernel reaches
+    it through the parents); parent int32[Wp * 32], each lane's parent (an entry lane
+    for segment 0, a lane of segment t - 1 for segment t); path_masks
+    int32[L, Wp] (each lane's path from its entry ancestor, shared by the
+    keys); cw_planes int32[K, L, 128], ccl/ccr int32[K, L]; corrections
+    int32[K, G * keep, lpe] and sel_bits int32[G * keep, Wp] (row t * keep +
+    e: element e of slot t); segments: G tuples (base, lanes, depth,
+    levels_d), segment t captured in slot t; state_cap: the exit lanes from
+    the last segment's base -> (int32[K, keep * lpe * 32, Wp] value rows,
+    row (e * lpe + l) * 32 + i at word w is limb l of element e of lane 32 w
+    + i; int32[K, state_cap, 4] exit seeds; int32[K, state_cap] exit
+    control). Each capture applies the full correction, party 1's negation
+    included. Exit lanes past the last segment are pad lanes: entry lane 0
+    walked L levels along path 0. The tables must be a window that
+    ``hierarchical.prepare_levels_fused(mode="hierkernel")`` composes: the
+    kernel walks each lane from its parent, so windows of random lanes are
+    no input to it. Replaces aes_pallas.py:hier_megakernel_pallas_batched;
+    the plain version is ``backend_torch.hier_window`` (gather, pack,
+    ``backend_torch.hier_megakernel``, unpack).
 
-    Bound on the H100: integer operations, L masked MMO hashes per lane
-    word and one value hash per slot that selects a lane of it, against the
-    entry and exit planes, the path and select words and the value rows
-    (csrc/hier_megakernel.cu).
+    Bound on the H100: integer operations, one masked MMO hash per (segment,
+    lane word) and tree level it advances from its parent and one value
+    hash per (segment, lane word), against the entry lanes, the tables, the
+    value rows and the exit state (csrc/hier_megakernel.cu). One cooperative
+    launch; a launch the card refuses raises InternalError.
     """
     if bits % 32:
         raise NotImplementedError(
@@ -616,55 +655,67 @@ def hier_megakernel(
         raise InvalidArgumentError(
             f"keep * lpe must be 1 .. 4 (one 128-bit block), got keep={keep}, lpe={lpe}"
         )
-    if entry_planes.dim() != 3 or path_masks.dim() != 2 or sel_bits.dim() != 2:
+    if entry_seeds.dim() != 3 or path_masks.dim() != 2 or sel_bits.dim() != 2:
         raise InvalidArgumentError(
-            f"entry_planes must be [K, 128, Wp], path_masks [L, Wp] and sel_bits "
-            f"[n_rows, Wp], got {tuple(entry_planes.shape)}, {tuple(path_masks.shape)} "
-            f"and {tuple(sel_bits.shape)}"
+            f"entry_seeds must be [K, M, 4], path_masks [L, Wp] and sel_bits [n_rows, Wp], "
+            f"got {tuple(entry_seeds.shape)}, {tuple(path_masks.shape)} and "
+            f"{tuple(sel_bits.shape)}"
         )
-    k = entry_planes.shape[0]
+    k, m = entry_seeds.shape[:2]
     levels, wp = path_masks.shape
-    n_rows = sel_bits.shape[0]
     if not 1 <= levels <= HIER_MAX_LEVELS:
         raise InvalidArgumentError(
             f"a window walks 1 .. {HIER_MAX_LEVELS} tree levels, got {levels}"
         )
-    captures = tuple(int(s) for s in captures)
-    if len(captures) != levels + 1:
+    segments = tuple(tuple(int(x) for x in seg) for seg in segments)
+    _check_hier_segments(segments, levels, 32 * wp, state_cap)
+    n_rows = len(segments) * keep
+    if m < 1:
+        raise InvalidArgumentError("the window-entry state must hold a lane")
+    _check(entry_seeds, (k, m, 4), "entry_seeds")
+    _check(entry_control, (k, m), "entry_control")
+    if entry_pos.dtype != torch.int64 or tuple(entry_pos.shape) != (32 * wp,):
         raise InvalidArgumentError(
-            f"captures must hold levels + 1 = {levels + 1} slots, got {len(captures)}"
+            f"entry_pos must be int64[{32 * wp}], got {entry_pos.dtype}{list(entry_pos.shape)}"
         )
-    if n_rows % keep or not all(-1 <= s < n_rows // keep for s in captures):
-        raise InvalidArgumentError(
-            f"capture slots must be -1 or index one of the {n_rows} // {keep} slots of "
-            f"sel_bits, got {captures}"
-        )
-    if max(captures) < 0:
-        raise InvalidArgumentError("a window captures at least one depth")
-    _check(entry_planes, (k, 128, wp), "entry_planes")
-    _check(entry_control, (k, wp), "entry_control")
+    _check(parent, (32 * wp,), "parent")
     _check(path_masks, (levels, wp), "path_masks")
     _check(cw_planes, (k, levels, 128), "cw_planes")
     _check(ccl, (k, levels), "ccl")
     _check(ccr, (k, levels), "ccr")
     _check(corrections, (k, n_rows, lpe), "corrections")
     _check(sel_bits, (n_rows, wp), "sel_bits")
-    args = (entry_planes, entry_control, path_masks, cw_planes, ccl, ccr, corrections, sel_bits)
-    kw = dict(bits=bits, party=party, xor_group=xor_group, keep=keep, captures=captures)
+    args = (entry_seeds, entry_control, entry_pos, parent, path_masks, cw_planes, ccl, ccr,
+            corrections, sel_bits)
+    state_base = segments[-1][0]
     if _on_cpu(*args):
-        return backend_torch.hier_megakernel(*args, **kw)
+        return backend_torch.hier_window(
+            entry_seeds, entry_control, entry_pos, path_masks, cw_planes, ccl, ccr,
+            corrections, sel_bits, bits=bits, party=party, xor_group=xor_group, keep=keep,
+            segments=segments, state_cap=state_cap,
+        )
     if not all(t.is_contiguous() for t in args):
         raise InvalidArgumentError(f"{K8.name}: operands must be contiguous")
-    dev = entry_planes.device
+    dev = entry_seeds.device
     out = torch.empty((k, keep * lpe * 32, wp), dtype=torch.int32, device=dev)
-    exit_planes = torch.empty_like(entry_planes)
-    exit_control = torch.empty_like(entry_control)
-    if k == 0 or wp == 0:
-        return out, exit_planes, exit_control
-    library().hier_megakernel(*args, out, exit_planes, exit_control, lpe, keep, party,
-                              xor_group, list(captures))
+    exit_seeds = torch.empty((k, state_cap, 4), dtype=torch.int32, device=dev)
+    exit_control = torch.empty((k, state_cap), dtype=torch.int32, device=dev)
+    if k == 0:
+        return out, exit_seeds, exit_control
+    # The walked lanes of every segment but the last, lane-major, which the
+    # next segment reads its parents from.
+    scratch = max(1, state_base)
+    state_seeds = torch.empty((k, scratch, 4), dtype=torch.int32, device=dev)
+    state_control = torch.empty((k, scratch), dtype=torch.int32, device=dev)
+    err = library().hier_megakernel(
+        entry_seeds, entry_control, parent, path_masks, cw_planes, ccl, ccr, corrections,
+        sel_bits, out, state_seeds, state_control, exit_seeds, exit_control, lpe, keep,
+        party, xor_group, [x for seg in segments for x in seg[:3]],
+    )
+    if err:
+        raise InternalError(f"{K8.name}: the cooperative launch failed: {err}")
     K8.launches += 1
-    return out, exit_planes, exit_control
+    return out, exit_seeds, exit_control
 
 
 KEYGEN_MAX_LEVELS = 128  # csrc/megakernel_args.h kKeygenMaxLevels

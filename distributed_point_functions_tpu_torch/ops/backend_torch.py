@@ -404,6 +404,55 @@ def hier_megakernel(
     return acc.reshape(k, keep * lpe * 32, wp), planes, control
 
 
+def hier_segment_captures(segments, levels: int) -> tuple:
+    """The capture slot of each depth 0 .. L of a window whose segment t,
+    (base, lanes, depth, levels_d), is captured in slot t at its depth; -1
+    for a depth that captures nothing."""
+    captures = [-1] * (levels + 1)
+    for t, seg in enumerate(segments):
+        captures[seg[2]] = t
+    return tuple(captures)
+
+
+def hier_window(
+    entry_seeds,  # int32[K, M, 4] window-entry state, lane-major
+    entry_control,  # int32[K, M] 0 / 1
+    entry_pos,  # int64[Wp * 32] each lane's window-entry ancestor
+    path_masks,  # int32[L, Wp]
+    cw_planes,  # int32[K, L, 128]
+    ccl,  # int32[K, L]
+    ccr,  # int32[K, L]
+    corrections,  # int32[K, n_rows, lpe]
+    sel_bits,  # int32[n_rows, Wp]
+    *,
+    bits: int,
+    party: int,
+    xor_group: bool,
+    keep: int,
+    segments,  # per advance: (base, lanes, depth, levels_d), captured in slot t
+    state_cap: int,
+):
+    """K8's contract in plain PyTorch, the plain version of
+    ``aes_cuda.hier_megakernel`` (its operands but the parent table): each
+    lane's window-entry ancestor gathered through `entry_pos` and packed,
+    ``hier_megakernel`` with segment t captured at its depth, and the exit
+    lanes ``[state_base, state_base + state_cap)`` from the last segment's
+    base unpacked -> (int32[K, keep * lpe * 32, Wp] value rows, int32[K,
+    state_cap, 4] exit seeds, int32[K, state_cap] exit control, 0 / 1)."""
+    planes = aes_torch.pack_to_planes(entry_seeds[:, entry_pos])
+    mask = pack_mask_device(entry_control[:, entry_pos])
+    vals, exit_planes, exit_control = hier_megakernel(
+        planes, mask, path_masks, cw_planes, ccl, ccr, corrections, sel_bits, bits=bits,
+        party=party, xor_group=xor_group, keep=keep,
+        captures=hier_segment_captures(segments, path_masks.shape[0]),
+    )
+    del planes, mask
+    state_base = segments[-1][0]
+    lanes = slice(state_base, state_base + state_cap)
+    return (vals, aes_torch.unpack_from_planes(exit_planes)[:, lanes].contiguous(),
+            unpack_mask_device(exit_control)[:, lanes].contiguous())
+
+
 def keygen_megakernel(
     planes0,  # int32[128, Wp] party-0 seed planes (keys in lanes)
     planes1,  # int32[128, Wp] party-1 seed planes

@@ -23,10 +23,12 @@ Per call:
      launch (hash_value_planes), then unpack, correction and the output
      select in plain PyTorch (the JAX package's ``_advance_one_step``);
    - ``"hierkernel"``: per key chunk and prefix window of up to ``group``
-     advances, the entry state gathered and packed, one launch of the
-     hierarchical megakernel K8 (ops/aes_cuda.hier_megakernel), the value
-     rows transposed and each level's outputs gathered, and the exit state
-     unpacked (the JAX package's ``_hier_window_jit``).
+     advances, one launch of the hierarchical megakernel K8
+     (ops/aes_cuda.hier_megakernel) from the entry state, which walks each
+     node of the window's prefix tree once from its parent and returns the
+     exit state lane-major, then the value rows transposed and each level's
+     outputs gathered (the JAX package's ``_hier_window_jit``, whose kernel
+     walks every lane from its window-entry ancestor).
 
 Outputs are ordered by sorted prefix, then leaf, as the reference's
 EvaluateUntil orders them. Words are int32 tensors carrying uint32 bit
@@ -264,13 +266,20 @@ class _HierWindow:
     the segment of each advance holds one lane per node of its full
     child-block expansion in leaf order, so the last segment is the
     resumable state and the next window gathers from it. Each lane carries
-    its window-entry ancestor (``entry_pos``) and its path from there."""
+    its window-entry ancestor (``entry_pos``) and its path from there, the
+    tables of the JAX package's window; and its parent (``parent``), from
+    which K8 walks it: lane i of a parent's 2^levels_d leaves walks the bits
+    of i, which are the lane's path rows from the parent's depth to its
+    own."""
 
     plan: evaluator.HierkernelPlan
     captures: tuple  # [depth + 1] capture slot per depth, -1 for none
     depth: int  # tree levels the window walks
     start_level: int  # tree level of the window's entry state
     entry_pos: torch.Tensor  # int64[Wp * 32] entry-state lane gather (pad: 0)
+    parent: torch.Tensor  # int32[Wp * 32] entry lane (segment 0) or lane of
+    #                       segment t - 1 (segment t) of each lane (pad: 0)
+    segments: tuple  # per advance: (base, lanes, depth, levels_d)
     path: torch.Tensor  # int32[depth, Wp] packed per-lane path bits
     sel: torch.Tensor  # int32[n_rows, Wp] packed slot-lane select bits
     gsels: tuple  # per advance: int64[n_outputs] output gather
@@ -379,14 +388,12 @@ def _compose_hier_windows(raw, group: int, bits: int, entry_width: int, device):
         entry_pos = np.zeros(wl, dtype=np.int64)
         rel_path = np.zeros(wl, dtype=np.uint64)
         lane_depth = np.zeros(wl, dtype=np.int64)
-        captures = [-1] * (depth + 1)
         sel_bool = np.zeros((n_rows, wl), dtype=bool)
         gsels = []
         for s, (b, n_t, d_t, ent, pth, t) in enumerate(segs):
             entry_pos[b : b + n_t] = ent
             rel_path[b : b + n_t] = pth
             lane_depth[b : b + n_t] = d_t
-            captures[d_t] = s
             keep_t = raw[t][4]
             sel_bool[s * keep_g : s * keep_g + keep_t, b : b + n_t] = True
             sel = raw[t][3]
@@ -398,13 +405,21 @@ def _compose_hier_windows(raw, group: int, bits: int, entry_width: int, device):
             path_bits[lvl, valid] = ((rel_path[valid] >> sh[valid].astype(np.uint64)) & 1).astype(
                 bool
             )
+        parent = np.zeros(wl, dtype=np.int32)
+        for s, (b, n_t, _, _, _, t) in enumerate(segs):
+            positions, levels_d = raw[t][0], raw[t][2]
+            prev_base = segs[s - 1][0] if s else 0
+            parent[b : b + n_t] = prev_base + np.repeat(positions, 1 << levels_d)
+        segments = tuple((b, n_t, d_t, raw[t][2]) for b, n_t, d_t, _, _, t in segs)
         windows.append(
             _HierWindow(
                 plan=evaluator.HierkernelPlan(depth, wp, 1, wp),
-                captures=tuple(captures),
+                captures=backend_torch.hier_segment_captures(segments, depth),
                 depth=depth,
                 start_level=raw[idx[0]][6],
                 entry_pos=up(entry_pos),
+                parent=up(parent),
+                segments=segments,
                 path=evaluator._upload(aes_torch.pack_bit_mask(path_bits), device),
                 sel=evaluator._upload(aes_torch.pack_bit_mask(sel_bool), device),
                 gsels=tuple(gsels),
@@ -641,24 +656,19 @@ def _advance_one_step(seeds, control, step: _FusedStep, cw, ccl, ccr, corr, *, b
 
 def _hier_window(seeds, control, win: _HierWindow, cw, ccl, ccr, corr, *, bits: int,
                  party: int, xor_group: bool, keep: int):
-    """One prefix window of mode "hierkernel" for a key chunk: the entry
-    gather and pack, one K8 launch, the value rows to [K, Wp * 32 * keep,
-    lpe] (flat element lane * keep + e, the space the gsels index), each
-    advance's outputs, and the exit state at the plan's ``state_cap``."""
+    """One prefix window of mode "hierkernel" for a key chunk: one K8 launch
+    from the entry state, the value rows to [K, Wp * 32 * keep, lpe] (flat
+    element lane * keep + e, the space the gsels index), each advance's
+    outputs, and the exit state at the plan's ``state_cap``."""
     k, lpe, wp = seeds.shape[0], bits // 32, win.plan.padded_words
-    planes = aes_torch.pack_to_planes(seeds[:, win.entry_pos])
-    mask = backend_torch.pack_mask_device(control[:, win.entry_pos])
-    vals, xplanes, xctrl = aes_cuda.hier_megakernel(
-        planes, mask, win.path, cw, ccl, ccr, corr, win.sel, bits=bits, party=party,
-        xor_group=xor_group, keep=keep, captures=win.captures,
+    vals, exit_seeds, exit_control = aes_cuda.hier_megakernel(
+        seeds, control, win.entry_pos, win.parent, win.path, cw, ccl, ccr, corr, win.sel,
+        segments=win.segments, state_cap=win.state_cap, bits=bits, party=party,
+        xor_group=xor_group, keep=keep,
     )
-    del planes, mask
     # Row (e * lpe + l) * 32 + i at word w is limb l of element e of lane 32 w + i.
     flat = vals.reshape(k, keep, lpe, 32, wp).permute(0, 4, 3, 1, 2).reshape(k, wp * 32 * keep, lpe)
-    outs = [flat[:, g] for g in win.gsels]
-    lanes = slice(win.state_base, win.state_base + win.state_cap)
-    return (outs, aes_torch.unpack_from_planes(xplanes)[:, lanes],
-            backend_torch.unpack_mask_device(xctrl)[:, lanes])
+    return [flat[:, g] for g in win.gsels], exit_seeds, exit_control
 
 
 def _entry_state(ctx: BatchedContext, lk: LevelKeys, device, width: int = 1):

@@ -20,7 +20,7 @@ import torch
 import distributed_point_functions_tpu_torch as port
 from distributed_point_functions_tpu_torch.dcf import batch as dcf_batch
 from distributed_point_functions_tpu_torch.ops import aes_cuda, backend_torch, evaluator
-from distributed_point_functions_tpu_torch.ops import hierarchical, keygen_batch
+from distributed_point_functions_tpu_torch.ops import hier_cases, hierarchical, keygen_batch
 from distributed_point_functions_tpu_torch.ops.aes_torch import as_words, from_words, pack_bit_mask
 from distributed_point_functions_tpu_torch.parallel import pir
 from distributed_point_functions_tpu_torch.utils.errors import InvalidArgumentError
@@ -343,38 +343,21 @@ def test_dcf_batch_evaluate_on_the_card_matches_the_cpu(cuda, mode, party):
     assert np.array_equal(from_words(on_card), run("cpu"))
 
 
-@pytest.mark.parametrize(
-    "captures, w, bits, keep, party, xor_group",
-    [((0, 1), 1, 64, 2, 0, False), ((1, -1, 0, -1, 2, 3), 3, 64, 2, 1, False),
-     ((0,) + (-1,) * 15 + (1,), 37, 32, 4, 1, False), ((-1, 0, 1, -1, -1, 2), 40, 128, 1, 1, False),
-     ((2, 0, -1, 1), 8, 128, 1, 0, True), ((-1, 0), 3, 32, 2, 0, False)],
-)
-def test_hier_megakernel_matches_plain_version(cuda, captures, w, bits, keep, party, xor_group):
-    """K8 on the card equals its plain version (value rows, exit planes, exit
-    control) for every limb layout, kept element count, party and group,
-    with slots in any order, depths that do not capture and lanes in
-    contiguous segments (so that some words skip a capture); one launch per
-    call."""
-    levels, slots = len(captures) - 1, max(captures) + 1
-    rng = np.random.default_rng(levels * w + bits)
-
-    def r(*shape):
-        return rng.integers(0, 2**32, size=shape, dtype=np.uint32)
-
-    n = 32 * w
-    lane_slot = np.minimum(np.arange(n) * slots // n, slots - 1)
-    lane_slot[-1] = -1
-    sel = lane_slot[None, :] == np.repeat(np.arange(slots), keep)[:, None]
-    arrays = (r(3, 128, w), r(3, w), r(levels, w), backend_torch.cw_seed_planes(r(3, levels, 4)),
-              backend_torch.control_masks(rng.integers(0, 2, size=(3, levels))),
-              backend_torch.control_masks(rng.integers(0, 2, size=(3, levels))),
-              r(3, slots * keep, bits // 32), pack_bit_mask(sel))
-    args = [torch.from_numpy(as_words(a)).to(cuda) for a in arrays]
-    kw = dict(bits=bits, party=party, xor_group=xor_group, keep=keep, captures=captures)
+@pytest.mark.parametrize("name", list(hier_cases.CASES))
+def test_hier_megakernel_matches_plain_version(cuda, name):
+    """K8 on the card equals its plain version (every value row, the exit
+    seeds and the exit control, pad lanes included) on the windows of
+    ops/hier_cases.py: prefix windows of real small hierarchies,
+    every limb layout and kept element count, both parties, a zero-level
+    first step, steps of two and three tree levels, words that straddle
+    segments, and corrections that carry through every limb; one
+    cooperative launch per call."""
+    case = hier_cases.window_case(name, device=cuda)
     aes_cuda.reset_launch_counts()
-    got = aes_cuda.hier_megakernel(*args, **kw)
+    got = aes_cuda.hier_megakernel(*case["args"], **case["kw"])
     assert aes_cuda.K8.launches == 1
-    for a, b in zip(got, backend_torch.hier_megakernel(*args, **kw)):
+    want = backend_torch.hier_window(*case["args"][:3], *case["args"][4:], **case["kw"])
+    for a, b in zip(got, want):
         assert torch.equal(a, b)
 
 

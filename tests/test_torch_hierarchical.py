@@ -242,6 +242,67 @@ def test_hierkernel_tables_match_jax(group):
             assert np.array_equal(a.numpy(), np.asarray(b))
 
 
+def parent_table_plan(hierarchy):
+    """(port DPF, plan) of a hierarchy for the parent-table test."""
+    rng = np.random.default_rng(71)
+    if hierarchy == "bitwise int64":  # crosses to U128 prefixes at 64
+        levels = 70
+        finals = port_hier.draw_random_finals(levels, 24, rng)
+        params = [port.DpfParameters(i + 1, port.Int(64)) for i in range(levels)]
+        return (port.DistributedPointFunction.create_incremental(params),
+                port_hier.bitwise_hierarchy_plan(levels, finals))
+    # Int(32) from log-domain 3 in steps of two: two tree levels an advance.
+    levels, lds0, step = 12, 3, 2
+    top = lds0 + step * (levels - 1)
+    finals = port_hier.draw_random_finals(top, 24, rng)
+    params = [port.DpfParameters(lds0 + step * i, port.Int(32)) for i in range(levels)]
+    plan = [(0, [])] + [(i, sorted({f >> (top - lds0 - step * (i - 1)) for f in finals}))
+                        for i in range(1, levels)]
+    return port.DistributedPointFunction.create_incremental(params), plan
+
+
+@pytest.mark.parametrize("group", [4, GROUP])
+@pytest.mark.parametrize("hierarchy", ["bitwise int64", "int32 two-level steps"])
+def test_hierkernel_parent_table_reaches_entry_pos_and_path(hierarchy, group):
+    """Every window's segment table lays its advances out as the JAX tables
+    do (contiguous segments, slot t captured at segment t's depth, the last
+    segment the exit state), and from every real lane, following ``parent``
+    up to segment 0 reaches the lane's ``entry_pos``, each parent in the
+    segment before, with the leaf index of each step (lane i of a parent's
+    2^levels_d leaves walks the bits of i) spelling the lane's ``path`` rows
+    down to its depth, 0 below it: K8, which walks each lane from its
+    parent, walks the paths the JAX kernel walks from the entry. Pad lanes
+    point at lane 0."""
+    dpf, plan = parent_table_plan(hierarchy)
+    key = dpf.generate_keys_incremental(5, [1] * dpf.validator.num_hierarchy_levels)[0]
+    prepared = port_hier.prepare_levels_fused(port_hier.BatchedContext.create(dpf, [key]),
+                                              plan, group, mode=HIERKERNEL, device="cpu")
+    for win in prepared.hier_windows:
+        parent, entry = win.parent.numpy(), win.entry_pos.numpy()
+        path = backend_torch.unpack_mask_device(win.path).numpy()  # [depth, lanes] 0 / 1
+        segs = win.segments
+        assert segs[0][0] == 0 and segs[-1][:2] == (win.state_base, win.state_len)
+        assert segs[-1][2] == win.depth and len(segs) == len(win.slot_steps)
+        for t, (b, n, d, ld) in enumerate(segs):
+            assert win.captures[d] == t and ld == d - (segs[t - 1][2] if t else 0)
+            assert t == 0 or (b == sum(segs[t - 1][:2]) and ld >= 1)
+            lanes = np.arange(b, b + n)
+            cur, bits = lanes, np.zeros((d, n), dtype=np.int64)
+            for u in range(t, -1, -1):
+                ub, _, ud, uld = segs[u]
+                leaf = cur - ub
+                for j in range(uld):
+                    bits[ud - uld + j] = (leaf >> (uld - 1 - j)) & 1
+                cur = parent[cur]
+                if u:
+                    pb, pn = segs[u - 1][:2]
+                    assert ((cur >= pb) & (cur < pb + pn)).all()
+            assert np.array_equal(entry[lanes], cur)
+            assert np.array_equal(path[:d, b:b + n], bits) and not path[d:, b:b + n].any()
+        total = sum(segs[-1][:2])
+        assert not parent[total:].any() and not entry[total:].any()
+
+
 @pytest.mark.parametrize("levels", [20, 128])
 def test_host_helpers_match_jax(levels):
     """``draw_random_finals`` draws the JAX package's leaves from the same

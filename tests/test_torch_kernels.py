@@ -36,7 +36,7 @@ from distributed_point_functions_tpu.ops import value_codec as jax_value_codec
 import distributed_point_functions_tpu_torch as port
 from distributed_point_functions_tpu_torch.core import aes_numpy, backend_numpy, constants
 from distributed_point_functions_tpu_torch.ops import (
-    aes_cuda, aes_torch, backend_torch, evaluator, value_codec,
+    aes_cuda, aes_torch, backend_torch, evaluator, hier_cases, value_codec,
 )
 from distributed_point_functions_tpu_torch.utils.errors import InvalidArgumentError
 from torch_fold_case import one_torch_thread  # noqa: F401 (autouse fixture)
@@ -292,9 +292,8 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     aes_cuda.walk_level(args[0], args[1], path, *args[2:])
     ops, _ = walk_inputs(2, 1, 64, 2, seed=1)
     aes_cuda.walk_megakernel(*map(words, ops), bits=64, party=1, xor_group=False, keep=2)
-    hops, _ = hier_inputs(2, 1, 64, 2, seed=1)
-    aes_cuda.hier_megakernel(*map(words, hops), bits=64, party=1, xor_group=False, keep=2,
-                             captures=(0, 1, -1))
+    hier = hier_cases.window_case("int64, a later window", device="cpu", carry=False)
+    aes_cuda.hier_megakernel(*hier["args"], **hier["kw"])
     aes_cuda.expand_one_level_single(*[a[0] for a in args])
     kops = list(map(words, keygen_inputs(2, 1, seed=1)))
     aes_cuda.keygen_megakernel(*kops, captures=(True, False, True))
@@ -320,6 +319,13 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     with pytest.raises(InvalidArgumentError, match="sel_bits"):
         aes_cuda.walk_megakernel(*map(words, ops[:6]), words(ops[6][:1]), bits=64, party=1,
                                  xor_group=False, keep=2)
+    segs = hier["kw"]["segments"]
+    for bad, match in (((segs[0], segs[2]) + segs[3:], "does not follow"),
+                       (segs[:-1], "depth"), (((1,) + segs[0][1:],) + segs[1:], "does not follow")):
+        with pytest.raises(InvalidArgumentError, match=match):
+            aes_cuda.hier_megakernel(*hier["args"], **dict(hier["kw"], segments=bad))
+    with pytest.raises(InvalidArgumentError, match="exit"):
+        aes_cuda.hier_megakernel(*hier["args"], **dict(hier["kw"], state_cap=segs[-1][1] - 1))
 
 
 def test_round_key_header_holds_the_plain_versions_tables():
@@ -441,32 +447,42 @@ static int walk_dcf(int K, int W) {
   fwrite(out.data(), 4, out.size(), stdout);
   return 0;
 }
-// K8 (mode 9): 6 ints (levels, n_rows, lpe, keep, party, xor_group), the
-// levels + 1 capture slots, the operands; out: the value rows, the exit
-// planes and the exit control.
+// K8 (mode 9): 8 ints (levels, lpe, keep, party, xor_group, entry lanes,
+// exit lanes, segments G), G (base, lanes, depth) triples, the operands;
+// the whole grid runs as one thread. Out: the value rows, the exit seeds
+// and the exit control.
 static int hier(int K, int W) {
-  int f[6];
-  if (fread(f, 4, 6, stdin) != 6) return 1;
-  uint32_t stash[128];
+  int f[8];
+  if (fread(f, 4, 8, stdin) != 8) return 1;
   dpf::HierMegakernelArgs a{};
-  a.levels = f[0]; a.words = W; a.n_rows = f[1]; a.lpe = f[2]; a.keep = f[3];
-  a.party = f[4]; a.xor_group = f[5];
+  a.levels = f[0]; a.words = W; a.lpe = f[1]; a.keep = f[2]; a.party = f[3];
+  a.xor_group = f[4]; a.entry_lanes = f[5]; a.exit_lanes = f[6]; a.segments = f[7];
+  a.n_rows = a.segments * a.keep;
+  auto segs = rd(size_t(3) * a.segments);
+  for (int t = 0; t < a.segments; ++t) {
+    a.seg_base[t] = static_cast<int32_t>(segs[3 * t]);
+    a.seg_lanes[t] = static_cast<int32_t>(segs[3 * t + 1]);
+    a.seg_depth[t] = static_cast<int32_t>(segs[3 * t + 2]);
+  }
   const int L = a.levels;
-  auto slots = rd(L + 1);
-  for (int d = 0; d <= L; ++d) a.slots[d] = static_cast<int32_t>(slots[d]);
-  auto planes = rd(size_t(K) * 128 * W), control = rd(size_t(K) * W), path = rd(size_t(L) * W);
-  auto cw = rd(size_t(K) * L * 128), ccl = rd(size_t(K) * L), ccr = rd(size_t(K) * L);
-  auto corr = rd(size_t(K) * a.n_rows * a.lpe), sel = rd(size_t(a.n_rows) * W);
-  std::vector<uint32_t> out(size_t(K) * a.keep * a.lpe * 32 * W), xp(planes.size()),
-      xc(control.size());
-  a.planes = planes.data(); a.control = control.data(); a.path = path.data(); a.cw = cw.data();
-  a.ccl = ccl.data(); a.ccr = ccr.data(); a.corr = corr.data(); a.sel = sel.data();
-  a.out = out.data(); a.exit_planes = xp.data(); a.exit_control = xc.data();
-  for (int k = 0; k < K; ++k)
-    for (int w = 0; w < W; ++w) dpf::hier_megakernel_word(a, k, w, stash, 1);
-  fwrite(out.data(), 4, out.size(), stdout);
-  fwrite(xp.data(), 4, xp.size(), stdout);
-  fwrite(xc.data(), 4, xc.size(), stdout);
+  const size_t M = a.entry_lanes, X = a.exit_lanes;
+  auto seeds = rd(K * M * 4), control = rd(K * M), parent = rd(size_t(32) * W);
+  auto path = rd(size_t(L) * W), cw = rd(size_t(K) * L * 128), ccl = rd(size_t(K) * L);
+  auto ccr = rd(size_t(K) * L), corr = rd(size_t(K) * a.n_rows * a.lpe);
+  auto sel = rd(size_t(a.n_rows) * W);
+  const size_t scratch = a.seg_base[a.segments - 1] + 1;
+  // Every output starts as garbage, as torch.empty leaves it on the card.
+  const uint32_t junk = 0xA5A5A5A5u;
+  std::vector<uint32_t> out(size_t(K) * a.keep * a.lpe * 32 * W, junk), ss(K * scratch * 4, junk),
+      sc(K * scratch, junk), xs(K * X * 4, junk), xc(K * X, junk);
+  a.entry_seeds = seeds.data(); a.entry_control = control.data();
+  a.parent = reinterpret_cast<const int32_t*>(parent.data()); a.path = path.data();
+  a.cw = cw.data(); a.ccl = ccl.data(); a.ccr = ccr.data(); a.corr = corr.data();
+  a.sel = sel.data(); a.out = out.data(); a.state_seeds = ss.data(); a.state_control = sc.data();
+  a.exit_seeds = xs.data(); a.exit_control = xc.data();
+  uint32_t stash[128];
+  dpf::hier_megakernel_grid(a, K, 0, 1, stash, 1);
+  for (auto* v : {&out, &xs, &xc}) fwrite(v->data(), 4, v->size(), stdout);
   return 0;
 }
 // K9 (mode 10): levels, the 5 words of the captures bitmask, planes0,
@@ -832,90 +848,35 @@ def test_csrc_walk_bodies_on_the_host_compiler(host_harness):
             assert not want.any()
 
 
-def hier_inputs(levels, w, bits, keep, seed, slots=2):
-    """uint32 numpy operands of K8 for K keys at W words, and each lane's
-    slot (-1: selected by none). The lanes fall into contiguous segments,
-    one per slot, as a window's advances do, so that some words hold no
-    lane of a slot; the last lane is padding."""
-    rng = np.random.default_rng(seed)
-
-    def r(*shape):
-        return rng.integers(0, 2**32, size=shape, dtype=np.uint32)
-
-    n = 32 * w
-    bounds = np.sort(rng.choice(np.arange(1, n - 1), size=slots - 1, replace=False))
-    lane_slot = np.searchsorted(bounds, np.arange(n), side="right")
-    lane_slot[-1] = -1
-    # Row s * keep + e selects the lanes of slot s (every kept element).
-    sel = lane_slot[None, :] == np.repeat(np.arange(slots), keep)[:, None]
-    return [r(K, 128, w), r(K, w), r(levels, w), backend_torch.cw_seed_planes(r(K, levels, 4)),
-            backend_torch.control_masks(rng.integers(0, 2, size=(K, levels))),
-            backend_torch.control_masks(rng.integers(0, 2, size=(K, levels))),
-            r(K, slots * keep, bits // 32), aes_torch.pack_bit_mask(sel)], lane_slot
-
-
-def hier_carrying_corrections(ops, bits, keep, captures):
-    """Corrections of K8 under which, for each key and row (slot, element),
-    one lane of the slot whose control bit is set at its capture sums to
-    exactly 0 mod 2^bits: the add carries out of every limb, and party 1's
-    negation of that 0 carries through every limb, at every capture."""
-    lpe = bits // 32
-    kw = dict(bits=bits, party=0, xor_group=False, keep=keep, captures=captures)
-
-    def values(corr):  # [K, keep, 32 W] python ints
-        rows = aes_torch.from_words(backend_torch.hier_megakernel(
-            *map(words, ops[:6] + [corr, ops[7]]), **kw)[0]).astype(object)
-        k, _, w = rows.shape
-        limbs = rows.reshape(k, keep, lpe, 32, w).transpose(0, 1, 4, 3, 2).reshape(
-            k, keep, 32 * w, lpe)
-        return sum(limbs[..., l] << (32 * l) for l in range(lpe))
-
-    zero = np.zeros_like(ops[6])
-    base = values(zero)
-    probe = zero.copy()
-    probe[:, :, 0] = 1
-    moved = values(probe) != base  # selected lanes whose control bit is set
-    sel = np.stack([backend_torch.unpack_mask_device(words(row)).numpy() for row in ops[7]]) == 1
-    out = zero.copy()
-    for key in range(out.shape[0]):
-        for row in range(out.shape[1]):
-            e = row % keep
-            hits = np.nonzero(moved[key, e] & sel[row])[0]
-            if hits.size:
-                value = -base[key, e, hits[0]] % (1 << bits)
-                out[key, row] = [(value >> (32 * l)) & 0xFFFFFFFF for l in range(lpe)]
-    return out
-
-
 def test_csrc_hier_body_on_the_host_compiler(host_harness):
-    """csrc/hier_rows.cuh, K8's per-word body, built with g++ and run over
-    every (key, word), equals K8's plain version (value rows, exit planes,
-    exit control): slots placed at several depths in any order, depths
-    that do not capture, words that hold no lane of a slot (the capture they
-    skip), both parties, keep 1, 2 and 4, every limb layout, the XOR group,
-    and corrections that wrap to exactly 0 at each capture, so that the add
+    """csrc/hier_rows.cuh, K8's body, built with g++ and run as a grid of
+    one thread, equals K8's plain version (every value row, the exit seeds
+    and the exit control) on the windows of ops/hier_cases.py:
+    prefix windows of real small hierarchies with random entry states,
+    Int(32) keeping 2 and 4 elements, Int(64), Int(128) and XorWrapper(128),
+    both parties, a zero-level first step, steps of two and three tree
+    levels, words that straddle segments, pad lanes in the exit, and
+    corrections that wrap to exactly 0 at each capture, so that the add
     carries out of every limb and party 1's negation through every limb."""
     exe = host_harness
-    w = WIDTHS[0]
-    for i, (bits, keep, party, xor_group, captures) in enumerate((
-        (64, 2, 1, False, (1, -1, 0, 2)), (64, 2, 0, False, (0, 1, -1)),
-        (32, 4, 1, False, (-1, 1, 0)), (128, 1, 1, False, (2, 0, -1, 1)),
-        (128, 1, 0, True, (0, -1, 1)), (32, 2, 1, False, (0,) + (-1,) * 3 + (1,)),
-    )):
-        levels, slots = len(captures) - 1, max(captures) + 1
-        ops, _ = hier_inputs(levels, w, bits, keep, seed=20 + i, slots=slots)
-        if not xor_group:
-            ops[6] = hier_carrying_corrections(ops, bits, keep, captures)
-            assert ops[6].any()
-        kw = dict(bits=bits, party=party, xor_group=xor_group, keep=keep, captures=captures)
-        got = run_harness(exe, [9, K, w, levels, slots * keep, bits // 32, keep, party,
-                                int(xor_group)], np.array(captures, np.int32).view(np.uint32),
-                          *ops)
-        want = [aes_torch.from_words(t)
-                for t in backend_torch.hier_megakernel(*map(words, ops), **kw)]
+    pads = straddles = 0
+    for name in hier_cases.CASES:
+        case = hier_cases.window_case(name, device="cpu")
+        args, kw, win = case["args"], case["kw"], case["win"]
+        segs = kw["segments"]
+        pads += kw["state_cap"] > segs[-1][1]
+        straddles += any(seg[0] % 32 for seg in segs[1:])
+        k, m = args[0].shape[:2]
+        header = [9, k, win.plan.padded_words, win.depth, kw["bits"] // 32, kw["keep"],
+                  kw["party"], int(kw["xor_group"]), m, kw["state_cap"], len(segs)]
+        header += [x for seg in segs for x in seg[:3]]
+        got = run_harness(exe, header, *(aes_torch.from_words(a) for a in args[:2] + args[3:]))
+        want = [aes_torch.from_words(t) for t in aes_cuda.hier_megakernel(*args, **kw)]
         sizes = np.cumsum([a.size for a in want])[:-1]
+        assert got.size == sum(a.size for a in want), name
         for g, a in zip(np.split(got, sizes), want):
-            assert np.array_equal(g.reshape(a.shape), a), kw
+            assert np.array_equal(g.reshape(a.shape), a), name
+    assert pads and straddles
 
 
 def keygen_inputs(levels, w, seed):
