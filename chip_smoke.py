@@ -14,9 +14,11 @@ Phases (any failure raises and exits non-zero before the result line):
 2. kernels: K2, K3, K4 and K5 against their plain PyTorch versions on the
    card (exact: the outputs are integers), at the main path's shapes and
    ragged ones (K5: a tiny plan with one-word slabs, a multi-slab plan with
-   a database, 8 keys at the fold's full plan, and 128 queries at the PIR
-   path's plan with its database in phase 4), each timed beside its plain
-   version and its bound;
+   a database, 8 keys at the fold's full plan, 128 keys at it with each
+   key's slabs over the blocks the wrapper chooses and over one block, and
+   128 queries at the PIR path's plan with its database in phase 4, the
+   same two ways), each timed beside its plain version and its bound; K5's
+   registers and spills, and a timing probe of K5 at one block a key;
 3. fold: 1024 Int(64) keys per party at log-domain 20 through
    ``full_domain_fold_chunks`` (key_chunk 128), on the default last step
    (K2 per level, then K4), the fused one (K2, then K3) and
@@ -366,6 +368,20 @@ def megakernel_cost(key_planes, plan, k: int, bits: int, keep: int, party: int,
     return nbytes, gates
 
 
+def k5_probe(torch, args, kw, k: int, ms: float, dev, what: str) -> None:
+    """Timing only: K5 at the blocks a key the wrapper chooses (`ms`, two
+    blocks an SM) against one block a key (the grid K5 had before it was
+    split: one block an SM), so the two gains of its redesign, filled word
+    rounds and occupancy, show apart."""
+    from distributed_point_functions_tpu_torch.ops import aes_cuda
+
+    blocks = aes_cuda.megakernel_blocks_per_key(kw["plan"], kw["bits"], k, dev)
+    one_ms = time_ms(torch, lambda: aes_cuda.megakernel_fold(*args, **kw, blocks_per_key=1), 5)
+    again_ms = time_ms(torch, lambda: aes_cuda.megakernel_fold(*args, **kw), 5)
+    print(f"K5 probe at K={k}, {what} (timing only): {blocks} blocks a key {ms:.4f} / "
+          f"{again_ms:.4f} ms, one block a key {one_ms:.4f} ms")
+
+
 def main() -> None:
     import torch
 
@@ -497,14 +513,20 @@ def main() -> None:
         print(f"K5 == plain at K={k}, {vt}, party {party}, db {with_db}: {plan}")
     kw = dict(plan=main_plan, bits=64, party=0, xor_group=False, keep=2)
     a = mk_args(main_plan, KEY_CHUNK, 64, False)
-    hold("K5", aes_cuda.megakernel_fold(*a, **kw), backend_torch.megakernel_fold(*a, **kw))
+    want = backend_torch.megakernel_fold(*a, **kw)
+    hold("K5", aes_cuda.megakernel_fold(*a, **kw), want)
+    hold("K5", aes_cuda.megakernel_fold(*a, **kw, blocks_per_key=1), want)
     ms = time_ms(torch, lambda: aes_cuda.megakernel_fold(*a, **kw), 5)
     plain_ms = time_ms(torch, lambda: backend_torch.megakernel_fold(*a, **kw), 1)
     b_ms, b_by = bound_ms(*megakernel_cost(key_planes, main_plan, KEY_CHUNK, 64, 2, 0, False, False))
     rows["K5"] = dict(kernel=aes_cuda.K5, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
     print(f"K5 at K={KEY_CHUNK}, log-domain {LOG_DOMAIN} Int(64) full plan: {ms:.4f} ms "
           f"(plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by}); {aes_cuda.K5.ptxas}")
-    del a
+    k5 = aes_cuda.K5.ptxas
+    print(f"K5 ptxas: {k5.get('registers')} registers, {k5.get('spill_stores')} B spill "
+          f"stores, {k5.get('spill_loads')} B spill loads")
+    k5_probe(torch, a, kw, KEY_CHUNK, ms, dev, "the fold's plan")
+    del a, want
     torch.cuda.empty_cache()
     k2_widths = {}
     for lv in range(max(vt_levels.values()) - HOST_LEVELS):
@@ -643,14 +665,17 @@ def main() -> None:
     pplan = prepared_mk.plan
     kw = dict(plan=pplan, bits=128, party=1, xor_group=True, keep=1)
     a = mk_args(pplan, PIR_QUERIES, 128, False)[:6] + (prepared_mk.lane_db,)
-    hold("K5", aes_cuda.megakernel_fold(*a, **kw), backend_torch.megakernel_fold(*a, **kw))
+    want = backend_torch.megakernel_fold(*a, **kw)
+    hold("K5", aes_cuda.megakernel_fold(*a, **kw), want)
+    hold("K5", aes_cuda.megakernel_fold(*a, **kw, blocks_per_key=1), want)
     ms = time_ms(torch, lambda: aes_cuda.megakernel_fold(*a, **kw), 5)
     plain_ms = time_ms(torch, lambda: backend_torch.megakernel_fold(*a, **kw), 1)
     b_ms, b_by = bound_ms(*megakernel_cost(key_planes, pplan, PIR_QUERIES, 128, 1, 1, True, True))
     print(f"K5 == plain at K={PIR_QUERIES}, log-domain {LOG_DOMAIN} XorWrapper(128) PIR "
           f"plan with the database: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
           f"{b_ms:.4f} ms by {b_by})")
-    del a
+    k5_probe(torch, a, kw, PIR_QUERIES, ms, dev, "the PIR plan")
+    del a, want
     pir_answers = {}
     for mode, pdb, need in (("fold", prepared, (aes_cuda.K2, aes_cuda.K4)),
                             ("megakernel", prepared_mk, (aes_cuda.K5,))):
@@ -1430,11 +1455,11 @@ def main() -> None:
     # -- result -------------------------------------------------------------
     k1_bound, k1_by = bound_ms(0, hash_cost(key_planes, KEY_CHUNK, 2 * max_w)[1])
     kernels = [{
-        "name": "K1 aes_rows (device function inlined in K2-K9; timed as K4)",
+        "name": "K1 aes_rows (device function inlined in K2-K4 and K6-K9; timed as K4)",
         "route": "cuda",
         "source": "distributed_point_functions_tpu_torch/csrc/aes_rows.cuh",
         "replaces": "distributed_point_functions_tpu/ops/aes_pallas.py:182",
-        "launches": sum(main_launches.values()),
+        "launches": sum(n for name, n in main_launches.items() if name != aes_cuda.K5.name),
         "max_abs_err": checks["K4"],
         "ms": rows["K4"]["ms"],
         "plain_ms": rows["K4"]["plain_ms"],
@@ -1442,6 +1467,20 @@ def main() -> None:
         "bound_by": k1_by,
         "library_ms": None,
     }]
+    kernels.append({
+        "name": "K1 column form, four threads a lane word (device function inlined in K5; "
+                "timed as K5)",
+        "route": "cuda",
+        "source": "distributed_point_functions_tpu_torch/csrc/aes_quad.cuh",
+        "replaces": "distributed_point_functions_tpu/ops/aes_pallas.py:182",
+        "launches": main_launches.get(aes_cuda.K5.name, 0),
+        "max_abs_err": checks["K5"],
+        "ms": rows["K5"]["ms"],
+        "plain_ms": rows["K5"]["plain_ms"],
+        "bound_ms": rows["K5"]["bound_ms"],
+        "bound_by": rows["K5"]["bound_by"],
+        "library_ms": None,
+    })
     kernels.append({
         "name": "K1 aes_rows, per-lane key select (device function inlined in K6, both "
                 "forms of K7 and K8; timed as K6)",

@@ -1,0 +1,291 @@
+// K5's AES core: K1's bitsliced AES-128 and fixed-key MMO hash
+// (aes_rows.cuh) split by AES column over four threads.
+//
+// Layout. A 32-lane word of 128 bit-planes (plane p = byte p / 8, bit p %
+// 8) is shared by four threads; the thread of column c owns planes 32 c ..
+// 32 c + 31, bytes 4 c .. 4 c + 3, which are column c of the AES state. It
+// keeps them in s[32] and sigma(x) in 32 more registers (no shared-memory
+// stash). AddRoundKey, SubBytes (four of K1's S-boxes) and MixColumns stay
+// inside a column; only ShiftRows moves rows 1-3 between columns (24 words
+// a round), and sigma swaps the halves (32 words a hash).
+//
+// The steps are written against a "quad" type Q that says which columns a
+// caller holds and how they exchange words:
+//  - on the card, QuadLanes: one column a thread (Q::kCols == 1), lane 8 c
+//    + j of a warp holding column c of the warp's word j, and the exchange
+//    a __shfl_sync within the warp (every lane of the warp must call it);
+//  - on the host, QuadHost: the four columns of a word in one thread
+//    (Q::kCols == 4), run in lockstep, the exchange an array permutation.
+// Both run the same step functions below; tests/test_torch_kernels.py
+// holds the host form against K1 and against the plain version.
+//
+// Round keys. kQuadRoundKeys[table][round][i][c] is plane 32 c + i of
+// kRoundKeys[table][round] (dpf_quad_keys.h, generated by ops/aes_cuda.py),
+// a global-memory table read through the read-only cache: the four columns'
+// words of one load lie in one 16-byte sector, where a constant-memory load
+// of four addresses would be served one address at a time.
+
+#pragma once
+
+#include <cstdint>
+
+#include "aes_rows.cuh"  // sbox_byte, the key tables' indices, the host macros
+#include "dpf_quad_keys.h"  // static __device__ const uint32_t kQuadRoundKeys[3][11][32][4]
+
+namespace dpf {
+
+__device__ __forceinline__ uint32_t quad_key(const uint32_t* p) {
+#ifdef __CUDACC__
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+#ifdef __CUDACC__
+// One column of one lane word a thread: lane 8 c + j of each warp holds
+// column c of word `base + j`; a block of n threads runs n / 4 words at a
+// time (`step`).
+struct QuadLanes {
+  static constexpr int kCols = 1;
+  int c;     // this thread's column
+  int wl;    // j: this thread's word within its warp's eight
+  int base;  // the warp's first word in a round of the block's words
+  int step;  // words a round of the block
+  __device__ __forceinline__ int column(int) const { return c; }
+  // Column c's words v[0][first .. first + n) take column (c + shift) % 4's.
+  template <int N>
+  __device__ __forceinline__ void rotate(uint32_t (*v)[N], int first, int n,
+                                         int shift) const {
+    const int src = (((c + shift) & 3) << 3) | wl;
+#pragma unroll
+    for (int j = first; j < first + n; ++j) v[0][j] = __shfl_sync(0xffffffffu, v[0][j], src);
+  }
+  // Every column's v takes column 0's.
+  __device__ __forceinline__ uint32_t from_column0(uint32_t v) const {
+    return __shfl_sync(0xffffffffu, v, wl);
+  }
+};
+#endif
+
+// The four columns of one lane word in one host thread, in lockstep.
+struct QuadHost {
+  static constexpr int kCols = 4;
+  int wl = 0, base = 0, step = 1;
+  int column(int j) const { return j; }
+  template <int N>
+  void rotate(uint32_t (*v)[N], int first, int n, int shift) const {
+    uint32_t t[4][N];
+    for (int j = 0; j < 4; ++j)
+      for (int i = 0; i < N; ++i) t[j][i] = v[j][i];
+    for (int j = 0; j < 4; ++j)
+      for (int i = first; i < first + n; ++i) v[j][i] = t[(j + shift) & 3][i];
+  }
+  uint32_t from_column0(uint32_t v) const { return v; }  // v is column 0's
+};
+
+template <class Q>
+__device__ __forceinline__ void add_round_key_quad(uint32_t (*s)[32], const Q& q,
+                                                   int table, int round) {
+#pragma unroll
+  for (int j = 0; j < Q::kCols; ++j) {
+    const uint32_t* k = &kQuadRoundKeys[table][round][0][q.column(j)];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[j][i] ^= quad_key(k + 4 * i);
+  }
+}
+
+template <class Q>
+__device__ __forceinline__ void sub_bytes_quad(uint32_t (*s)[32]) {
+#pragma unroll
+  for (int j = 0; j < Q::kCols; ++j) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) sbox_byte(s[j] + 8 * b);
+  }
+}
+
+// Row r of column c takes row r of column (c + r) % 4:
+// out[row][col] = in[row][(col + row) % 4].
+template <class Q>
+__device__ __forceinline__ void shift_rows_quad(uint32_t (*s)[32], const Q& q) {
+#pragma unroll
+  for (int r = 1; r < 4; ++r) q.rotate(s, 8 * r, 8, r);
+}
+
+// MixColumns of one column in place: out[r] = in[r] ^ (in[0] ^ in[1] ^ in[2]
+// ^ in[3]) ^ xtime(in[r] ^ in[r + 1]), as K1's mix_columns per column.
+__device__ __forceinline__ void mix_column(uint32_t* col) {
+  uint32_t sum[8], row0[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    sum[i] = col[i] ^ col[8 + i] ^ col[16 + i] ^ col[24 + i];
+    row0[i] = col[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    uint32_t* a = col + 8 * r;
+    const uint32_t* n = r == 3 ? row0 : col + 8 * (r + 1);
+    uint32_t x[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = a[i] ^ n[i];
+    // GF(2^8) doubling of x: x << 1 ^ (0x1B if bit 7).
+    const uint32_t x2[8] = {x[7], x[0] ^ x[7], x[1], x[2] ^ x[7],
+                            x[3] ^ x[7], x[4], x[5], x[6]};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) a[i] ^= sum[i] ^ x2[i];
+  }
+}
+
+// AES-128 encryption of the 32 blocks of a lane word under key schedule
+// `table`, each caller holding its Q::kCols columns of the state.
+template <class Q>
+__device__ __forceinline__ void aes128_encrypt_quad(uint32_t (*s)[32], const Q& q,
+                                                    int table) {
+  add_round_key_quad(s, q, table, 0);
+#pragma unroll 1
+  for (int round = 1; round < 10; ++round) {
+    sub_bytes_quad<Q>(s);
+    shift_rows_quad(s, q);
+#pragma unroll
+    for (int j = 0; j < Q::kCols; ++j) mix_column(s[j]);
+    add_round_key_quad(s, q, table, round);
+  }
+  sub_bytes_quad<Q>(s);
+  shift_rows_quad(s, q);
+  add_round_key_quad(s, q, table, 10);
+}
+
+// Fixed-key MMO hash H(x) = AES(sigma(x)) ^ sigma(x), sigma(x) = (hi ^ lo,
+// hi) with planes 0..63 (columns 0 and 1) the low half: columns 0 and 1
+// take columns 2 and 3, columns 2 and 3 XOR in columns 0 and 1. sigma(x)
+// stays in registers for the feed-forward.
+template <class Q>
+__device__ __forceinline__ void mmo_hash_quad(uint32_t (*s)[32], const Q& q,
+                                              int table) {
+  uint32_t sg[Q::kCols][32];
+#pragma unroll
+  for (int j = 0; j < Q::kCols; ++j) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sg[j][i] = s[j][i];
+  }
+  q.rotate(sg, 0, 32, 2);
+#pragma unroll
+  for (int j = 0; j < Q::kCols; ++j) {
+    const uint32_t keep = q.column(j) < 2 ? 0u : ~0u;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sg[j][i] ^= s[j][i] & keep;
+      s[j][i] = sg[j][i];
+    }
+  }
+  aes128_encrypt_quad(s, q, table);
+#pragma unroll
+  for (int j = 0; j < Q::kCols; ++j) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[j][i] ^= sg[j][i];
+  }
+}
+
+// One doubling child (0 = left, 1 = right) of the 32 seeds in s, in place:
+// K1's child_rows (expand_rows.cuh) by columns. The hash under the child's
+// PRG key, the seed correction cw & c (cw: the level's 128 plane masks), and
+// the new control word h[0] ^ (c & cc), returned to every column, with
+// plane 0 (column 0's first word) cleared.
+template <class Q>
+__device__ __forceinline__ uint32_t child_quad(uint32_t (*s)[32], const Q& q,
+                                               uint32_t c, const uint32_t* cw,
+                                               uint32_t cc, int child) {
+  mmo_hash_quad(s, q, child == 0 ? kTableLeft : kTableRight);
+  uint32_t h0 = 0u;
+#pragma unroll
+  for (int j = 0; j < Q::kCols; ++j) {
+    const uint32_t* m = cw + 32 * q.column(j);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[j][i] ^= m[i] & c;
+    if (q.column(j) == 0) {
+      h0 = s[j][0];
+      s[j][0] = 0u;
+    }
+  }
+  return q.from_column0(h0) ^ (c & cc);
+}
+
+// The correction of limb column(j) of 32 blocks, v[j][i] for block i, in
+// place, block i gated by bit i of `ctrl`; corr[j] is that limb of the
+// element's correction. The JAX package's rows_correct_element, as
+// tail_rows.cuh correct_block computes it per block: the XOR for an XOR
+// group, else the add with carry and, for party 1, the negation ~v + 1.
+// Here a thread holds one limb of 32 blocks, so each carry chain runs
+// across the columns of an element: a column packs its 32 blocks' generate
+// and propagate bits into a word each, and lpe - 1 rotations pass the carry
+// word up from the limb below (limb 0 of an element takes none).
+template <class Q>
+__device__ __forceinline__ void correct_limbs_quad(uint32_t (*v)[32], const Q& q,
+                                                   uint32_t ctrl, const uint32_t* corr,
+                                                   int lpe, int party, int xor_group) {
+  if (xor_group) {
+#pragma unroll
+    for (int j = 0; j < Q::kCols; ++j) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) v[j][i] ^= corr[j] & (0u - ((ctrl >> i) & 1u));
+    }
+    return;
+  }
+  uint32_t gen[Q::kCols][1], prop[Q::kCols][1], carry[Q::kCols][1];
+  bool first[Q::kCols];
+#pragma unroll
+  for (int j = 0; j < Q::kCols; ++j) {
+    first[j] = (q.column(j) & (lpe - 1)) == 0;
+    uint32_t g = 0u, p = 0u;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const uint32_t h = v[j][i];
+      const uint32_t s1 = h + (corr[j] & (0u - ((ctrl >> i) & 1u)));
+      g |= uint32_t(s1 < h) << i;      // h + b carries out
+      p |= uint32_t(s1 == ~0u) << i;   // a carry in would carry out
+      v[j][i] = s1;
+    }
+    gen[j][0] = g;
+    prop[j][0] = p;
+    carry[j][0] = 0u;
+  }
+  for (int it = 1; it < lpe; ++it) {
+    uint32_t x[Q::kCols][1];
+#pragma unroll
+    for (int j = 0; j < Q::kCols; ++j) x[j][0] = gen[j][0] | (prop[j][0] & carry[j][0]);
+    q.rotate(x, 0, 1, 3);  // from the column below
+#pragma unroll
+    for (int j = 0; j < Q::kCols; ++j) carry[j][0] = first[j] ? 0u : x[j][0];
+  }
+#pragma unroll
+  for (int j = 0; j < Q::kCols; ++j) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) v[j][i] += (carry[j][0] >> i) & 1u;
+  }
+  if (party != 1) return;
+  // ~v + nin carries out exactly where nin is set and v is 0.
+  uint32_t zero[Q::kCols][1], nin[Q::kCols][1];
+#pragma unroll
+  for (int j = 0; j < Q::kCols; ++j) {
+    uint32_t z = 0u;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) z |= uint32_t(v[j][i] == 0u) << i;
+    zero[j][0] = z;
+    nin[j][0] = ~0u;
+  }
+  for (int it = 1; it < lpe; ++it) {
+    uint32_t x[Q::kCols][1];
+#pragma unroll
+    for (int j = 0; j < Q::kCols; ++j) x[j][0] = nin[j][0] & zero[j][0];
+    q.rotate(x, 0, 1, 3);
+#pragma unroll
+    for (int j = 0; j < Q::kCols; ++j) nin[j][0] = first[j] ? ~0u : x[j][0];
+  }
+#pragma unroll
+  for (int j = 0; j < Q::kCols; ++j) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) v[j][i] = ~v[j][i] + ((nin[j][0] >> i) & 1u);
+  }
+}
+
+}  // namespace dpf

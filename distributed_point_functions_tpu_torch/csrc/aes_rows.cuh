@@ -26,7 +26,7 @@
 // at build time from the package's key schedule (ops/aes_cuda.py writes
 // dpf_round_keys.h). Every lane of a warp reads the same word, which the
 // constant cache broadcasts. The Pallas kernel selects the left or right key
-// per lane with a `key_mask`. A doubling level (K2, K3, K5) hashes each child
+// per lane with a `key_mask`. A doubling level (K2, K3) hashes each child
 // under one key, so there one thread passes the table index instead (a warp
 // that straddles the two children reads two addresses, which only serialises
 // that read). A point walk (K6, K7) needs the select per lane: each of the
@@ -34,7 +34,8 @@
 // level's path word as the mask and adds, per plane, the left key where the
 // mask bit is clear and the right key where it is set. That costs one more
 // constant load and one more logic operation per plane than the table form,
-// which K2-K5 keep unchanged.
+// which K2-K4 keep unchanged. (K5 runs its column-split form,
+// aes_quad.cuh.)
 
 #pragma once
 
@@ -303,7 +304,7 @@ __device__ __forceinline__ void mmo_hash_rows_with(uint32_t* s, AddKey add_key,
   for (int p = 0; p < 128; ++p) s[p] ^= stash[p * stride];
 }
 
-// The MMO hash under key schedule `table` (K2-K5).
+// The MMO hash under key schedule `table` (K2-K4, K8, K9).
 __device__ __forceinline__ void mmo_hash_rows(uint32_t* s, int table,
                                               uint32_t* stash, int stride) {
   mmo_hash_rows_with(s, TableKey{table}, stash, stride);

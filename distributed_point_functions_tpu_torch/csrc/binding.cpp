@@ -65,8 +65,20 @@ dpf::MegakernelArgs megakernel_args(const std::vector<int64_t>& plan,
 
 // Bytes of dynamic shared memory one K5 block needs under `plan`.
 int64_t megakernel_smem_bytes(const std::vector<int64_t>& plan, int64_t lpe) {
-  return 4 * dpf::megakernel_smem_words(megakernel_args(plan, lpe),
-                                        dpf::kMegakernelThreads);
+  return 4 * dpf::megakernel_smem_words(megakernel_args(plan, lpe));
+}
+
+// K5's blocks per key for num_keys keys under `plan` on `device`, or -1 if
+// the occupancy query failed.
+int64_t megakernel_blocks_per_key(const std::vector<int64_t>& plan, int64_t lpe,
+                                  int64_t num_keys, int64_t device) {
+  const c10::cuda::CUDAGuard guard(static_cast<c10::DeviceIndex>(device));
+  int blocks = 0;
+  if (dpf::megakernel_blocks_per_key(megakernel_args(plan, lpe), static_cast<int>(num_keys),
+                                     &blocks) != cudaSuccess) {
+    return -1;
+  }
+  return blocks;
 }
 
 // The most dynamic shared memory a block may opt in to on `device`, or -1.
@@ -79,14 +91,16 @@ int64_t max_shared_memory_per_block(int64_t device) {
   return limit;
 }
 
-// K5. `plan` as for megakernel_args; `db` is read only when use_db. The
-// caller (ops/aes_cuda.py) has checked the shared memory against the card.
+// K5. `plan` as for megakernel_args; `db` is read only when use_db; `out`
+// is zeroed and `workspace` holds blocks_per_key rows a key. The caller
+// (ops/aes_cuda.py) has checked the shared memory against the card.
 void megakernel_fold(const torch::Tensor& planes, const torch::Tensor& control,
                      const torch::Tensor& cw, const torch::Tensor& ccl,
                      const torch::Tensor& ccr, const torch::Tensor& corr,
                      const torch::Tensor& db, bool use_db, torch::Tensor out,
                      torch::Tensor workspace, std::vector<int64_t> plan,
-                     int64_t lpe, int64_t keep, int64_t party, bool xor_group) {
+                     int64_t lpe, int64_t keep, int64_t party, bool xor_group,
+                     int64_t blocks_per_key) {
   const c10::cuda::CUDAGuard guard(planes.device());
   dpf::MegakernelArgs a = megakernel_args(plan, lpe);
   a.planes = words_of(planes);
@@ -102,6 +116,7 @@ void megakernel_fold(const torch::Tensor& planes, const torch::Tensor& control,
   a.keep = static_cast<int>(keep);
   a.party = static_cast<int>(party);
   a.xor_group = xor_group ? 1 : 0;
+  a.blocks_per_key = static_cast<int>(blocks_per_key);
   C10_CUDA_CHECK(dpf::launch_megakernel_fold(
       a, static_cast<int>(planes.size(0)), at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
@@ -252,6 +267,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("megakernel_fold", &megakernel_fold, "K5");
   m.def("megakernel_smem_bytes", &megakernel_smem_bytes,
         "K5's shared memory per block under a plan");
+  m.def("megakernel_blocks_per_key", &megakernel_blocks_per_key,
+        "K5's blocks per key that keep its grid resident");
   m.def("walk_level", &walk_level, "K6");
   m.def("walk_megakernel", &walk_megakernel, "K7 (EvaluateAt or DCF form)");
   m.def("hier_megakernel", &hier_megakernel, "K8");

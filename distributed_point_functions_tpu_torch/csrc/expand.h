@@ -28,12 +28,17 @@ void launch_expand_level(const uint32_t* planes, const uint32_t* control,
 void launch_value_hash(const uint32_t* planes, uint32_t* out, int num_keys,
                        int words, cudaStream_t stream);
 
-// K5: one block of kMegakernelThreads per key, with
-// megakernel_smem_words(a, kMegakernelThreads) words of dynamic shared
-// memory (the caller checks that the card allows them). Returns the error of
-// raising the kernel's shared-memory limit, if any.
+// K5: a.blocks_per_key blocks of kMegakernelThreads per key, each with
+// megakernel_smem_words(a) words of dynamic shared memory (the caller
+// checks that the card allows them). Returns the error of raising the
+// kernel's shared-memory limit, if any.
 cudaError_t launch_megakernel_fold(const MegakernelArgs& a, int num_keys,
                                    cudaStream_t stream);
+
+// K5's blocks per key for num_keys keys under `a`'s plan on the current
+// device: the most (up to num_slabs, at least 1) that keep the grid
+// resident at once. Returns the error of the occupancy query, if any.
+cudaError_t megakernel_blocks_per_key(const MegakernelArgs& a, int num_keys, int* blocks);
 
 // K6: one walk level. planes [K, 128, W], control [K, W], path [W] (this
 // level's path bits, shared by all keys), cw [K, 128], ccl/ccr [K] ->

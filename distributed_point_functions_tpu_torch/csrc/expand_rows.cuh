@@ -1,5 +1,4 @@
-// The per-lane-word bodies of K2, K3 and K4 (csrc/expand.cu launches them),
-// and the doubling step K5 shares with them.
+// The per-lane-word bodies of K2, K3 and K4 (csrc/expand.cu launches them).
 //
 // Each body handles one 32-bit lane word of one key: it loads the word's 128
 // plane words, runs K1 (aes_rows.cuh) and stores 128 words. The __global__
@@ -22,7 +21,7 @@ namespace dpf {
 // One doubling child (0 = left, 1 = right) of the 32 seeds in s, in place:
 // the seed hash under the child's PRG key, the seed correction cw & c, and
 // the new control word h[0] ^ (c & cc) (returned) with plane 0 cleared.
-// Shared by K2, K3 and K5 (megakernel_rows.cuh).
+// Shared by K2 and K3; K5 runs its column form (aes_quad.cuh child_quad).
 __device__ __forceinline__ uint32_t child_rows(uint32_t* s, uint32_t c,
                                                const uint32_t* cw, uint32_t cc,
                                                int child, uint32_t* stash,

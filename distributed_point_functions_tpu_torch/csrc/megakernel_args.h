@@ -12,8 +12,9 @@
 
 namespace dpf {
 
-// Threads of one K5 block. At the 255 registers K1 needs, 256 threads take
-// the whole register file of an SM.
+// Threads of one K5 block: 64 lane words of four column threads each
+// (aes_quad.cuh). At the 128 registers K5's column threads are held to,
+// two blocks share an SM.
 constexpr int kMegakernelThreads = 256;
 
 // uint32 words, row-major; L = levels_a + levels_b device levels; the plan
@@ -27,20 +28,23 @@ struct MegakernelArgs {
   const uint32_t* corr;     // [K, 4]: the [epb, lpe] correction limbs
   const uint32_t* db;       // [keep * lpe * 32, num_slabs * final_words]
                             // megakernel-order rows, or null: no database
-  uint32_t* out;            // [K, lpe, fold_words] partial folds
-  uint32_t* workspace;      // [K, workspace_words] phase-A ping-pong
+  uint32_t* out;            // [K, lpe, fold_words] partial folds, zeroed by
+                            // the caller: the key's blocks XOR into them
+  uint32_t* workspace;      // [K * blocks_per_key, workspace_words] each
+                            // block's phase-A ping-pong
   int64_t workspace_words;
   int levels_a, levels_b;
   int entry_words, mid_words, slab_words, final_words, fold_words, num_slabs;
   int lpe, keep, party, xor_group;
+  int blocks_per_key;       // 1 .. num_slabs blocks share a key's slabs
 };
 
-// Shared memory of one block of `threads` threads, in words: the MMO stash
-// (128 per thread), the fold (lpe x fold_words), and, with two or more
-// phase-B levels, the phase-B ping-pong buffers of 129 rows (128 planes and
-// the control row) of final_words / 2 and final_words / 4 words.
-inline int64_t megakernel_smem_words(const MegakernelArgs& a, int threads) {
-  int64_t words = int64_t(128) * threads + int64_t(a.lpe) * a.fold_words;
+// Shared memory of one K5 block, in words: the fold (lpe x fold_words) and,
+// with two or more phase-B levels, the phase-B ping-pong buffers of 129
+// rows (128 planes and the control row) of final_words / 2 and final_words
+// / 4 words.
+inline int64_t megakernel_smem_words(const MegakernelArgs& a) {
+  int64_t words = int64_t(a.lpe) * a.fold_words;
   if (a.levels_b >= 2) {
     words += int64_t(129) * (a.final_words / 2 + a.final_words / 4);
   }

@@ -21,7 +21,7 @@
 #include <cstdint>
 
 #include "megakernel_args.h"
-#include "megakernel_rows.cuh"
+#include "tail_rows.cuh"
 
 namespace dpf {
 

@@ -34,9 +34,10 @@ view of K2 (a batch of one key) with no kernel body and no count of its
 own.
 
 K1, the bitsliced AES row circuit (csrc/aes_rows.cuh, replacing
-``_aes_rows`` / ``_sbox_rows``), is inlined into all of them; K6 and K7 use
-its form with the PRG key selected per lane, and so does K8. K9 uses the
-table form, as K2-K5 do.
+``_aes_rows`` / ``_sbox_rows``), is inlined into all of them but K5; K6
+and K7 use its form with the PRG key selected per lane, and so does K8. K9
+uses the table form, as K2-K4 do. K5 runs K1's column-split form
+(csrc/aes_quad.cuh): four threads a lane word, one AES column each.
 
 Device rule: a wrapper given CPU tensors runs the plain version, because the
 tensors lie on the CPU; given CUDA tensors it launches its kernel or raises.
@@ -46,6 +47,8 @@ What bounds the kernels on an H100 is integer operations (about 25k 32-bit
 logic operations per lane word and hash, against 512 bytes of plane traffic
 each way), so the kernels keep the AES state in registers and touch each
 plane word once in each direction; see csrc/expand.cu and csrc/megakernel.cu.
+K5 splits each word's AES state over four threads so that it fits 128
+registers without a spill.
 
 Build: the first launch builds csrc/binding.cpp (the one source with
 PyTorch's headers), csrc/expand.cu, csrc/megakernel.cu, csrc/walk.cu,
@@ -66,7 +69,7 @@ import os
 import re
 import sys
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -126,28 +129,53 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 
-def round_key_header() -> str:
-    """C source of ``kRoundKeys[3][11][128]``: the left, right and value PRG
-    key schedules as 0 / ~0 plane masks (the tables backend_torch._rk_np
-    gives the plain version), in (table, round, plane = 8 * byte + bit)
-    order."""
-    tables = np.stack(
+def _key_tables() -> np.ndarray:
+    """uint32[3, 11, 128]: the left, right and value PRG key schedules as
+    0 / ~0 plane masks (the tables backend_torch._rk_np gives the plain
+    version), in (table, round, plane = 8 * byte + bit) order."""
+    return np.stack(
         [backend_torch._rk_np(t).reshape(11, 128) for t in ("left", "right", "value")]
     )
-    body = ",\n".join(
-        "  {" + ",\n   ".join(
-            "{" + ",".join("0xffffffffu" if v else "0u" for v in rnd) + "}"
-            for rnd in table
-        ) + "}"
-        for table in tables
-    )
+
+
+def _key_header(declaration: str, table: np.ndarray) -> str:
+    """A generated header defining `declaration` as the 0 / ~0 words of
+    `table`, nested in braces as its shape."""
+    def braces(a):
+        if a.ndim == 1:
+            return "{" + ",".join("0xffffffffu" if v else "0u" for v in a) + "}"
+        return "{" + ",\n".join(braces(x) for x in a) + "}"
+
     return (
         "// Generated by distributed_point_functions_tpu_torch/ops/aes_cuda.py"
         " from the package's AES key schedule.\n#pragma once\n"
-        "static __constant__ uint32_t kRoundKeys[3][11][128] = {\n"
-        + body
-        + "};\n"
+        f"{declaration} = {braces(table)};\n"
     )
+
+
+def round_key_header() -> str:
+    """C source of ``kRoundKeys[3][11][128]`` (``_key_tables``), the
+    constant-memory tables of K1."""
+    return _key_header("static __constant__ uint32_t kRoundKeys[3][11][128]", _key_tables())
+
+
+def quad_key_header() -> str:
+    """C source of ``kQuadRoundKeys[3][11][32][4]``, K5's copy of the same
+    schedules for its column threads (csrc/aes_quad.cuh): entry [table]
+    [round][i][c] is plane 32 c + i of ``kRoundKeys[table][round]``, so the
+    four columns' words of one plane row lie side by side."""
+    tables = _key_tables().reshape(3, 11, 4, 32).transpose(0, 1, 3, 2)
+    return _key_header("static __device__ const uint32_t kQuadRoundKeys[3][11][32][4]", tables)
+
+
+def write_key_headers(include: Path) -> None:
+    """Writes dpf_round_keys.h and dpf_quad_keys.h into `include`; a header
+    whose text is unchanged keeps its mtime, so nothing rebuilds."""
+    for name, text in (("dpf_round_keys.h", round_key_header()),
+                       ("dpf_quad_keys.h", quad_key_header())):
+        header = include / name
+        if not header.exists() or header.read_text() != text:
+            header.write_text(text)
 
 
 def _parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
@@ -195,10 +223,7 @@ def library():
 
     include = BUILD_DIR / "include"
     include.mkdir(parents=True, exist_ok=True)
-    header = include / "dpf_round_keys.h"
-    text = round_key_header()
-    if not header.exists() or header.read_text() != text:
-        header.write_text(text)  # unchanged text keeps its mtime: no rebuild
+    write_key_headers(include)
     log = BUILD_DIR / "build.log"
     try:
         with _stdout_to(log):
@@ -348,9 +373,29 @@ def hash_value_planes(planes):
     return out
 
 
+def _plan_fields(plan) -> list:
+    """A MegakernelPlan's fields in the order binding.cpp megakernel_args
+    reads them."""
+    return [plan.levels_a, plan.levels_b, plan.entry_words, plan.mid_words,
+            plan.slab_words, plan.final_words, plan.fold_words, plan.num_slabs]
+
+
+def megakernel_blocks_per_key(plan, bits: int, num_keys: int, device) -> int:
+    """K5's blocks per key for `num_keys` keys under `plan` on CUDA
+    `device` when the wrapper chooses: the most, up to num_slabs, that keep
+    the whole grid resident on the card at once."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    blocks = library().megakernel_blocks_per_key(_plan_fields(plan), bits // 32, num_keys, index)
+    if blocks < 1:
+        raise InternalError(f"{K5.name}: the occupancy query failed on cuda:{index}")
+    return blocks
+
+
 def megakernel_fold(
     planes, control, cw_planes, ccl, ccr, corrections, db_rows=None, *,
     plan, bits: int, party: int, xor_group: bool, keep: int,
+    blocks_per_key: Optional[int] = None,
 ):
     """K5, the slab megakernel: one launch for a chunk of K keys.
 
@@ -366,11 +411,17 @@ def megakernel_fold(
 
     Bound on the H100: integer operations, ~25k logic operations per lane
     word and hash against a few hundred bytes of input per key and the
-    database read once; the design (csrc/megakernel.cu) keeps each key's
-    tree on chip and spends its bytes on the entry tile, the phase-A state
-    and the database tile. The plan's slab must fit one block's shared
-    memory (``evaluator.MEGAKERNEL_BUDGET`` plans do); a larger plan is
-    refused on the card.
+    database read once. The design (csrc/megakernel.cu) keeps each key's
+    tree on chip, runs four threads a lane word (one AES column each, 128
+    registers, two 256-thread blocks an SM) and splits each key's slabs
+    over ``blocks_per_key`` blocks, each expanding the phase-A words its
+    slabs need in its own workspace row and XORing its fold into the
+    zeroed output. ``None`` takes the most blocks a key (at most num_slabs)
+    that keep the grid resident on the card at once; an int in 1 ..
+    num_slabs sets it (the result does not depend on it). The plan's
+    phase-B buffers must fit one block's shared memory
+    (``evaluator.MEGAKERNEL_BUDGET`` plans do); a larger plan is refused on
+    the card.
     """
     if bits % 32:
         raise NotImplementedError(
@@ -403,6 +454,11 @@ def megakernel_fold(
     if db_rows is not None:
         _check(db_rows, (keep * lpe * 32, total), "db_rows")
         args.append(db_rows)
+    if blocks_per_key is not None and not 1 <= blocks_per_key <= plan.num_slabs:
+        raise InvalidArgumentError(
+            f"blocks_per_key must be in 1 .. {plan.num_slabs} (the plan's slabs), "
+            f"got {blocks_per_key}"
+        )
     kw = dict(plan=plan, bits=bits, party=party, xor_group=xor_group, keep=keep)
     if _on_cpu(*args):
         return backend_torch.megakernel_fold(
@@ -411,12 +467,11 @@ def megakernel_fold(
     if not all(t.is_contiguous() for t in args):
         raise InvalidArgumentError(f"{K5.name}: operands must be contiguous")
     dev = planes.device
-    out = torch.empty((k, lpe, plan.fold_words), dtype=torch.int32, device=dev)
+    out = torch.zeros((k, lpe, plan.fold_words), dtype=torch.int32, device=dev)
     if k == 0:
         return out
     lib = library()
-    fields = [plan.levels_a, plan.levels_b, plan.entry_words, plan.mid_words,
-              plan.slab_words, plan.final_words, plan.fold_words, plan.num_slabs]
+    fields = _plan_fields(plan)
     need = lib.megakernel_smem_bytes(fields, lpe)
     limit = lib.max_shared_memory_per_block(dev.index)
     if need > limit:
@@ -424,14 +479,16 @@ def megakernel_fold(
             f"{K5.name}: {plan} needs {need} bytes of shared memory per block "
             f"and {dev} allows {limit}; plan it with a smaller budget"
         )
-    # Phase A ping-pongs between a mid_words and a mid_words / 2 buffer of
-    # 129 rows (128 planes and the control row) per key.
+    if blocks_per_key is None:
+        blocks_per_key = megakernel_blocks_per_key(plan, bits, k, dev)
+    # Each block's phase A ping-pongs between a mid_words and a mid_words / 2
+    # buffer of 129 rows (128 planes and the control row).
     ws_words = 129 * (plan.mid_words + plan.mid_words // 2) if plan.levels_a else 1
-    workspace = torch.empty((k, ws_words), dtype=torch.int32, device=dev)
+    workspace = torch.empty((k * blocks_per_key, ws_words), dtype=torch.int32, device=dev)
     lib.megakernel_fold(
         planes, control, cw_planes, ccl, ccr, corrections,
         planes if db_rows is None else db_rows, db_rows is not None,
-        out, workspace, fields, lpe, keep, party, xor_group,
+        out, workspace, fields, lpe, keep, party, xor_group, blocks_per_key,
     )
     K5.launches += 1
     return out

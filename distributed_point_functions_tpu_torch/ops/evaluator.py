@@ -593,12 +593,13 @@ def lane_order_map(
 # state (the JAX package's DPF_TPU_MEGAKERNEL_VMEM, 8 MiB of a v5e core's
 # VMEM there). Here it is sized for what K5 keeps in one block's shared
 # memory: the plan arithmetic gives final_words <= floor_pow2(budget / 4096)
-# = 256 and mid_words <= floor_pow2(budget / 2064) = 256 at 1 MiB. A block of
-# 256 threads then holds the MMO stash (128 words x 256 threads = 128 KiB),
-# the phase-B ping-pong (129 rows x (final_words / 2 + final_words / 4)
-# words = 96.75 KiB) and the fold (lpe x fold_words <= 512 words = 2 KiB):
-# 232,192 bytes, under the H100's 232,448-byte opt-in limit per block. The
-# mid state lives in device memory, where its size is no constraint.
+# = 256 and mid_words <= floor_pow2(budget / 2064) = 256 at 1 MiB. A block
+# then holds the phase-B ping-pong (129 rows x (final_words / 2 +
+# final_words / 4) words = 96.75 KiB) and the fold (lpe x fold_words <= 512
+# words = 2 KiB): at most 101,120 bytes, so two blocks share an H100 SM
+# (K5's column threads keep sigma(x) in registers, not in a shared-memory
+# stash). The mid state lives in device memory, where its size is no
+# constraint.
 MEGAKERNEL_BUDGET = 1 << 20
 
 

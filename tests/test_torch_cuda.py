@@ -104,11 +104,48 @@ def test_megakernel_matches_plain_version(cuda, lds, value_type, budget, host_le
     assert torch.equal(got, backend_torch.megakernel_fold(*args, **kw))
 
 
+@pytest.mark.parametrize(
+    "lds, value_type, budget, k, blocks_per_key, with_db",
+    [
+        (12, port.Int(64), 4096, 1, None, False),  # one-word slabs, fold width 1, K = 1
+        (12, port.Int(32), 16384, 3, 3, True),  # 8 slabs over 3 blocks a key, fold width 4
+        (12, port.XorWrapper(128), 65536, 5, 8, True),  # a block a slab, fold width 16
+        (16, port.Int(64), 262144, 7, 5, False),  # 16 slabs over 5 blocks, fold width 64
+        (16, port.Int(128), evaluator.MEGAKERNEL_BUDGET, 1, None, True),  # four carrying limbs
+        (20, port.Int(64), evaluator.MEGAKERNEL_BUDGET, 3, None, False),  # the main plan, K = 3
+    ],
+)
+def test_megakernel_split_over_blocks_matches_plain_version(
+    cuda, lds, value_type, budget, k, blocks_per_key, with_db
+):
+    """K5 with each key's slabs over several blocks (the card's choice, or
+    a count that does not divide the slabs) equals its plain version, on
+    ragged plans with and without a database; one launch per call."""
+    plan = megakernel_plan(lds, value_type, budget)
+    bits = value_type.bitsize
+    lpe, levels = bits // 32, plan.levels_a + plan.levels_b
+    keep = 128 // bits
+    rng = np.random.default_rng(lds + k)
+
+    def r(*shape):
+        return torch.from_numpy(as_words(rng.integers(0, 2**32, size=shape, dtype=np.uint32))).to(cuda)
+
+    args = (r(k, 128, plan.entry_words), r(k, plan.entry_words), r(k, levels, 128),
+            r(k, levels), r(k, levels), r(k, 128 // bits, lpe),
+            r(keep * lpe * 32, plan.num_slabs * plan.final_words) if with_db else None)
+    kw = dict(plan=plan, bits=bits, party=k % 2,
+              xor_group=isinstance(value_type, port.XorWrapper), keep=keep)
+    aes_cuda.reset_launch_counts()
+    got = aes_cuda.megakernel_fold(*args, **kw, blocks_per_key=blocks_per_key)
+    assert aes_cuda.K5.launches == 1
+    assert torch.equal(got, backend_torch.megakernel_fold(*args, **kw))
+
+
 def test_megakernel_refuses_a_slab_larger_than_shared_memory(cuda):
     """A plan whose phase-B slab needs more shared memory than a block may
     have is refused on the card, not run elsewhere."""
-    plan = megakernel_plan(20, port.Int(64), 2 * evaluator.MEGAKERNEL_BUDGET)
-    assert plan.final_words == 512 and plan.levels_b >= 2
+    plan = megakernel_plan(20, port.Int(64), 4 * evaluator.MEGAKERNEL_BUDGET)
+    assert plan.final_words == 1024 and plan.levels_b >= 2
     levels = plan.levels_a + plan.levels_b
 
     def z(*shape):

@@ -353,41 +353,83 @@ static std::vector<uint32_t> rd(size_t n) {
   if (fread(v.data(), 4, n, stdin) != n) throw 1;
   return v;
 }
-// K5 (mode 3): 13 ints (the plan's levels_a, levels_b, entry, mid, slab,
-// final, fold, slabs; lpe, keep, party, xor_group, use_db), the operands;
-// every key runs as one block of one thread.
+// K5 (mode 3): 14 ints (the plan's levels_a, levels_b, entry, mid, slab,
+// final, fold, slabs; lpe, keep, party, xor_group, use_db, blocks_per_key),
+// the operands; every (key, block) runs as one host thread holding the four
+// columns of each word (dpf::QuadHost).
 static int megakernel(int K) {
-  int f[13];
-  if (fread(f, 4, 13, stdin) != 13) return 1;
+  int f[14];
+  if (fread(f, 4, 14, stdin) != 14) return 1;
   dpf::MegakernelArgs a{};
   a.levels_a = f[0]; a.levels_b = f[1]; a.entry_words = f[2]; a.mid_words = f[3];
   a.slab_words = f[4]; a.final_words = f[5]; a.fold_words = f[6]; a.num_slabs = f[7];
   a.lpe = f[8]; a.keep = f[9]; a.party = f[10]; a.xor_group = f[11];
+  a.blocks_per_key = f[13];
   const int L = a.levels_a + a.levels_b;
   auto planes = rd(size_t(K) * 128 * a.entry_words), control = rd(size_t(K) * a.entry_words);
   auto cw = rd(size_t(K) * L * 128), ccl = rd(size_t(K) * L), ccr = rd(size_t(K) * L);
   auto corr = rd(size_t(K) * 4);
   std::vector<uint32_t> db;
   if (f[12]) db = rd(size_t(a.keep) * a.lpe * 32 * a.num_slabs * a.final_words);
-  std::vector<uint32_t> out(size_t(K) * a.lpe * a.fold_words);
+  std::vector<uint32_t> out(size_t(K) * a.lpe * a.fold_words);  // zeroed, as the wrapper's
   a.workspace_words = 129 * (a.mid_words + a.mid_words / 2);
-  std::vector<uint32_t> ws(size_t(K) * a.workspace_words);
-  std::vector<uint32_t> smem(dpf::megakernel_smem_words(a, 1));
+  // Every workspace word starts as junk, as torch.empty leaves it on the card.
+  std::vector<uint32_t> ws(size_t(K) * a.blocks_per_key * a.workspace_words, 0xA5A5A5A5u);
+  std::vector<uint32_t> smem(dpf::megakernel_smem_words(a), 0xA5A5A5A5u);
   a.planes = planes.data(); a.control = control.data(); a.cw = cw.data();
   a.ccl = ccl.data(); a.ccr = ccr.data(); a.corr = corr.data();
   a.db = f[12] ? db.data() : nullptr; a.out = out.data(); a.workspace = ws.data();
-  for (int k = 0; k < K; ++k) dpf::megakernel_key(a, k, 0, 1, smem.data());
+  for (int k = 0; k < K; ++k)
+    for (int b = 0; b < a.blocks_per_key; ++b)
+      dpf::megakernel_block(a, k, b, dpf::QuadHost{}, 0, 1, smem.data());
   fwrite(out.data(), 4, out.size(), stdout);
   return 0;
 }
-// K5's correction (mode 4): lpe party xor_group, then N blocks of 4 hash
-// limbs, N gate masks and 4 correction limbs; out: the corrected limbs.
+// The value correction (mode 4): lpe party xor_group, then N blocks of 4
+// hash limbs, N gate masks and 4 correction limbs (N a multiple of 32);
+// out: the limbs corrected per block by correct_block (K7, K8), then by
+// K5's column form correct_limbs_quad on groups of 32 blocks.
 static int correction(int N) {
   int f[3];
   if (fread(f, 4, 3, stdin) != 3) return 1;
   auto v = rd(size_t(N) * 4), m = rd(N), corr = rd(4);
+  std::vector<uint32_t> quad(v);
   for (int n = 0; n < N; ++n) dpf::correct_block(&v[4 * n], corr.data(), m[n], f[0], f[1], f[2]);
+  for (int g = 0; g < N / 32; ++g) {
+    uint32_t cols[4][32], ctrl = 0u;
+    for (int i = 0; i < 32; ++i) {
+      for (int c = 0; c < 4; ++c) cols[c][i] = quad[4 * (32 * g + i) + c];
+      ctrl |= (m[32 * g + i] & 1u) << i;
+    }
+    dpf::correct_limbs_quad(cols, dpf::QuadHost{}, ctrl, corr.data(), f[0], f[1], f[2]);
+    for (int i = 0; i < 32; ++i)
+      for (int c = 0; c < 4; ++c) quad[4 * (32 * g + i) + c] = cols[c][i];
+  }
   fwrite(v.data(), 4, v.size(), stdout);
+  fwrite(quad.data(), 4, quad.size(), stdout);
+  return 0;
+}
+// K5's column-split MMO hash (mode 11): planes; out: for each key table
+// (left, right, value) K1's mmo_hash_rows, then aes_quad.cuh's
+// mmo_hash_quad on the same words.
+static int quad_hash(int K, int W) {
+  uint32_t stash[128], s[128], cols[4][32];
+  auto planes = rd(size_t(K) * 128 * W);
+  std::vector<uint32_t> rows(planes.size()), quad(planes.size());
+  for (int t = 0; t < 3; ++t) {
+    for (int k = 0; k < K; ++k)
+      for (int w = 0; w < W; ++w) {
+        for (int p = 0; p < 128; ++p) s[p] = cols[p / 32][p % 32] = planes[(size_t(k) * 128 + p) * W + w];
+        dpf::mmo_hash_rows(s, t, stash, 1);
+        dpf::mmo_hash_quad(cols, dpf::QuadHost{}, t);
+        for (int p = 0; p < 128; ++p) {
+          rows[(size_t(k) * 128 + p) * W + w] = s[p];
+          quad[(size_t(k) * 128 + p) * W + w] = cols[p / 32][p % 32];
+        }
+      }
+    fwrite(rows.data(), 4, rows.size(), stdout);
+    fwrite(quad.data(), 4, quad.size(), stdout);
+  }
   return 0;
 }
 // K6 (mode 5): planes, control, path [W], cw, ccl, ccr; out: planes, control.
@@ -531,6 +573,7 @@ int main() {
   if (mode == 8) return walk_dcf(K, W);
   if (mode == 9) return hier(K, W);
   if (mode == 10) return keygen(W);
+  if (mode == 11) return quad_hash(K, W);
   uint32_t stash[128];
   auto planes = rd(size_t(K) * 128 * W);
   if (mode == 2) {
@@ -577,7 +620,27 @@ def megakernel_cases():
         # Two of a block's four Int(32) elements kept, as a domain smaller
         # than its blocks would.
         (plan(12, port.Int(32), 8192), 32, 0, False, 2, False),
+        # Four limbs an element with carries and the database (the PIR
+        # layout without the XOR group), and one of Int(64)'s two elements.
+        (plan(12, port.Int(128), 16384), 128, 1, False, 1, True),
+        (plan(12, port.Int(64), 16384), 64, 1, False, 1, False),
     ]
+
+
+def run_megakernel_case(exe, case, seed, blocks_per_key=1):
+    """K5's body on the host (harness mode 3) and its plain version, for
+    `case` of ``megakernel_cases``: (got, want) as uint32[K, lpe, fold]."""
+    plan, bits, party, xor_group, keep, with_db = case
+    ops = megakernel_inputs(plan, bits, keep, with_db, seed=seed)
+    fields = [plan.levels_a, plan.levels_b, plan.entry_words, plan.mid_words,
+              plan.slab_words, plan.final_words, plan.fold_words, plan.num_slabs,
+              bits // 32, keep, party, int(xor_group), int(with_db), blocks_per_key]
+    out = run_harness(exe, [3, K, 0] + fields, *[a for a in ops if a is not None])
+    want = backend_torch.megakernel_fold(
+        *[None if a is None else words(a) for a in ops], plan=plan, bits=bits,
+        party=party, xor_group=xor_group, keep=keep,
+    )
+    return out.reshape(K, bits // 32, plan.fold_words), aes_torch.from_words(want)
 
 
 def megakernel_inputs(plan, bits, keep, with_db, seed):
@@ -601,7 +664,7 @@ def host_harness(tmp_path_factory):
     if gxx is None:
         pytest.skip("no g++ on this host")
     tmp_path = tmp_path_factory.mktemp("csrc")
-    (tmp_path / "dpf_round_keys.h").write_text(aes_cuda.round_key_header())
+    aes_cuda.write_key_headers(tmp_path)
     (tmp_path / "harness.cpp").write_text(_HARNESS)
     exe = tmp_path / "harness"
     subprocess.run(
@@ -651,20 +714,9 @@ def test_csrc_kernel_bodies_on_the_host_compiler(host_harness):
     want = aes_torch.from_words(backend_torch.hash_value_planes(words(planes)))
     assert np.array_equal(out.reshape(K, 128, w), want)
 
-    for i, (plan, bits, party, xor_group, keep, with_db) in enumerate(megakernel_cases()):
-        ops = megakernel_inputs(plan, bits, keep, with_db, seed=i)
-        fields = [plan.levels_a, plan.levels_b, plan.entry_words, plan.mid_words,
-                  plan.slab_words, plan.final_words, plan.fold_words, plan.num_slabs,
-                  bits // 32, keep, party, int(xor_group), int(with_db)]
-        out = run_harness(exe, [3, K, 0] + fields, *[a for a in ops if a is not None])
-        want = backend_torch.megakernel_fold(
-            *[None if a is None else words(a) for a in ops], plan=plan, bits=bits,
-            party=party, xor_group=xor_group, keep=keep,
-        )
-        assert np.array_equal(
-            out.reshape(K, bits // 32, plan.fold_words),
-            aes_torch.from_words(want),
-        ), plan
+    for i, case in enumerate(megakernel_cases()):
+        got, want = run_megakernel_case(exe, case, seed=i)
+        assert np.array_equal(got, want), case[0]
 
     # The correction alone, on limbs whose carries a random hash almost never
     # produces: sums that wrap to exactly 0 (a carry out of every limb),
@@ -678,19 +730,65 @@ def test_csrc_kernel_bodies_on_the_host_compiler(host_harness):
     limbs[n // 4 : 3 * n // 4, 1:] = ~corr[1:]
     limbs[n // 2 : 3 * n // 4, 0] = rng.integers(0, 2**32, size=n // 4, dtype=np.uint32)
     gate = np.where(rng.integers(0, 4, size=n) > 0, np.uint32(0xFFFFFFFF), np.uint32(0))
-    for bits, party, xor_group in ((32, 1, False), (64, 0, False), (64, 1, False),
-                                   (128, 1, False), (128, 0, True)):
+    # Both forms: correct_block per block (K7, K8) and K5's correct_limbs_quad,
+    # whose carries pass between the limb threads of an element.
+    for bits, party, xor_group in ((32, 0, False), (32, 1, False), (64, 0, False),
+                                   (64, 1, False), (128, 0, False), (128, 1, False),
+                                   (128, 0, True)):
         lpe = bits // 32
-        got = run_harness(
-            exe, [4, n, 0, lpe, party, int(xor_group)], limbs, gate, corr
-        ).reshape(n, 4)
-        for e in range(4 // lpe):
-            q = slice(e * lpe, (e + 1) * lpe)
-            want = value_codec.rows_correct_element(
-                [words(limbs[:, i]) for i in range(q.start, q.stop)], words(gate),
-                [int(c) for c in corr[q].view(np.int32)], bits, party, xor_group,
-            )
-            assert np.array_equal(got[:, q], np.stack([aes_torch.from_words(w) for w in want], 1))
+        out = run_harness(exe, [4, n, 0, lpe, party, int(xor_group)], limbs, gate, corr)
+        for got in out.reshape(2, n, 4):
+            for e in range(4 // lpe):
+                q = slice(e * lpe, (e + 1) * lpe)
+                want = value_codec.rows_correct_element(
+                    [words(limbs[:, i]) for i in range(q.start, q.stop)], words(gate),
+                    [int(c) for c in corr[q].view(np.int32)], bits, party, xor_group,
+                )
+                assert np.array_equal(
+                    got[:, q], np.stack([aes_torch.from_words(w) for w in want], 1)
+                ), (bits, party, xor_group)
+
+
+def test_megakernel_refuses_blocks_per_key_outside_its_slabs():
+    """K5's blocks a key lie in 1 .. num_slabs; any count in it leaves the
+    result as it is, and one outside it is refused on CPU tensors too."""
+    plan, bits, party, xor_group, keep, with_db = megakernel_cases()[2]
+    ops = [None if a is None else words(a)
+           for a in megakernel_inputs(plan, bits, keep, with_db, seed=0)]
+    kw = dict(plan=plan, bits=bits, party=party, xor_group=xor_group, keep=keep)
+    want = backend_torch.megakernel_fold(*ops, **kw)
+    assert torch.equal(aes_cuda.megakernel_fold(*ops, **kw, blocks_per_key=plan.num_slabs), want)
+    for bad in (0, plan.num_slabs + 1):
+        with pytest.raises(InvalidArgumentError, match="blocks_per_key"):
+            aes_cuda.megakernel_fold(*ops, **kw, blocks_per_key=bad)
+
+
+@pytest.mark.parametrize("case", [1, 2, 3, 5])
+def test_csrc_megakernel_body_split_over_blocks(host_harness, case):
+    """K5's body with a key's slabs split over several blocks, each
+    expanding only the phase-A words its slabs descend from in its own
+    workspace row and XORing its fold into the key's output: the slab
+    counts do not divide by the blocks (ragged ranges), and the last split
+    gives every slab its own block. Equal to the plain version."""
+    plan = megakernel_cases()[case][0]
+    for blocks in sorted({min(3, plan.num_slabs), plan.num_slabs}):
+        got, want = run_megakernel_case(host_harness, megakernel_cases()[case], seed=case,
+                                        blocks_per_key=blocks)
+        assert np.array_equal(got, want), (plan, blocks)
+
+
+def test_csrc_quad_hash_matches_k1_and_the_plain_version(host_harness):
+    """aes_quad.cuh's column-split MMO hash (K5's core), the four column
+    threads of each word run in lockstep on the host, equals K1's
+    ``mmo_hash_rows`` and the plain version ``aes_torch.hash_planes`` under
+    all three key schedules, on a ragged width."""
+    w = WIDTHS[0]
+    planes = expand_inputs(w, 11)[0]
+    out = run_harness(host_harness, [11, K, w], planes).reshape(3, 2, K, 128, w)
+    for t, table in enumerate(("left", "right", "value")):
+        want = aes_torch.from_words(aes_torch.hash_planes(words(planes), backend_torch._rk_np(table)))
+        assert np.array_equal(out[t, 0], want), table
+        assert np.array_equal(out[t, 1], want), table
 
 
 def walk_inputs(levels, w, bits, keep, seed):
