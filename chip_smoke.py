@@ -17,8 +17,11 @@ Phases (any failure raises and exits non-zero before the result line):
    a database, 8 keys at the fold's full plan, 128 keys at it with each
    key's slabs over the blocks the wrapper chooses and over one block, and
    128 queries at the PIR path's plan with its database in phase 4, the
-   same two ways), each timed beside its plain version and its bound; K5's
-   registers and spills, and a timing probe of K5 at one block a key;
+   same two ways), each timed beside its plain version and its bound; K2's
+   and K3's registers, spills and stack frame, K5's registers and spills,
+   and a timing probe of K5 at one block a key; K2 and K3 held again at
+   each input width of the fold (K = 128, W = 1 to 16,384), K2 timed at
+   each;
 3. fold: 1024 Int(64) keys per party at log-domain 20 through
    ``full_domain_fold_chunks`` (key_chunk 128), on the default last step
    (K2 per level, then K4), the fused one (K2, then K3) and
@@ -101,7 +104,11 @@ numpy-threaded at each configuration) runs with every launch count set to 0
 just before it, and every kernel of that path must have launched just after
 it. The line before
 the last is the ``{"kernels": [...]}`` JSON, the last line ``{"ok": true,
-"device": ...}``. Imports nothing of JAX or of the JAX package.
+"device": ...}``. A kernel's ``ms`` there is one call of its wrapper from
+the host (CUDA events around it, median after a warm-up); ``device_ms``,
+for the kernels whose wrappers ``launch_ms`` times (K2-K4, K6), the
+device time of one launch from a CUDA graph's replay, else null. Imports
+nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -203,6 +210,62 @@ def time_ms(torch, fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def launch_ms(torch, fn, out_bytes: int, reps: int = 10):
+    """(ms, device ms) of one call of a kernel's wrapper that writes
+    `out_bytes`. ms, what every row's `ms` is: ``time_ms`` of one call from
+    the host, the wrapper's checks, allocations and launch included, which
+    set it at narrow shapes. Device ms: the call captured as many times as
+    20 and 2 GiB of outputs allow in one CUDA graph, the graph's replay
+    timed with CUDA events (median of 5 after a warm-up) over those calls,
+    so the host's work is not in it."""
+    call = time_ms(torch, fn, reps)
+    launches = max(1, min(20, 2**31 // out_bytes))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    device = time_ms(torch, graph.replay, 5) / launches
+    del graph
+    return call, device
+
+
+def planes_bytes(k: int, w: int) -> int:
+    """Bytes of K keys' 128 bit-planes of W lane words (int32)."""
+    return 4 * k * 128 * w
+
+
+def word_source(torch, g):
+    """rnd(*shape): random int32 words drawn from generator `g`, on its
+    device."""
+
+    def rnd(*shape):
+        return torch.randint(
+            -(2**31), 2**31 - 1, shape, dtype=torch.int32, device=g.device, generator=g
+        )
+
+    return rnd
+
+
+def expand_args(rnd, k: int, w: int):
+    """K2's and K3's operands for K keys of W input words: planes, control
+    words, seed corrections and the two control corrections."""
+    return rnd(k, 128, w), rnd(k, w), rnd(k, 128), rnd(k), rnd(k)
+
+
+def k2_width_times(torch, aes_cuda, rnd, widths, hold=None):
+    """{W: (ms, device ms)} of K2 (``launch_ms``) at KEY_CHUNK keys of W
+    random input words, for each W of `widths`; ``hold(args)``, where
+    given, checks the kernels on those operands first."""
+    times = {}
+    for w in widths:
+        a = expand_args(rnd, KEY_CHUNK, w)
+        if hold is not None:
+            hold(a)
+        times[w] = launch_ms(torch, lambda: aes_cuda.expand_one_level(*a),
+                             planes_bytes(KEY_CHUNK, 2 * w), 10 if w < 4096 else 5)
+    return times
 
 
 def bound_ms(nbytes: float, gates: float):
@@ -427,15 +490,7 @@ def main() -> None:
     vt_levels = {"Int(64)": LOG_DOMAIN - 1, "XorWrapper(128)": LOG_DOMAIN}
     max_w = max(1 << (lv - HOST_LEVELS - 1) for lv in vt_levels.values())
     g = torch.Generator(device=dev).manual_seed(SEED)
-
-    def rnd(*shape):
-        return torch.randint(
-            -(2**31), 2**31 - 1, shape, dtype=torch.int32, device=dev, generator=g
-        )
-
-    def expand_args(k, w):
-        return rnd(k, 128, w), rnd(k, w), rnd(k, 128), rnd(k), rnd(k)
-
+    rnd = word_source(torch, g)
     checks = {}
 
     def hold(name, got, want):
@@ -451,7 +506,7 @@ def main() -> None:
         checks[name] = 0
 
     for k, w in ((KEY_CHUNK, 1), (5, 3), (KEY_CHUNK, 1000 + 37)):
-        args = expand_args(k, w)
+        args = expand_args(rnd, k, w)
         hold("K2", aes_cuda.expand_one_level(*args), backend_torch.expand_one_level(*args))
         hold("K3", aes_cuda.expand_and_hash_last_level(*args),
              backend_torch.expand_and_hash_last_level(*args))
@@ -460,8 +515,9 @@ def main() -> None:
     print(f"kernels vs plain at W = 1, 3, 1037 (exact): {checks}")
 
     rows = {}
-    args = expand_args(KEY_CHUNK, max_w)
+    args = expand_args(rnd, KEY_CHUNK, max_w)
     planes2 = rnd(KEY_CHUNK, 128, 2 * max_w)
+    out_bytes = planes_bytes(KEY_CHUNK, 2 * max_w)
     for name, kern, call, plain, cost in (
         ("K2", aes_cuda.K2, lambda: aes_cuda.expand_one_level(*args),
          lambda: backend_torch.expand_one_level(*args),
@@ -474,15 +530,20 @@ def main() -> None:
          hash_cost(key_planes, KEY_CHUNK, 2 * max_w)),
     ):
         hold(name, call(), plain())
-        ms = time_ms(torch, call, 10)
+        ms, device_ms = launch_ms(torch, call, out_bytes)
         plain_ms = time_ms(torch, plain, 2)
         b_ms, b_by = bound_ms(*cost)
-        rows[name] = dict(kernel=kern, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by)
+        rows[name] = dict(kernel=kern, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by)
         print(f"{name} at K={KEY_CHUNK}, W={max_w if name != 'K4' else 2 * max_w}: "
-              f"{ms:.4f} ms (plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by}); "
-              f"{kern.ptxas}")
+              f"{ms:.4f} ms (device {device_ms:.4f} ms; plain {plain_ms:.2f} ms, "
+              f"bound {b_ms:.4f} ms by {b_by}); {kern.ptxas}")
     del args, planes2
+    print("K2/K3 ptxas: " + "; ".join(
+        f"{kern.name} {kern.ptxas.get('registers')} registers, "
+        f"{kern.ptxas.get('spill_stores')} B spill stores, {kern.ptxas.get('spill_loads')} B "
+        f"spill loads, {kern.ptxas.get('stack_frame')} B stack frame"
+        for kern in (aes_cuda.K2, aes_cuda.K3)))
     # K5 against its plain version: a tiny ragged plan (one-word slabs,
     # fold width 4), a multi-slab plan with a database, and 8 keys at the
     # main path's full plan; then timed at the main path's chunk.
@@ -528,12 +589,19 @@ def main() -> None:
     k5_probe(torch, a, kw, KEY_CHUNK, ms, dev, "the fold's plan")
     del a, want
     torch.cuda.empty_cache()
-    k2_widths = {}
-    for lv in range(max(vt_levels.values()) - HOST_LEVELS):
-        w = 1 << lv
-        a = expand_args(KEY_CHUNK, w)
-        k2_widths[w] = round(time_ms(torch, lambda: aes_cuda.expand_one_level(*a), 5), 4)
-    print(f"K2 ms per input width at K={KEY_CHUNK}: {json.dumps(k2_widths)}; bound ms: "
+
+    def hold_expand(a):
+        hold("K2", aes_cuda.expand_one_level(*a), backend_torch.expand_one_level(*a))
+        hold("K3", aes_cuda.expand_and_hash_last_level(*a),
+             backend_torch.expand_and_hash_last_level(*a))
+
+    k2_times = k2_width_times(
+        torch, aes_cuda, rnd, [1 << lv for lv in range(max(vt_levels.values()) - HOST_LEVELS)],
+        hold_expand)
+    k2_widths = {w: round(t[0], 4) for w, t in k2_times.items()}
+    print(f"K2 and K3 == plain at every width of the fold (exact); K2 ms per input width "
+          f"at K={KEY_CHUNK}: {json.dumps(k2_widths)}; device ms: "
+          f"{json.dumps({w: round(t[1], 4) for w, t in k2_times.items()})}; bound ms: "
           + json.dumps({w: round(bound_ms(*expand_cost(key_planes, KEY_CHUNK, w, False))[0], 4)
                         for w in k2_widths}))
     torch.cuda.empty_cache()
@@ -742,21 +810,24 @@ def main() -> None:
 
     a = walk_level_args(EVAL_KEYS, ew)
     hold("K6", aes_cuda.walk_level(*a), backend_torch.walk_level(*a))
-    ms = time_ms(torch, lambda: aes_cuda.walk_level(*a), 10)
+    ms, device_ms = launch_ms(torch, lambda: aes_cuda.walk_level(*a), a[0].numel() * 4)
     plain_ms = time_ms(torch, lambda: backend_torch.walk_level(*a), 2)
     b_ms, b_by = bound_ms(*walk_level_cost(key_planes, EVAL_KEYS, ew))
-    rows["K6"] = dict(kernel=aes_cuda.K6, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-    print(f"K6 at K={EVAL_KEYS}, W={ew}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
-          f"{b_ms:.4f} ms by {b_by}); {aes_cuda.K6.ptxas}")
+    rows["K6"] = dict(kernel=aes_cuda.K6, ms=ms, device_ms=device_ms,
+                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"K6 at K={EVAL_KEYS}, W={ew}: {ms:.4f} ms (device "
+          f"{device_ms:.4f} ms; plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by}); "
+          f"{aes_cuda.K6.ptxas}")
     planes_w = a[0]
     hold("K4", aes_cuda.hash_value_planes(planes_w), backend_torch.hash_value_planes(planes_w))
-    ms = time_ms(torch, lambda: aes_cuda.hash_value_planes(planes_w), 10)
+    ms, device_ms = launch_ms(torch, lambda: aes_cuda.hash_value_planes(planes_w),
+                             planes_w.numel() * 4)
     plain_ms = time_ms(torch, lambda: backend_torch.hash_value_planes(planes_w), 2)
     b_ms, b_by = bound_ms(*hash_cost(key_planes, EVAL_KEYS, ew))
-    rows["K4 walk"] = dict(kernel=aes_cuda.K4, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                           bound_by=b_by)
-    print(f"K4 at the walk's shape K={EVAL_KEYS}, W={ew}: {ms:.4f} ms (plain {plain_ms:.2f} ms, "
-          f"bound {b_ms:.4f} ms by {b_by})")
+    rows["K4 walk"] = dict(kernel=aes_cuda.K4, ms=ms, device_ms=device_ms,
+                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"K4 at the walk's shape K={EVAL_KEYS}, W={ew}: {ms:.4f} ms (device "
+          f"{device_ms:.4f} ms; plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
     del a, planes_w
     kw = dict(bits=64, party=1, xor_group=False, keep=2)
     a = walk_mk_args(EVAL_KEYS, ew, elevels, 64, 2)
@@ -885,22 +956,23 @@ def main() -> None:
           "with depths that do not capture)")
     a = walk_level_args(DCF_KEYS, dw)
     hold("K6", aes_cuda.walk_level(*a), backend_torch.walk_level(*a))
-    ms = time_ms(torch, lambda: aes_cuda.walk_level(*a), 10)
+    ms, device_ms = launch_ms(torch, lambda: aes_cuda.walk_level(*a), a[0].numel() * 4)
     plain_ms = time_ms(torch, lambda: backend_torch.walk_level(*a), 2)
     b_ms, b_by = bound_ms(*walk_level_cost(key_planes, DCF_KEYS, dw))
-    rows["K6 dcf"] = dict(kernel=aes_cuda.K6, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by)
-    print(f"K6 at the DCF's shape K={DCF_KEYS}, W={dw}: {ms:.4f} ms (plain {plain_ms:.2f} ms, "
-          f"bound {b_ms:.4f} ms by {b_by})")
+    rows["K6 dcf"] = dict(kernel=aes_cuda.K6, ms=ms, device_ms=device_ms,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"K6 at the DCF's shape K={DCF_KEYS}, W={dw}: {ms:.4f} ms (device "
+          f"{device_ms:.4f} ms; plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
     planes_d = a[0]
     hold("K4", aes_cuda.hash_value_planes(planes_d), backend_torch.hash_value_planes(planes_d))
-    ms = time_ms(torch, lambda: aes_cuda.hash_value_planes(planes_d), 10)
+    ms, device_ms = launch_ms(torch, lambda: aes_cuda.hash_value_planes(planes_d),
+                             planes_d.numel() * 4)
     plain_ms = time_ms(torch, lambda: backend_torch.hash_value_planes(planes_d), 2)
     b_ms, b_by = bound_ms(*hash_cost(key_planes, DCF_KEYS, dw))
-    rows["K4 dcf"] = dict(kernel=aes_cuda.K4, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by)
-    print(f"K4 at the DCF's shape K={DCF_KEYS}, W={dw}: {ms:.4f} ms (plain {plain_ms:.2f} ms, "
-          f"bound {b_ms:.4f} ms by {b_by})")
+    rows["K4 dcf"] = dict(kernel=aes_cuda.K4, ms=ms, device_ms=device_ms,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"K4 at the DCF's shape K={DCF_KEYS}, W={dw}: {ms:.4f} ms (device "
+          f"{device_ms:.4f} ms; plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
     del a, planes_d
     dcaps = (True,) * (dlevels + 1)
     kw = dict(bits=64, party=1, xor_group=False, keep=2, captures=dcaps)
@@ -1140,22 +1212,26 @@ def main() -> None:
     del a, a_all, hlk_all
     # K2 and K4 at mode "fused"'s widest step: all keys, the parents' words.
     fw = max(step.pos.shape[0] for step in hprepared["fused"].steps) // 32
-    a = expand_args(HH_KEYS, fw)
+    a = expand_args(rnd, HH_KEYS, fw)
     hold("K2", aes_cuda.expand_one_level(*a), backend_torch.expand_one_level(*a))
-    ms = time_ms(torch, lambda: aes_cuda.expand_one_level(*a), 10)
+    ms, device_ms = launch_ms(torch, lambda: aes_cuda.expand_one_level(*a),
+                             planes_bytes(HH_KEYS, 2 * fw))
     plain_ms = time_ms(torch, lambda: backend_torch.expand_one_level(*a), 2)
     b_ms, b_by = bound_ms(*expand_cost(key_planes, HH_KEYS, fw, False))
-    rows["K2 hh"] = dict(kernel=aes_cuda.K2, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-    print(f"K2 at the hierarchy's shape K={HH_KEYS}, W={fw}: {ms:.4f} ms (plain {plain_ms:.2f} ms, "
-          f"bound {b_ms:.4f} ms by {b_by})")
+    rows["K2 hh"] = dict(kernel=aes_cuda.K2, ms=ms, device_ms=device_ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"K2 at the hierarchy's shape K={HH_KEYS}, W={fw}: {ms:.4f} ms (device "
+          f"{device_ms:.4f} ms; plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
     planes_h = rnd(HH_KEYS, 128, 2 * fw)
     hold("K4", aes_cuda.hash_value_planes(planes_h), backend_torch.hash_value_planes(planes_h))
-    ms = time_ms(torch, lambda: aes_cuda.hash_value_planes(planes_h), 10)
+    ms, device_ms = launch_ms(torch, lambda: aes_cuda.hash_value_planes(planes_h),
+                             planes_h.numel() * 4)
     plain_ms = time_ms(torch, lambda: backend_torch.hash_value_planes(planes_h), 2)
     b_ms, b_by = bound_ms(*hash_cost(key_planes, HH_KEYS, 2 * fw))
-    rows["K4 hh"] = dict(kernel=aes_cuda.K4, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-    print(f"K4 at the hierarchy's shape K={HH_KEYS}, W={2 * fw}: {ms:.4f} ms (plain "
-          f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
+    rows["K4 hh"] = dict(kernel=aes_cuda.K4, ms=ms, device_ms=device_ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"K4 at the hierarchy's shape K={HH_KEYS}, W={2 * fw}: {ms:.4f} ms (device "
+          f"{device_ms:.4f} ms; plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
     del a, planes_h, hlk
     torch.cuda.empty_cache()
 
@@ -1309,16 +1385,17 @@ def main() -> None:
               + (f"; {aes_cuda.K9.ptxas}" if name == "K9" else ""))
     del k9_batches, b
     # K2's one-key view (the legacy [128, W] kernel) at micro_tpu's width.
-    a = [t[0] for t in expand_args(1, LEGACY_W)]
+    a = [t[0] for t in expand_args(rnd, 1, LEGACY_W)]
     hold("K2 legacy", aes_cuda.expand_one_level_single(*a),
          backend_torch.expand_one_level_single(*a))
-    ms = time_ms(torch, lambda: aes_cuda.expand_one_level_single(*a), 10)
+    ms, device_ms = launch_ms(torch, lambda: aes_cuda.expand_one_level_single(*a),
+                             planes_bytes(1, 2 * LEGACY_W))
     plain_ms = time_ms(torch, lambda: backend_torch.expand_one_level_single(*a), 2)
     b_ms, b_by = bound_ms(*expand_cost(key_planes, 1, LEGACY_W, False))
-    rows["K2 legacy"] = dict(kernel=aes_cuda.K2, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by)
-    print(f"K2 one-key view == plain at W={LEGACY_W}: {ms:.4f} ms (plain {plain_ms:.2f} ms, "
-          f"bound {b_ms:.4f} ms by {b_by})")
+    rows["K2 legacy"] = dict(kernel=aes_cuda.K2, ms=ms, device_ms=device_ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"K2 one-key view == plain at W={LEGACY_W}: {ms:.4f} ms (device "
+          f"{device_ms:.4f} ms; plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
     del a
     torch.cuda.empty_cache()
 
@@ -1454,28 +1531,31 @@ def main() -> None:
 
     # -- result -------------------------------------------------------------
     k1_bound, k1_by = bound_ms(0, hash_cost(key_planes, KEY_CHUNK, 2 * max_w)[1])
+    column_form = {k.name for k in (aes_cuda.K2, aes_cuda.K3, aes_cuda.K5)}
     kernels = [{
-        "name": "K1 aes_rows (device function inlined in K2-K4 and K6-K9; timed as K4)",
+        "name": "K1 aes_rows, row form (device function inlined in K4 and K6-K9; timed as K4)",
         "route": "cuda",
         "source": "distributed_point_functions_tpu_torch/csrc/aes_rows.cuh",
         "replaces": "distributed_point_functions_tpu/ops/aes_pallas.py:182",
-        "launches": sum(n for name, n in main_launches.items() if name != aes_cuda.K5.name),
+        "launches": sum(n for name, n in main_launches.items() if name not in column_form),
         "max_abs_err": checks["K4"],
         "ms": rows["K4"]["ms"],
+        "device_ms": rows["K4"].get("device_ms"),
         "plain_ms": rows["K4"]["plain_ms"],
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": None,
     }]
     kernels.append({
-        "name": "K1 column form, four threads a lane word (device function inlined in K5; "
-                "timed as K5)",
+        "name": "K1 column form, four threads a lane word (device function inlined in K2, K3 "
+                "and K5; timed as K5)",
         "route": "cuda",
         "source": "distributed_point_functions_tpu_torch/csrc/aes_quad.cuh",
         "replaces": "distributed_point_functions_tpu/ops/aes_pallas.py:182",
-        "launches": main_launches.get(aes_cuda.K5.name, 0),
+        "launches": sum(main_launches.get(name, 0) for name in column_form),
         "max_abs_err": checks["K5"],
         "ms": rows["K5"]["ms"],
+        "device_ms": rows["K5"].get("device_ms"),
         "plain_ms": rows["K5"]["plain_ms"],
         "bound_ms": rows["K5"]["bound_ms"],
         "bound_by": rows["K5"]["bound_by"],
@@ -1492,6 +1572,7 @@ def main() -> None:
                      + hh_launches[aes_cuda.K8.name]),
         "max_abs_err": checks["K6"],
         "ms": rows["K6"]["ms"],
+        "device_ms": rows["K6"].get("device_ms"),
         "plain_ms": rows["K6"]["plain_ms"],
         "bound_ms": rows["K6"]["bound_ms"],
         "bound_by": rows["K6"]["bound_by"],
@@ -1526,6 +1607,7 @@ def main() -> None:
             "launches": launches,
             "max_abs_err": checks["K7 DCF" if name == "K7 DCF" else name.split()[0]],
             "ms": r["ms"],
+            "device_ms": r.get("device_ms"),
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
@@ -1552,6 +1634,7 @@ def main() -> None:
             "launches": launches,
             "max_abs_err": checks["K2 legacy" if legacy else "K9"],
             "ms": r["ms"],
+            "device_ms": r.get("device_ms"),
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],

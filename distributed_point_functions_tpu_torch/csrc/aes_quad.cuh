@@ -1,12 +1,14 @@
-// K5's AES core: K1's bitsliced AES-128 and fixed-key MMO hash
-// (aes_rows.cuh) split by AES column over four threads.
+// The column form of K1: the bitsliced AES-128 and fixed-key MMO hash of
+// aes_rows.cuh split by AES column over four threads. K2, K3 (expand.cu)
+// and K5 (megakernel.cu) run it.
 //
 // Layout. A 32-lane word of 128 bit-planes (plane p = byte p / 8, bit p %
 // 8) is shared by four threads; the thread of column c owns planes 32 c ..
 // 32 c + 31, bytes 4 c .. 4 c + 3, which are column c of the AES state. It
 // keeps them in s[32] and sigma(x) in 32 more registers (no shared-memory
-// stash). AddRoundKey, SubBytes (four of K1's S-boxes) and MixColumns stay
-// inside a column; only ShiftRows moves rows 1-3 between columns (24 words
+// stash). SubBytes (four of K1's S-boxes), MixColumns and AddRoundKey stay
+// inside a column, through the same circuit functions as K1 (sbox_byte,
+// mix_column); only ShiftRows moves rows 1-3 between columns (24 words
 // a round), and sigma swaps the halves (32 words a hash).
 //
 // The steps are written against a "quad" type Q that says which columns a
@@ -29,7 +31,7 @@
 
 #include <cstdint>
 
-#include "aes_rows.cuh"  // sbox_byte, the key tables' indices, the host macros
+#include "aes_rows.cuh"  // sbox_byte, mix_column, the key tables' indices
 #include "dpf_quad_keys.h"  // static __device__ const uint32_t kQuadRoundKeys[3][11][32][4]
 
 namespace dpf {
@@ -84,14 +86,24 @@ struct QuadHost {
   uint32_t from_column0(uint32_t v) const { return v; }  // v is column 0's
 };
 
+// The 32 round-key words of this caller's column j.
+template <class Q>
+__device__ __forceinline__ void round_key_quad(uint32_t* k, const Q& q, int j, int table,
+                                               int round) {
+  const uint32_t* p = &kQuadRoundKeys[table][round][0][q.column(j)];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) k[i] = quad_key(p + 4 * i);
+}
+
 template <class Q>
 __device__ __forceinline__ void add_round_key_quad(uint32_t (*s)[32], const Q& q,
                                                    int table, int round) {
 #pragma unroll
   for (int j = 0; j < Q::kCols; ++j) {
-    const uint32_t* k = &kQuadRoundKeys[table][round][0][q.column(j)];
+    uint32_t k[32];
+    round_key_quad(k, q, j, table, round);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[j][i] ^= quad_key(k + 4 * i);
+    for (int i = 0; i < 32; ++i) s[j][i] ^= k[i];
   }
 }
 
@@ -112,30 +124,6 @@ __device__ __forceinline__ void shift_rows_quad(uint32_t (*s)[32], const Q& q) {
   for (int r = 1; r < 4; ++r) q.rotate(s, 8 * r, 8, r);
 }
 
-// MixColumns of one column in place: out[r] = in[r] ^ (in[0] ^ in[1] ^ in[2]
-// ^ in[3]) ^ xtime(in[r] ^ in[r + 1]), as K1's mix_columns per column.
-__device__ __forceinline__ void mix_column(uint32_t* col) {
-  uint32_t sum[8], row0[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    sum[i] = col[i] ^ col[8 + i] ^ col[16 + i] ^ col[24 + i];
-    row0[i] = col[i];
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    uint32_t* a = col + 8 * r;
-    const uint32_t* n = r == 3 ? row0 : col + 8 * (r + 1);
-    uint32_t x[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) x[i] = a[i] ^ n[i];
-    // GF(2^8) doubling of x: x << 1 ^ (0x1B if bit 7).
-    const uint32_t x2[8] = {x[7], x[0] ^ x[7], x[1], x[2] ^ x[7],
-                            x[3] ^ x[7], x[4], x[5], x[6]};
-#pragma unroll
-    for (int i = 0; i < 8; ++i) a[i] ^= sum[i] ^ x2[i];
-  }
-}
-
 // AES-128 encryption of the 32 blocks of a lane word under key schedule
 // `table`, each caller holding its Q::kCols columns of the state.
 template <class Q>
@@ -147,8 +135,11 @@ __device__ __forceinline__ void aes128_encrypt_quad(uint32_t (*s)[32], const Q& 
     sub_bytes_quad<Q>(s);
     shift_rows_quad(s, q);
 #pragma unroll
-    for (int j = 0; j < Q::kCols; ++j) mix_column(s[j]);
-    add_round_key_quad(s, q, table, round);
+    for (int j = 0; j < Q::kCols; ++j) {
+      uint32_t k[32];
+      round_key_quad(k, q, j, table, round);
+      mix_column(s[j], k);
+    }
   }
   sub_bytes_quad<Q>(s);
   shift_rows_quad(s, q);
@@ -186,8 +177,8 @@ __device__ __forceinline__ void mmo_hash_quad(uint32_t (*s)[32], const Q& q,
   }
 }
 
-// One doubling child (0 = left, 1 = right) of the 32 seeds in s, in place:
-// K1's child_rows (expand_rows.cuh) by columns. The hash under the child's
+// One doubling child (0 = left, 1 = right) of the 32 seeds in s, in place
+// (K2's and K3's step, and K5's phases A and B). The hash under the child's
 // PRG key, the seed correction cw & c (cw: the level's 128 plane masks), and
 // the new control word h[0] ^ (c & cc), returned to every column, with
 // plane 0 (column 0's first word) cleared.

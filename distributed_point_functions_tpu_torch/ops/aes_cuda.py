@@ -33,22 +33,26 @@ aes_pallas.py:expand_one_level_pallas, the legacy one-key kernel; it is a
 view of K2 (a batch of one key) with no kernel body and no count of its
 own.
 
-K1, the bitsliced AES row circuit (csrc/aes_rows.cuh, replacing
-``_aes_rows`` / ``_sbox_rows``), is inlined into all of them but K5; K6
-and K7 use its form with the PRG key selected per lane, and so does K8. K9
-uses the table form, as K2-K4 do. K5 runs K1's column-split form
-(csrc/aes_quad.cuh): four threads a lane word, one AES column each.
+K1, the bitsliced AES circuit, is inlined into all of them in one of two
+forms that share one S-box (csrc/aes_sbox.cuh, a netlist of three-input
+LOP3 functions generated by gen_sbox_lop3.py) and one MixColumns
+(csrc/aes_rows.cuh ``mix_column``, with the round key). The row form
+(csrc/aes_rows.cuh, replacing ``_aes_rows`` / ``_sbox_rows``: one thread
+holds a lane word's 128 planes) runs in K4 and K6-K9; K6 and K7 use it
+with the PRG key selected per lane, and so does K8. The column form
+(csrc/aes_quad.cuh: four threads a lane word, one AES column each) runs in
+K2, K3 and K5.
 
 Device rule: a wrapper given CPU tensors runs the plain version, because the
 tensors lie on the CPU; given CUDA tensors it launches its kernel or raises.
 There is no fallback from the kernel to the plain version.
 
-What bounds the kernels on an H100 is integer operations (about 25k 32-bit
-logic operations per lane word and hash, against 512 bytes of plane traffic
-each way), so the kernels keep the AES state in registers and touch each
-plane word once in each direction; see csrc/expand.cu and csrc/megakernel.cu.
-K5 splits each word's AES state over four threads so that it fits 128
-registers without a spill.
+What bounds the kernels on an H100 is integer operations (one MMO hash is
+about 15.4k logic instructions per lane word, against 512 bytes of plane
+traffic each way), so the kernels keep the AES state in registers and
+touch each plane word once in each direction; see csrc/expand.cu and
+csrc/megakernel.cu. K2, K3 and K5 split each word's AES state over four
+threads so that it fits 128 registers without a spill.
 
 Build: the first launch builds csrc/binding.cpp (the one source with
 PyTorch's headers), csrc/expand.cu, csrc/megakernel.cu, csrc/walk.cu,
@@ -85,7 +89,7 @@ EXTRA_CUDA_CFLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-Xptxas", 
 
 class Kernel:
     """Handle of one CUDA kernel: its name, a count of its launches and what
-    ptxas reported for it (registers, spill bytes)."""
+    ptxas reported for it (registers, spill bytes, stack frame bytes)."""
 
     def __init__(self, name: str, symbol: str):
         self.name = name
@@ -179,7 +183,8 @@ def write_key_headers(include: Path) -> None:
 
 
 def _parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
-    """Registers and spill bytes per kernel from ``-Xptxas -v`` output."""
+    """Registers, spill bytes and stack frame bytes per kernel from
+    ``-Xptxas -v`` output."""
     out: Dict[str, Dict[str, int]] = {}
     current = None
     for line in log.splitlines():
@@ -190,6 +195,9 @@ def _parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
             continue
         if current is None:
             continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            out[current]["stack_frame"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             out[current]["spill_stores"] = int(m.group(1))

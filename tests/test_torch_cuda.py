@@ -47,10 +47,12 @@ def expand_inputs(k: int, w: int, device):
     return [torch.from_numpy(as_words(a)).to(device) for a in arrays]
 
 
-@pytest.mark.parametrize("w", [1, 3, 40, 1037])
+@pytest.mark.parametrize("w", [1, 3, 7, 9, 40, 77, 1037])
 def test_kernels_match_plain_versions(cuda, w):
     """K2, K3 and K4 on the card equal their plain versions on the same
-    tensors, ragged widths included; each launch is counted once."""
+    tensors, ragged widths included: at 3 keys every width but 40 leaves a
+    last warp of K2's and K3's eight items a warp part-filled; each launch
+    is counted once."""
     args = expand_inputs(3, w, cuda)
     aes_cuda.reset_launch_counts()
     for kernel, plain in (
@@ -458,8 +460,11 @@ def test_keygen_megakernel_matches_plain_version(cuda, captures, w):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-def test_k2_one_key_view_matches_plain_version(cuda):
-    args = [a[0] for a in expand_inputs(1, 33, cuda)]
+@pytest.mark.parametrize("w", [1, 7, 33, 8192])
+def test_k2_one_key_view_matches_plain_version(cuda, w):
+    """K2's one-key view at one word (two items: one warp, mostly past the
+    end), ragged widths, and benchmarks/micro_tpu.py's W = 8192."""
+    args = [a[0] for a in expand_inputs(1, w, cuda)]
     aes_cuda.reset_launch_counts()
     got = aes_cuda.expand_one_level_single(*args)
     assert aes_cuda.K2.launches == 1

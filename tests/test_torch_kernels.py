@@ -339,6 +339,24 @@ def test_round_key_header_holds_the_plain_versions_tables():
     assert np.array_equal(got, want)
 
 
+def test_parse_ptxas_reads_registers_spills_and_stack_frame():
+    """The ptxas report that chip_smoke.py prints for each kernel: its
+    registers, spill bytes and stack frame, per entry function."""
+    log = (
+        "ptxas info    : Compiling entry function '_Z3k2v' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z3k2v\n"
+        "    16 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, used 0 barriers\n"
+        "ptxas info    : Compiling entry function '_Z3k4v' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 255 registers\n"
+    )
+    assert aes_cuda._parse_ptxas(log) == {
+        "_Z3k2v": {"stack_frame": 16, "spill_stores": 8, "spill_loads": 12, "registers": 128},
+        "_Z3k4v": {"stack_frame": 0, "spill_stores": 0, "spill_loads": 0, "registers": 255},
+    }
+
+
 _HARNESS = r"""
 #include <cstdio>
 #include <vector>
@@ -561,6 +579,27 @@ static int masked_hash(int K, int W) {
   fwrite(planes.data(), 4, planes.size(), stdout);
   return 0;
 }
+// sbox_byte (mode 12): W lane words of 8 bit-planes, [8][W]; out: the same
+// after SubBytes.
+static int sbox(int W) {
+  auto planes = rd(size_t(8) * W);
+  for (int w = 0; w < W; ++w) {
+    uint32_t b[8];
+    for (int i = 0; i < 8; ++i) b[i] = planes[size_t(i) * W + w];
+    dpf::sbox_byte(b);
+    for (int i = 0; i < 8; ++i) planes[size_t(i) * W + w] = b[i];
+  }
+  fwrite(planes.data(), 4, planes.size(), stdout);
+  return 0;
+}
+// mix_column (mode 13): N columns of 32 words, then N round keys of 32
+// words; out: each column after MixColumns and AddRoundKey.
+static int mix(int N) {
+  auto cols = rd(size_t(N) * 32), keys = rd(size_t(N) * 32);
+  for (int n = 0; n < N; ++n) dpf::mix_column(&cols[32 * size_t(n)], &keys[32 * size_t(n)]);
+  fwrite(cols.data(), 4, cols.size(), stdout);
+  return 0;
+}
 int main() {
   int hdr[3];
   if (fread(hdr, 4, 3, stdin) != 3) return 1;
@@ -574,6 +613,8 @@ int main() {
   if (mode == 9) return hier(K, W);
   if (mode == 10) return keygen(W);
   if (mode == 11) return quad_hash(K, W);
+  if (mode == 12) return sbox(W);
+  if (mode == 13) return mix(K);
   uint32_t stash[128];
   auto planes = rd(size_t(K) * 128 * W);
   if (mode == 2) {
@@ -585,17 +626,20 @@ int main() {
     return 0;
   }
   auto control = rd(size_t(K) * W), cw = rd(size_t(K) * 128), ccl = rd(K), ccr = rd(K);
-  std::vector<uint32_t> op(size_t(K) * 256 * W), oc(size_t(K) * 2 * W);
-  for (int k = 0; k < K; ++k)
-    for (int c = 0; c < 2; ++c)
-      for (int w = 0; w < W; ++w) {
-        if (mode == 0)
-          dpf::expand_word<false>(planes.data(), control.data(), cw.data(), ccl.data(),
-                                  ccr.data(), op.data(), oc.data(), k, c, w, W, stash, 1);
-        else
-          dpf::expand_word<true>(planes.data(), control.data(), cw.data(), ccl.data(),
-                                 ccr.data(), op.data(), oc.data(), k, c, w, W, stash, 1);
-      }
+  // Every output starts as junk, as torch.empty leaves it on the card.
+  std::vector<uint32_t> op(size_t(K) * 256 * W, 0xA5A5A5A5u), oc(size_t(K) * 2 * W, 0xA5A5A5A5u);
+  // K2 (mode 0) and K3 (mode 1): every (key, child, word) item, the four
+  // column threads of its word in lockstep (dpf::QuadHost).
+  for (int64_t item = 0; item < int64_t(K) * 2 * W; ++item) {
+    if (mode == 0)
+      dpf::expand_item_quad<false>(planes.data(), control.data(), cw.data(), ccl.data(),
+                                   ccr.data(), op.data(), oc.data(), item, W, dpf::QuadHost{},
+                                   true);
+    else
+      dpf::expand_item_quad<true>(planes.data(), control.data(), cw.data(), ccl.data(),
+                                  ccr.data(), op.data(), oc.data(), item, W, dpf::QuadHost{},
+                                  true);
+  }
   fwrite(op.data(), 4, op.size(), stdout);
   fwrite(oc.data(), 4, oc.size(), stdout);
 }
@@ -686,9 +730,10 @@ def run_harness(exe, header, *arrays) -> np.ndarray:
 
 
 def test_csrc_kernel_bodies_on_the_host_compiler(host_harness):
-    """csrc/expand_rows.cuh and aes_rows.cuh — the bodies K2, K3 and K4
-    launch per lane word — built with g++ and run over every (key, child,
-    word) equal the plain versions, ragged width included; and
+    """csrc/expand_rows.cuh — K2's and K3's column bodies (run over every
+    (key, child, word) item, the four column threads of a word in lockstep
+    by ``QuadHost``) and K4's row body (aes_rows.cuh) per lane word — built
+    with g++ equal the plain versions, ragged width included; and
     csrc/megakernel_rows.cuh, K5's per-key body (phase A, phase B, the
     tail's transpose, correction, database AND and fold), run as a block of
     one thread per key, equals K5's plain version on each plan of
@@ -789,6 +834,71 @@ def test_csrc_quad_hash_matches_k1_and_the_plain_version(host_harness):
         want = aes_torch.from_words(aes_torch.hash_planes(words(planes), backend_torch._rk_np(table)))
         assert np.array_equal(out[t, 0], want), table
         assert np.array_equal(out[t, 1], want), table
+
+
+@pytest.mark.parametrize("w", [1, 3, 9, 40])
+def test_csrc_column_expand_bodies_match_plain_versions(host_harness, w):
+    """K2's and K3's column bodies (expand_rows.cuh ``expand_item_quad``,
+    the four column threads of each word run in lockstep by ``QuadHost``)
+    over every (key, child, word) item of K keys equal the plain versions,
+    both children: one word, ragged widths, and one past a warp's eight
+    items."""
+    ops = expand_inputs(w, 100 + w)
+    for mode, fn in ((0, backend_torch.expand_one_level),
+                     (1, backend_torch.expand_and_hash_last_level)):
+        out = run_harness(host_harness, [mode, K, w], *ops)
+        want_p, want_c = fn(*map(words, ops))
+        n = K * 128 * 2 * w
+        assert np.array_equal(out[:n].reshape(K, 128, 2 * w), aes_torch.from_words(want_p)), mode
+        assert np.array_equal(out[n:].reshape(K, 2 * w), aes_torch.from_words(want_c)), mode
+
+
+def _lane_words(bits: np.ndarray) -> np.ndarray:
+    """uint32 words of a [..., 32] 0/1 array, lane l at bit l."""
+    return (bits.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
+
+
+def _lane_bits(x: np.ndarray) -> np.ndarray:
+    """The [..., 32] bits of uint32 words, lane l from bit l."""
+    return ((x[..., None] >> np.arange(32, dtype=np.uint32)) & 1).astype(np.int64)
+
+
+def test_csrc_sbox_byte_is_the_aes_sbox(host_harness):
+    """aes_sbox.cuh's ``sbox_byte`` (the LOP3 netlist that every kernel
+    runs) maps all 256 byte values, in the lanes of eight words, as the AES
+    S-box of core/aes_numpy does."""
+    x = np.arange(256)
+    planes = np.stack([_lane_words(((x >> i) & 1).reshape(8, 32)) for i in range(8)])
+    out = _lane_bits(run_harness(host_harness, [12, 1, 8], planes).reshape(8, 8))
+    got = sum(out[i].reshape(256) << i for i in range(8))
+    assert np.array_equal(got, np.asarray(aes_numpy.SBOX, dtype=np.int64)[x])
+
+
+def _xtime(a: np.ndarray) -> np.ndarray:
+    return ((a << 1) ^ np.where(a & 0x80, 0x1B, 0)) & 0xFF
+
+
+def test_csrc_mix_column_matches_gf256_reference(host_harness):
+    """aes_rows.cuh's ``mix_column``, MixColumns of one column then its
+    round key (the one MixColumns of K1's row form and the column form), on
+    random columns and keys equals MixColumns computed byte by byte in
+    GF(2^8): row r becomes 2 a[r] + 3 a[r+1] + a[r+2] + a[r+3], then the
+    key's byte is added."""
+    n = 40
+    rng = np.random.default_rng(13)
+    cols, keys = rng.integers(0, 2**32, size=(2, n, 32), dtype=np.uint32)
+    out = run_harness(host_harness, [13, n, 0], cols, keys).reshape(n, 32)
+
+    def rows(x):  # [n, 4, 32 lanes] bytes of 32-word columns
+        bits = _lane_bits(x).reshape(n, 4, 8, 32)
+        return sum(bits[:, :, i] << i for i in range(8))
+
+    a, k = rows(cols), rows(keys)
+    want = np.empty_like(a)
+    for r in range(4):
+        a1, a2, a3 = (a[:, (r + d) % 4] for d in (1, 2, 3))
+        want[:, r] = _xtime(a[:, r]) ^ _xtime(a1) ^ a1 ^ a2 ^ a3 ^ k[:, r]
+    assert np.array_equal(rows(out), want)
 
 
 def walk_inputs(levels, w, bits, keep, seed):
