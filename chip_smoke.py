@@ -33,11 +33,13 @@ Phases (any failure raises and exits non-zero before the result line):
    mode="megakernel" over the megakernel order; every answer reconstructs
    its record and the two modes agree;
 5. walk kernels: K6 and K7 against their plain versions on the card
-   (exact), at odd shapes (W = 1, 3, 37 and 1037 words, mixed path masks,
-   both parties, Int(32), Int(64) with keep 1 and 2, XorWrapper(128),
-   Int(128)) and at the EvaluateAt path's full width (K = 1024 keys, W =
-   128 words, L = 31 levels), with K4 at that shape, each timed beside its
-   plain version and its bound;
+   (exact), at odd shapes (W = 1, 3, 8, 13, 37 and 1037 words, mixed path
+   masks, both parties, Int(32) with keep 4 and 2, Int(64) with keep 1 and
+   2, XorWrapper(128), Int(128); K x W items not a multiple of the eight a
+   warp of K7 runs, so that a warp straddles the end) and at the EvaluateAt
+   path's full width (K = 1024 keys, W = 128 words, L = 31 levels), with K4
+   at that shape, each timed beside its plain version and its bound; K7's
+   registers, spills and stack frame in both forms;
 6. EvaluateAt: 1024 Int(64) key pairs at log-domain 32 over 4096 points
    that hold every alpha, through ``evaluate_at_batch`` in mode="walk" (31
    K6 launches and one K4 per chunk) and mode="walkkernel" (one K7 launch
@@ -45,9 +47,10 @@ Phases (any failure raises and exits non-zero before the result line):
    elsewhere, the modes agree, and the port's host ``dpf.evaluate_at``
    equals both for 4 keys at all 4096 points;
 7. DCF kernels: K7's DCF form against its plain version on the card
-   (exact), at odd shapes (W = 1, 3, 37 words, both parties, Int(32),
-   Int(64) with keep 1 and 2, XorWrapper(128), Int(128), captures tuples
-   with depths that do not capture) and at BASELINE config 4's shape (K =
+   (exact), at odd shapes (W = 1, 3, 37 words at K = 5, each leaving a
+   warp that straddles the end, both parties, Int(32), Int(64) with keep 1
+   and 2, XorWrapper(128), Int(128), captures tuples with depths that do
+   not capture) and at BASELINE config 4's shape (K =
    512 keys, W = 16 words, L = 23 levels, Int(64)), with K4 and K6 at that
    shape, each timed beside its plain version and its bound;
 8. DCF: BASELINE config 4 (benchmarks/bench_dcf.py: 512 Int(64) key pairs at
@@ -78,11 +81,14 @@ Phases (any failure raises and exits non-zero before the result line):
    prefix and 0 at every other candidate, the modes agree bit for bit, and
    the port's CPU path on 2 keys equals the card;
 11. keygen kernels: K9 against its plain version on the card (exact), at
-   odd shapes (W = 1, 3, 37 words, 1-5 levels, depths that do and do not
-   capture) and on BM_KeyGeneration's 1024-key batch at depth 20 (below);
-   K9 timed at 1024 keys at depths 20 and 128, at 16,384 keys at depth 128
-   and at BASELINE config 4's DCF dealer, beside its plain version and its
-   bound; K2's one-key view (the legacy [128, W] kernel) against its plain
+   odd shapes (W = 1, 3, 5, 37 words, odd numbers of key words, so that
+   the last of K9's two-word warps straddles the end, and 8; 1-5 levels,
+   depths that do and do not capture) and on BM_KeyGeneration's 1024-key
+   batch at depth 20 (below); K9 timed at 1024 keys at depths 20 and 128,
+   at 16,384 keys at depth 128 and at BASELINE config 4's DCF dealer,
+   beside its plain version, its bound and its per-warp issue floor, with
+   its registers, spills and stack frame; K2's one-key view (the legacy
+   [128, W] kernel) against its plain
    version at benchmarks/micro_tpu.py's W = 8192, timed;
 12. keygen: BM_KeyGeneration (benchmarks/bench_keygen.py: single-level
    Int(64) DPFs, 1024 keys at log-domains 20, 64 and 128, draws from
@@ -106,8 +112,8 @@ it. The line before
 the last is the ``{"kernels": [...]}`` JSON, the last line ``{"ok": true,
 "device": ...}``. A kernel's ``ms`` there is one call of its wrapper from
 the host (CUDA events around it, median after a warm-up); ``device_ms``,
-for the kernels whose wrappers ``launch_ms`` times (K2-K4, K6), the
-device time of one launch from a CUDA graph's replay, else null. Imports
+for the kernels whose wrappers ``launch_ms`` times (K2-K4, K6, K7, K9),
+the device time of one launch from a CUDA graph's replay, else null. Imports
 nothing of JAX or of the JAX package.
 """
 
@@ -181,6 +187,15 @@ def mmo_gates(key_planes: int) -> int:
     feed-forward 128."""
     aes = 10 * 16 * SBOX_GATES + 9 * 4 * MIXCOLUMN_GATES + key_planes
     return aes + 64 + 128
+
+
+def print_ptxas(what: str, kernels) -> None:
+    """One line of what ptxas reported for `kernels`."""
+    print(f"{what} ptxas: " + "; ".join(
+        f"{kern.name} {kern.ptxas.get('registers')} registers, "
+        f"{kern.ptxas.get('spill_stores')} B spill stores, {kern.ptxas.get('spill_loads')} B "
+        f"spill loads, {kern.ptxas.get('stack_frame')} B stack frame"
+        for kern in kernels))
 
 
 def fail(msg: str) -> None:
@@ -393,6 +408,24 @@ def hier_megakernel_cost(key_planes, k: int, segments, hot: int, entry_read: int
 KEYGEN_LEVEL_EXTRA = 128 * (2 * 4 + 1 + 2 * 2) + 20
 
 
+# K9's per-warp issue floor. Its levels are a serial chain, and each of a
+# key word's 16 column threads runs one column hash a level: ~10 rounds of
+# the column round loop's 449 instructions (sass_mix.py), and ~300
+# more for the children's selects, sc, the corrections and the 68 shuffles
+# of the exchanges; a capture one more hash and sigma's 32-word inverse. A
+# warp issues at most one instruction a clock.
+COLUMN_HASH_INSTRUCTIONS = 10 * 449
+KEYGEN_LEVEL_INSTRUCTIONS = COLUMN_HASH_INSTRUCTIONS + 300
+KEYGEN_CAPTURE_INSTRUCTIONS = COLUMN_HASH_INSTRUCTIONS + 64
+SM_CLOCK_HZ = 1.98e9
+
+
+def keygen_warp_floor_ms(levels: int, slots: int) -> float:
+    """The least time one warp of K9 takes at one instruction a clock."""
+    issued = levels * KEYGEN_LEVEL_INSTRUCTIONS + slots * KEYGEN_CAPTURE_INSTRUCTIONS
+    return issued / SM_CLOCK_HZ * 1e3
+
+
 def keygen_megakernel_cost(key_planes, w: int, levels: int, slots: int):
     """(bytes, gates) of K9 on W lane words of keys: per level and party the
     left and the right MMO hash, the selects and corrections; per capture
@@ -539,11 +572,7 @@ def main() -> None:
               f"{ms:.4f} ms (device {device_ms:.4f} ms; plain {plain_ms:.2f} ms, "
               f"bound {b_ms:.4f} ms by {b_by}); {kern.ptxas}")
     del args, planes2
-    print("K2/K3 ptxas: " + "; ".join(
-        f"{kern.name} {kern.ptxas.get('registers')} registers, "
-        f"{kern.ptxas.get('spill_stores')} B spill stores, {kern.ptxas.get('spill_loads')} B "
-        f"spill loads, {kern.ptxas.get('stack_frame')} B stack frame"
-        for kern in (aes_cuda.K2, aes_cuda.K3)))
+    print_ptxas("K2/K3", (aes_cuda.K2, aes_cuda.K3))
     # K5 against its plain version: a tiny ragged plan (one-word slabs,
     # fold width 4), a multi-slab plan with a database, and 8 keys at the
     # main path's full plan; then timed at the main path's chunk.
@@ -797,16 +826,20 @@ def main() -> None:
     for k, w in ((5, 1), (5, 3), (KEY_CHUNK, 1000 + 37)):
         a = walk_level_args(k, w)
         hold("K6", aes_cuda.walk_level(*a), backend_torch.walk_level(*a))
+    # K7 runs eight (key, word) items a warp: every K x W here but the
+    # last leaves a warp that straddles the end.
     walk_cases = (
-        (T.Int(32), 4, 1, 1, 3), (T.Int(64), 2, 0, 3, 5), (T.Int(64), 1, 1, 37, 2),
-        (T.XorWrapper(128), 1, 1, 3, 4), (T.Int(128), 1, 0, 37, 6), (T.Int(64), 2, 1, 1037, 3),
+        (T.Int(32), 4, 1, 5, 1, 3), (T.Int(64), 2, 0, 5, 3, 5), (T.Int(64), 1, 1, 5, 37, 2),
+        (T.XorWrapper(128), 1, 1, 5, 3, 4), (T.Int(128), 1, 0, 5, 37, 6),
+        (T.Int(64), 2, 1, 5, 1037, 3), (T.Int(64), 2, 1, 7, 13, 4), (T.Int(32), 2, 0, 3, 8, 2),
     )
-    for vt, keep, party, w, levels in walk_cases:
+    for vt, keep, party, k, w, levels in walk_cases:
         kw = dict(bits=vt.bitsize, party=party, xor_group=isinstance(vt, T.XorWrapper), keep=keep)
-        a = walk_mk_args(5, w, levels, vt.bitsize, keep)
+        a = walk_mk_args(k, w, levels, vt.bitsize, keep)
         hold("K7", aes_cuda.walk_megakernel(*a, **kw), backend_torch.walk_megakernel(*a, **kw))
     print(f"K6 == plain at W = 1, 3, 1037; K7 == plain at {len(walk_cases)} shapes "
-          "(Int(32) keep 4, Int(64) keep 1 and 2, XorWrapper(128), Int(128), both parties)")
+          "(Int(32) keep 4 and 2, Int(64) keep 1 and 2, XorWrapper(128), Int(128), both "
+          "parties; K x W = 5, 15, 185, 5185, 91 items, not a multiple of a warp's 8, and 24)")
 
     a = walk_level_args(EVAL_KEYS, ew)
     hold("K6", aes_cuda.walk_level(*a), backend_torch.walk_level(*a))
@@ -833,11 +866,14 @@ def main() -> None:
     a = walk_mk_args(EVAL_KEYS, ew, elevels, 64, 2)
     hold("K7", aes_cuda.walk_megakernel(*a, **kw), backend_torch.walk_megakernel(*a, **kw))
     plain_ms = time_ms(torch, lambda: backend_torch.walk_megakernel(*a, **kw), 1)
-    ms = time_ms(torch, lambda: aes_cuda.walk_megakernel(*a, **kw), 5)
+    ms, device_ms = launch_ms(torch, lambda: aes_cuda.walk_megakernel(*a, **kw),
+                              4 * EVAL_KEYS * 64 * ew, 5)
     b_ms, b_by = bound_ms(*walk_megakernel_cost(key_planes, EVAL_KEYS, ew, elevels, 64, 2, 1, False))
-    rows["K7"] = dict(kernel=aes_cuda.K7, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    rows["K7"] = dict(kernel=aes_cuda.K7, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                      bound_ms=b_ms, bound_by=b_by)
     print(f"K7 at K={EVAL_KEYS}, W={ew}, L={elevels}, Int(64) keep 2, party 1: {ms:.4f} ms "
-          f"(plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by}); {aes_cuda.K7.ptxas}")
+          f"(device {device_ms:.4f} ms; plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by}); "
+          f"{aes_cuda.K7.ptxas}")
     del a
     torch.cuda.empty_cache()
 
@@ -923,7 +959,7 @@ def main() -> None:
     print(f"one EvaluateAt pass ({EVAL_KEYS} keys, party 0): host KeyBatch + tables + upload "
           f"{eprep_s * 1e3:.1f} ms; device, mode walk {pass_ms['walk']:.2f} ms (K6 x {elevels} "
           f"+ K4 + unpack/correct/select), mode walkkernel {pass_ms['walkkernel']:.2f} ms (K7 "
-          f"+ transpose); {wpts['walkkernel'].plan}")
+          f"+ transpose) at {wpts['walkkernel'].path_masks.shape[1]} lane words")
     del evals, wch, got
     torch.cuda.empty_cache()
 
@@ -951,9 +987,10 @@ def main() -> None:
                   keep=keep, captures=captures)
         a = dcf_mk_args(5, w, len(captures) - 1, vt.bitsize, keep)
         hold("K7 DCF", aes_cuda.walk_megakernel(*a, **kw), backend_torch.walk_megakernel(*a, **kw))
-    print(f"K7 DCF form == plain at {len(dcf_cases)} shapes (W = 1, 3, 37; Int(32) keep 4 "
-          "and 2, Int(64) keep 1 and 2, XorWrapper(128), Int(128), both parties, captures "
-          "with depths that do not capture)")
+    print(f"K7 DCF form == plain at {len(dcf_cases)} shapes (W = 1, 3, 37 at K = 5: 5, 15 "
+          "and 185 items, each leaving a warp that straddles the end; Int(32) keep 4 and 2, "
+          "Int(64) keep 1 and 2, XorWrapper(128), Int(128), both parties, captures with "
+          "depths that do not capture)")
     a = walk_level_args(DCF_KEYS, dw)
     hold("K6", aes_cuda.walk_level(*a), backend_torch.walk_level(*a))
     ms, device_ms = launch_ms(torch, lambda: aes_cuda.walk_level(*a), a[0].numel() * 4)
@@ -979,14 +1016,16 @@ def main() -> None:
     a = dcf_mk_args(DCF_KEYS, dw, dlevels, 64, 2)
     hold("K7 DCF", aes_cuda.walk_megakernel(*a, **kw), backend_torch.walk_megakernel(*a, **kw))
     plain_ms = time_ms(torch, lambda: backend_torch.walk_megakernel(*a, **kw), 1)
-    ms = time_ms(torch, lambda: aes_cuda.walk_megakernel(*a, **kw), 10)
+    ms, device_ms = launch_ms(torch, lambda: aes_cuda.walk_megakernel(*a, **kw),
+                              4 * DCF_KEYS * 64 * dw)
     b_ms, b_by = bound_ms(*walk_megakernel_cost(key_planes, DCF_KEYS, dw, dlevels, 64, 2, 1,
                                                 False, dcaps))
-    rows["K7 DCF"] = dict(kernel=aes_cuda.K7_DCF, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by)
+    rows["K7 DCF"] = dict(kernel=aes_cuda.K7_DCF, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by)
     print(f"K7 DCF form at K={DCF_KEYS}, W={dw}, L={dlevels}, Int(64) keep 2, party 1, "
-          f"{dlevels + 1} captures: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
-          f"by {b_by}); {aes_cuda.K7_DCF.ptxas}")
+          f"{dlevels + 1} captures: {ms:.4f} ms (device {device_ms:.4f} ms; plain "
+          f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by}); {aes_cuda.K7_DCF.ptxas}")
+    print_ptxas("K7", (aes_cuda.K7, aes_cuda.K7_DCF))
     del a
     torch.cuda.empty_cache()
 
@@ -1089,7 +1128,7 @@ def main() -> None:
           f"{dprep_s['walk'] * 1e3:.1f} ms (walk) / {dprep_s['walkkernel'] * 1e3:.1f} ms "
           f"(walkkernel); device, mode walk {dpass_ms['walk']:.2f} ms (K6 x {dlevels} + "
           f"(K4 + capture) x {dlevels + 1}), mode walkkernel {dpass_ms['walkkernel']:.2f} ms "
-          f"(K7 DCF form + transpose); {dp.plan}")
+          f"(K7 DCF form + transpose) at {dp.path_masks.shape[1]} lane words")
     print(f"DCF comparisons/s, walk / walkkernel (parties 0 / 1): "
           f"{dcf_rates['walk'][0]:.4e} / {dcf_rates['walk'][1]:.4e}, "
           f"{dcf_rates['walkkernel'][0]:.4e} / {dcf_rates['walkkernel'][1]:.4e}")
@@ -1347,14 +1386,17 @@ def main() -> None:
     def keygen_mk_args(w, levels):
         return rnd(128, w), rnd(128, w), rnd(levels, w)
 
+    # K9 runs two key words a warp: an odd W leaves a warp that straddles
+    # the end.
     k9_cases = ((1, (True, True)), (3, (True, False, True, True)),
-                (37, (False, True, False, False, True, True)), (3, (False,) * 5 + (True,)))
+                (37, (False, True, False, False, True, True)), (3, (False,) * 5 + (True,)),
+                (8, (True, False, False, True)), (5, (True,) * 3))
     for w, captures in k9_cases:
         a = keygen_mk_args(w, len(captures) - 1)
         hold("K9", aes_cuda.keygen_megakernel(*a, captures=captures),
              backend_torch.keygen_megakernel(*a, captures=captures))
-    print(f"K9 == plain at {len(k9_cases)} shapes (W = 1, 3, 37; 1-5 levels; depths that do "
-          "and do not capture)")
+    print(f"K9 == plain at {len(k9_cases)} shapes (W = 1, 3, 37, 5: odd numbers of key words, "
+          "and 8; 1-5 levels; depths that do and do not capture)")
     k9_batches = {name: keygen_batch.prepare_megakernel_batch(
         kg[d][0], kg[d][1], [kg[d][2]], seeds=kg[d][3], device=dev)
         for name, d in (("K9", 20), ("K9 d128", 128))}
@@ -1371,18 +1413,22 @@ def main() -> None:
         b.planes0, b.planes1, b.path_masks, captures=b.captures))
     for name, b in k9_batches.items():
         wp, levels, slots = b.planes0.shape[1], b.path_masks.shape[0], sum(b.captures)
-        ms = time_ms(torch, lambda: keygen_batch.megakernel_outputs(b), 5)
+        ms, device_ms = launch_ms(torch, lambda: keygen_batch.megakernel_outputs(b),
+                                  4 * wp * (levels * 130 + slots * 257), 5)
         plain_ms = None  # the plain version at the timing-only width: not run
         if name != "K9 wide":
             plain_ms = time_ms(torch, lambda: backend_torch.keygen_megakernel(
                 b.planes0, b.planes1, b.path_masks, captures=b.captures), 1)
         b_ms, b_by = bound_ms(*keygen_megakernel_cost(key_planes, wp, levels, slots))
-        rows[name] = dict(kernel=aes_cuda.K9, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by)
+        rows[name] = dict(kernel=aes_cuda.K9, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by)
         print(f"{name} at {b.k} keys (W={wp}), L={levels}, {slots} captures: {ms:.4f} ms "
-              f"(bound {b_ms:.4f} ms by {b_by}, {b_ms / ms * 100:.1f} %; plain "
+              f"(device {device_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by}, "
+              f"{b_ms / ms * 100:.1f} %; per-warp issue floor "
+              f"{keygen_warp_floor_ms(levels, slots):.4f} ms; plain "
               f"{'not run' if plain_ms is None else f'{plain_ms:.2f} ms'})"
               + (f"; {aes_cuda.K9.ptxas}" if name == "K9" else ""))
+    print_ptxas("K9", (aes_cuda.K9,))
     del k9_batches, b
     # K2's one-key view (the legacy [128, W] kernel) at micro_tpu's width.
     a = [t[0] for t in expand_args(rnd, 1, LEGACY_W)]
@@ -1531,9 +1577,10 @@ def main() -> None:
 
     # -- result -------------------------------------------------------------
     k1_bound, k1_by = bound_ms(0, hash_cost(key_planes, KEY_CHUNK, 2 * max_w)[1])
-    column_form = {k.name for k in (aes_cuda.K2, aes_cuda.K3, aes_cuda.K5)}
+    column_form = {k.name for k in (aes_cuda.K2, aes_cuda.K3, aes_cuda.K5, aes_cuda.K7,
+                                    aes_cuda.K7_DCF, aes_cuda.K9)}
     kernels = [{
-        "name": "K1 aes_rows, row form (device function inlined in K4 and K6-K9; timed as K4)",
+        "name": "K1 aes_rows, row form (device function inlined in K4, K6 and K8; timed as K4)",
         "route": "cuda",
         "source": "distributed_point_functions_tpu_torch/csrc/aes_rows.cuh",
         "replaces": "distributed_point_functions_tpu/ops/aes_pallas.py:182",
@@ -1547,8 +1594,8 @@ def main() -> None:
         "library_ms": None,
     }]
     kernels.append({
-        "name": "K1 column form, four threads a lane word (device function inlined in K2, K3 "
-                "and K5; timed as K5)",
+        "name": "K1 column form, four threads a lane word (device function inlined in K2, K3, "
+                "K5, both forms of K7 and K9; timed as K5)",
         "route": "cuda",
         "source": "distributed_point_functions_tpu_torch/csrc/aes_quad.cuh",
         "replaces": "distributed_point_functions_tpu/ops/aes_pallas.py:182",
@@ -1562,8 +1609,8 @@ def main() -> None:
         "library_ms": None,
     })
     kernels.append({
-        "name": "K1 aes_rows, per-lane key select (device function inlined in K6, both "
-                "forms of K7 and K8; timed as K6)",
+        "name": "K1 per-lane key select (aes_rows.cuh MaskedKey, inlined in K6 and K8; "
+                "aes_quad.cuh QuadMaskedKey, in both forms of K7; timed as K6)",
         "route": "cuda",
         "source": "distributed_point_functions_tpu_torch/csrc/aes_rows.cuh",
         "replaces": "distributed_point_functions_tpu/ops/aes_pallas.py:182",

@@ -1,6 +1,7 @@
 // The column form of K1: the bitsliced AES-128 and fixed-key MMO hash of
-// aes_rows.cuh split by AES column over four threads. K2, K3 (expand.cu)
-// and K5 (megakernel.cu) run it.
+// aes_rows.cuh split by AES column over four threads. K2, K3 (expand.cu),
+// K5 (megakernel.cu), both forms of K7 (walk_megakernel.cu) and K9
+// (keygen_megakernel.cu) run it.
 //
 // Layout. A 32-lane word of 128 bit-planes (plane p = byte p / 8, bit p %
 // 8) is shared by four threads; the thread of column c owns planes 32 c ..
@@ -25,7 +26,8 @@
 // kRoundKeys[table][round] (dpf_quad_keys.h, generated by ops/aes_cuda.py),
 // a global-memory table read through the read-only cache: the four columns'
 // words of one load lie in one 16-byte sector, where a constant-memory load
-// of four addresses would be served one address at a time.
+// of four addresses would be served one address at a time. A hash takes
+// them through a key type (QuadTableKey, QuadMaskedKey below), as K1 does.
 
 #pragma once
 
@@ -86,22 +88,44 @@ struct QuadHost {
   uint32_t from_column0(uint32_t v) const { return v; }  // v is column 0's
 };
 
-// The 32 round-key words of this caller's column j.
-template <class Q>
-__device__ __forceinline__ void round_key_quad(uint32_t* k, const Q& q, int j, int table,
-                                               int round) {
-  const uint32_t* p = &kQuadRoundKeys[table][round][0][q.column(j)];
+// The two ways of choosing a hash's round keys, as in K1 (aes_rows.cuh
+// TableKey, MaskedKey): words(k, q, j, round) gives the 32 round-key words
+// of the caller's column j.
+//  - QuadTableKey: one key schedule for the whole lane word (the doubling
+//    levels of K2, K3, K5 and K9, and every value hash).
+//  - QuadMaskedKey: the left PRG key on the lanes whose `mask` bit is
+//    clear and the right one where it is set, the JAX package's `rk_base ^
+//    (rk_diff & key_mask)`: each word one LOP3 on two loads (K7's point
+//    walk, where each of the 32 lanes takes its own path; K6 and K8 can take
+//    it too).
+struct QuadTableKey {
+  int table;
+  template <class Q>
+  __device__ __forceinline__ void words(uint32_t* k, const Q& q, int j, int round) const {
+    const uint32_t* p = &kQuadRoundKeys[table][round][0][q.column(j)];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) k[i] = quad_key(p + 4 * i);
-}
+    for (int i = 0; i < 32; ++i) k[i] = quad_key(p + 4 * i);
+  }
+};
 
-template <class Q>
+struct QuadMaskedKey {
+  uint32_t mask;
+  template <class Q>
+  __device__ __forceinline__ void words(uint32_t* k, const Q& q, int j, int round) const {
+    const uint32_t* l = &kQuadRoundKeys[kTableLeft][round][0][q.column(j)];
+    const uint32_t* r = &kQuadRoundKeys[kTableRight][round][0][q.column(j)];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) k[i] = lop3<0xCA>(mask, quad_key(r + 4 * i), quad_key(l + 4 * i));
+  }
+};
+
+template <class Q, class Key>
 __device__ __forceinline__ void add_round_key_quad(uint32_t (*s)[32], const Q& q,
-                                                   int table, int round) {
+                                                   const Key& key, int round) {
 #pragma unroll
   for (int j = 0; j < Q::kCols; ++j) {
     uint32_t k[32];
-    round_key_quad(k, q, j, table, round);
+    key.words(k, q, j, round);
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[j][i] ^= k[i];
   }
@@ -124,12 +148,12 @@ __device__ __forceinline__ void shift_rows_quad(uint32_t (*s)[32], const Q& q) {
   for (int r = 1; r < 4; ++r) q.rotate(s, 8 * r, 8, r);
 }
 
-// AES-128 encryption of the 32 blocks of a lane word under key schedule
-// `table`, each caller holding its Q::kCols columns of the state.
-template <class Q>
+// AES-128 encryption of the 32 blocks of a lane word under `key`'s round
+// keys, each caller holding its Q::kCols columns of the state.
+template <class Q, class Key>
 __device__ __forceinline__ void aes128_encrypt_quad(uint32_t (*s)[32], const Q& q,
-                                                    int table) {
-  add_round_key_quad(s, q, table, 0);
+                                                    const Key& key) {
+  add_round_key_quad(s, q, key, 0);
 #pragma unroll 1
   for (int round = 1; round < 10; ++round) {
     sub_bytes_quad<Q>(s);
@@ -137,23 +161,25 @@ __device__ __forceinline__ void aes128_encrypt_quad(uint32_t (*s)[32], const Q& 
 #pragma unroll
     for (int j = 0; j < Q::kCols; ++j) {
       uint32_t k[32];
-      round_key_quad(k, q, j, table, round);
+      key.words(k, q, j, round);
       mix_column(s[j], k);
     }
   }
   sub_bytes_quad<Q>(s);
   shift_rows_quad(s, q);
-  add_round_key_quad(s, q, table, 10);
+  add_round_key_quad(s, q, key, 10);
 }
 
 // Fixed-key MMO hash H(x) = AES(sigma(x)) ^ sigma(x), sigma(x) = (hi ^ lo,
 // hi) with planes 0..63 (columns 0 and 1) the low half: columns 0 and 1
 // take columns 2 and 3, columns 2 and 3 XOR in columns 0 and 1. sigma(x)
-// stays in registers for the feed-forward.
-template <class Q>
-__device__ __forceinline__ void mmo_hash_quad(uint32_t (*s)[32], const Q& q,
-                                              int table) {
-  uint32_t sg[Q::kCols][32];
+// stays in registers for the feed-forward, and is handed back in `sg`: a
+// caller that needs x again after the hash (K7's DCF captures, K9's value
+// captures) recovers it with unsigma_quad rather than keeping 32 more words
+// live through the hash.
+template <class Q, class Key>
+__device__ __forceinline__ void mmo_hash_quad_sigma(uint32_t (*s)[32], uint32_t (*sg)[32],
+                                                    const Q& q, const Key& key) {
 #pragma unroll
   for (int j = 0; j < Q::kCols; ++j) {
 #pragma unroll
@@ -169,11 +195,44 @@ __device__ __forceinline__ void mmo_hash_quad(uint32_t (*s)[32], const Q& q,
       s[j][i] = sg[j][i];
     }
   }
-  aes128_encrypt_quad(s, q, table);
+  aes128_encrypt_quad(s, q, key);
 #pragma unroll
   for (int j = 0; j < Q::kCols; ++j) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[j][i] ^= sg[j][i];
+  }
+}
+
+template <class Q, class Key>
+__device__ __forceinline__ void mmo_hash_quad_with(uint32_t (*s)[32], const Q& q,
+                                                   const Key& key) {
+  uint32_t sg[Q::kCols][32];
+  mmo_hash_quad_sigma(s, sg, q, key);
+}
+
+// The MMO hash under key schedule `table` (K2, K3, K5, K9).
+template <class Q>
+__device__ __forceinline__ void mmo_hash_quad(uint32_t (*s)[32], const Q& q, int table) {
+  mmo_hash_quad_with(s, q, QuadTableKey{table});
+}
+
+// x back from sigma(x) in place, the inverse of sigma's step: columns 2
+// and 3 of x are columns 0 and 1 of sigma(x), columns 0 and 1 of x the XOR
+// of sigma(x)'s two halves (32 exchanges).
+template <class Q>
+__device__ __forceinline__ void unsigma_quad(uint32_t (*sg)[32], const Q& q) {
+  uint32_t t[Q::kCols][32];
+#pragma unroll
+  for (int j = 0; j < Q::kCols; ++j) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) t[j][i] = sg[j][i];
+  }
+  q.rotate(t, 0, 32, 2);
+#pragma unroll
+  for (int j = 0; j < Q::kCols; ++j) {
+    const uint32_t keep = q.column(j) < 2 ? ~0u : 0u;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sg[j][i] = t[j][i] ^ (sg[j][i] & keep);
   }
 }
 
@@ -201,82 +260,102 @@ __device__ __forceinline__ uint32_t child_quad(uint32_t (*s)[32], const Q& q,
   return q.from_column0(h0) ^ (c & cc);
 }
 
-// The correction of limb column(j) of 32 blocks, v[j][i] for block i, in
-// place, block i gated by bit i of `ctrl`; corr[j] is that limb of the
-// element's correction. The JAX package's rows_correct_element, as
-// tail_rows.cuh correct_block computes it per block: the XOR for an XOR
-// group, else the add with carry and, for party 1, the negation ~v + 1.
-// Here a thread holds one limb of 32 blocks, so each carry chain runs
-// across the columns of an element: a column packs its 32 blocks' generate
-// and propagate bits into a word each, and lpe - 1 rotations pass the carry
-// word up from the limb below (limb 0 of an element takes none).
+// The carry words into each column of an element from the limbs below it:
+// column j packs its 32 blocks' generate and propagate bits (gen, prop),
+// limb 0 of an element (column j with column(j) % lpe == 0) takes `first`,
+// and lpe - 1 rotations pass gen | (prop & carry) up from the column below.
 template <class Q>
-__device__ __forceinline__ void correct_limbs_quad(uint32_t (*v)[32], const Q& q,
-                                                   uint32_t ctrl, const uint32_t* corr,
-                                                   int lpe, int party, int xor_group) {
-  if (xor_group) {
+__device__ __forceinline__ void carry_in_quad(uint32_t (*carry)[1], const uint32_t (*gen)[1],
+                                              const uint32_t (*prop)[1], const Q& q, int lpe,
+                                              uint32_t first) {
 #pragma unroll
-    for (int j = 0; j < Q::kCols; ++j) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) v[j][i] ^= corr[j] & (0u - ((ctrl >> i) & 1u));
-    }
-    return;
-  }
-  uint32_t gen[Q::kCols][1], prop[Q::kCols][1], carry[Q::kCols][1];
-  bool first[Q::kCols];
-#pragma unroll
-  for (int j = 0; j < Q::kCols; ++j) {
-    first[j] = (q.column(j) & (lpe - 1)) == 0;
-    uint32_t g = 0u, p = 0u;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const uint32_t h = v[j][i];
-      const uint32_t s1 = h + (corr[j] & (0u - ((ctrl >> i) & 1u)));
-      g |= uint32_t(s1 < h) << i;      // h + b carries out
-      p |= uint32_t(s1 == ~0u) << i;   // a carry in would carry out
-      v[j][i] = s1;
-    }
-    gen[j][0] = g;
-    prop[j][0] = p;
-    carry[j][0] = 0u;
-  }
+  for (int j = 0; j < Q::kCols; ++j) carry[j][0] = first;
   for (int it = 1; it < lpe; ++it) {
     uint32_t x[Q::kCols][1];
 #pragma unroll
     for (int j = 0; j < Q::kCols; ++j) x[j][0] = gen[j][0] | (prop[j][0] & carry[j][0]);
     q.rotate(x, 0, 1, 3);  // from the column below
 #pragma unroll
-    for (int j = 0; j < Q::kCols; ++j) carry[j][0] = first[j] ? 0u : x[j][0];
+    for (int j = 0; j < Q::kCols; ++j)
+      carry[j][0] = (q.column(j) & (lpe - 1)) == 0 ? first : x[j][0];
   }
+}
+
+// v += b on 32 blocks of elements of lpe limbs, a limb a column: the limb
+// sums and their carries across the columns (carry_in_quad). b(j, i) gives
+// the addend of column j's block i, so that a caller computes (or loads) it
+// word by word rather than holding 32 more words.
+template <class Q, class B>
+__device__ __forceinline__ void add_limbs_quad(uint32_t (*v)[32], const B& b, const Q& q,
+                                               int lpe) {
+  uint32_t gen[Q::kCols][1], prop[Q::kCols][1], carry[Q::kCols][1];
+#pragma unroll
+  for (int j = 0; j < Q::kCols; ++j) {
+    uint32_t g = 0u, p = 0u;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const uint32_t h = v[j][i];
+      const uint32_t s1 = h + b(j, i);
+      g |= uint32_t(s1 < h) << i;      // h + b carries out
+      p |= uint32_t(s1 == ~0u) << i;   // a carry in would carry out
+      v[j][i] = s1;
+    }
+    gen[j][0] = g;
+    prop[j][0] = p;
+  }
+  carry_in_quad(carry, gen, prop, q, lpe, 0u);
 #pragma unroll
   for (int j = 0; j < Q::kCols; ++j) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) v[j][i] += (carry[j][0] >> i) & 1u;
   }
-  if (party != 1) return;
-  // ~v + nin carries out exactly where nin is set and v is 0.
-  uint32_t zero[Q::kCols][1], nin[Q::kCols][1];
+}
+
+// v = -v on 32 blocks of elements of lpe limbs, a limb a column: ~v + 1,
+// the + 1 carrying out of a limb exactly where it carries in and the limb
+// is 0 (carry_in_quad with no generate bits and limb 0 taking 1).
+template <class Q>
+__device__ __forceinline__ void negate_limbs_quad(uint32_t (*v)[32], const Q& q, int lpe) {
+  uint32_t none[Q::kCols][1], zero[Q::kCols][1], nin[Q::kCols][1];
 #pragma unroll
   for (int j = 0; j < Q::kCols; ++j) {
     uint32_t z = 0u;
 #pragma unroll
     for (int i = 0; i < 32; ++i) z |= uint32_t(v[j][i] == 0u) << i;
     zero[j][0] = z;
-    nin[j][0] = ~0u;
+    none[j][0] = 0u;
   }
-  for (int it = 1; it < lpe; ++it) {
-    uint32_t x[Q::kCols][1];
-#pragma unroll
-    for (int j = 0; j < Q::kCols; ++j) x[j][0] = nin[j][0] & zero[j][0];
-    q.rotate(x, 0, 1, 3);
-#pragma unroll
-    for (int j = 0; j < Q::kCols; ++j) nin[j][0] = first[j] ? ~0u : x[j][0];
-  }
+  carry_in_quad(nin, none, zero, q, lpe, ~0u);
 #pragma unroll
   for (int j = 0; j < Q::kCols; ++j) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) v[j][i] = ~v[j][i] + ((nin[j][0] >> i) & 1u);
   }
+}
+
+// The correction of limb column(j) of 32 blocks, v[j][i] for block i, in
+// place, block i gated by bit i of `ctrl`; corr[j] is that limb of the
+// element's correction. The JAX package's rows_correct_element, as
+// tail_rows.cuh correct_block computes it per block: the XOR for an XOR
+// group, else the add with carry (add_limbs_quad) and, for party 1, the
+// negation ~v + 1 (negate_limbs_quad). A thread holds one limb of 32
+// blocks, so each carry chain runs across the columns of an element.
+template <class Q>
+__device__ __forceinline__ void correct_limbs_quad(uint32_t (*v)[32], const Q& q,
+                                                   uint32_t ctrl, const uint32_t* corr,
+                                                   int lpe, int party, int xor_group) {
+  // Column j's correction, gated by block i's control bit.
+  const auto b = [&](int j, int i) { return corr[j] & (0u - ((ctrl >> i) & 1u)); };
+  if (xor_group) {
+#pragma unroll
+    for (int j = 0; j < Q::kCols; ++j) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) v[j][i] ^= b(j, i);
+    }
+    return;
+  }
+  add_limbs_quad(v, b, q, lpe);
+  if (party == 1) negate_limbs_quad(v, q, lpe);
 }
 
 }  // namespace dpf

@@ -49,7 +49,8 @@ void launch_walk_level(const uint32_t* planes, const uint32_t* control,
                        uint32_t* out_planes, uint32_t* out_control,
                        int num_keys, int words, cudaStream_t stream);
 
-// K7 (EvaluateAt form): one thread per (key, word of a.words); a.levels >= 1.
+// K7 (EvaluateAt form): four column threads per (key, word of a.words) item;
+// a.levels >= 1.
 void launch_walk_megakernel(const WalkMegakernelArgs& a, int num_keys,
                             cudaStream_t stream);
 
@@ -65,7 +66,8 @@ void launch_walk_megakernel_dcf(const WalkMegakernelArgs& a, int num_keys,
 cudaError_t launch_hier_megakernel(const HierMegakernelArgs& a, int num_keys,
                                    cudaStream_t stream);
 
-// K9: one thread per word of a.words; 1 <= a.levels <= kKeygenMaxLevels,
+// K9: sixteen threads per word of a.words (four (party, branch) items of
+// four column threads); 1 <= a.levels <= kKeygenMaxLevels,
 // depth a.levels captures, a.slots counts the depths that capture.
 void launch_keygen_megakernel(const KeygenMegakernelArgs& a,
                               cudaStream_t stream);

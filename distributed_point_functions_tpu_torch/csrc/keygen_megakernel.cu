@@ -11,18 +11,28 @@
 // correction-word planes, control-correction rows, value-hash planes and
 // party-1 control rows that the host (ops/keygen_batch.py) turns into keys.
 //
-// Mapping. One thread per lane word of keys (32 keys), 64 threads a block
-// with a 32 KiB MMO stash, as K7 and K8. The Pallas grid of key tiles has
-// no role here but padding, so the grid is 1-D over the words. A batch of
-// 1024 keys is 32 threads: one warp on one SM, the card otherwise idle (a
-// layout that spreads a batch over the card is a later redesign).
+// Mapping. Sixteen threads a lane word of 32 keys: its four (party, branch)
+// items, each on four column threads (K1's column form, aes_quad.cuh), two
+// key words a warp; the body is keygen_rows.cuh. The Pallas grid of key
+// tiles has no role here but padding, so the grid is 1-D over the words.
+// A warp whose second word passes the end runs the last word again and
+// stores nothing. Blocks are one warp: the key words are independent, so no
+// block needs a barrier, and at BM_KeyGeneration's 1024 keys the 16 warps
+// land on 16 SMs, each warp alone with its SM's schedulers and caches
+// (with 64-thread blocks two warps would share each of 8 SMs).
 //
 // Bound. Integer operations: per word and level four MMO hashes (~25k
 // logic operations each), and two more at each capture, against 1 KiB of
 // seed planes in, and per level 520 bytes of corrections and per capture
-// 1 KiB of value hashes out. The seeds of both parties live in the
-// thread's own column of the output rows (keygen_rows.cuh), which stay in
-// L1 and L2 between levels; registers hold one hash at a time.
+// 1 KiB of value hashes out. At 1024 keys the bound is out of reach: the
+// levels are a serial chain, and the card holds only 16 warps of work. So
+// what sets the time is one warp's issue: per level one column hash (~10
+// rounds of ~450 instructions) and the exchanges, ~0.3 ms at depth 128 and
+// 1.98 GHz (chip_smoke.py prints this floor beside the bound). So the
+// design spreads a word over 16 threads, each running one column hash a
+// level (one thread a word would run the four in turn, one warp on one SM
+// at 1024 keys, and need both parties' seeds and 255 registers), and keeps
+// the seeds in the threads' registers, 128 a thread with no spill.
 
 #include <cstdint>
 
@@ -33,14 +43,15 @@
 
 namespace {
 
-constexpr int kThreads = 64;  // 64 x 128 x 4 B = 32 KiB of static stash
+constexpr int kThreads = 32;  // one warp: two key words
 
 __global__ void __launch_bounds__(kThreads)
     dpf_keygen_megakernel_kernel(const dpf::KeygenMegakernelArgs a) {
-  __shared__ uint32_t stash[128 * kThreads];
-  const int64_t w = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (w >= a.words) return;
-  dpf::keygen_megakernel_word(a, w, stash + threadIdx.x, kThreads);
+  const int lane = threadIdx.x & 31;
+  const dpf::KeygenLanes x{dpf::QuadLanes{lane >> 3, lane & 7, 0, 0}};
+  const int64_t warp = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int64_t w = 2 * warp + (lane >> 2 & 1);
+  dpf::keygen_word_quad(a, w < a.words ? w : a.words - 1, x, w < a.words);
 }
 
 }  // namespace
@@ -49,8 +60,8 @@ namespace dpf {
 
 void launch_keygen_megakernel(const KeygenMegakernelArgs& a,
                               cudaStream_t stream) {
-  const unsigned int grid =
-      static_cast<unsigned int>((int64_t(a.words) + kThreads - 1) / kThreads);
+  const int64_t threads = 16 * int64_t(a.words);
+  const unsigned int grid = static_cast<unsigned int>((threads + kThreads - 1) / kThreads);
   dpf_keygen_megakernel_kernel<<<grid, kThreads, 0, stream>>>(a);
 }
 

@@ -1,7 +1,7 @@
 // The operands of the megakernels: K5, the slab megakernel (what the
 // launcher in megakernel.cu passes to the body in megakernel_rows.cuh), K7,
 // the walk megakernel in both its forms (walk_megakernel.cu, bodies in
-// walk_rows.cuh), K8, the hierarchical megakernel (hier_megakernel.cu,
+// walk_quad.cuh), K8, the hierarchical megakernel (hier_megakernel.cu,
 // body in hier_rows.cuh), and K9, the keygen megakernel
 // (keygen_megakernel.cu, body in keygen_rows.cuh). Plain C++ (no CUDA
 // header), so the binding and the host-compiler test build it too.
@@ -52,7 +52,7 @@ inline int64_t megakernel_smem_words(const MegakernelArgs& a) {
 }
 
 // K7, the walk megakernel. uint32 words, row-major; L = levels, Wp = words
-// (the WalkkernelPlan's padded width), n_rows = 128 / (32 * lpe) elements of
+// (ceil(P / 32) rounded up to 8, evaluator.lane_words), n_rows = 128 / (32 * lpe) elements of
 // a block. The EvaluateAt form reads `corr` as [K, n_rows, lpe] and `sel`
 // as [keep, Wp]; the DCF form reads them as [K, (L + 1) * keep, lpe] and
 // [(L + 1) * keep, Wp], row d * keep + e for element e at depth d, and

@@ -43,6 +43,7 @@
 
 #include "aes_quad.cuh"
 #include "megakernel_args.h"
+#include "tail_rows.cuh"  // transpose32_regs
 
 #ifdef __CUDACC__
 #define DPF_BLOCK_SYNC() __syncthreads()
@@ -122,33 +123,6 @@ __device__ __forceinline__ void quad_level(const PlaneView& src, int w_in, uint3
     const uint32_t c = child_quad(s, q, src.control[w], cw, child ? ccr : ccl, child);
     if (live) store_word(dst, w_out, t, s, q, c);
   }
-}
-
-// tail_rows.cuh's transpose32_rows with each stage's shift a template
-// argument: every index is then a register name, where the loop form left
-// K5's tail state in local memory (ptxas: a 128-byte stack frame, STL and
-// LDL with computed addresses). Same result.
-template <int J>
-__device__ __forceinline__ void transpose32_stage(uint32_t* r, uint32_t m) {
-#pragma unroll
-  for (int base = 0; base < 32; base += 2 * J) {
-#pragma unroll
-    for (int i = 0; i < J; ++i) {
-      uint32_t& a0 = r[31 - (base + i)];
-      uint32_t& a1 = r[31 - (base + J + i)];
-      const uint32_t t = (a0 ^ (a1 >> J)) & m;
-      a0 ^= t;
-      a1 ^= t << J;
-    }
-  }
-}
-
-__device__ __forceinline__ void transpose32_regs(uint32_t* r) {
-  transpose32_stage<16>(r, 0x0000FFFFu);
-  transpose32_stage<8>(r, 0x00FF00FFu);
-  transpose32_stage<4>(r, 0x0F0F0F0Fu);
-  transpose32_stage<2>(r, 0x33333333u);
-  transpose32_stage<1>(r, 0x55555555u);
 }
 
 // The tail of one leaf word (its 32 leaf seeds in s, their control word c),

@@ -1,8 +1,9 @@
-// The row-form tail pieces that K7 and K8 (walk_rows.cuh, hier_rows.cuh)
-// run on a thread's whole 128-plane word: the 32x32 transpose from planes
-// to limbs and the per-block value correction. (K5 runs column forms of
-// both: megakernel_rows.cuh transpose32_regs, aes_quad.cuh
-// correct_limbs_quad.)
+// The tail pieces of the value captures: the 32x32 transpose from planes
+// to limbs, in its loop form (transpose32_rows, K8's row-form thread on its
+// whole 128-plane word) and its staged form (transpose32_regs, the column
+// threads of K5 and K7 on their 32 planes), and K8's per-block value
+// correction (correct_block; the column threads run aes_quad.cuh
+// correct_limbs_quad).
 
 #pragma once
 
@@ -36,6 +37,34 @@ __device__ __forceinline__ void transpose32_rows(uint32_t* r) {
       }
     }
   }
+}
+
+// transpose32_rows with each stage's shift a template argument: every
+// index is then a register name, where the loop form left K5's tail state
+// in local memory (ptxas: a 128-byte stack frame, STL and LDL with computed
+// addresses). Same result. The column-form tails (K5, both forms of K7)
+// run it on each column thread's 32 planes.
+template <int J>
+__device__ __forceinline__ void transpose32_stage(uint32_t* r, uint32_t m) {
+#pragma unroll
+  for (int base = 0; base < 32; base += 2 * J) {
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+      uint32_t& a0 = r[31 - (base + i)];
+      uint32_t& a1 = r[31 - (base + J + i)];
+      const uint32_t t = (a0 ^ (a1 >> J)) & m;
+      a0 ^= t;
+      a1 ^= t << J;
+    }
+  }
+}
+
+__device__ __forceinline__ void transpose32_regs(uint32_t* r) {
+  transpose32_stage<16>(r, 0x0000FFFFu);
+  transpose32_stage<8>(r, 0x00FF00FFu);
+  transpose32_stage<4>(r, 0x0F0F0F0Fu);
+  transpose32_stage<2>(r, 0x33333333u);
+  transpose32_stage<1>(r, 0x55555555u);
 }
 
 // The correction of one block's four 32-bit hash limbs v[q] in place

@@ -13,53 +13,78 @@
 // rows, party 1 negated once. The seed planes of the walk never reach
 // device memory.
 //
-// Mapping. One thread per (key, lane word) of the plan's padded width, the
-// word fastest. The Pallas grid (keys, point tiles) runs one tile of
-// tile_words per step; on Hopper a tile has no role but the padding (each
-// thread owns one word whatever the tile), so the grid is 1-D as K6's.
-// Per-key tables (correction planes, control corrections, value
-// corrections) are read at one address by every thread of a warp; the path
-// words of each level and the select words once per thread. The body is in
-// walk_rows.cuh.
+// Mapping. K1's column form (aes_quad.cuh), as K2: an item is one (key,
+// lane word) pair, the word fastest, and lane 8 c + j of a warp holds AES
+// column c (planes 32 c .. 32 c + 31) of the warp's item j, so a 256-thread
+// block runs 64 items. The Pallas grid (keys, point tiles) runs one tile of
+// tile_words per step; on Hopper a tile has no role, and the wrappers'
+// callers build the point tables at ceil(P / 32) words rounded up to 8. A
+// warp whose items pass the end runs the last item again and stores
+// nothing, since the columns' shuffles need the whole warp. Per-key tables
+// (correction planes, control corrections, value corrections) are read at
+// one address by the items of a key; the path and select words once per
+// item. The bodies are in walk_quad.cuh.
 //
 // Bound. Integer operations: L masked MMO hashes and one value hash per
-// lane word (~25k logic operations each; the DCF form one value hash per
-// flagged depth) against the path words and a few hundred bytes per key in,
-// lpe * 128 bytes per word out. The design keeps the whole walk in
-// registers; what it gives up is the registers' reuse across levels (255 a
-// thread and spills, as K5: recorded in PERF.md). The DCF form keeps its
-// running sum in the thread's own output rows, which stay in L2 (2 MiB at
-// BASELINE config 4), rather than in registers already full with the walk,
-// and its walk state across a capture in the hash's stash.
+// lane word (the DCF form one value hash per flagged depth) against the
+// path words and a few hundred bytes per key in, lpe * 128 bytes per word
+// out. A thread that held a word's 128 planes would need 255 registers
+// and spill, and at the DCF's config-4 shape 8,192 such threads are two
+// warps on each of 128 SMs. A column thread holds 32 state and 32 sigma
+// words, so K7 asks for 128 registers at two 256-thread blocks an SM (16
+// warps), and every shape runs four threads an item: 4x the warps, ~8 an
+// SM at config 4. What the design pays: the
+// per-lane key select (QuadMaskedKey: a second round-key load and a LOP3 a
+// word, 32 a round-column), ShiftRows' and sigma's shuffles, and in the
+// tail the rotations that fold a block's elements and pass the carries
+// between limb threads. The DCF form keeps its running sum in the item's
+// own output rows, which stay in L2 (2 MiB at BASELINE config 4), and its
+// walk state across a capture in sigma (unsigma_quad), not in 32 more
+// registers. The registers and spills ptxas reports are recorded in
+// PERF.md.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "expand.h"
-#include "walk_rows.cuh"
+#include "walk_quad.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;  // 64 x 128 x 4 B = 32 KiB of static stash
+constexpr int kThreads = 256;  // 64 items a block
 
-__global__ void __launch_bounds__(kThreads)
-    dpf_walk_megakernel_kernel(const dpf::WalkMegakernelArgs a, int num_keys) {
-  __shared__ uint32_t stash[128 * kThreads];
-  const int64_t tid = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (tid >= int64_t(num_keys) * a.words) return;
-  dpf::walk_megakernel_word(a, tid / a.words, tid % a.words,
-                            stash + threadIdx.x, kThreads);
+template <bool kDcf>
+__device__ __forceinline__ void walk_item_thread(const dpf::WalkMegakernelArgs& a,
+                                                 int num_keys) {
+  const int lane = threadIdx.x & 31;
+  const dpf::QuadLanes q{lane >> 3, lane & 7, 0, 0};
+  const int64_t items = int64_t(num_keys) * a.words;
+  const int64_t first = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x - lane) / 4;
+  if (first >= items) return;  // the whole warp
+  const int64_t item = first + q.wl;
+  const int64_t clamped = item < items ? item : items - 1;
+  if (kDcf) {
+    dpf::walk_megakernel_dcf_item_quad(a, clamped, q, item < items);
+  } else {
+    dpf::walk_megakernel_item_quad(a, clamped, q, item < items);
+  }
 }
 
-// The DCF form: the same mapping, one thread per (key, lane word).
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
+    dpf_walk_megakernel_kernel(const dpf::WalkMegakernelArgs a, int num_keys) {
+  walk_item_thread<false>(a, num_keys);
+}
+
+// The DCF form: the same mapping, its own body.
+__global__ void __launch_bounds__(kThreads, 2)
     dpf_walk_dcf_kernel(const dpf::WalkMegakernelArgs a, int num_keys) {
-  __shared__ uint32_t stash[128 * kThreads];
-  const int64_t tid = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (tid >= int64_t(num_keys) * a.words) return;
-  dpf::walk_megakernel_dcf_word(a, tid / a.words, tid % a.words,
-                                stash + threadIdx.x, kThreads);
+  walk_item_thread<true>(a, num_keys);
+}
+
+unsigned int grid_for(const dpf::WalkMegakernelArgs& a, int num_keys) {
+  const int64_t threads = 4 * int64_t(num_keys) * a.words;
+  return static_cast<unsigned int>((threads + kThreads - 1) / kThreads);
 }
 
 }  // namespace
@@ -68,18 +93,12 @@ namespace dpf {
 
 void launch_walk_megakernel(const WalkMegakernelArgs& a, int num_keys,
                             cudaStream_t stream) {
-  const int64_t threads = int64_t(num_keys) * a.words;
-  const unsigned int grid =
-      static_cast<unsigned int>((threads + kThreads - 1) / kThreads);
-  dpf_walk_megakernel_kernel<<<grid, kThreads, 0, stream>>>(a, num_keys);
+  dpf_walk_megakernel_kernel<<<grid_for(a, num_keys), kThreads, 0, stream>>>(a, num_keys);
 }
 
 void launch_walk_megakernel_dcf(const WalkMegakernelArgs& a, int num_keys,
                                 cudaStream_t stream) {
-  const int64_t threads = int64_t(num_keys) * a.words;
-  const unsigned int grid =
-      static_cast<unsigned int>((threads + kThreads - 1) / kThreads);
-  dpf_walk_dcf_kernel<<<grid, kThreads, 0, stream>>>(a, num_keys);
+  dpf_walk_dcf_kernel<<<grid_for(a, num_keys), kThreads, 0, stream>>>(a, num_keys);
 }
 
 }  // namespace dpf

@@ -24,8 +24,8 @@ Two modes, per key chunk:
   included.
 - ``"walkkernel"``: one launch of K7's DCF form (ops/aes_cuda.walk_megakernel
   with a ``captures`` tuple): the walk, every capture and the sum in the
-  kernel, under ``evaluator.plan_walkkernel(..., captures=True)``. Widths
-  that are multiples of 32 bits, at least one tree level.
+  kernel, at ``evaluator.lane_words(P)`` words. Widths that are multiples
+  of 32 bits, at least one tree level.
 
 ``prepare_points`` (the call's point tables), ``prepare_keys`` (the key
 tables), ``prepare_chunk`` (one chunk's upload) and ``evaluate_chunk``
@@ -135,13 +135,11 @@ class DcfPoints:
     # "walk": acc_mask int32[T+1, P_pad] (0 / 1) and block_sel int64[T+1,
     # P_pad]; "walkkernel": select int32[(T+1) * epb, Wp], row d * epb + e
     # selecting the points that address element e at depth d and
-    # accumulate there, captures the depths that hold a hierarchy level,
-    # plan the kernel's WalkkernelPlan.
+    # accumulate there, and captures the depths that hold a hierarchy level.
     acc_mask: Optional[torch.Tensor] = None
     block_sel: Optional[torch.Tensor] = None
     select: Optional[torch.Tensor] = None
     captures: Optional[Tuple[bool, ...]] = None
-    plan: Optional[evaluator.WalkkernelPlan] = None
 
 
 def prepare_points(dcf, xs: Sequence[int], mode: str = "walk", device=None) -> DcfPoints:
@@ -166,10 +164,12 @@ def prepare_points(dcf, xs: Sequence[int], mode: str = "walk", device=None) -> D
     device = resolve_device(device)
     num_points = len(xs)
     epb = dcf.value_type.elements_per_block()
-    plan = None
     if mode == "walkkernel":
-        plan = evaluator.plan_walkkernel(num_points, t, bits // 32, captures=True)
-        p_pad = plan.padded_words * 32
+        if t < 1:
+            raise InvalidArgumentError(
+                f"walk megakernel needs at least one tree level, got {t}"
+            )
+        p_pad = evaluator.lane_words(num_points) * 32
     else:
         p_pad = max(32, -(-num_points // 32) * 32)
     acc_mask, block_sel = _capture_tables(dcf, xs, p_pad)
@@ -194,7 +194,6 @@ def prepare_points(dcf, xs: Sequence[int], mode: str = "walk", device=None) -> D
     dp.select = evaluator._upload(
         aes_torch.pack_bit_mask(sel_bool.reshape((t + 1) * epb, p_pad)), device
     )
-    dp.plan = plan
     return dp
 
 
@@ -288,7 +287,7 @@ def _walkkernel_chunk(ch: DcfChunk, dp: DcfPoints) -> torch.Tensor:
     """Mode "walkkernel": one launch of K7's DCF form and the value-row
     transpose (the JAX package's ``_batch_evaluate_walkkernel``)."""
     k, depths, epb, lpe = ch.corr.shape
-    words = dp.plan.padded_words
+    words = dp.path_masks.shape[1]
     out = aes_cuda.walk_megakernel(
         ch.seed_planes, dp.path_masks, ch.cw, ch.ccl, ch.ccr,
         ch.corr.reshape(k, depths * epb, lpe), dp.select,

@@ -38,10 +38,10 @@ forms that share one S-box (csrc/aes_sbox.cuh, a netlist of three-input
 LOP3 functions generated by gen_sbox_lop3.py) and one MixColumns
 (csrc/aes_rows.cuh ``mix_column``, with the round key). The row form
 (csrc/aes_rows.cuh, replacing ``_aes_rows`` / ``_sbox_rows``: one thread
-holds a lane word's 128 planes) runs in K4 and K6-K9; K6 and K7 use it
-with the PRG key selected per lane, and so does K8. The column form
-(csrc/aes_quad.cuh: four threads a lane word, one AES column each) runs in
-K2, K3 and K5.
+holds a lane word's 128 planes) runs in K4, K6 and K8; K6 and K8 use it
+with the PRG key selected per lane. The column form (csrc/aes_quad.cuh:
+four threads a lane word, one AES column each) runs in K2, K3, K5, both
+forms of K7 (with the PRG key selected per lane) and K9.
 
 Device rule: a wrapper given CPU tensors runs the plain version, because the
 tensors lie on the CPU; given CUDA tensors it launches its kernel or raises.
@@ -51,8 +51,8 @@ What bounds the kernels on an H100 is integer operations (one MMO hash is
 about 15.4k logic instructions per lane word, against 512 bytes of plane
 traffic each way), so the kernels keep the AES state in registers and
 touch each plane word once in each direction; see csrc/expand.cu and
-csrc/megakernel.cu. K2, K3 and K5 split each word's AES state over four
-threads so that it fits 128 registers without a spill.
+csrc/megakernel.cu. K2, K3, K5, K7 and K9 split each word's AES state over
+four threads so that it fits 128 registers without a spill.
 
 Build: the first launch builds csrc/binding.cpp (the one source with
 PyTorch's headers), csrc/expand.cu, csrc/megakernel.cu, csrc/walk.cu,

@@ -27,8 +27,9 @@ point of a list. ``mode="walk"`` walks the points down the tree with one K6
 launch per level (ops/aes_cuda.walk_levels), hashes the leaves with K4 and
 corrects the values in plain PyTorch; ``mode="walkkernel"`` runs the walk
 and the leaf capture in one launch of the walk megakernel K7 per chunk
-(ops/aes_cuda.walk_megakernel), sized by a ``WalkkernelPlan``
-(``plan_walkkernel``).
+(ops/aes_cuda.walk_megakernel), at ``lane_words(P)`` lane words (the JAX
+package's ``WalkkernelPlan``, ``plan_walkkernel``, is kept for the tests
+that hold the two plans equal).
 
 Chunks run one after another (no prefetch pipeline yet). Words are int32
 tensors carrying uint32 bit patterns (ops/aes_torch.py); limb carries are
@@ -812,16 +813,14 @@ def _megakernel_fold_chunk(
 # ---------------------------------------------------------------------------
 
 # The budget ``plan_walkkernel`` sizes a point tile from (the JAX package's
-# DPF_TPU_WALKKERNEL_VMEM, 8 MiB of a v5e core's VMEM there). On the card a
-# tile has no role but the padding: K7 runs one thread per (key, padded
-# word) whatever the tile. The budget makes one tile what one SM holds in
-# flight: K7's 64-thread blocks at 255 registers a thread fit four to an SM
-# (65,536 registers), 256 lane words, and the plan charges 4 x (128 x 4 + 32
-# x lpe x 2 + levels) bytes a word, 2,684 at Int(64) and 31 levels: 256 x
-# 2,684 = 687,104 bytes. Up to 256 words (8,192 points) then pad to 8 words;
-# more to whole tiles of 256 words (128 at Int(128)). The DCF form charges the
-# value rows three times (2,908 bytes a word at Int(64) and 23 levels), so
-# its tiles are 128 words (4,096 points).
+# DPF_TPU_WALKKERNEL_VMEM, 8 MiB of a v5e core's VMEM there). The port keeps
+# the plan, field for field the JAX package's (the tests hold them equal),
+# but on the card a tile has no role: K7 runs four threads a (key, lane
+# word) item whatever the tile, so the walk tables are built at
+# ``lane_words(P)`` words, ceil(P / 32) rounded up to 8, where the plan would
+# pad 8,193 points (257 words) to 512 words and nearly double K7's hashes.
+# The budget is the one the row-form K7 was sized by (a tile of 256 words at
+# Int(64) and 31 levels, 2,684 bytes a word).
 WALKKERNEL_BUDGET = 256 * 2684
 
 
@@ -880,7 +879,7 @@ def plan_walkkernel(
 # The JAX package's hierarchical-megakernel budget (DPF_TPU_HIERKERNEL_VMEM's
 # default): 8 MB of a v5e core's VMEM. Only ``plan_hierkernel`` reads it, so
 # that the tests can hold the two packages' plans equal; nothing on the
-# card's path is sized by it (``hier_window_words``).
+# card's path is sized by it (``lane_words``).
 TPU_HIERKERNEL_VMEM = 8 << 20
 
 
@@ -911,7 +910,7 @@ def plan_hierkernel(
 ) -> HierkernelPlan:
     """The JAX package's ``plan_hierkernel``: lane tiles sized from a TPU
     VMEM budget. Kept so that a test can hold the two packages' plans
-    equal; the port's windows are sized by ``hier_window_words``, since K8
+    equal; the port's windows are sized by ``lane_words``, since K8
     runs one thread per (key, lane word) and a tile would only add
     padding."""
     if levels < 1:
@@ -930,10 +929,11 @@ def plan_hierkernel(
     return HierkernelPlan(levels, cap, num_tiles, num_tiles * cap)
 
 
-def hier_window_words(num_lanes: int) -> int:
-    """The lane-word width of the port's prefix windows: ceil(lanes / 32)
-    rounded up to 8 words. Never wider than ``plan_hierkernel``'s, whose
-    extra lanes are padding."""
+def lane_words(num_lanes: int) -> int:
+    """ceil(lanes / 32) rounded up to 8 lane words: the width at which the
+    card runs a point walk (K7) and a prefix window (K8). Never wider than
+    ``plan_walkkernel``'s or ``plan_hierkernel``'s, whose extra lanes are
+    padding."""
     return max(8, -(-max(1, num_lanes) // 256) * 8)
 
 
@@ -987,7 +987,6 @@ class WalkPoints:
     # "walk": int64[P], each point's element in its block; "walkkernel":
     # int32[keep, Wp], row e selecting the points whose element is e.
     select: torch.Tensor
-    plan: Optional[WalkkernelPlan]  # "walkkernel" only
 
 
 def prepare_walk_points(
@@ -1031,10 +1030,12 @@ def prepare_walk_points(
     keep = 1 << low
     paths = uint128.array_to_limbs([pt >> low for pt in points])
     block_sel = np.array([pt & (keep - 1) for pt in points], dtype=np.int64)
-    plan = None
     if mode == "walkkernel":
-        plan = plan_walkkernel(p, num_levels, bits // 32)
-        p_pad = plan.padded_words * 32
+        if num_levels < 1:
+            raise InvalidArgumentError(
+                f"walk megakernel needs at least one tree level, got {num_levels}"
+            )
+        p_pad = lane_words(p) * 32
         # Row e selects the points whose addressed block element is e; the
         # padded points select nothing.
         sel_bool = np.zeros((keep, p_pad), dtype=bool)
@@ -1044,7 +1045,7 @@ def prepare_walk_points(
         p_pad = -(-p // 32) * 32
         select = torch.from_numpy(block_sel).to(device)
     path_masks = _upload(backend_torch.path_bit_masks(paths, num_levels, p_pad), device)
-    return WalkPoints(mode, p, bits, xor_group, keep, path_masks, select, plan)
+    return WalkPoints(mode, p, bits, xor_group, keep, path_masks, select)
 
 
 def evaluate_walk_chunk(ch: WalkChunk, wp: WalkPoints) -> torch.Tensor:
@@ -1076,7 +1077,7 @@ def _walk_chunk(ch: WalkChunk, wp: WalkPoints) -> torch.Tensor:
 def _walkkernel_chunk(ch: WalkChunk, wp: WalkPoints) -> torch.Tensor:
     """Mode "walkkernel": one K7 launch and the value-row transpose (the JAX
     package's ``_walk_megakernel_chunk_jit``)."""
-    k, lpe, words = ch.seed_planes.shape[0], wp.bits // 32, wp.plan.padded_words
+    k, lpe, words = ch.seed_planes.shape[0], wp.bits // 32, wp.path_masks.shape[1]
     out = aes_cuda.walk_megakernel(
         ch.seed_planes, wp.path_masks, ch.cw, ch.ccl, ch.ccr, ch.corr, wp.select,
         bits=wp.bits, party=ch.party, xor_group=wp.xor_group, keep=wp.keep,
@@ -1111,8 +1112,8 @@ def evaluate_at_batch(
       key_chunk: keys per chunk (default: the whole batch in one chunk).
       mode: "walk" (one K6 launch per tree level, then K4 and the
         correction in plain PyTorch) or "walkkernel" (one K7 launch per
-        chunk under ``plan_walkkernel``; value widths that are multiples of
-        32 bits, at least one tree level).
+        chunk at ``lane_words(P)`` words; value widths that are multiples
+        of 32 bits, at least one tree level).
       device: ``None`` = CUDA; ``"cpu"`` runs the plain PyTorch versions.
 
     IntModN and tuple outputs (the JAX package's codec walk) are not ported

@@ -376,7 +376,7 @@ def _compose_hier_windows(raw, group: int, bits: int, entry_width: int, device):
     # rule, kept so that the tables and the context state match its).
     state_cap = max([entry_width] + [wh[2][-1][1] for wh in win_host])
     max_lanes = max(max(wh[3], wh[2][-1][0] + state_cap) for wh in win_host)
-    wp = evaluator.hier_window_words(max_lanes)
+    wp = evaluator.lane_words(max_lanes)
     wl = wp * 32
 
     def up(a):

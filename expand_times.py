@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Times K2 and K3 (and K4 and K5, which share their AES circuit) of one or
-more checkouts of the port on the same card, in turns.
+"""Times the kernels that run K1's column form (K2, K3, K5, both forms of K7
+and K9) and K4, of one or more checkouts of the port on the same card, in
+turns.
 
 Run from the root of the repository, on a machine with a CUDA card, the
 CUDA toolkit and PyTorch:
@@ -25,7 +26,13 @@ limit, each kernel's ptxas report and these times:
 - K2 at the heavy-hitters shape, K = 128, W = 317; K2's one-key view at
   W = 8,192 (benchmarks/micro_tpu.py's width);
 - K3 at K = 128, W = 16,384; K4 at K = 128, W = 32,768; K5 at the fold's
-  plan (log-domain 20, Int(64), K = 128; ms only).
+  plan (log-domain 20, Int(64), K = 128; ms only);
+- K7 at EvaluateAt's shape (K = 1024, W = 128, L = 31, Int(64) keep 2,
+  party 1) and its DCF form at BASELINE config 4's (K = 512, W = 16, L =
+  23, 24 captures);
+- K9 at BM_KeyGeneration's 1024 keys (W = 32) at depths 20 and 128 (L = 19
+  and 127, one capture), at config 4's DCF dealer (W = 16, L = 23, 24
+  captures) and at 16,384 keys, depth 128 (W = 512).
 
 The last line is a table of each kernel's times per checkout and pass.
 Imports nothing of JAX.
@@ -91,7 +98,25 @@ def timings(root: Path) -> dict:
           rnd(KEY_CHUNK, 2, 2))
     kw = dict(plan=plan, bits=64, party=0, xor_group=False, keep=2)
     k5_ms = time_ms(torch, lambda: aes_cuda.megakernel_fold(*mk, **kw), 5)
-    kernels = (aes_cuda.K2, aes_cuda.K3, aes_cuda.K4, aes_cuda.K5)
+    del mk
+    for name, k, w, levels, captures in (("K7", 1024, 128, 31, None),
+                                         ("K7 DCF", 512, 16, 23, (True,) * 24)):
+        rows = 2 if captures is None else 2 * (levels + 1)
+        a = (rnd(k, 128), rnd(levels, w), rnd(k, levels, 128), rnd(k, levels), rnd(k, levels),
+             rnd(k, rows, 2), rnd(rows, w))
+        kw = dict(bits=64, party=1, xor_group=False, keep=2, captures=captures)
+        run(f"{name} K={k} W={w} L={levels}", lambda: aes_cuda.walk_megakernel(*a, **kw),
+            4 * k * 64 * w, 5)
+    for keys, levels, slots in ((1024, 19, 1), (1024, 127, 1), (512, 23, 24), (16384, 127, 1)):
+        w = keys // 32
+        a = (rnd(128, w), rnd(128, w), rnd(levels, w))
+        captures = (False,) * (levels + 1 - slots) + (True,) * slots
+        run(f"K9 keys={keys} L={levels} captures={slots}",
+            lambda: aes_cuda.keygen_megakernel(*a, captures=captures),
+            4 * w * (levels * 130 + slots * 257), 5)
+    del a
+    kernels = (aes_cuda.K2, aes_cuda.K3, aes_cuda.K4, aes_cuda.K5, aes_cuda.K7, aes_cuda.K7_DCF,
+               aes_cuda.K9)
     return {"root": str(root), "card": card_line(),
             "ms": {**{k: round(t[0], 4) for k, t in times.items()},
                    "K5 fold plan": round(k5_ms, 4)},

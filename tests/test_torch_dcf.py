@@ -272,3 +272,31 @@ def test_walk_megakernel_dcf_plain_matches_jax_replay(party):
             *(jnp.asarray(a[0]) for a in ops[:1]), jnp.asarray(ops[1]),
             *(jnp.asarray(a[0]) for a in ops[2:6]), jnp.asarray(ops[6]), **kw)
     assert np.array_equal(aes_torch.from_words(got)[0], np.asarray(want))
+
+
+def test_batch_evaluate_past_one_tile_of_points_matches_the_host_engine():
+    """At 4,097 points, one more than the JAX plan's DCF tile of 128 words
+    holds, both modes equal the JAX package's host engine for 2 Int(64)
+    keys of each party at log-domain 16, and mode "walkkernel" builds its
+    tables at ceil(P / 32) words rounded up to 8 (136), not at the plan's
+    padded 256."""
+    lds, num_points = 16, 4097
+    rng = np.random.default_rng(4097)
+    jax_dcf, port_dcf = make_dcfs(lds, "Int", (64,))
+    alphas = [int(a) for a in rng.integers(1, 1 << lds, size=2)]
+    betas = [int(b) for b in rng.integers(1, 2**63, size=2, dtype=np.uint64)]
+    seeds = rng.integers(0, 2**32, size=(2, 2, 4), dtype=np.uint32)
+    jax_keys = jax_dcf.generate_keys_batch(alphas, betas, seeds=seeds)
+    port_keys = port_dcf.generate_keys_batch(alphas, betas, seeds=seeds)
+    xs = alphas + [a - 1 for a in alphas]
+    xs += [int(x) for x in rng.integers(0, 1 << lds, size=num_points - len(xs))]
+    t = port_dcf.dpf.validator.hierarchy_to_tree[-1]
+    assert port_ev.plan_walkkernel(num_points, t, 2, captures=True).padded_words == 256
+    for mode in MODES:
+        dp = port_batch.prepare_points(port_dcf, xs, mode, device="cpu")
+        assert dp.path_masks.shape == (t, 136 if mode == MODES[1] else 129)
+        for party in (0, 1):
+            want = jax_batch.batch_evaluate_host(jax_dcf, jax_keys[party], xs)
+            got = port_batch.batch_evaluate(port_dcf, port_keys[party], xs, mode=mode,
+                                            device="cpu")
+            assert np.array_equal(as_host(got, 64), want), (mode, party)

@@ -339,7 +339,7 @@ def test_plan_hierkernel_matches_jax(lanes, levels, n_rows, lpe, keep, budget):
     kw = {} if budget is None else dict(vmem_budget=budget)
     got = port_ev.plan_hierkernel(lanes, levels, n_rows, lpe, keep, **kw)
     assert tuple(got) == tuple(jax_ev.plan_hierkernel(lanes, levels, n_rows, lpe, keep, **kw))
-    words = port_ev.hier_window_words(lanes)
+    words = port_ev.lane_words(lanes)
     assert words % 8 == 0 and 32 * words >= lanes and words <= got.padded_words
 
 

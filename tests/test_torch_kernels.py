@@ -363,6 +363,7 @@ _HARNESS = r"""
 #include "expand_rows.cuh"
 #include "megakernel_rows.cuh"
 #include "walk_rows.cuh"
+#include "walk_quad.cuh"
 #include "hier_rows.cuh"
 #include "keygen_rows.cuh"
 // stdin: mode K W, then the operands; stdout: the outputs.
@@ -465,33 +466,33 @@ static int walk_level(int K, int W) {
   return 0;
 }
 // K7 (mode 6): 5 ints (levels, lpe, keep, party, xor_group), the operands;
-// out: the value rows.
+// out: the value rows. Every (key, word) item runs its four column threads
+// in lockstep (dpf::QuadHost).
 static int walk_megakernel(int K, int W) {
   int f[5];
   if (fread(f, 4, 5, stdin) != 5) return 1;
-  uint32_t stash[128];
   dpf::WalkMegakernelArgs a{};
   a.levels = f[0]; a.words = W; a.lpe = f[1]; a.keep = f[2]; a.party = f[3]; a.xor_group = f[4];
   const int L = a.levels;
   auto seed = rd(size_t(K) * 128), path = rd(size_t(L) * W), cw = rd(size_t(K) * L * 128);
   auto ccl = rd(size_t(K) * L), ccr = rd(size_t(K) * L), corr = rd(size_t(K) * 4);
   auto sel = rd(size_t(a.keep) * W);
-  std::vector<uint32_t> out(size_t(K) * a.lpe * 32 * W);
+  // Every output starts as junk, as torch.empty leaves it on the card.
+  std::vector<uint32_t> out(size_t(K) * a.lpe * 32 * W, 0xA5A5A5A5u);
   a.seed_planes = seed.data(); a.path = path.data(); a.cw = cw.data(); a.ccl = ccl.data();
   a.ccr = ccr.data(); a.corr = corr.data(); a.sel = sel.data(); a.out = out.data();
-  for (int k = 0; k < K; ++k)
-    for (int w = 0; w < W; ++w) dpf::walk_megakernel_word(a, k, w, stash, 1);
+  for (int64_t item = 0; item < int64_t(K) * W; ++item)
+    dpf::walk_megakernel_item_quad(a, item, dpf::QuadHost{}, true);
   fwrite(out.data(), 4, out.size(), stdout);
   return 0;
 }
 // K7's DCF form (mode 8): 5 ints (levels, lpe, keep, party, xor_group), the
 // 4 words of the captures bitmask, the operands (corrections and select rows
-// (levels + 1) * keep); out: the value rows.
+// (levels + 1) * keep); out: the value rows. Items as in mode 6.
 static int walk_dcf(int K, int W) {
   int f[5];
   if (fread(f, 4, 5, stdin) != 5) return 1;
   auto caps = rd(4);
-  uint32_t stash[128];
   dpf::WalkMegakernelArgs a{};
   a.levels = f[0]; a.words = W; a.lpe = f[1]; a.keep = f[2]; a.party = f[3]; a.xor_group = f[4];
   for (int i = 0; i < 4; ++i) a.captures[i] = caps[i];
@@ -499,11 +500,11 @@ static int walk_dcf(int K, int W) {
   auto seed = rd(size_t(K) * 128), path = rd(size_t(L) * W), cw = rd(size_t(K) * L * 128);
   auto ccl = rd(size_t(K) * L), ccr = rd(size_t(K) * L), corr = rd(size_t(K) * rows * a.lpe);
   auto sel = rd(size_t(rows) * W);
-  std::vector<uint32_t> out(size_t(K) * a.lpe * 32 * W);
+  std::vector<uint32_t> out(size_t(K) * a.lpe * 32 * W, 0xA5A5A5A5u);
   a.seed_planes = seed.data(); a.path = path.data(); a.cw = cw.data(); a.ccl = ccl.data();
   a.ccr = ccr.data(); a.corr = corr.data(); a.sel = sel.data(); a.out = out.data();
-  for (int k = 0; k < K; ++k)
-    for (int w = 0; w < W; ++w) dpf::walk_megakernel_dcf_word(a, k, w, stash, 1);
+  for (int64_t item = 0; item < int64_t(K) * W; ++item)
+    dpf::walk_megakernel_dcf_item_quad(a, item, dpf::QuadHost{}, true);
   fwrite(out.data(), 4, out.size(), stdout);
   return 0;
 }
@@ -546,8 +547,8 @@ static int hier(int K, int W) {
   return 0;
 }
 // K9 (mode 10): levels, the 5 words of the captures bitmask, planes0,
-// planes1, path [levels, W]; out: cw, cc, vh, ctrl. Each word runs as a
-// block of one thread.
+// planes1, path [levels, W]; out: cw, cc, vh, ctrl. Each word runs its 16
+// threads (4 items x 4 columns) in lockstep (dpf::KeygenHost).
 static int keygen(int W) {
   int levels;
   if (fread(&levels, 4, 1, stdin) != 1) return 1;
@@ -557,26 +558,34 @@ static int keygen(int W) {
   for (int i = 0; i < 5; ++i) a.captures[i] = caps[i];
   for (int d = 0; d <= levels; ++d) a.slots += (caps[d >> 5] >> (d & 31)) & 1;
   auto p0 = rd(size_t(128) * W), p1 = rd(size_t(128) * W), path = rd(size_t(levels) * W);
-  std::vector<uint32_t> cw(size_t(levels) * 128 * W), cc(size_t(levels) * 2 * W),
-      vh(size_t(a.slots) * 256 * W), ctrl(size_t(a.slots) * W);
+  const uint32_t junk = 0xA5A5A5A5u;  // as torch.empty leaves the outputs on the card
+  std::vector<uint32_t> cw(size_t(levels) * 128 * W, junk), cc(size_t(levels) * 2 * W, junk),
+      vh(size_t(a.slots) * 256 * W, junk), ctrl(size_t(a.slots) * W, junk);
   a.planes0 = p0.data(); a.planes1 = p1.data(); a.path = path.data(); a.cw = cw.data();
   a.cc = cc.data(); a.vh = vh.data(); a.ctrl = ctrl.data();
-  uint32_t stash[128];
-  for (int w = 0; w < W; ++w) dpf::keygen_megakernel_word(a, w, stash, 1);
+  for (int w = 0; w < W; ++w) dpf::keygen_word_quad(a, w, dpf::KeygenHost{}, true);
   for (auto* v : {&cw, &cc, &vh, &ctrl}) fwrite(v->data(), 4, v->size(), stdout);
   return 0;
 }
-// K1's masked form (mode 7): planes, mask [W]; out: the hashed planes.
+// K1's masked form (mode 7): planes, mask [W]; out: the hashed planes by
+// K1's row form (mmo_hash_rows_masked), then by the column form
+// (aes_quad.cuh QuadMaskedKey, K7's) on the same words.
 static int masked_hash(int K, int W) {
-  uint32_t stash[128], s[128];
+  uint32_t stash[128], s[128], cols[4][32];
   auto planes = rd(size_t(K) * 128 * W), mask = rd(W);
+  std::vector<uint32_t> rows(planes.size()), quad(planes.size());
   for (int k = 0; k < K; ++k)
     for (int w = 0; w < W; ++w) {
-      for (int p = 0; p < 128; ++p) s[p] = planes[(size_t(k) * 128 + p) * W + w];
+      for (int p = 0; p < 128; ++p) s[p] = cols[p / 32][p % 32] = planes[(size_t(k) * 128 + p) * W + w];
       dpf::mmo_hash_rows_masked(s, mask[w], stash, 1);
-      for (int p = 0; p < 128; ++p) planes[(size_t(k) * 128 + p) * W + w] = s[p];
+      dpf::mmo_hash_quad_with(cols, dpf::QuadHost{}, dpf::QuadMaskedKey{mask[w]});
+      for (int p = 0; p < 128; ++p) {
+        rows[(size_t(k) * 128 + p) * W + w] = s[p];
+        quad[(size_t(k) * 128 + p) * W + w] = cols[p / 32][p % 32];
+      }
     }
-  fwrite(planes.data(), 4, planes.size(), stdout);
+  fwrite(rows.data(), 4, rows.size(), stdout);
+  fwrite(quad.data(), 4, quad.size(), stdout);
   return 0;
 }
 // sbox_byte (mode 12): W lane words of 8 bit-planes, [8][W]; out: the same
@@ -999,10 +1008,11 @@ def dcf_carrying_corrections(ops, bits, party, keep, captures):
 
 
 def test_csrc_walk_bodies_on_the_host_compiler(host_harness):
-    """csrc/walk_rows.cuh — K6's and K7's per-word bodies, K7 in both its
-    forms — and K1's masked hash (aes_rows.cuh ``mmo_hash_rows_masked``),
-    built with g++ and run as one-thread blocks over every (key, word),
-    equal the plain versions: a ragged width, mixed path masks, both
+    """csrc/walk_rows.cuh — K6's per-word body — and csrc/walk_quad.cuh —
+    K7's column bodies in both its forms, run over every (key, word) item
+    with its four column threads in lockstep — and K1's masked hash in both
+    forms (aes_rows.cuh ``mmo_hash_rows_masked``, aes_quad.cuh
+    ``QuadMaskedKey``), built with g++, equal the plain versions: a ragged width, mixed path masks, both
     parties, keep 1, 2 and 4, every limb layout, the XOR group, and
     corrections whose limbs carry. The DCF form also with depths that do not
     capture, none that does, and sums that wrap to 0 before party 1's
@@ -1015,8 +1025,9 @@ def test_csrc_walk_bodies_on_the_host_compiler(host_harness):
     want = aes_torch.hash_planes(
         words(planes), backend_torch._rk_np("left"), backend_torch._rk_np("lr_diff"), words(mask)
     )
-    got = run_harness(exe, [7, K, w], planes, mask).reshape(K, 128, w)
-    assert np.array_equal(got, aes_torch.from_words(want))
+    got = run_harness(exe, [7, K, w], planes, mask).reshape(2, K, 128, w)
+    assert np.array_equal(got[0], aes_torch.from_words(want))  # K1's row form (K6, K8)
+    assert np.array_equal(got[1], aes_torch.from_words(want))  # the column form (K7)
 
     planes, control, cw, ccl, ccr = expand_inputs(w, 9)
     out = run_harness(exe, [5, K, w], planes, control, mask, cw, ccl, ccr)
@@ -1054,6 +1065,101 @@ def test_csrc_walk_bodies_on_the_host_compiler(host_harness):
         assert np.array_equal(got.reshape(K, bits // 32 * 32, w), want), kw
         if not any(captures):
             assert not want.any()
+
+
+@pytest.mark.parametrize("w", [1, 3, 37])
+def test_csrc_quad_masked_hash_matches_k1_and_the_plain_version(host_harness, w):
+    """aes_quad.cuh's column-split MMO hash under the per-lane key select
+    (``QuadMaskedKey``, K7's walk hash), the four column threads of each
+    word in lockstep on the host, equals K1's ``mmo_hash_rows_masked`` and
+    the plain version ``aes_torch.hash_planes`` with the left key and the
+    left-right difference, under masks of all zeros, all ones and random
+    bits."""
+    rng = np.random.default_rng(70 + w)
+    planes = rng.integers(0, 2**32, size=(K, 128, w), dtype=np.uint32)
+    mask = rng.integers(0, 2**32, size=w, dtype=np.uint32)
+    mask[0] = 0
+    mask[-1] = 0xFFFFFFFF if w > 1 else mask[-1]
+    want = aes_torch.from_words(aes_torch.hash_planes(
+        words(planes), backend_torch._rk_np("left"), backend_torch._rk_np("lr_diff"), words(mask)))
+    got = run_harness(host_harness, [7, K, w], planes, mask).reshape(2, K, 128, w)
+    assert np.array_equal(got[0], want)
+    assert np.array_equal(got[1], want)
+
+
+@pytest.mark.parametrize("w, levels, bits, keep, party, xor_group", [
+    (1, 1, 32, 4, 0, False), (3, 5, 64, 2, 1, False), (37, 2, 128, 1, 0, False),
+    (3, 3, 64, 1, 1, True), (37, 4, 32, 2, 1, False), (1, 3, 128, 1, 1, False),
+])
+def test_csrc_walk_column_body_matches_plain_version(host_harness, w, levels, bits, keep, party,
+                                                     xor_group):
+    """csrc/walk_quad.cuh, K7's EvaluateAt body on K1's column form, run
+    over every (key, word) item with its four column threads in lockstep,
+    equals K7's plain version: W = 1, 3 and 37 (K x W not a multiple of a
+    warp's eight items), 1-5 levels, Int(32) keeping 4 and 2 elements,
+    Int(64) keeping 2, Int(128), XorWrapper(64), both parties, and
+    corrections whose limbs carry (and, for party 1, whose negation carries
+    through every limb)."""
+    ops, block_sel = walk_inputs(levels, w, bits, keep, seed=100 + levels * w)
+    if not xor_group:
+        ops[5] = carrying_corrections(ops, bits, party, block_sel)
+    kw = dict(bits=bits, party=party, xor_group=xor_group, keep=keep)
+    got = run_harness(host_harness, [6, K, w, levels, bits // 32, keep, party, int(xor_group)],
+                      *ops)
+    want = backend_torch.walk_megakernel(*map(words, ops), **kw)
+    assert np.array_equal(got.reshape(K, bits // 32 * 32, w), aes_torch.from_words(want))
+
+
+@pytest.mark.parametrize("w, bits, keep, party, xor_group, captures", [
+    (1, 32, 4, 1, False, (True, False, False, True)), (3, 64, 2, 0, False, (True,) * 5),
+    (37, 128, 1, 1, False, (False, False, True)), (3, 64, 1, 1, True, (True, True)),
+    (37, 64, 2, 1, False, (True, False, False, False, False, True)),
+    (1, 32, 2, 0, False, (False, True, False)), (3, 128, 1, 0, True, (False,) * 4),
+])
+def test_csrc_walk_dcf_column_body_matches_plain_version(host_harness, w, bits, keep, party,
+                                                         xor_group, captures):
+    """csrc/walk_quad.cuh, K7's DCF body on K1's column form, equals the
+    plain version: W = 1, 3 and 37, 1-5 levels, captures at the first and
+    the last depth with none between, at every depth, at the last or an
+    inner one only, and at none; Int(32), Int(64), Int(128) and
+    XorWrapper(64); both parties; sums that wrap to 0 before party 1's
+    negation, so that the adds carry and the negation borrows through every
+    limb."""
+    levels = len(captures) - 1
+    ops = dcf_walk_inputs(levels, w, bits, keep, seed=200 + levels * w + bits)
+    if not xor_group and any(captures):
+        ops[5] = dcf_carrying_corrections(ops, bits, party, keep, captures)
+    kw = dict(bits=bits, party=party, xor_group=xor_group, keep=keep, captures=captures)
+    mask = sum(1 << d for d, f in enumerate(captures) if f)
+    words4 = np.array([mask, 0, 0, 0], np.uint32)
+    got = run_harness(host_harness, [8, K, w, levels, bits // 32, keep, party, int(xor_group)],
+                      words4, *ops)
+    want = aes_torch.from_words(backend_torch.walk_megakernel(*map(words, ops), **kw))
+    assert np.array_equal(got.reshape(K, bits // 32 * 32, w), want)
+
+
+@pytest.mark.parametrize("w, captures", [
+    (1, (True, True)), (3, (True, False, False, True)), (37, (False,) * 5 + (True,)),
+    (3, (True,) * 4), (37, (True, False, True)),
+])
+def test_csrc_keygen_column_body_matches_plain_version(host_harness, w, captures):
+    """csrc/keygen_rows.cuh, K9's body on K1's column form, a key word's
+    four (party, branch) items of four column threads run in lockstep on the
+    host, equals K9's plain version (cw, cc, vh, ctrl): W = 1, 3 and 37
+    (an odd number of key words, so the card's last warp straddles), 1-5
+    levels, captures at the first and the last depth with none between, at
+    the last only and at every depth, lanes whose parties share a seed and
+    zero seeds."""
+    levels = len(captures) - 1
+    ops = keygen_inputs(levels, w, seed=300 + w * levels)
+    mask = sum(1 << d for d, flag in enumerate(captures) if flag)
+    mask_words = np.array([(mask >> (32 * j)) & 0xFFFFFFFF for j in range(5)], np.uint32)
+    got = run_harness(host_harness, [10, 1, w, levels], mask_words, *ops)
+    want = [aes_torch.from_words(t) for t in
+            backend_torch.keygen_megakernel(*map(words, ops), captures=captures)]
+    assert got.size == sum(a.size for a in want)
+    for g, a in zip(np.split(got, np.cumsum([a.size for a in want])[:-1]), want):
+        assert np.array_equal(g.reshape(a.shape), a)
 
 
 def test_csrc_hier_body_on_the_host_compiler(host_harness):
@@ -1107,8 +1213,9 @@ def keygen_inputs(levels, w, seed):
 
 
 def test_csrc_keygen_body_on_the_host_compiler(host_harness):
-    """csrc/keygen_rows.cuh, K9's per-word body, built with g++ and run over
-    every word, equals K9's plain version (cw, cc, vh, ctrl): one and
+    """csrc/keygen_rows.cuh, K9's column body, built with g++ and run over
+    every word, its 16 threads (four (party, branch) items of four column
+    threads) in lockstep, equals K9's plain version (cw, cc, vh, ctrl): one and
     several levels, depths that capture and depths that do not (the last
     always does), captures past depth 32 (the second word of the bitmask),
     path rows of all zeros, all ones and random bits, lanes whose parties

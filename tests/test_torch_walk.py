@@ -317,3 +317,27 @@ def test_evaluate_at_edges_and_refusals(int64):
     want = host_eval.evaluate_at_host(jax_flat, jkf, [0, 1])
     got = port_ev.evaluate_at_batch(flat, kf, [0, 1], device="cpu")
     assert np.array_equal(port_ev.values_to_numpy(got, 64), want)
+
+
+def test_evaluate_at_past_one_tile_of_points_matches_the_host_oracle():
+    """At 8,193 points, one more than the JAX plan's tile of 256 words
+    holds, both modes equal the JAX package's host EvaluateAt for 2 keys of
+    each party at log-domain 16, and mode "walkkernel" builds its tables at
+    ceil(P / 32) words rounded up to 8 (264), not at the plan's padded 512."""
+    rng = np.random.default_rng(8193)
+    lds, num_points = 16, 8193
+    alphas = [int(a) for a in rng.integers(0, 1 << lds, size=2)]
+    betas = [int(b) for b in rng.integers(1, 2**63, size=2, dtype=np.uint64)]
+    jax_dpf, jax_keys, port_dpf, port_keys = make_keys([(lds, "Int", (64,))], alphas, [betas],
+                                                       seed=16)
+    points = alphas + [int(p) for p in rng.integers(0, 1 << lds, size=num_points - 2)]
+    tree_levels = port_dpf.validator.hierarchy_to_tree[0]
+    assert port_ev.plan_walkkernel(num_points, tree_levels, 2).padded_words == 512
+    for mode in MODES:
+        wp = port_ev.prepare_walk_points(port_dpf, points, mode=mode, device="cpu")
+        assert wp.path_masks.shape == (tree_levels, 264 if mode == MODES[1] else 257)
+        for party in (0, 1):
+            want = host_eval.evaluate_at_host(jax_dpf, jax_keys[party], points)
+            got = port_ev.evaluate_at_batch(port_dpf, port_keys[party], points, mode=mode,
+                                            device="cpu")
+            assert np.array_equal(port_ev.values_to_numpy(got, 64), want), (mode, party)
