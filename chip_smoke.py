@@ -32,14 +32,15 @@ Phases (any failure raises and exits non-zero before the result line):
    batch per party in mode="fold" over the lane order and in
    mode="megakernel" over the megakernel order; every answer reconstructs
    its record and the two modes agree;
-5. walk kernels: K6 and K7 against their plain versions on the card
+5. walk kernels: K6, K4 and K7 against their plain versions on the card
    (exact), at odd shapes (W = 1, 3, 8, 13, 37 and 1037 words, mixed path
    masks, both parties, Int(32) with keep 4 and 2, Int(64) with keep 1 and
    2, XorWrapper(128), Int(128); K x W items not a multiple of the eight a
-   warp of K7 runs, so that a warp straddles the end) and at the EvaluateAt
-   path's full width (K = 1024 keys, W = 128 words, L = 31 levels), with K4
-   at that shape, each timed beside its plain version and its bound; K7's
-   registers, spills and stack frame in both forms;
+   warp of K4, K6 and K7 runs, so that a warp straddles the end) and at the
+   EvaluateAt path's full width (K = 1024 keys, W = 128 words, L = 31
+   levels), with K4 at that shape, each timed beside its plain version and
+   its bound; K4's and K6's registers, spills and stack frame, and K7's in
+   both forms;
 6. EvaluateAt: 1024 Int(64) key pairs at log-domain 32 over 4096 points
    that hold every alpha, through ``evaluate_at_batch`` in mode="walk" (31
    K6 launches and one K4 per chunk) and mode="walkkernel" (one K7 launch
@@ -826,6 +827,7 @@ def main() -> None:
     for k, w in ((5, 1), (5, 3), (KEY_CHUNK, 1000 + 37)):
         a = walk_level_args(k, w)
         hold("K6", aes_cuda.walk_level(*a), backend_torch.walk_level(*a))
+        hold("K4", aes_cuda.hash_value_planes(a[0]), backend_torch.hash_value_planes(a[0]))
     # K7 runs eight (key, word) items a warp: every K x W here but the
     # last leaves a warp that straddles the end.
     walk_cases = (
@@ -837,9 +839,11 @@ def main() -> None:
         kw = dict(bits=vt.bitsize, party=party, xor_group=isinstance(vt, T.XorWrapper), keep=keep)
         a = walk_mk_args(k, w, levels, vt.bitsize, keep)
         hold("K7", aes_cuda.walk_megakernel(*a, **kw), backend_torch.walk_megakernel(*a, **kw))
-    print(f"K6 == plain at W = 1, 3, 1037; K7 == plain at {len(walk_cases)} shapes "
-          "(Int(32) keep 4 and 2, Int(64) keep 1 and 2, XorWrapper(128), Int(128), both "
-          "parties; K x W = 5, 15, 185, 5185, 91 items, not a multiple of a warp's 8, and 24)")
+    print(f"K6 and K4 == plain at K x W = 5 x 1, 5 x 3, {KEY_CHUNK} x 1037 (5 and 15 "
+          f"items leave a warp of 8 items part-filled); K7 == plain at {len(walk_cases)} "
+          "shapes (Int(32) keep 4 and 2, Int(64) keep 1 and 2, XorWrapper(128), Int(128), "
+          "both parties; K x W = 5, 15, 185, 5185, 91 items, not a multiple of a warp's 8, "
+          "and 24)")
 
     a = walk_level_args(EVAL_KEYS, ew)
     hold("K6", aes_cuda.walk_level(*a), backend_torch.walk_level(*a))
@@ -861,6 +865,8 @@ def main() -> None:
                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
     print(f"K4 at the walk's shape K={EVAL_KEYS}, W={ew}: {ms:.4f} ms (device "
           f"{device_ms:.4f} ms; plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
+    print_ptxas("K4", (aes_cuda.K4,))
+    print_ptxas("K6", (aes_cuda.K6,))
     del a, planes_w
     kw = dict(bits=64, party=1, xor_group=False, keep=2)
     a = walk_mk_args(EVAL_KEYS, ew, elevels, 64, 2)
@@ -1576,26 +1582,26 @@ def main() -> None:
         fail("the JAX package was imported")
 
     # -- result -------------------------------------------------------------
-    k1_bound, k1_by = bound_ms(0, hash_cost(key_planes, KEY_CHUNK, 2 * max_w)[1])
-    column_form = {k.name for k in (aes_cuda.K2, aes_cuda.K3, aes_cuda.K5, aes_cuda.K7,
-                                    aes_cuda.K7_DCF, aes_cuda.K9)}
+    column_form = {k.name for k in (aes_cuda.K2, aes_cuda.K3, aes_cuda.K4, aes_cuda.K5,
+                                    aes_cuda.K6, aes_cuda.K7, aes_cuda.K7_DCF, aes_cuda.K9)}
     kernels = [{
-        "name": "K1 aes_rows, row form (device function inlined in K4, K6 and K8; timed as K4)",
+        "name": "K1 aes_rows, row form (device function inlined in K8; timed as K8 on window 4 "
+                f"of the heavy hitters, K={HH_CHUNK})",
         "route": "cuda",
         "source": "distributed_point_functions_tpu_torch/csrc/aes_rows.cuh",
         "replaces": "distributed_point_functions_tpu/ops/aes_pallas.py:182",
         "launches": sum(n for name, n in main_launches.items() if name not in column_form),
-        "max_abs_err": checks["K4"],
-        "ms": rows["K4"]["ms"],
-        "device_ms": rows["K4"].get("device_ms"),
-        "plain_ms": rows["K4"]["plain_ms"],
-        "bound_ms": k1_bound,
-        "bound_by": k1_by,
+        "max_abs_err": checks["K8"],
+        "ms": rows["K8"]["ms"],
+        "device_ms": rows["K8"].get("device_ms"),
+        "plain_ms": rows["K8"]["plain_ms"],
+        "bound_ms": rows["K8"]["bound_ms"],
+        "bound_by": rows["K8"]["bound_by"],
         "library_ms": None,
     }]
     kernels.append({
-        "name": "K1 column form, four threads a lane word (device function inlined in K2, K3, "
-                "K5, both forms of K7 and K9; timed as K5)",
+        "name": "K1 column form, four threads a lane word (device function inlined in K2-K6, "
+                "both forms of K7 and K9; timed as K5)",
         "route": "cuda",
         "source": "distributed_point_functions_tpu_torch/csrc/aes_quad.cuh",
         "replaces": "distributed_point_functions_tpu/ops/aes_pallas.py:182",
@@ -1609,10 +1615,10 @@ def main() -> None:
         "library_ms": None,
     })
     kernels.append({
-        "name": "K1 per-lane key select (aes_rows.cuh MaskedKey, inlined in K6 and K8; "
-                "aes_quad.cuh QuadMaskedKey, in both forms of K7; timed as K6)",
+        "name": "K1 per-lane key select (aes_quad.cuh QuadMaskedKey, in K6 and both forms of K7; "
+                "aes_rows.cuh MaskedKey, inlined in K8; timed as K6)",
         "route": "cuda",
-        "source": "distributed_point_functions_tpu_torch/csrc/aes_rows.cuh",
+        "source": "distributed_point_functions_tpu_torch/csrc/aes_quad.cuh",
         "replaces": "distributed_point_functions_tpu/ops/aes_pallas.py:182",
         "launches": (walk_launches[aes_cuda.K6.name] + walk_launches[aes_cuda.K7.name]
                      + dcf_launches[aes_cuda.K6.name] + dcf_launches[aes_cuda.K7_DCF.name]

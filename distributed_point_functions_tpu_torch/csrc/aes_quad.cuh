@@ -1,7 +1,8 @@
 // The column form of K1: the bitsliced AES-128 and fixed-key MMO hash of
-// aes_rows.cuh split by AES column over four threads. K2, K3 (expand.cu),
-// K5 (megakernel.cu), both forms of K7 (walk_megakernel.cu) and K9
-// (keygen_megakernel.cu) run it.
+// aes_rows.cuh split by AES column over four threads. K2, K3, K4
+// (expand.cu), K5 (megakernel.cu), K6 (walk.cu), both forms of K7
+// (walk_megakernel.cu) and K9 (keygen_megakernel.cu) run it; K8 alone runs
+// the row form.
 //
 // Layout. A 32-lane word of 128 bit-planes (plane p = byte p / 8, bit p %
 // 8) is shared by four threads; the thread of column c owns planes 32 c ..
@@ -70,6 +71,31 @@ struct QuadLanes {
     return __shfl_sync(0xffffffffu, v, wl);
   }
 };
+
+// The mapping of the kernels that run one item a word (K2, K3, K4, K6,
+// both forms of K7): four threads an item over a 1-D grid of 4 x items
+// threads, in blocks of kQuadThreads at two blocks an SM (128 registers a
+// thread, 16 warps), lane 8 c + j of a warp holding column c of the warp's
+// item j. body(item, q, store) runs on every lane of a warp that holds an
+// item: a lane past the last item runs the last one with `store` false,
+// since the columns' shuffles need the whole warp, and a warp wholly past
+// the end returns.
+constexpr int kQuadThreads = 256;  // 64 items a block
+
+template <class Body>
+__device__ __forceinline__ void for_quad_item(int64_t items, const Body& body) {
+  const int lane = threadIdx.x & 31;
+  const QuadLanes q{lane >> 3, lane & 7, 0, 0};
+  const int64_t first = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x - lane) / 4;
+  if (first >= items) return;  // the whole warp
+  const int64_t item = first + q.wl;
+  body(item < items ? item : items - 1, q, item < items);
+}
+
+// Blocks of kQuadThreads for `items` items.
+inline unsigned int quad_blocks(int64_t items) {
+  return static_cast<unsigned int>((4 * items + kQuadThreads - 1) / kQuadThreads);
+}
 #endif
 
 // The four columns of one lane word in one host thread, in lockstep.
@@ -88,6 +114,32 @@ struct QuadHost {
   uint32_t from_column0(uint32_t v) const { return v; }  // v is column 0's
 };
 
+// The caller's columns of one lane word of a [128, stride] block of planes
+// (plane p at word p * stride): column c's planes 32 c .. 32 c + 31. Each
+// of a thread's 32 loads or stores is four 32-byte sectors across a warp
+// whose eight items are neighbouring words.
+template <class Q>
+__device__ __forceinline__ void load_word_quad(uint32_t (*s)[32], const Q& q,
+                                               const uint32_t* word, int64_t stride) {
+#pragma unroll
+  for (int j = 0; j < Q::kCols; ++j) {
+    const uint32_t* in = word + 32 * q.column(j) * stride;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[j][i] = in[i * stride];
+  }
+}
+
+template <class Q>
+__device__ __forceinline__ void store_word_quad(uint32_t* word, int64_t stride, const Q& q,
+                                                const uint32_t (*s)[32]) {
+#pragma unroll
+  for (int j = 0; j < Q::kCols; ++j) {
+    uint32_t* out = word + 32 * q.column(j) * stride;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) out[i * stride] = s[j][i];
+  }
+}
+
 // The two ways of choosing a hash's round keys, as in K1 (aes_rows.cuh
 // TableKey, MaskedKey): words(k, q, j, round) gives the 32 round-key words
 // of the caller's column j.
@@ -95,9 +147,9 @@ struct QuadHost {
 //    levels of K2, K3, K5 and K9, and every value hash).
 //  - QuadMaskedKey: the left PRG key on the lanes whose `mask` bit is
 //    clear and the right one where it is set, the JAX package's `rk_base ^
-//    (rk_diff & key_mask)`: each word one LOP3 on two loads (K7's point
-//    walk, where each of the 32 lanes takes its own path; K6 and K8 can take
-//    it too).
+//    (rk_diff & key_mask)`: each word one LOP3 on two loads (the point
+//    walks of K6 and K7, where each of the 32 lanes takes its own path; K8
+//    could take it too).
 struct QuadTableKey {
   int table;
   template <class Q>

@@ -4,7 +4,7 @@
 // (distributed_point_functions_tpu/ops/aes_pallas.py), a device function
 // inlined into every Pallas kernel of the full-domain path. Here it is a
 // __device__ function inlined into every kernel; this file holds its row
-// form (K4, K6, K8) and the circuit that both forms share.
+// form (K8 alone) and the circuit that both forms share.
 //
 // Layout. One thread owns one 32-bit lane word of 128 bit-planes: s[p] holds
 // bit p of 32 independent blocks (plane p = byte p / 8, bit p % 8, LSB
@@ -21,9 +21,8 @@
 // between SubBytes and MixColumns). The MMO hash needs sigma(x) again after
 // the last round; a thread that holds all 128 state words parks it in shared
 // memory (`stash`, one column per thread) instead of 128 more registers,
-// which would not fit under the 255-register cap (K4, K6, K8; K2, K3, K5,
-// K7 and K9 run the column form of aes_quad.cuh, which keeps it in
-// registers).
+// which would not fit under the 255-register cap (K8; K2-K7 and K9 run the
+// column form of aes_quad.cuh, which keeps it in registers).
 //
 // The circuit is written once for both forms, as three-input functions
 // (lop3.cuh), each one LOP3 on the card: SubBytes is the 72-LOP3 S-box of
@@ -39,14 +38,14 @@
 // per lane with a `key_mask`. A doubling level (K2's, K3's and K9's, in
 // the column form) hashes each child under one key, so there the table
 // index is passed instead (a warp that straddles the two children reads two
-// addresses, which only serialises that read). A point walk (K6, K8; K7 in
-// the column form) needs the select per lane: each of the
+// addresses, which only serialises that read). A point walk (K8; K6 and K7
+// in the column form) needs the select per lane: each of the
 // 32 points of a word takes its own path, so `mmo_hash_rows_masked` takes the
 // level's path word as the mask and adds, per plane, the left key where the
 // mask bit is clear and the right key where it is set. That costs one more
 // constant load and one more logic operation per plane than the table form,
-// which K4 keeps unchanged. (K2, K3, K5, K7 and K9 run the column-split
-// form, aes_quad.cuh, with its own two key types.)
+// which K8's value hash keeps. (K2-K7 and K9 run the column-split form,
+// aes_quad.cuh, with its own two key types.)
 
 #pragma once
 
@@ -185,14 +184,14 @@ __device__ __forceinline__ void mmo_hash_rows_with(uint32_t* s, const Key& key,
   for (int p = 0; p < 128; ++p) s[p] ^= stash[p * stride];
 }
 
-// The MMO hash under key schedule `table` (K4, K8).
+// The MMO hash under key schedule `table` (K8's value hash).
 __device__ __forceinline__ void mmo_hash_rows(uint32_t* s, int table,
                                               uint32_t* stash, int stride) {
   mmo_hash_rows_with(s, TableKey{table}, stash, stride);
 }
 
 // The MMO hash under the left PRG key where `mask`'s bit is clear and the
-// right one where it is set (K6, K8): the JAX package's
+// right one where it is set (K8's walk): the JAX package's
 // `_aes_rows(sig, rk_left, rk_lr_diff, key_mask)`.
 __device__ __forceinline__ void mmo_hash_rows_masked(uint32_t* s,
                                                      uint32_t mask,

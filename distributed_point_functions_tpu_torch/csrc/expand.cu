@@ -11,29 +11,28 @@
 //   K4 hash_value_planes_pallas_batched (_value_hash_kernel_rows): the
 //      fixed-key value hash.
 //
-// Mapping. K2 and K3 run K1's column form (aes_quad.cuh), four threads an
-// item: the (key, child, lane word) items are flattened with the word
-// fastest, and lane 8 c + j of a warp holds AES column c (planes 32 c ..
-// 32 c + 31) of the warp's item j, so each of a thread's 32 plane loads and
-// stores is four 32-byte sectors across its warp (eight neighbouring words
-// of four planes). A warp whose items pass the end computes the last item
-// again and stores nothing, since the columns' shuffles need the whole warp.
-// K4 keeps one thread per (key, lane word) holding all 128 planes (K1's
-// row form, sigma parked in a shared-memory stash). The threads mask the
-// ragged tail themselves (no lane padding, unlike the Pallas block plan),
-// and every width runs here, narrow ones included. The bodies are in
-// expand_rows.cuh.
+// Mapping. K1's column form (aes_quad.cuh), four threads an item: the
+// items, (key, child, lane word) for K2 and K3 and (key, lane word) for K4,
+// are flattened with the word fastest, and lane 8 c + j of a warp holds AES
+// column c (planes 32 c .. 32 c + 31) of the warp's item j, so each of a
+// thread's 32 plane loads and stores is four 32-byte sectors across its
+// warp (eight neighbouring words of four planes). A warp whose items pass
+// the end computes the last item again and stores nothing, since the
+// columns' shuffles need the whole warp (aes_quad.cuh for_quad_item). There
+// is no lane padding, unlike the Pallas block plan, and every width runs
+// here, narrow ones included. The bodies are in expand_rows.cuh.
 //
 // Bound. Integer operations: an MMO hash is ~15.4k logic instructions a lane
 // word (the LOP3 circuit of aes_rows.cuh) against 1 KiB of plane traffic.
 // The design moves each plane word once in each direction and keeps the AES
 // state in registers. A column thread holds 32 state and 32 sigma words, so
-// K2 and K3 fit 128 registers with no spill and no stash at two 256-thread
-// blocks an SM (16 warps), and the narrow levels (W = 1 to 64 at K = 128:
-// 256 to 16,384 items) run four threads an item. K3 chains
-// the value hash on the same registers before its one store. The price is
-// ShiftRows' and sigma's shuffles, 24 a round and 32 a hash. The registers
-// and spills ptxas reports are recorded in PERF.md.
+// K2, K3 and K4 fit 128 registers with no spill and no shared-memory stash
+// at two 256-thread blocks an SM (16 warps), and the narrow shapes (W = 1 to
+// 64 at K = 128: 256 to 16,384 items; K4 at the DCF's 8,192) run four
+// threads an item. K3 chains the value hash on the same registers before
+// its one store. The price is ShiftRows' and sigma's shuffles, 24 a round
+// and 32 a hash. The registers and spills ptxas reports are recorded in
+// PERF.md.
 
 #include <cstdint>
 
@@ -44,26 +43,21 @@
 
 namespace {
 
-constexpr int kThreads = 64;        // K4: 64 x 128 x 4 B = 32 KiB of static stash
-constexpr int kQuadThreads = 256;   // K2, K3: 64 items a block
-
 template <bool kHashChild>
 __device__ __forceinline__ void expand_quad_thread(
     const uint32_t* __restrict__ planes, const uint32_t* __restrict__ control,
     const uint32_t* __restrict__ cw, const uint32_t* __restrict__ ccl,
     const uint32_t* __restrict__ ccr, uint32_t* __restrict__ out_planes,
     uint32_t* __restrict__ out_control, int num_keys, int words) {
-  const int lane = threadIdx.x & 31;
-  const dpf::QuadLanes q{lane >> 3, lane & 7, 0, 0};
-  const int64_t items = int64_t(num_keys) * 2 * words;
-  const int64_t first = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x - lane) / 4;
-  if (first >= items) return;  // the whole warp
-  const int64_t item = first + q.wl;
-  dpf::expand_item_quad<kHashChild>(planes, control, cw, ccl, ccr, out_planes, out_control,
-                                    item < items ? item : items - 1, words, q, item < items);
+  dpf::for_quad_item(int64_t(num_keys) * 2 * words,
+                     [&](int64_t item, const dpf::QuadLanes& q, bool store) {
+                       dpf::expand_item_quad<kHashChild>(planes, control, cw, ccl, ccr,
+                                                         out_planes, out_control, item, words,
+                                                         q, store);
+                     });
 }
 
-__global__ void __launch_bounds__(kQuadThreads, 2) dpf_expand_level_kernel(
+__global__ void __launch_bounds__(dpf::kQuadThreads, 2) dpf_expand_level_kernel(
     const uint32_t* __restrict__ planes, const uint32_t* __restrict__ control,
     const uint32_t* __restrict__ cw, const uint32_t* __restrict__ ccl,
     const uint32_t* __restrict__ ccr, uint32_t* __restrict__ out_planes,
@@ -72,7 +66,7 @@ __global__ void __launch_bounds__(kQuadThreads, 2) dpf_expand_level_kernel(
                             num_keys, words);
 }
 
-__global__ void __launch_bounds__(kQuadThreads, 2) dpf_expand_hash_kernel(
+__global__ void __launch_bounds__(dpf::kQuadThreads, 2) dpf_expand_hash_kernel(
     const uint32_t* __restrict__ planes, const uint32_t* __restrict__ control,
     const uint32_t* __restrict__ cw, const uint32_t* __restrict__ ccl,
     const uint32_t* __restrict__ ccr, uint32_t* __restrict__ out_planes,
@@ -81,18 +75,12 @@ __global__ void __launch_bounds__(kQuadThreads, 2) dpf_expand_hash_kernel(
                            num_keys, words);
 }
 
-__global__ void __launch_bounds__(kThreads) dpf_value_hash_kernel(
-    const uint32_t* __restrict__ planes, uint32_t* __restrict__ out,
-    int num_keys, int words) {
-  __shared__ uint32_t stash[128 * kThreads];
-  const int64_t tid = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (tid >= int64_t(num_keys) * words) return;
-  dpf::value_hash_word(planes, out, tid / words, tid % words, words,
-                       stash + threadIdx.x, kThreads);
-}
-
-unsigned int blocks_for(int64_t threads, int block) {
-  return static_cast<unsigned int>((threads + block - 1) / block);
+__global__ void __launch_bounds__(dpf::kQuadThreads, 2) dpf_value_hash_kernel(
+    const uint32_t* __restrict__ planes, uint32_t* __restrict__ out, int num_keys, int words) {
+  dpf::for_quad_item(int64_t(num_keys) * words,
+                     [&](int64_t item, const dpf::QuadLanes& q, bool store) {
+                       dpf::value_hash_item_quad(planes, out, item, words, q, store);
+                     });
 }
 
 }  // namespace
@@ -104,7 +92,7 @@ void launch_expand_level(const uint32_t* planes, const uint32_t* control,
                          const uint32_t* ccr, uint32_t* out_planes,
                          uint32_t* out_control, int num_keys, int words,
                          bool hash_child, cudaStream_t stream) {
-  const unsigned int grid = blocks_for(4 * int64_t(num_keys) * 2 * words, kQuadThreads);
+  const unsigned int grid = quad_blocks(int64_t(num_keys) * 2 * words);
   if (hash_child) {
     dpf_expand_hash_kernel<<<grid, kQuadThreads, 0, stream>>>(
         planes, control, cw, ccl, ccr, out_planes, out_control, num_keys,
@@ -118,8 +106,8 @@ void launch_expand_level(const uint32_t* planes, const uint32_t* control,
 
 void launch_value_hash(const uint32_t* planes, uint32_t* out, int num_keys,
                        int words, cudaStream_t stream) {
-  dpf_value_hash_kernel<<<blocks_for(int64_t(num_keys) * words, kThreads), kThreads, 0,
-                          stream>>>(planes, out, num_keys, words);
+  dpf_value_hash_kernel<<<quad_blocks(int64_t(num_keys) * words), kQuadThreads, 0, stream>>>(
+      planes, out, num_keys, words);
 }
 
 }  // namespace dpf

@@ -7,40 +7,47 @@
 // EvaluateAt's tree walk for K keys at W lane words of points, one launch
 // per level (the Pallas call sits inside the level loop there too).
 //
-// Mapping. One thread per (key, lane word), the word fastest, no lane
-// padding: the Pallas kernel's (key tile, block) grid and its zero-padded
-// widths become a 1-D grid whose ragged tail the thread masks itself. The
-// level's path word is read once per thread; the key's correction planes
-// and control corrections are per-key values that every thread of a warp
-// reads at one address (a broadcast). The per-word body is in walk_rows.cuh.
+// Mapping. K1's column form (aes_quad.cuh), as K2 and K7: an item is one
+// (key, lane word) pair, the word fastest, and lane 8 c + j of a warp holds
+// AES column c (planes 32 c .. 32 c + 31) of the warp's item j, so a
+// 256-thread block runs 64 items (aes_quad.cuh for_quad_item). The Pallas
+// kernel's (key tile, block) grid and its zero-padded widths become a 1-D
+// grid with no lane padding; a warp whose items pass the end runs the last
+// item again and stores nothing. Each column thread reads the item's path
+// word and control word; the key's correction planes and control
+// corrections are per-key values that the items of a key read at one
+// address. The per-item body is walk_quad.cuh walk_level_item_quad, the
+// level of K7's walk with the item's planes loaded and stored.
 //
-// Bound. Integer operations: one masked MMO hash (~25k logic operations)
-// per lane word against 1 KiB of plane traffic, as K2. The design keeps the
-// AES state in registers and moves each plane word once in each direction.
+// Bound. Integer operations: one MMO hash with the per-lane key select
+// (~15.4k logic instructions, one more key load and LOP3 a word) per lane
+// word against 1 KiB of plane traffic, as K2. A column thread holds 32 state
+// and 32 sigma words, so K6 asks for 128 registers at two 256-thread blocks
+// an SM (16 warps) with no shared-memory stash, and at the DCF's shape
+// (8,192 items) runs four threads an item, 4x the warps of a thread a word.
+// It moves each plane word once in each direction.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "expand.h"
-#include "walk_rows.cuh"
+#include "walk_quad.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;  // 64 x 128 x 4 B = 32 KiB of static stash
-
-__global__ void __launch_bounds__(kThreads) dpf_walk_level_kernel(
+__global__ void __launch_bounds__(dpf::kQuadThreads, 2) dpf_walk_level_kernel(
     const uint32_t* __restrict__ planes, const uint32_t* __restrict__ control,
     const uint32_t* __restrict__ path, const uint32_t* __restrict__ cw,
     const uint32_t* __restrict__ ccl, const uint32_t* __restrict__ ccr,
     uint32_t* __restrict__ out_planes, uint32_t* __restrict__ out_control,
     int num_keys, int words) {
-  __shared__ uint32_t stash[128 * kThreads];
-  const int64_t tid = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (tid >= int64_t(num_keys) * words) return;
-  dpf::walk_level_word(planes, control, path, cw, ccl, ccr, out_planes,
-                       out_control, tid / words, tid % words, words,
-                       stash + threadIdx.x, kThreads);
+  dpf::for_quad_item(int64_t(num_keys) * words,
+                     [&](int64_t item, const dpf::QuadLanes& q, bool store) {
+                       dpf::walk_level_item_quad(planes, control, path, cw, ccl, ccr,
+                                                 out_planes, out_control, item, words, q,
+                                                 store);
+                     });
 }
 
 }  // namespace
@@ -52,12 +59,8 @@ void launch_walk_level(const uint32_t* planes, const uint32_t* control,
                        const uint32_t* ccl, const uint32_t* ccr,
                        uint32_t* out_planes, uint32_t* out_control,
                        int num_keys, int words, cudaStream_t stream) {
-  const int64_t threads = int64_t(num_keys) * words;
-  const unsigned int grid =
-      static_cast<unsigned int>((threads + kThreads - 1) / kThreads);
-  dpf_walk_level_kernel<<<grid, kThreads, 0, stream>>>(
-      planes, control, path, cw, ccl, ccr, out_planes, out_control, num_keys,
-      words);
+  dpf_walk_level_kernel<<<quad_blocks(int64_t(num_keys) * words), kQuadThreads, 0, stream>>>(
+      planes, control, path, cw, ccl, ccr, out_planes, out_control, num_keys, words);
 }
 
 }  // namespace dpf

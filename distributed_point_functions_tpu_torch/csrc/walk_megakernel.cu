@@ -20,10 +20,10 @@
 // tile_words per step; on Hopper a tile has no role, and the wrappers'
 // callers build the point tables at ceil(P / 32) words rounded up to 8. A
 // warp whose items pass the end runs the last item again and stores
-// nothing, since the columns' shuffles need the whole warp. Per-key tables
-// (correction planes, control corrections, value corrections) are read at
-// one address by the items of a key; the path and select words once per
-// item. The bodies are in walk_quad.cuh.
+// nothing, since the columns' shuffles need the whole warp (aes_quad.cuh
+// for_quad_item). Per-key tables (correction planes, control corrections,
+// value corrections) are read at one address by the items of a key; the
+// path and select words once per item. The bodies are in walk_quad.cuh.
 //
 // Bound. Integer operations: L masked MMO hashes and one value hash per
 // lane word (the DCF form one value hash per flagged depth) against the
@@ -52,39 +52,28 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // 64 items a block
-
 template <bool kDcf>
 __device__ __forceinline__ void walk_item_thread(const dpf::WalkMegakernelArgs& a,
                                                  int num_keys) {
-  const int lane = threadIdx.x & 31;
-  const dpf::QuadLanes q{lane >> 3, lane & 7, 0, 0};
-  const int64_t items = int64_t(num_keys) * a.words;
-  const int64_t first = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x - lane) / 4;
-  if (first >= items) return;  // the whole warp
-  const int64_t item = first + q.wl;
-  const int64_t clamped = item < items ? item : items - 1;
-  if (kDcf) {
-    dpf::walk_megakernel_dcf_item_quad(a, clamped, q, item < items);
-  } else {
-    dpf::walk_megakernel_item_quad(a, clamped, q, item < items);
-  }
+  dpf::for_quad_item(int64_t(num_keys) * a.words,
+                     [&](int64_t item, const dpf::QuadLanes& q, bool store) {
+                       if (kDcf) {
+                         dpf::walk_megakernel_dcf_item_quad(a, item, q, store);
+                       } else {
+                         dpf::walk_megakernel_item_quad(a, item, q, store);
+                       }
+                     });
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(dpf::kQuadThreads, 2)
     dpf_walk_megakernel_kernel(const dpf::WalkMegakernelArgs a, int num_keys) {
   walk_item_thread<false>(a, num_keys);
 }
 
 // The DCF form: the same mapping, its own body.
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(dpf::kQuadThreads, 2)
     dpf_walk_dcf_kernel(const dpf::WalkMegakernelArgs a, int num_keys) {
   walk_item_thread<true>(a, num_keys);
-}
-
-unsigned int grid_for(const dpf::WalkMegakernelArgs& a, int num_keys) {
-  const int64_t threads = 4 * int64_t(num_keys) * a.words;
-  return static_cast<unsigned int>((threads + kThreads - 1) / kThreads);
 }
 
 }  // namespace
@@ -93,12 +82,14 @@ namespace dpf {
 
 void launch_walk_megakernel(const WalkMegakernelArgs& a, int num_keys,
                             cudaStream_t stream) {
-  dpf_walk_megakernel_kernel<<<grid_for(a, num_keys), kThreads, 0, stream>>>(a, num_keys);
+  dpf_walk_megakernel_kernel<<<quad_blocks(int64_t(num_keys) * a.words), kQuadThreads, 0,
+                               stream>>>(a, num_keys);
 }
 
 void launch_walk_megakernel_dcf(const WalkMegakernelArgs& a, int num_keys,
                                 cudaStream_t stream) {
-  dpf_walk_dcf_kernel<<<grid_for(a, num_keys), kThreads, 0, stream>>>(a, num_keys);
+  dpf_walk_dcf_kernel<<<quad_blocks(int64_t(num_keys) * a.words), kQuadThreads, 0, stream>>>(
+      a, num_keys);
 }
 
 }  // namespace dpf

@@ -1,5 +1,6 @@
-// The bodies of K7, the walk megakernel, in its EvaluateAt form and its DCF
-// form (csrc/walk_megakernel.cu), on K1's column form (aes_quad.cuh).
+// The bodies of K6, one level of the point walk (csrc/walk.cu), and of K7,
+// the walk megakernel, in its EvaluateAt form and its DCF form
+// (csrc/walk_megakernel.cu), on K1's column form (aes_quad.cuh).
 //
 // A point walk carries, per key, 32 points in each lane word: plane p of
 // word w holds bit p of the seeds of points 32 w .. 32 w + 31, and each
@@ -18,9 +19,12 @@
 // runs them (a lane past the last item runs the last item again with
 // `store` false); on the host (QuadHost) the four columns of an item in one
 // thread, so that g++ builds them too (tests/test_torch_kernels.py holds
-// them against backend_torch.walk_megakernel).
+// them against backend_torch.walk_level and backend_torch.walk_megakernel).
 //
-// Layouts: WalkMegakernelArgs (megakernel_args.h).
+// Layouts (uint32 words, row-major), as in the JAX package:
+//   K6: planes [K, 128, W]   control [K, W]   path [W]   cw [K, 128]
+//       ccl, ccr [K]   -> out_planes [K, 128, W]   out_control [K, W]
+//   K7: WalkMegakernelArgs (megakernel_args.h).
 
 #pragma once
 
@@ -37,7 +41,8 @@ namespace dpf {
 // set, the seed correction cw & c (cw: the level's 128 plane masks), and
 // the new control word h[0] ^ (c & cc), cc the per-lane select of ccl and
 // ccr, returned to every column, with plane 0 cleared. The column form of
-// walk_rows.cuh walk_rows (the JAX package's evaluate_seeds_planes step).
+// walk_rows.cuh walk_rows (K8's; the JAX package's evaluate_seeds_planes
+// step).
 template <class Q>
 __device__ __forceinline__ uint32_t walk_quad(uint32_t (*s)[32], const Q& q, uint32_t c,
                                               uint32_t path, const uint32_t* cw, uint32_t ccl,
@@ -56,6 +61,28 @@ __device__ __forceinline__ uint32_t walk_quad(uint32_t (*s)[32], const Q& q, uin
   }
   const uint32_t cc = (ccl & ~path) | (ccr & path);
   return q.from_column0(h0) ^ (c & cc);
+}
+
+// K6 for item = k * W + w: one walk level of the word's 32 points
+// (walk_quad under this level's path word, the key's correction planes and
+// control corrections), the caller holding Q::kCols columns of the word;
+// the column-0 thread stores the new control word. A thread past the last
+// item passes the last one and `store` false.
+template <class Q>
+__device__ __forceinline__ void walk_level_item_quad(
+    const uint32_t* __restrict__ planes, const uint32_t* __restrict__ control,
+    const uint32_t* __restrict__ path, const uint32_t* __restrict__ cw,
+    const uint32_t* __restrict__ ccl, const uint32_t* __restrict__ ccr,
+    uint32_t* __restrict__ out_planes, uint32_t* __restrict__ out_control, int64_t item,
+    int64_t words, const Q& q, bool store) {
+  const int64_t k = item / words, w = item % words;
+  uint32_t s[Q::kCols][32];
+  load_word_quad(s, q, planes + k * 128 * words + w, words);
+  const uint32_t new_control =
+      walk_quad(s, q, control[item], path[w], cw + k * 128, ccl[k], ccr[k]);
+  if (!store) return;
+  store_word_quad(out_planes + k * 128 * words + w, words, q, s);
+  if (q.column(0) == 0) out_control[item] = new_control;
 }
 
 // The root seed of key k (its 128 plane masks) broadcast to an item's 32

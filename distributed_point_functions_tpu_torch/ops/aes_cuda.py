@@ -38,10 +38,10 @@ forms that share one S-box (csrc/aes_sbox.cuh, a netlist of three-input
 LOP3 functions generated by gen_sbox_lop3.py) and one MixColumns
 (csrc/aes_rows.cuh ``mix_column``, with the round key). The row form
 (csrc/aes_rows.cuh, replacing ``_aes_rows`` / ``_sbox_rows``: one thread
-holds a lane word's 128 planes) runs in K4, K6 and K8; K6 and K8 use it
-with the PRG key selected per lane. The column form (csrc/aes_quad.cuh:
-four threads a lane word, one AES column each) runs in K2, K3, K5, both
-forms of K7 (with the PRG key selected per lane) and K9.
+holds a lane word's 128 planes) runs in K8 alone, with the PRG key
+selected per lane. The column form (csrc/aes_quad.cuh: four threads a lane
+word, one AES column each) runs in K2-K7 (K6 and both forms of K7 with the
+PRG key selected per lane) and K9.
 
 Device rule: a wrapper given CPU tensors runs the plain version, because the
 tensors lie on the CPU; given CUDA tensors it launches its kernel or raises.
@@ -51,7 +51,7 @@ What bounds the kernels on an H100 is integer operations (one MMO hash is
 about 15.4k logic instructions per lane word, against 512 bytes of plane
 traffic each way), so the kernels keep the AES state in registers and
 touch each plane word once in each direction; see csrc/expand.cu and
-csrc/megakernel.cu. K2, K3, K5, K7 and K9 split each word's AES state over
+csrc/megakernel.cu. Every kernel but K8 splits each word's AES state over
 four threads so that it fits 128 registers without a spill.
 
 Build: the first launch builds csrc/binding.cpp (the one source with
@@ -364,7 +364,11 @@ def expand_and_hash_last_level(planes, control, cw_plane, ccl_mask, ccr_mask):
 
 def hash_value_planes(planes):
     """K4: value-PRG hash of int32[K, 128, W] planes -> same shape.
-    Replaces aes_pallas.py:hash_value_planes_pallas_batched."""
+    Replaces aes_pallas.py:hash_value_planes_pallas_batched.
+
+    Bound on the H100: integer operations, one MMO hash per lane word
+    against 1 KiB of plane traffic; four column threads a (key, word) item
+    (csrc/expand.cu)."""
     if planes.dim() != 3 or planes.shape[1] != 128:
         raise InvalidArgumentError(f"planes must be [K, 128, W], got {tuple(planes.shape)}")
     _check(planes, planes.shape, "planes")
@@ -523,8 +527,9 @@ def walk_level(planes, control, path_mask, cw_plane, ccl_mask, ccr_mask):
     pallas_call); the plain version is ``backend_torch.walk_level``.
 
     Bound on the H100: integer operations, one MMO hash with the per-lane
-    key select per lane word against 1 KiB of plane traffic
-    (csrc/walk.cu)."""
+    key select per lane word against 1 KiB of plane traffic; four column
+    threads a (key, word) item, K7's column walk level with the item's
+    planes loaded and stored (csrc/walk.cu)."""
     args = (planes, control, path_mask, cw_plane, ccl_mask, ccr_mask)
     _check_walk_args(*args)
     if _on_cpu(*args):

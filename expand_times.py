@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
-"""Times the kernels that run K1's column form (K2, K3, K5, both forms of K7
-and K9) and K4, of one or more checkouts of the port on the same card, in
-turns.
+"""Times the kernels that run K1's column form (K2-K6, both forms of K7 and
+K9) of one or more checkouts of the port on the same card, in turns.
 
 Run from the root of the repository, on a machine with a CUDA card, the
 CUDA toolkit and PyTorch:
@@ -25,8 +24,12 @@ limit, each kernel's ptxas report and these times:
   (chip_smoke.py's per-width line; W = 16,384 is its widest shape);
 - K2 at the heavy-hitters shape, K = 128, W = 317; K2's one-key view at
   W = 8,192 (benchmarks/micro_tpu.py's width);
-- K3 at K = 128, W = 16,384; K4 at K = 128, W = 32,768; K5 at the fold's
-  plan (log-domain 20, Int(64), K = 128; ms only);
+- K3 at K = 128, W = 16,384; K4 at K = 128, W = 32,768 (the fold's and
+  PIR's last width), at the hierarchy's shape (K = 128, W = 634), at
+  EvaluateAt's (K = 1024, W = 128) and at BASELINE config 4's DCF (K = 512,
+  W = 16); K5 at the fold's plan (log-domain 20, Int(64), K = 128; ms
+  only);
+- K6, one walk level, at EvaluateAt's shape and at the DCF's;
 - K7 at EvaluateAt's shape (K = 1024, W = 128, L = 31, Int(64) keep 2,
   party 1) and its DCF form at BASELINE config 4's (K = 512, W = 16, L =
   23, 24 captures);
@@ -89,7 +92,14 @@ def timings(root: Path) -> dict:
     planes = rnd(KEY_CHUNK, 128, 2 * WIDTHS[-1])
     run(f"K4 W={2 * WIDTHS[-1]}", lambda: aes_cuda.hash_value_planes(planes),
         planes_bytes(KEY_CHUNK, 2 * WIDTHS[-1]), 5)
-    del planes
+    planes = rnd(KEY_CHUNK, 128, 2 * HH_W)
+    run(f"K4 hh W={2 * HH_W}", lambda: aes_cuda.hash_value_planes(planes),
+        planes_bytes(KEY_CHUNK, 2 * HH_W))
+    for k, w in ((1024, 128), (512, 16)):
+        a = (rnd(k, 128, w), rnd(k, w), rnd(w), rnd(k, 128), rnd(k), rnd(k))
+        run(f"K4 K={k} W={w}", lambda: aes_cuda.hash_value_planes(a[0]), planes_bytes(k, w))
+        run(f"K6 K={k} W={w}", lambda: aes_cuda.walk_level(*a), planes_bytes(k, w))
+    del planes, a
     dpf = T.DistributedPointFunction.create(T.DpfParameters(20, T.Int(64)))
     plan = evaluator.plan_megakernel(dpf, budget=evaluator.MEGAKERNEL_BUDGET)
     levels = plan.levels_a + plan.levels_b
@@ -115,8 +125,8 @@ def timings(root: Path) -> dict:
             lambda: aes_cuda.keygen_megakernel(*a, captures=captures),
             4 * w * (levels * 130 + slots * 257), 5)
     del a
-    kernels = (aes_cuda.K2, aes_cuda.K3, aes_cuda.K4, aes_cuda.K5, aes_cuda.K7, aes_cuda.K7_DCF,
-               aes_cuda.K9)
+    kernels = (aes_cuda.K2, aes_cuda.K3, aes_cuda.K4, aes_cuda.K5, aes_cuda.K6, aes_cuda.K7,
+               aes_cuda.K7_DCF, aes_cuda.K9)
     return {"root": str(root), "card": card_line(),
             "ms": {**{k: round(t[0], 4) for k, t in times.items()},
                    "K5 fold plan": round(k5_ms, 4)},

@@ -7,7 +7,8 @@ Run from the root of the repository, on a machine with the CUDA toolkit
     python3 sass_mix.py [--out DIR] [source.cu ...]
 
 Each source under distributed_point_functions_tpu_torch/csrc/ (by default
-megakernel.cu, expand.cu, walk_megakernel.cu and keygen_megakernel.cu) is
+megakernel.cu, expand.cu, walk.cu, walk_megakernel.cu and
+keygen_megakernel.cu) is
 compiled by ``nvcc`` for sm_90a into a
 cubin under DIR (by default the ignored
 distributed_point_functions_tpu_torch/_build/sass/, with the round-key
@@ -97,7 +98,7 @@ def main() -> None:
     parser.add_argument("--out", type=Path,
                         default=ROOT / "distributed_point_functions_tpu_torch" / "_build" / "sass",
                         help="directory for the cubins and listings")
-    parser.add_argument("sources", nargs="*", default=["megakernel.cu", "expand.cu",
+    parser.add_argument("sources", nargs="*", default=["megakernel.cu", "expand.cu", "walk.cu",
                                                        "walk_megakernel.cu",
                                                        "keygen_megakernel.cu"])
     args = parser.parse_args()

@@ -47,12 +47,12 @@ def expand_inputs(k: int, w: int, device):
     return [torch.from_numpy(as_words(a)).to(device) for a in arrays]
 
 
-@pytest.mark.parametrize("w", [1, 3, 7, 9, 40, 77, 1037])
+@pytest.mark.parametrize("w", [1, 3, 5, 7, 9, 13, 40, 77, 1037])
 def test_kernels_match_plain_versions(cuda, w):
     """K2, K3 and K4 on the card equal their plain versions on the same
     tensors, ragged widths included: at 3 keys every width but 40 leaves a
-    last warp of K2's and K3's eight items a warp part-filled; each launch
-    is counted once."""
+    last warp of K2's and K3's eight (key, child, word) items and of K4's
+    eight (key, word) items part-filled; each launch is counted once."""
     args = expand_inputs(3, w, cuda)
     aes_cuda.reset_launch_counts()
     for kernel, plain in (
@@ -254,10 +254,11 @@ def test_pir_on_the_card_reconstructs(cuda):
     assert np.array_equal(ra ^ rb, db[targets])
 
 
-@pytest.mark.parametrize("w", [1, 3, 40, 1037])
+@pytest.mark.parametrize("w", [1, 3, 7, 9, 40, 77, 1037])
 def test_walk_level_matches_plain_version(cuda, w):
     """K6 on the card equals its plain version, ragged widths and a mixed
-    path mask included; one launch per call."""
+    path mask included: at 3 keys every width but 40 leaves the last warp
+    of eight (key, word) items part-filled; one launch per call."""
     args = expand_inputs(3, w, cuda)
     path = args[1][0].contiguous()
     aes_cuda.reset_launch_counts()

@@ -452,15 +452,15 @@ static int quad_hash(int K, int W) {
   return 0;
 }
 // K6 (mode 5): planes, control, path [W], cw, ccl, ccr; out: planes, control.
+// Every (key, word) item runs its four column threads in lockstep
+// (dpf::QuadHost); the outputs start as junk, as torch.empty leaves them.
 static int walk_level(int K, int W) {
-  uint32_t stash[128];
   auto planes = rd(size_t(K) * 128 * W), control = rd(size_t(K) * W), path = rd(W);
   auto cw = rd(size_t(K) * 128), ccl = rd(K), ccr = rd(K);
-  std::vector<uint32_t> op(planes.size()), oc(control.size());
-  for (int k = 0; k < K; ++k)
-    for (int w = 0; w < W; ++w)
-      dpf::walk_level_word(planes.data(), control.data(), path.data(), cw.data(), ccl.data(),
-                           ccr.data(), op.data(), oc.data(), k, w, W, stash, 1);
+  std::vector<uint32_t> op(planes.size(), 0xA5A5A5A5u), oc(control.size(), 0xA5A5A5A5u);
+  for (int64_t item = 0; item < int64_t(K) * W; ++item)
+    dpf::walk_level_item_quad(planes.data(), control.data(), path.data(), cw.data(), ccl.data(),
+                              ccr.data(), op.data(), oc.data(), item, W, dpf::QuadHost{}, true);
   fwrite(op.data(), 4, op.size(), stdout);
   fwrite(oc.data(), 4, oc.size(), stdout);
   return 0;
@@ -624,13 +624,13 @@ int main() {
   if (mode == 11) return quad_hash(K, W);
   if (mode == 12) return sbox(W);
   if (mode == 13) return mix(K);
-  uint32_t stash[128];
   auto planes = rd(size_t(K) * 128 * W);
+  // K4 (mode 2): every (key, word) item, its four column threads in
+  // lockstep (dpf::QuadHost), into junk.
   if (mode == 2) {
-    std::vector<uint32_t> out(planes.size());
-    for (int k = 0; k < K; ++k)
-      for (int w = 0; w < W; ++w)
-        dpf::value_hash_word(planes.data(), out.data(), k, w, W, stash, 1);
+    std::vector<uint32_t> out(planes.size(), 0xA5A5A5A5u);
+    for (int64_t item = 0; item < int64_t(K) * W; ++item)
+      dpf::value_hash_item_quad(planes.data(), out.data(), item, W, dpf::QuadHost{}, true);
     fwrite(out.data(), 4, out.size(), stdout);
     return 0;
   }
@@ -741,8 +741,9 @@ def run_harness(exe, header, *arrays) -> np.ndarray:
 def test_csrc_kernel_bodies_on_the_host_compiler(host_harness):
     """csrc/expand_rows.cuh — K2's and K3's column bodies (run over every
     (key, child, word) item, the four column threads of a word in lockstep
-    by ``QuadHost``) and K4's row body (aes_rows.cuh) per lane word — built
-    with g++ equal the plain versions, ragged width included; and
+    by ``QuadHost``) and K4's column body (over every (key, word) item,
+    likewise) — built with g++ equal the plain versions, ragged width
+    included; and
     csrc/megakernel_rows.cuh, K5's per-key body (phase A, phase B, the
     tail's transpose, correction, database AND and fold), run as a block of
     one thread per key, equals K5's plain version on each plan of
@@ -1008,11 +1009,11 @@ def dcf_carrying_corrections(ops, bits, party, keep, captures):
 
 
 def test_csrc_walk_bodies_on_the_host_compiler(host_harness):
-    """csrc/walk_rows.cuh — K6's per-word body — and csrc/walk_quad.cuh —
-    K7's column bodies in both its forms, run over every (key, word) item
-    with its four column threads in lockstep — and K1's masked hash in both
-    forms (aes_rows.cuh ``mmo_hash_rows_masked``, aes_quad.cuh
-    ``QuadMaskedKey``), built with g++, equal the plain versions: a ragged width, mixed path masks, both
+    """csrc/walk_quad.cuh — K6's column body and K7's in both its forms,
+    run over every (key, word) item with its four column threads in
+    lockstep — and K1's masked hash in both forms (aes_rows.cuh
+    ``mmo_hash_rows_masked``, K8's; aes_quad.cuh ``QuadMaskedKey``, K6's and
+    K7's), built with g++, equal the plain versions: a ragged width, mixed path masks, both
     parties, keep 1, 2 and 4, every limb layout, the XOR group, and
     corrections whose limbs carry. The DCF form also with depths that do not
     capture, none that does, and sums that wrap to 0 before party 1's
@@ -1026,8 +1027,8 @@ def test_csrc_walk_bodies_on_the_host_compiler(host_harness):
         words(planes), backend_torch._rk_np("left"), backend_torch._rk_np("lr_diff"), words(mask)
     )
     got = run_harness(exe, [7, K, w], planes, mask).reshape(2, K, 128, w)
-    assert np.array_equal(got[0], aes_torch.from_words(want))  # K1's row form (K6, K8)
-    assert np.array_equal(got[1], aes_torch.from_words(want))  # the column form (K7)
+    assert np.array_equal(got[0], aes_torch.from_words(want))  # K1's row form (K8)
+    assert np.array_equal(got[1], aes_torch.from_words(want))  # the column form (K6, K7)
 
     planes, control, cw, ccl, ccr = expand_inputs(w, 9)
     out = run_harness(exe, [5, K, w], planes, control, mask, cw, ccl, ccr)
@@ -1065,6 +1066,43 @@ def test_csrc_walk_bodies_on_the_host_compiler(host_harness):
         assert np.array_equal(got.reshape(K, bits // 32 * 32, w), want), kw
         if not any(captures):
             assert not want.any()
+
+
+@pytest.mark.parametrize("w", [1, 3, 37])
+@pytest.mark.parametrize("control", ["random", "whole"])
+def test_csrc_column_value_hash_and_walk_level_bodies_match_plain_versions(host_harness, w,
+                                                                          control):
+    """K4's and K6's column bodies (expand_rows.cuh ``value_hash_item_quad``,
+    walk_quad.cuh ``walk_level_item_quad``), the four column threads of each
+    (key, word) item in lockstep by ``QuadHost``, equal the plain versions
+    bit for bit over every item of 5 keys: K x W = 5, 15 and 185, none a
+    multiple of a warp's eight items. Path masks of all zeros, all ones and
+    random bits; control words random or whole (0 or ~0 by key); the keys'
+    control corrections in all four (ccl, ccr) combinations and a fifth
+    random pair."""
+    keys = 5
+    rng = np.random.default_rng(90 + w)
+    planes = rng.integers(0, 2**32, size=(keys, 128, w), dtype=np.uint32)
+    out = run_harness(host_harness, [2, keys, w], planes)
+    want = aes_torch.from_words(backend_torch.hash_value_planes(words(planes)))
+    assert np.array_equal(out.reshape(keys, 128, w), want)
+
+    if control == "random":
+        ctrl = rng.integers(0, 2**32, size=(keys, w), dtype=np.uint32)
+    else:
+        ctrl = np.repeat(backend_torch.control_masks(np.arange(keys) % 2)[:, None], w, 1)
+    path = rng.integers(0, 2**32, size=w, dtype=np.uint32)
+    path[0] = 0
+    path[-1] = 0xFFFFFFFF if w > 1 else path[-1]
+    cw = backend_torch.cw_seed_planes(rng.integers(0, 2**32, size=(keys, 4), dtype=np.uint32))
+    ccl = backend_torch.control_masks(np.array([0, 1, 0, 1, rng.integers(0, 2)]))
+    ccr = backend_torch.control_masks(np.array([0, 0, 1, 1, rng.integers(0, 2)]))
+    ops = (planes, ctrl, path, cw, ccl, ccr)
+    out = run_harness(host_harness, [5, keys, w], *ops)
+    want_p, want_c = backend_torch.walk_level(*map(words, ops))
+    n = keys * 128 * w
+    assert np.array_equal(out[:n].reshape(keys, 128, w), aes_torch.from_words(want_p))
+    assert np.array_equal(out[n:].reshape(keys, w), aes_torch.from_words(want_c))
 
 
 @pytest.mark.parametrize("w", [1, 3, 37])
