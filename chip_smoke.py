@@ -46,7 +46,11 @@ Phases (any failure raises and exits non-zero before the result line):
    K6 launches and one K4 per chunk) and mode="walkkernel" (one K7 launch
    per chunk); every share pair reconstructs beta at its alpha and 0
    elsewhere, the modes agree, and the port's host ``dpf.evaluate_at``
-   equals both for 4 keys at all 4096 points;
+   equals both for 4 keys at all 4096 points; then the codec walk: 64
+   IntModN(64, 2^64 - 59) key pairs at log-domain 24 over 256 points that
+   hold every alpha, mode="walk" (24 K6 launches and one K4 a party), every
+   share pair reconstructing mod N and the host ``dpf.evaluate_at`` equal
+   for 2 keys a party;
 7. DCF kernels: K7's DCF form against its plain version on the card
    (exact), at odd shapes (W = 1, 3, 37 words at K = 5, each leaving a
    warp that straddles the end, both parties, Int(32), Int(64) with keep 1
@@ -102,12 +106,36 @@ Phases (any failure raises and exits non-zero before the result line):
    mode and where mode megakernel's and mode perlevel's time goes;
 13. end to end: the depth-20 megakernel keys through
    ``evaluate_at_batch(mode="walkkernel")`` at every alpha and 63 other
-   points; every share pair reconstructs beta at its alpha and 0 elsewhere.
+   points; every share pair reconstructs beta at its alpha and 0 elsewhere;
+14. the codec path's kernels: K2 and K4 at W = 1 for 256 keys (config 3's
+   levels 0 and 1: a tree of 3 levels pads its 8 host lanes to one word),
+   K2 and K4 at config 3's widest shapes (a key chunk at 2^18 words in, 2
+   keys at 2^19 words), K6 on the full-domain walk's path masks (W = 1,
+   37 and the walk's 1024 words at config 3's level 4), each exact against
+   its plain version and the widest timed; then ``correct_values`` over a
+   K4 stream on the card against the same functions on the CPU for
+   IntModN(64, 2^64 - 59), IntModN(128, 2^80 - 65), the 160-bit tuple of
+   five Int(32) (two K4 launches) and Tuple(Int(32), Tuple(IntModN(64),
+   Int(32))) (the sampling chain), both parties;
+15. BASELINE config 3 (benchmarks/bench_intmodn_hierarchy.py): 8
+   IntModN(64, 2^64 - 59) hierarchy levels at log-domains 3, 6, ..., 24,
+   256 key pairs from default_rng(3) through the port's host dealer, both
+   parties through ``full_domain_evaluate_chunks(mode="fused")`` at every
+   level (K2 a device level, K4, the plain-torch finalize); every share
+   pair of every key checked on the card ((r0 + r1) mod N is beta at
+   alpha's prefix, 0 elsewhere), with each level's wall time, a chunk's
+   host, K2, K4 and finalize time and the peak device memory; mode "walk"
+   (K6 a tree level, K4) equal at levels 0-4, ``lane_slab`` pieces and two
+   ``PreparedKeyBatch`` replays at level 5, mode "levels" at level 6; the
+   host ``dpf.evaluate_at`` equal to the card for 2 keys a party at 16
+   points a level.
 
 Each path of the main path (fold default, fused and megakernel; PIR fold
-and megakernel; EvaluateAt walk and walkkernel; DCF walk and walkkernel;
-heavy hitters fused and hierkernel; keygen megakernel, perlevel and
-numpy-threaded at each configuration) runs with every launch count set to 0
+and megakernel; EvaluateAt walk and walkkernel, and the codec walk; DCF
+walk and walkkernel; heavy hitters fused and hierkernel; keygen
+megakernel, perlevel and numpy-threaded at each configuration; config 3's
+fused pass at each level, and its walk, slab, prepared and levels checks)
+runs with every launch count set to 0
 just before it, and every kernel of that path must have launched just after
 it. The line before
 the last is the ``{"kernels": [...]}`` JSON, the last line ``{"ok": true,
@@ -165,6 +193,30 @@ KG_SEED = 23
 KG_WIDE_KEYS = 16384  # K9 timed at 512 lane words as well
 KG_E2E_POINTS = 63  # other points besides the alphas in the end-to-end check
 LEGACY_W = 8192  # benchmarks/micro_tpu.py:163, the K2 legacy kernel's width
+# BASELINE config 3 (benchmarks/bench_intmodn_hierarchy.py without its smoke
+# settings): an incremental DPF of 8 hierarchy levels at log-domains 3, 6,
+# ..., 24, each IntModN(64, 2^64 - 59), 256 key pairs drawn from
+# default_rng(3).
+C3_LEVELS = 8
+C3_STEP = 3
+C3_KEYS = 256
+C3_MODULUS = 2**64 - 59
+C3_SEED = 3
+# Leaves a key chunk evaluates at once (8 keys at log-domain 24, all 256 up
+# to log-domain 19). The finalize's int64 limbs peak at about 170 bytes a
+# leaf (the stream's four limbs, the fold's product and sum, the chain's
+# compare-subtract temporaries), so a chunk stays near 22 GiB of the card's
+# 80 GB. The JAX bench's 4-key chunk was a v5e memory limit.
+C3_CHUNK_LEAVES = 1 << 27
+C3_CPU_KEYS = 2
+C3_CPU_POINTS = 16
+# The codec walk of EvaluateAt: IntModN(64) keys at config 3's deepest
+# log-domain. At EvaluateAt's 32 the reference's default security parameter
+# (40 + 32 bits) exceeds the 66 bits that sampling mod 2^64 - 59 from one
+# 128-bit block gives, and the parameters are refused.
+CODEC_WALK_LOG_DOMAIN = 24
+CODEC_WALK_KEYS = 64
+CODEC_WALK_POINTS = 256
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 at 3.35 TB/s; 32-bit integer
 # logic at 64 lanes per SM per clock, 132 SMs, 1980 MHz boost clock.
@@ -465,6 +517,14 @@ def megakernel_cost(key_planes, plan, k: int, bits: int, keep: int, party: int,
     return nbytes, gates
 
 
+def sample_value(vt, rng):
+    """A random host value of the port's value type `vt`."""
+    if hasattr(vt, "elements"):
+        return tuple(sample_value(e, rng) for e in vt.elements)
+    bound = vt.modulus if hasattr(vt, "modulus") else 1 << vt.bitsize
+    return int.from_bytes(rng.bytes(16), "little") % bound
+
+
 def k5_probe(torch, args, kw, k: int, ms: float, dev, what: str) -> None:
     """Timing only: K5 at the blocks a key the wrapper chooses (`ms`, two
     blocks an SM) against one block a key (the grid K5 had before it was
@@ -487,7 +547,7 @@ def main() -> None:
     try:
         import distributed_point_functions_tpu_torch as T
         from distributed_point_functions_tpu_torch.ops import (
-            aes_cuda, aes_torch, backend_torch, evaluator,
+            aes_cuda, aes_torch, backend_torch, evaluator, value_codec,
         )
         from distributed_point_functions_tpu_torch.dcf import batch as dcf_batch
         from distributed_point_functions_tpu_torch.ops import hier_cases, hierarchical, keygen_batch
@@ -967,6 +1027,48 @@ def main() -> None:
           f"+ K4 + unpack/correct/select), mode walkkernel {pass_ms['walkkernel']:.2f} ms (K7 "
           f"+ transpose) at {wpts['walkkernel'].path_masks.shape[1]} lane words")
     del evals, wch, got
+    # The codec walk: IntModN(64) keys (a tree as deep as the domain, one
+    # element a block), one K6 launch a level and one K4.
+    mrng = np.random.default_rng(SEED + CODEC_WALK_LOG_DOMAIN)
+    mdpf = T.DistributedPointFunction.create(
+        T.DpfParameters(CODEC_WALK_LOG_DOMAIN, T.IntModN(64, C3_MODULUS)))
+    malphas = [int(x) for x in mrng.integers(0, 1 << CODEC_WALK_LOG_DOMAIN,
+                                             size=CODEC_WALK_KEYS)]
+    mbetas = [int(x) % C3_MODULUS for x in mrng.integers(1, 2**63, size=CODEC_WALK_KEYS)]
+    mkeys = mdpf.generate_keys_batch(
+        malphas, [mbetas], seeds=mrng.integers(0, 2**32, size=(CODEC_WALK_KEYS, 2, 4),
+                                               dtype=np.uint32))
+    mpoints = malphas + [int(x) for x in mrng.integers(
+        0, 1 << CODEC_WALK_LOG_DOMAIN, size=CODEC_WALK_POINTS - CODEC_WALK_KEYS)]
+    mlevels = mdpf.validator.hierarchy_to_tree[0]
+    aes_cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mvals = [evaluator.evaluate_at_batch(mdpf, mkeys[p], mpoints) for p in (0, 1)]
+    codec_walk_s = time.perf_counter() - t
+    counts = {k.name: k.launches for k in aes_cuda.KERNELS}
+    want = {aes_cuda.K6.name: 2 * mlevels, aes_cuda.K4.name: 2}
+    if counts != {k.name: want.get(k.name, 0) for k in aes_cuda.KERNELS}:
+        fail(f"the codec walk: launches {counts}, expected {want}")
+    codec_walk_launches = counts
+    for kern in (aes_cuda.K6, aes_cuda.K4):
+        main_launches[kern.name] = main_launches.get(kern.name, 0) + kern.launches
+    total = (evaluator.values_to_numpy(mvals[0], 64).astype(object)
+             + evaluator.values_to_numpy(mvals[1], 64).astype(object)) % C3_MODULUS
+    mhit = np.array(malphas)[:, None] == np.array(mpoints)[None, :]
+    if not np.array_equal(total, np.where(mhit, np.array(mbetas, dtype=object)[:, None], 0)):
+        fail("the codec walk: share pairs do not reconstruct mod N")
+    for party in (0, 1):
+        for i in range(2):
+            host = mdpf.evaluate_at(mkeys[party][i], 0, mpoints)
+            if list(evaluator.values_to_numpy(mvals[party][i], 64)) != host:
+                fail(f"the codec walk differs from the host dpf.evaluate_at (key {i}, "
+                     f"party {party})")
+    print(f"EvaluateAt's codec walk: {CODEC_WALK_KEYS} IntModN(64, 2^64 - 59) key pairs at "
+          f"log-domain {CODEC_WALK_LOG_DOMAIN} x {CODEC_WALK_POINTS} points holding every alpha, "
+          f"mode walk, both parties in {codec_walk_s:.3f} s; launches {counts}; (r0 + r1) mod N "
+          f"== beta at alpha and 0 elsewhere, and the host dpf.evaluate_at equals 2 keys a party")
+    del mvals, mkeys
     torch.cuda.empty_cache()
 
     # -- 7. K7's DCF form against its plain version --------------------------
@@ -1575,6 +1677,310 @@ def main() -> None:
     del e2e, e2e_keys, kg
     torch.cuda.empty_cache()
 
+    # -- 14. the codec path's kernels at its shapes, and the codec on the card
+    c3_domains = [C3_STEP * (i + 1) for i in range(C3_LEVELS)]
+
+    def c3_chunk(level):
+        return max(1, min(C3_KEYS, C3_CHUNK_LEAVES >> c3_domains[level]))
+
+    # Level 0 (a tree of 3 levels): 8 host lanes padded to one word, K4 at
+    # W = 1 with the pad lanes zero; level 1: one device level, K2 at W = 1.
+    pad = torch.zeros(C3_KEYS, 24, 4, dtype=torch.int32, device=dev)
+    p1 = aes_torch.pack_to_planes(torch.cat([rnd(C3_KEYS, 8, 4), pad], dim=1))
+    hold("K4", aes_cuda.hash_value_planes(p1), backend_torch.hash_value_planes(p1))
+    a = (p1, rnd(C3_KEYS, 1) & 0xFF, rnd(C3_KEYS, 128), rnd(C3_KEYS), rnd(C3_KEYS))
+    hold("K2", aes_cuda.expand_one_level(*a), backend_torch.expand_one_level(*a))
+    # The widest shapes: level 7's last K2 (a chunk of keys, 2^18 words in)
+    # and K4 at 2^19 words.
+    k7 = c3_chunk(C3_LEVELS - 1)
+    w_in = 1 << (c3_domains[-1] - HOST_LEVELS - 1)
+    for name, kern, k, w, make, call, plain, cost in (
+        ("K2 c3", aes_cuda.K2, k7, w_in, lambda k, w: expand_args(rnd, k, w),
+         lambda a: aes_cuda.expand_one_level(*a), lambda a: backend_torch.expand_one_level(*a),
+         lambda k, w: expand_cost(key_planes, k, w, False)),
+        ("K4 c3", aes_cuda.K4, 2, 2 * w_in, lambda k, w: rnd(k, 128, w),
+         aes_cuda.hash_value_planes, backend_torch.hash_value_planes,
+         lambda k, w: hash_cost(key_planes, k, w)),
+    ):
+        a = make(k, w)
+        hold(name.split()[0], call(a), plain(a))
+        ms, device_ms = launch_ms(torch, lambda: call(a),
+                                  planes_bytes(k, 2 * w if kern is aes_cuda.K2 else w), 5)
+        plain_ms = time_ms(torch, lambda: plain(a), 1)
+        b_ms, b_by = bound_ms(*cost(k, w))
+        rows[name] = dict(kernel=kern, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by)
+        print(f"{name.split()[0]} at config 3's widest shape K={k}, W={w}: {ms:.4f} ms (device "
+              f"{device_ms:.4f} ms; plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
+        del a
+    torch.cuda.empty_cache()
+    # K6 on the full-domain walk's path masks: a tree of 3 levels (W = 1)
+    # and 37 words of a tree of 11; then timed at the walk's widest shape
+    # in phase 15, level 4: all keys, 2^10 words.
+    for levels, w in ((3, 1), (11, 37)):
+        masks = evaluator._upload(evaluator._walk_path_masks(levels)[:, :w], dev)
+        for lvl in range(levels):
+            a = walk_level_args(C3_KEYS, w)
+            a = a[:2] + (masks[lvl],) + a[3:]
+            hold("K6", aes_cuda.walk_level(*a), backend_torch.walk_level(*a))
+    wlevels = c3_domains[4]
+    w_walk = 1 << (wlevels - 5)
+    masks = evaluator._upload(evaluator._walk_path_masks(wlevels), dev)
+    a = walk_level_args(c3_chunk(4), w_walk)
+    a = a[:2] + (masks[wlevels - 1],) + a[3:]
+    hold("K6", aes_cuda.walk_level(*a), backend_torch.walk_level(*a))
+    ms, device_ms = launch_ms(torch, lambda: aes_cuda.walk_level(*a), a[0].numel() * 4)
+    plain_ms = time_ms(torch, lambda: backend_torch.walk_level(*a), 2)
+    b_ms, b_by = bound_ms(*walk_level_cost(key_planes, c3_chunk(4), w_walk))
+    rows["K6 c3"] = dict(kernel=aes_cuda.K6, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+    print(f"K6 at the full-domain walk's shape K={c3_chunk(4)}, W={w_walk}: {ms:.4f} ms (device "
+          f"{device_ms:.4f} ms; plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
+    del a, masks
+    # The codec on the card: correct_values over a K4 stream (one launch a
+    # value block) against the same functions on the CPU, both parties.
+    crng = np.random.default_rng(SEED + 14)
+    codec_types = {
+        "IntModN(64, 2^64-59)": T.IntModN(64, C3_MODULUS),
+        "IntModN(128, 2^80-65)": T.IntModN(128, 2**80 - 65),
+        "Tuple(5 x Int(32))": T.TupleType(*[T.Int(32)] * 5),
+        "Tuple(Int(32), Tuple(IntModN(64), Int(32)))": T.TupleType(
+            T.Int(32), T.TupleType(T.IntModN(64, C3_MODULUS), T.Int(32))),
+    }
+    for vname, vt in codec_types.items():
+        blocks = T.DistributedPointFunction.create(
+            T.DpfParameters(10, vt)).validator.blocks_needed[0]
+        spec = value_codec.build_spec(vt, blocks)
+        kk, w = 5, 37
+        planes, control = rnd(kk, 128, w), rnd(kk, w)
+        corr = [np.stack(c) for c in zip(*(
+            value_codec.correction_limbs(spec, [sample_value(vt, crng) for _ in range(spec.epb)])
+            for _ in range(kk)))]
+        for party in (0, 1):
+            aes_cuda.reset_launch_counts()
+            got = value_codec.correct_values(
+                backend_torch.hash_value_stream(planes, blocks, aes_cuda.hash_value_planes),
+                backend_torch.unpack_mask_device(control),
+                [evaluator._upload(c, dev)[:, None] for c in corr], spec, party)
+            if aes_cuda.K4.launches != blocks:
+                fail(f"the {vname} stream launched K4 {aes_cuda.K4.launches} times, not {blocks}")
+            want = value_codec.correct_values(
+                backend_torch.hash_value_stream(planes.cpu(), blocks),
+                backend_torch.unpack_mask_device(control.cpu()),
+                [evaluator._upload(c, "cpu")[:, None] for c in corr], spec, party)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g.cpu(), w_) for g, w_ in zip(got, want)):
+                fail(f"the codec on the card differs from the CPU for {vname}, party {party}")
+    print("K2 and K4 == plain at config 3's W = 1 (K = 256, the pad lanes of a tree of 3) and "
+          "widest shapes, K6 == plain on the full-domain walk's path masks (W = 1, 37, "
+          f"{w_walk}); correct_values over a K4 stream on the card == the CPU for "
+          f"{', '.join(codec_types)} (one K4 launch a value block), both parties")
+    torch.cuda.empty_cache()
+
+    # -- 15. the main path: BASELINE config 3 ---------------------------------
+    c3vt = T.IntModN(64, C3_MODULUS)
+    c3dpf = T.DistributedPointFunction.create_incremental(
+        [T.DpfParameters(d, c3vt) for d in c3_domains])
+    c3rng = np.random.default_rng(C3_SEED)
+    c3_alphas = [int(x) for x in c3rng.integers(0, 1 << c3_domains[-1], size=C3_KEYS)]
+    c3_betas = [[int(x) % C3_MODULUS for x in c3rng.integers(1, 1 << 63, size=C3_KEYS)]
+                for _ in range(C3_LEVELS)]
+    t = time.perf_counter()
+    c3keys = c3dpf.generate_keys_batch(
+        c3_alphas, c3_betas,
+        seeds=c3rng.integers(0, 2**32, size=(C3_KEYS, 2, 4), dtype=np.uint32))
+    print(f"keygen: {C3_KEYS} key pairs of BASELINE config 3 ({C3_LEVELS} IntModN(64, 2^64 - 59) "
+          f"levels at log-domains {c3_domains}) in {time.perf_counter() - t:.2f} s (host dealer)")
+    n_hi, n_lo = C3_MODULUS >> 32, C3_MODULUS & 0xFFFFFFFF
+
+    def c3_check(level, lo, valid, v0, v1):
+        """(v0 + v1) mod N is beta_level at alpha's prefix and 0 elsewhere,
+        on the card: the exact sum is below 2N, so it must be the target or
+        the target plus N."""
+        a, b = value_codec.unsigned(v0[:valid]), value_codec.unsigned(v1[:valid])
+        s_lo = a[..., 0] + b[..., 0]
+        s_hi = a[..., 1] + b[..., 1] + (s_lo >> 32)
+        s_lo &= 0xFFFFFFFF
+        del a, b
+        ok = ((s_hi == 0) & (s_lo == 0)) | ((s_hi == n_hi) & (s_lo == n_lo))
+        shift = c3_domains[-1] - c3_domains[level]
+        rows_ = torch.arange(valid, device=dev)
+        cols = torch.tensor([x >> shift for x in c3_alphas[lo: lo + valid]], device=dev)
+        ok[rows_, cols] = True
+        if not bool(ok.all()):
+            fail(f"config 3 level {level}: {int((~ok).sum())} share pairs do not reconstruct "
+                 "0 off alpha's prefix")
+        his, los = s_hi[rows_, cols].tolist(), s_lo[rows_, cols].tolist()
+        for i, (h, l) in enumerate(zip(his, los)):
+            if ((h << 32) | l) % C3_MODULUS != c3_betas[level][lo + i]:
+                fail(f"config 3 level {level}, key {lo + i}: the shares at alpha's prefix do "
+                     "not reconstruct beta")
+
+    def c3_pass(level, mode, keys, **kw):
+        if not isinstance(keys, evaluator.PreparedKeyBatch):
+            kw["device"] = dev
+        return evaluator.full_domain_evaluate_chunks(
+            c3dpf, keys, hierarchy_level=level, key_chunk=kw.pop("key_chunk", c3_chunk(level)),
+            mode=mode, **kw)
+
+    def same_chunks(what, got, want):
+        """Chunk by chunk: every item of `got` equal to the stored `want`."""
+        got = list(got)
+        if len(got) != len(want) or not all(
+                gv == wv and torch.equal(g, w_) for (gv, g), (wv, w_) in zip(got, want)):
+            fail(f"config 3: {what} differs")
+
+    def count_path(what, need):
+        counts = {k.name: k.launches for k in aes_cuda.KERNELS}
+        if any(counts[k.name] == 0 for k in need) or any(
+                n for name, n in counts.items() if name not in {k.name for k in need}):
+            fail(f"config 3 {what}: launches {counts}, expected {[k.name for k in need]} only")
+        return counts
+
+    c3_launches = {k.name: 0 for k in aes_cuda.KERNELS}
+    walk_launches_c3 = {k.name: 0 for k in aes_cuda.KERNELS}
+    c3_total = dict(wall=0.0, host=0.0, k2=0.0, k4=0.0, fin=0.0, evals=0)
+    c3_peak = 0
+    for level in range(C3_LEVELS):
+        chunk = c3_chunk(level)
+        domain = 1 << c3_domains[level]
+        n_chunks = -(-C3_KEYS // chunk)
+        # The main path: both parties' chunks side by side, each pair
+        # checked on the card; party 0's kept where a later check reads it.
+        keep_out = level < C3_LEVELS - 1
+        stored = []
+        aes_cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        lo = 0
+        for (valid, v0), (_, v1) in zip(c3_pass(level, "fused", c3keys[0]),
+                                        c3_pass(level, "fused", c3keys[1])):
+            c3_check(level, lo, valid, v0, v1)
+            lo += valid
+            if keep_out:
+                stored.append((valid, v0))
+            del v0, v1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        c3_peak = max(c3_peak, peak)
+        for name, n in count_path("fused", (aes_cuda.K2, aes_cuda.K4)
+                                  if c3dpf.validator.hierarchy_to_tree[level] > HOST_LEVELS
+                                  else (aes_cuda.K4,)).items():
+            c3_launches[name] += n
+        # Where the time goes (party 0, the entry point's steps): the
+        # level's KeyBatch on the host, then its first chunk step by step,
+        # held against the main path's first chunk.
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        batch = evaluator.KeyBatch.from_keys(c3dpf, c3keys[0], level, device=dev)
+        kb_s = time.perf_counter() - t
+        vf = evaluator._values_of(batch, c3dpf, level)
+        stop = batch.num_levels
+        host_levels = min(HOST_LEVELS, stop)
+        t = time.perf_counter()
+        ch = evaluator._prepare_chunk(batch.take(np.arange(chunk)), chunk, host_levels, 0)
+        order = evaluator._order_on_device(ch.m, ch.seeds.shape[1], stop - host_levels,
+                                           batch.device)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        planes, control = evaluator._expand_chunk(ch, stop - host_levels)
+        ev[1].record()
+        hashed = aes_cuda.hash_value_planes(planes)
+        ev[2].record()
+        del planes
+        # hash_value_stream of one value block: the unpack of the hash.
+        out = evaluator._finalize(aes_torch.unpack_from_planes(hashed), control, ch.corr,
+                                  order, vf)
+        ev[3].record()
+        ev[3].synchronize()
+        del hashed, control, batch
+        k2_ms, k4_ms, fin_ms = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+        first = next(iter(c3_pass(level, "fused", c3keys[0][:chunk])))[1]
+        if not torch.equal(out[:, :domain], first):
+            fail(f"config 3 level {level}: the timed chunk differs from the entry point's")
+        del out, first, ch, order
+        scale = 2 * n_chunks
+        host_s = 2 * kb_s + scale * prep_s
+        rate = 2 * C3_KEYS * domain / wall
+        print(f"config 3 level {level} (log-domain {c3_domains[level]}, tree {stop}, key chunk "
+              f"{chunk}): both parties {wall * 1e3:.1f} ms wall = {rate:.4e} evals/s; host: "
+              f"KeyBatch {kb_s * 1e3:.2f} ms a party, pre-expansion + upload {prep_s * 1e3:.2f} "
+              f"ms a chunk; a chunk's device (party 0): K2 x {stop - host_levels} {k2_ms:.3f} "
+              f"ms, K4 {k4_ms:.3f} ms, finalize (unpack, mod N, correction, gather) "
+              f"{fin_ms:.3f} ms; x {scale} chunks: host {host_s * 1e3:.1f}, K2 "
+              f"{k2_ms * scale:.1f}, K4 {k4_ms * scale:.1f}, finalize {fin_ms * scale:.1f} ms; "
+              f"peak {peak / 2**30:.2f} GiB")
+        for key, val in (("wall", wall * 1e3), ("host", host_s * 1e3),
+                         ("k2", k2_ms * scale), ("k4", k4_ms * scale), ("fin", fin_ms * scale)):
+            c3_total[key] += val
+        c3_total["evals"] += 2 * C3_KEYS * domain
+        # The other paths, each held chunk by chunk against the main path.
+        if level <= 4:
+            aes_cuda.reset_launch_counts()
+            same_chunks(f"mode walk at level {level}", c3_pass(level, "walk", c3keys[0]), stored)
+            for name, n in count_path(f"mode walk, level {level}",
+                                      (aes_cuda.K6, aes_cuda.K4)).items():
+                walk_launches_c3[name] += n
+        if level == 5:
+            aes_cuda.reset_launch_counts()
+            pieces = list(c3_pass(level, "fused", c3keys[0], host_levels=HOST_LEVELS + 1,
+                                  lane_slab=32))
+            count_path("lane_slab", (aes_cuda.K2, aes_cuda.K4))
+            joined = [(pieces[i][0], torch.cat([pieces[i][1], pieces[i + 1][1]], dim=1))
+                      for i in range(0, len(pieces), 2)]
+            same_chunks("lane_slab = 32 at host_levels 6", joined, stored)
+            del pieces, joined
+            prepared = evaluator.PreparedKeyBatch(c3dpf, c3keys[0], level, key_chunk=chunk,
+                                                  device=dev)
+            for _ in range(2):
+                aes_cuda.reset_launch_counts()
+                same_chunks("a PreparedKeyBatch replay", c3_pass(level, "fused", prepared,
+                                                                 key_chunk=None), stored)
+                count_path("PreparedKeyBatch", (aes_cuda.K2, aes_cuda.K4))
+            del prepared
+        if level == 6:
+            aes_cuda.reset_launch_counts()
+            same_chunks("mode levels at level 6", c3_pass(level, "levels", c3keys[0]), stored)
+            count_path("mode levels", (aes_cuda.K2, aes_cuda.K4))
+        # The host dpf.evaluate_at, 2 keys of each party at 16 points.
+        for party in (0, 1):
+            pts = [c3_alphas[i] >> (c3_domains[-1] - c3_domains[level]) for i in range(C3_CPU_KEYS)]
+            pts += [int(x) for x in c3rng.integers(0, domain, size=C3_CPU_POINTS - len(pts))]
+            on_card = next(iter(c3_pass(level, "fused", c3keys[party][:C3_CPU_KEYS],
+                                        key_chunk=C3_CPU_KEYS)))[1]
+            on_card = evaluator.values_to_numpy(aes_torch.from_words(on_card[:, pts]), 64)
+            for i in range(C3_CPU_KEYS):
+                if list(on_card[i]) != c3dpf.evaluate_at(c3keys[party][i], level, pts):
+                    fail(f"config 3 level {level}: the host dpf.evaluate_at differs from the "
+                         f"card (key {i}, party {party})")
+        del stored
+        torch.cuda.empty_cache()
+    for kern in (aes_cuda.K2, aes_cuda.K4):
+        main_launches[kern.name] = main_launches.get(kern.name, 0) + c3_launches[kern.name]
+    for kern in (aes_cuda.K6, aes_cuda.K4):
+        main_launches[kern.name] = main_launches.get(kern.name, 0) + walk_launches_c3[kern.name]
+    print(card)
+    c3_rest = c3_total["wall"] - sum(c3_total[k] for k in ("host", "k2", "k4", "fin"))
+    print(f"config 3 total ({C3_KEYS} keys x {C3_LEVELS} levels, both parties, mode fused): "
+          f"{c3_total['evals']:.4e} evaluations in {c3_total['wall']:.1f} ms wall = "
+          f"{c3_total['evals'] / c3_total['wall'] * 1e3:.4e} evals/s; from the timed chunks: "
+          f"host {c3_total['host']:.1f} ms, K2 {c3_total['k2']:.1f} ms, K4 {c3_total['k4']:.1f} "
+          f"ms, finalize {c3_total['fin']:.1f} ms, the rest of the wall (the on-card checks, "
+          f"launch gaps) {c3_rest:.1f} ms; peak {c3_peak / 2**30:.2f} GiB; launches "
+          f"K2 {c3_launches[aes_cuda.K2.name]}, K4 {c3_launches[aes_cuda.K4.name]} (mode walk "
+          f"at levels 0-4: K6 {walk_launches_c3[aes_cuda.K6.name]}, K4 "
+          f"{walk_launches_c3[aes_cuda.K4.name]})")
+    print("config 3: every share pair of every key reconstructs ((r0 + r1) mod N == beta at "
+          "alpha's prefix, 0 elsewhere) at every level; mode walk equals fused at levels 0-4, "
+          "lane_slab pieces and two PreparedKeyBatch replays at level 5, mode levels at level "
+          f"6; the host dpf.evaluate_at equals the card for {C3_CPU_KEYS} keys a party at "
+          f"{C3_CPU_POINTS} points a level")
+    torch.cuda.empty_cache()
+
     if "jax" in sys.modules:
         fail("JAX was imported")
     if any(m == "distributed_point_functions_tpu" or m.startswith("distributed_point_functions_tpu.")
@@ -1622,7 +2028,8 @@ def main() -> None:
         "replaces": "distributed_point_functions_tpu/ops/aes_pallas.py:182",
         "launches": (walk_launches[aes_cuda.K6.name] + walk_launches[aes_cuda.K7.name]
                      + dcf_launches[aes_cuda.K6.name] + dcf_launches[aes_cuda.K7_DCF.name]
-                     + hh_launches[aes_cuda.K8.name]),
+                     + hh_launches[aes_cuda.K8.name] + codec_walk_launches[aes_cuda.K6.name]
+                     + walk_launches_c3[aes_cuda.K6.name]),
         "max_abs_err": checks["K6"],
         "ms": rows["K6"]["ms"],
         "device_ms": rows["K6"].get("device_ms"),
@@ -1635,7 +2042,10 @@ def main() -> None:
               "K4 dcf": ("the DCF's shape", dcf_launches),
               "K6 dcf": ("the DCF's shape", dcf_launches),
               "K2 hh": ("the hierarchy's shape", hh_launches),
-              "K4 hh": ("the hierarchy's shape", hh_launches)}
+              "K4 hh": ("the hierarchy's shape", hh_launches),
+              "K2 c3": ("config 3's widest shape", c3_launches),
+              "K4 c3": ("config 3's widest shape", c3_launches),
+              "K6 c3": ("the full-domain walk's shape, config 3", walk_launches_c3)}
     for name, line, source in (("K2", 315, "expand.cu"), ("K3", 421, "expand.cu"),
                                ("K4", 462, "expand.cu"), ("K4 walk", 462, "expand.cu"),
                                ("K4 dcf", 462, "expand.cu"),
@@ -1644,7 +2054,9 @@ def main() -> None:
                                ("K7", 1518, "walk_megakernel.cu"),
                                ("K7 DCF", 1518, "walk_megakernel.cu"),
                                ("K2 hh", 315, "expand.cu"), ("K4 hh", 462, "expand.cu"),
-                               ("K8", 1393, "hier_megakernel.cu")):
+                               ("K8", 1393, "hier_megakernel.cu"),
+                               ("K2 c3", 315, "expand.cu"), ("K4 c3", 462, "expand.cu"),
+                               ("K6 c3", 522, "walk.cu")):
         r = rows[name]
         launches = main_launches.get(r["kernel"].name, 0)
         label = r["kernel"].name

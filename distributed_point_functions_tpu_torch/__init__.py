@@ -4,13 +4,14 @@ The PyTorch/CUDA port of ``distributed_point_functions_tpu``, beside it in
 the same repository. It imports neither JAX nor that package: the host
 protocol layers it needs (``core/``) are its own copies. Slice by slice it
 ports the JAX package's paths; so far full-domain evaluation folded on the
-device, its two-server PIR inner product, batched EvaluateAt, batched DCF
+device or with its values out (every value type: Int, XorWrapper, IntModN,
+tuples), its two-server PIR inner product, batched EvaluateAt, batched DCF
 evaluation, the heavy-hitters hierarchical advance and batched two-party
 key generation:
 
     from distributed_point_functions_tpu_torch import (
         DistributedComparisonFunction, DistributedPointFunction, DpfParameters,
-        Int)
+        Int, IntModN)
     from distributed_point_functions_tpu_torch.dcf import batch as dcf_batch
     from distributed_point_functions_tpu_torch.ops import evaluator
 
@@ -19,6 +20,13 @@ key generation:
     for valid, fold in evaluator.full_domain_fold_chunks(dpf, keys_a):
         ...
     shares = evaluator.evaluate_at_batch(dpf, keys_a, points, mode="walkkernel")
+
+    modn = DistributedPointFunction.create_incremental(
+        [DpfParameters(3 * (i + 1), IntModN(64, 2**64 - 59)) for i in range(8)])
+    m_a, m_b = modn.generate_keys_batch(alphas, betas_by_level, seeds=seeds)
+    for valid, values in evaluator.full_domain_evaluate_chunks(
+            modn, m_a, hierarchy_level=7, key_chunk=8, mode="fused"):
+        ...  # int32[8, 2^24, 2] residue limbs on the card
 
     dcf = DistributedComparisonFunction.create(24, Int(64))
     dcf_a, dcf_b = dcf.generate_keys_batch(alphas, betas, seeds=seeds)

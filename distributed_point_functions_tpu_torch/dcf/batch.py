@@ -43,7 +43,7 @@ import torch
 
 from ..core import uint128
 from ..core.value_types import Int, TupleType, XorWrapper
-from ..ops import aes_cuda, aes_torch, backend_torch, evaluator
+from ..ops import aes_cuda, aes_torch, backend_torch, evaluator, value_codec
 from ..utils.devices import resolve_device
 from ..utils.errors import InvalidArgumentError, UnimplementedError
 
@@ -56,7 +56,7 @@ def _payload_kind(value_type) -> Tuple[int, bool]:
     if isinstance(value_type, TupleType):
         raise UnimplementedError(
             f"the port's DCF batch_evaluate handles scalar Int/XorWrapper values; "
-            f"the tuple payload {value_type} comes with the tuple codec "
+            f"the tuple payload {value_type} comes with the DCF's codec payloads "
             "(ROADMAP Queue 1 item 3)"
         )
     if isinstance(value_type, Int):
@@ -253,7 +253,7 @@ def _capture(planes, control, corr_d, block_sel_d, acc_mask_d, bits: int, xor_gr
     sel = elems[:, points, block_sel_d]  # [K, P_pad, lpe]
     ctrl = backend_torch.unpack_mask_device(control)  # [K, P_pad]: 0 / 1
     gated = corr_d[:, block_sel_d] & -ctrl[..., None]
-    value = sel ^ gated if xor_group else evaluator._limb_add(sel, gated, bits)
+    value = sel ^ gated if xor_group else value_codec.limb_add_pow2(sel, gated, bits)
     return value & -acc_mask_d[None, :, None]
 
 
@@ -273,13 +273,13 @@ def _walk_chunk(ch: DcfChunk, dp: DcfPoints) -> torch.Tensor:
     for d in range(levels + 1):
         value = _capture(planes, control, ch.corr[:, d], dp.block_sel[d], dp.acc_mask[d],
                          dp.bits, dp.xor_group)
-        acc = acc ^ value if dp.xor_group else evaluator._limb_add(acc, value, dp.bits)
+        acc = acc ^ value if dp.xor_group else value_codec.limb_add_pow2(acc, value, dp.bits)
         if d < levels:
             planes, control = aes_cuda.walk_level(
                 planes, control, dp.path_masks[d], cw[d], cl[d], cr[d]
             )
     if ch.party == 1 and not dp.xor_group:
-        acc = evaluator._limb_neg(acc, dp.bits)
+        acc = value_codec.limb_neg_pow2(acc, dp.bits)
     return acc[:, : dp.num_points]
 
 

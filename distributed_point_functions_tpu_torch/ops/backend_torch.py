@@ -8,7 +8,9 @@ the full-domain, point-walk, DCF, hierarchical and keygen slices.
 the CUDA kernels K2, K3, K4, K5, K6, K7 in both its forms, K8 and K9
 (ops/aes_cuda.py), and ``expand_one_level_single`` that of K2's one-key
 view: same arguments, same outputs, written as tensor algebra over a
-leading key axis (K9's lanes are keys: it has none).
+leading key axis (K9's lanes are keys: it has none). ``hash_value_stream``
+chains the value hash over a type's value blocks, with K4's wrapper or its
+plain version.
 The wrappers in ops/aes_cuda.py run them for CPU tensors; chip_smoke.py
 holds the kernels against them on the card. The JAX package's functions
 take one key and are vmapped; these take the key axis explicitly, as the
@@ -110,6 +112,35 @@ def hash_value_planes(planes):
     """Value-PRG hash of packed seeds (the j = 0 block): the plain version of
     K4. int32[..., 128, W] -> same shape."""
     return aes_torch.hash_planes(planes, _rk_np("value"))
+
+
+def hash_value_stream(planes, blocks_needed: int, hash_planes=hash_value_planes):
+    """Value-PRG byte stream of packed seeds: hash(seed + j) for every j <
+    blocks_needed, concatenated little-endian per lane, the reference's
+    HashExpandedSeeds (dpf/distributed_point_function.cc:500-524).
+    int32[K, 128, W] -> int32[K, 32 W, 4 * blocks_needed]. `hash_planes`
+    hashes one block's planes: K4's wrapper (ops/aes_cuda.py), one launch a
+    block on the re-packed seeds, or by default its plain version. The JAX
+    package's ``backend_jax.hash_value_stream``."""
+    parts = [aes_torch.unpack_from_planes(hash_planes(planes))]
+    if blocks_needed > 1:
+        seeds = aes_torch.unpack_from_planes(planes)
+        for j in range(1, blocks_needed):
+            hashed = hash_planes(aes_torch.pack_to_planes(_add_small_constant(seeds, j)))
+            parts.append(aes_torch.unpack_from_planes(hashed))
+    return parts[0] if blocks_needed == 1 else torch.cat(parts, dim=-1)
+
+
+def _add_small_constant(limbs, j: int):
+    """int32[..., 4] uint128 limbs + a small constant j, the carry running
+    up through the limbs."""
+    out = []
+    carry = j
+    for l in range(4):
+        s = value_codec.unsigned(limbs[..., l]) + carry
+        carry = s >> 32
+        out.append(s.to(torch.int32))
+    return torch.stack(out, dim=-1)
 
 
 def expand_and_hash_last_level(planes, control, cw_plane, ccl_mask, ccr_mask):

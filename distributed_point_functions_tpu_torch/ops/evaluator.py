@@ -1,6 +1,7 @@
-"""Batched full-domain DPF evaluation folded on the GPU — the main path.
+"""Batched DPF evaluation on the GPU — the main path.
 
-The port's counterpart of the JAX package's ``ops/evaluator.py``, cut to
+The port's counterpart of the JAX package's ``ops/evaluator.py``.
+
 ``full_domain_fold_chunks(mode="fold")``: a batch of keys is expanded over
 the whole domain, every value is corrected, and each key's values are
 XOR-folded — AND-masked against a lane-order database first when one is
@@ -22,14 +23,23 @@ the value hash, the transpose to limbs, the correction and the fold (or the
 AND with a megakernel-order database) on chip, sized by a
 ``MegakernelPlan`` (``plan_megakernel``).
 
+``full_domain_evaluate_chunks`` / ``full_domain_evaluate`` yield the
+values themselves, for every value type: steps 1 and 2 (K2 a level, K4 a
+value block of the stream, ``backend_torch.hash_value_stream``), then the
+finalize in plain PyTorch (``_finalize``: unpack, the scalar correction or
+the codec of ops/value_codec.py for IntModN and tuples, the leaf-order
+gather); or, in mode "walk", K6 a tree level along every leaf's path, K4
+and the finalize without a gather. ``PreparedKeyBatch`` packs and uploads a
+key batch once; ``plan_slabs`` sizes ``lane_slab`` pieces.
+
 ``evaluate_at_batch`` is batched EvaluateAt: every key of a batch at every
 point of a list. ``mode="walk"`` walks the points down the tree with one K6
-launch per level (ops/aes_cuda.walk_levels), hashes the leaves with K4 and
-corrects the values in plain PyTorch; ``mode="walkkernel"`` runs the walk
-and the leaf capture in one launch of the walk megakernel K7 per chunk
-(ops/aes_cuda.walk_megakernel), at ``lane_words(P)`` lane words (the JAX
-package's ``WalkkernelPlan``, ``plan_walkkernel``, is kept for the tests
-that hold the two plans equal).
+launch per level (ops/aes_cuda.walk_levels), hashes the leaves with K4 (a
+launch a value block) and corrects the values in plain PyTorch, every value
+type; ``mode="walkkernel"`` runs the walk and the leaf capture in one
+launch of the walk megakernel K7 per chunk (ops/aes_cuda.walk_megakernel),
+at ``lane_words(P)`` lane words (the JAX package's ``WalkkernelPlan``,
+``plan_walkkernel``, is kept for the tests that hold the two plans equal).
 
 Chunks run one after another (no prefetch pipeline yet). Words are int32
 tensors carrying uint32 bit patterns (ops/aes_torch.py); limb carries are
@@ -50,7 +60,7 @@ from ..core.dpf import DistributedPointFunction
 from ..core.keys import DpfKey
 from ..core.value_types import Int, XorWrapper
 from ..utils.devices import resolve_device
-from ..utils.errors import InvalidArgumentError, UnimplementedError
+from ..utils.errors import InvalidArgumentError
 from . import aes_cuda, aes_torch, backend_torch, value_codec
 
 # ---------------------------------------------------------------------------
@@ -68,9 +78,13 @@ class KeyBatch:
     cw_seeds: np.ndarray  # uint32[K, L, 4]
     cw_left: np.ndarray  # bool[K, L]
     cw_right: np.ndarray  # bool[K, L]
-    value_corrections: np.ndarray  # uint32[K, epb, 4]
+    value_corrections: np.ndarray  # uint32[K, epb, 4] (zeros for tuple types)
     num_levels: int
     device: torch.device
+    # The level's ValueSpec and, for the codec path (not the scalar fast
+    # path), per component c uint32[K, epb, lpe_c] corrections.
+    spec: Optional[value_codec.ValueSpec] = None
+    codec_corrections: Optional[Tuple[np.ndarray, ...]] = None
 
     @classmethod
     def from_keys(
@@ -96,7 +110,10 @@ class KeyBatch:
         cw_left = np.zeros((k, stop_level), dtype=bool)
         cw_right = np.zeros((k, stop_level), dtype=bool)
         vc = np.zeros((k, spec.epb, 4), dtype=np.uint32)
-        lpe = spec.components[0].lpe
+        # The scalar fast path reads `vc` alone; the codec path its own limbs.
+        codec_vc = None if _scalar_kind(spec)[0] else tuple(
+            np.zeros((k, spec.epb, comp.lpe), dtype=np.uint32) for comp in spec.components
+        )
         for i, key in enumerate(keys):
             if key.party != party:
                 raise InvalidArgumentError(
@@ -113,8 +130,12 @@ class KeyBatch:
                 corrections = key.last_level_value_correction
             else:
                 corrections = key.correction_words[stop_level].value_correction
-            (limbs,) = value_codec.correction_limbs(spec, corrections)
-            vc[i, :, :lpe] = limbs
+            if codec_vc is not None:
+                for c, limbs in enumerate(value_codec.correction_limbs(spec, corrections)):
+                    codec_vc[c][i] = limbs
+            if not spec.is_tuple:
+                for j, cval in enumerate(corrections):
+                    vc[i, j] = uint128.to_limbs(int(cval))
         return cls(
             seeds=seeds,
             party=party,
@@ -124,6 +145,8 @@ class KeyBatch:
             value_corrections=vc,
             num_levels=stop_level,
             device=resolve_device(device),
+            spec=spec,
+            codec_corrections=codec_vc,
         )
 
     def take(self, idx: np.ndarray) -> "KeyBatch":
@@ -135,6 +158,10 @@ class KeyBatch:
             cw_left=self.cw_left[idx],
             cw_right=self.cw_right[idx],
             value_corrections=self.value_corrections[idx],
+            codec_corrections=(
+                None if self.codec_corrections is None
+                else tuple(a[idx] for a in self.codec_corrections)
+            ),
         )
 
     def device_cw_arrays(self, from_level: int = 0):
@@ -212,21 +239,6 @@ def _split_elements(limbs: torch.Tensor, bits: int) -> torch.Tensor:
     return vals.reshape(*lead, 128 // bits, 1)
 
 
-def _limb_add(a: torch.Tensor, b: torch.Tensor, bits: int) -> torch.Tensor:
-    """Element-wise addition mod 2^bits on int32[..., lpe] limb arrays."""
-    if bits < 32:
-        s = value_codec.unsigned(a) + value_codec.unsigned(b)
-        return (s & ((1 << bits) - 1)).to(torch.int32)
-    return torch.stack(value_codec.rows_limb_add(a.unbind(-1), b.unbind(-1), bits), dim=-1)
-
-
-def _limb_neg(a: torch.Tensor, bits: int) -> torch.Tensor:
-    """Two's-complement negation mod 2^bits on int32[..., lpe] limbs."""
-    if bits < 32:
-        return ((-value_codec.unsigned(a)) & ((1 << bits) - 1)).to(torch.int32)
-    return torch.stack(value_codec.rows_limb_neg(a.unbind(-1), bits), dim=-1)
-
-
 def _correct_values(
     hashed: torch.Tensor,  # int32[..., 4] value-hash blocks
     control: torch.Tensor,  # int32[...] control bits (1 = corrected)
@@ -245,9 +257,9 @@ def _correct_values(
     corr = corrections & -control[..., None, None]  # 0/1 -> 0 / ~0 mask
     if xor_group:
         return elems ^ corr
-    out = _limb_add(elems, corr, bits)
+    out = value_codec.limb_add_pow2(elems, corr, bits)
     if party == 1:
-        out = _limb_neg(out, bits)
+        out = value_codec.limb_neg_pow2(out, bits)
     return out
 
 
@@ -318,24 +330,38 @@ class _Chunk:
     """One key chunk's device-resident evaluation inputs."""
 
     valid: int  # real (non-padded) keys in this chunk
-    seeds: torch.Tensor  # int32[K, M, 4] host-expanded, M = 2^host_levels
+    seeds: torch.Tensor  # int32[K, M, 4] host-expanded, lanes padded to 32
     control_mask: torch.Tensor  # int32[K, M // 32]
     cw: torch.Tensor  # int32[L, K, 128], level-major
     ccl: torch.Tensor  # int32[L, K]
     ccr: torch.Tensor  # int32[L, K]
-    corr: torch.Tensor  # int32[K, epb, lpe]
+    corr: object  # int32[K, epb, lpe], or the codec's tuple of them
+    m: int  # real host lanes before the pad to 32
+
+
+def _prepare_chunk_host(kb: KeyBatch, host_levels: int, bits: int):
+    """One chunk's inputs on the host (numpy): host pre-expansion, lanes
+    padded to one packed word where the tree stops below it, the
+    control-mask pack and the correction tables, per-level tables
+    level-major so that each level's slice is contiguous. `bits` > 0 takes
+    the scalar corrections of that width, 0 the codec's. Returns (seeds,
+    control_mask, cw, ccl, ccr, corr, m): the JAX package's
+    ``_prepare_chunk_host``."""
+    k = kb.seeds.shape[0]
+    seeds_h, control_h = _host_expand(kb.seeds, np.full(k, bool(kb.party)), kb, host_levels)
+    m = seeds_h.shape[1]
+    if m < 32:
+        seeds_h = np.concatenate([seeds_h, np.zeros((k, 32 - m, 4), np.uint32)], axis=1)
+        control_h = np.concatenate([control_h, np.zeros((k, 32 - m), bool)], axis=1)
+    cw, ccl, ccr = kb.device_cw_arrays(host_levels)
+    corr = _correction_limbs(kb.value_corrections, bits) if bits else kb.codec_corrections
+    return (seeds_h, aes_torch.pack_bit_mask(control_h), cw.transpose(1, 0, 2), ccl.T, ccr.T,
+            corr, m)
 
 
 def _prepare_chunk(kb: KeyBatch, valid: int, host_levels: int, bits: int) -> _Chunk:
-    """One chunk's inputs: host pre-expansion (host_levels >= 5, so the
-    lanes fill whole packed words), control-mask pack and correction tables
-    on the host (numpy), then one upload each to the batch's device, the
-    per-level tables level-major so that each level's slice is contiguous."""
-    control0 = np.full(kb.seeds.shape[0], bool(kb.party), dtype=bool)
-    seeds_h, control_h = _host_expand(kb.seeds, control0, kb, host_levels)
-    control_mask = aes_torch.pack_bit_mask(control_h)
-    cw, ccl, ccr = kb.device_cw_arrays(host_levels)
-    corr = _correction_limbs(kb.value_corrections, bits)
+    """``_prepare_chunk_host``, then one upload each to the batch's device."""
+    seeds_h, control_mask, cw, ccl, ccr, corr, m = _prepare_chunk_host(kb, host_levels, bits)
 
     def up(a: np.ndarray) -> torch.Tensor:
         return _upload(a, kb.device)
@@ -344,10 +370,11 @@ def _prepare_chunk(kb: KeyBatch, valid: int, host_levels: int, bits: int) -> _Ch
         valid=valid,
         seeds=up(seeds_h),
         control_mask=up(control_mask),
-        cw=up(cw.transpose(1, 0, 2)),
-        ccl=up(ccl.T),
-        ccr=up(ccr.T),
-        corr=up(corr),
+        cw=up(cw),
+        ccl=up(ccl),
+        ccr=up(ccr),
+        corr=up(corr) if bits else tuple(up(a) for a in corr),
+        m=m,
     )
 
 
@@ -377,13 +404,8 @@ def _fold_chunk(
     supplies K2/K3/K4: the kernel wrappers (ops/aes_cuda.py), or, where a
     caller builds a reference run, their plain versions
     (ops/backend_torch.py), which take the same arguments."""
-    planes = aes_torch.pack_to_planes(ch.seeds)
-    control = ch.control_mask
     fuse_last = fuse_last_hash and levels >= 1
-    for level in range(levels - 1 if fuse_last else levels):
-        planes, control = ops.expand_one_level(
-            planes, control, ch.cw[level], ch.ccl[level], ch.ccr[level]
-        )
+    planes, control = _expand_chunk(ch, levels - 1 if fuse_last else levels, ops)
     if fuse_last:
         # The last level and the value hash in one kernel (K3): the last
         # level's children never reach device memory.
@@ -584,6 +606,432 @@ def lane_order_map(
         out[pos[valid]] = leaf_elem[valid]
     out[out >= (1 << lds)] = -1  # block packing overshoot
     return out
+
+
+# ---------------------------------------------------------------------------
+# Full-domain evaluation with values out
+# ---------------------------------------------------------------------------
+
+FULL_DOMAIN_MODES = ("levels", "fused", "walk")
+
+
+class _Values(NamedTuple):
+    """How a chunk's leaves become values: the level's spec, the party,
+    the elements kept a block, and the scalar fast path's width and group
+    (bits 0: the codec path)."""
+
+    spec: value_codec.ValueSpec
+    party: int
+    keep: int
+    bits: int
+    xor_group: bool
+
+
+def _scalar_kind(spec: value_codec.ValueSpec) -> Tuple[int, bool]:
+    """(bits, xor_group) of the scalar fast path, one direct Int/XorWrapper
+    in one block; (0, False) for the codec path."""
+    if spec.is_scalar_direct and spec.blocks_needed == 1:
+        comp = spec.components[0]
+        return comp.bits, comp.kind == "xor"
+    return 0, False
+
+
+def _values_of(batch: KeyBatch, dpf: DistributedPointFunction, hierarchy_level: int) -> _Values:
+    lds = dpf.validator.parameters[hierarchy_level].log_domain_size
+    return _Values(batch.spec, batch.party, 1 << (lds - batch.num_levels),
+                   *_scalar_kind(batch.spec))
+
+
+def _correct(stream, ctrl, corr, spec, bits: int, xor_group: bool, party: int) -> tuple:
+    """Hashed blocks int32[K, lanes, 4 * blocks_needed], control bits
+    int32[K, lanes] and the chunk's corrections -> per component int32[K,
+    lanes, epb, lpe_c]: the scalar fast path (``_correct_values``) when
+    `bits` is set, else the codec (``value_codec.correct_values``)."""
+    if bits:
+        return (_correct_values(stream, ctrl, corr[:, None], bits, party, xor_group),)
+    return value_codec.correct_values(stream, ctrl, [c[:, None] for c in corr], spec, party)
+
+
+def _finalize(stream, control, corr, order, vf: _Values):
+    """Unpack, correction and the leaf-order restore of one chunk: the JAX
+    package's ``_finalize_batch_jit`` (scalar) and
+    ``_finalize_batch_codec_jit`` (codec), in plain PyTorch. `order` (int64
+    lanes on the device) gathers leaf order, None keeps lane order. Each
+    component's epb elements of lpe limbs fold into one row a lane, so a
+    lane's limbs travel together through the gather (the JAX package folds
+    the limbs of an epb == 1 component into the lane axis for the same
+    gather); then the first `keep` elements of each block stay. Returns an
+    int32[K, lanes * keep, lpe] tensor, or a tuple of them for a tuple
+    type."""
+    ctrl = backend_torch.unpack_mask_device(control)
+    outs = []
+    for v in _correct(stream, ctrl, corr, vf.spec, vf.bits, vf.xor_group, vf.party):
+        k, lanes, epb, lpe = v.shape
+        v = v.reshape(k, lanes, epb * lpe)
+        if order is not None:
+            v = v.index_select(1, order)
+        outs.append(v[:, :, : vf.keep * lpe].reshape(k, -1, lpe))
+    return tuple(outs) if vf.spec.is_tuple else outs[0]
+
+
+def _expand_chunk(ch: _Chunk, levels: int, ops=aes_cuda):
+    """The chunk's host-expanded seeds packed to planes, then one K2 launch
+    a level -> (planes int32[K, 128, W], control int32[K, W]). `ops`
+    supplies K2, as in ``_fold_chunk``."""
+    planes = aes_torch.pack_to_planes(ch.seeds)
+    control = ch.control_mask
+    for level in range(levels):
+        planes, control = ops.expand_one_level(
+            planes, control, ch.cw[level], ch.ccl[level], ch.ccr[level]
+        )
+    return planes, control
+
+
+def _evaluate_chunk(ch: _Chunk, levels: int, order, vf: _Values):
+    """One chunk of modes "levels" and "fused": K2 a level, the value-hash
+    stream (K4 a block) and ``_finalize``."""
+    planes, control = _expand_chunk(ch, levels)
+    stream = backend_torch.hash_value_stream(planes, vf.spec.blocks_needed,
+                                             aes_cuda.hash_value_planes)
+    # The planes are as large as the stream: drop them before the finalize.
+    del planes
+    return _finalize(stream, control, ch.corr, order, vf)
+
+
+@functools.lru_cache(maxsize=8)
+def _order_on_device(m: int, lanes: int, levels: int, device: torch.device) -> torch.Tensor:
+    """The leaf-order gather of one (host lanes, padded lanes, device
+    levels) shape, held on the device (up to 2^24 lanes, 128 MiB), so that
+    no call uploads it again; ``backend_torch.expansion_output_order``."""
+    order = backend_torch.expansion_output_order(m, lanes, levels)
+    return torch.from_numpy(order).to(device)
+
+
+@functools.lru_cache(maxsize=2)
+def _walk_path_masks(num_levels: int) -> np.ndarray:
+    """Packed per-level path masks of a full-domain walk: lane i follows the
+    root-to-leaf path of leaf i (level l reads bit num_levels - 1 - l of i).
+    Built word by word: for leaf bits >= 5 all 32 lanes of a word agree,
+    below 5 every word carries one pattern. uint32[num_levels, max(32,
+    2^num_levels) // 32], the JAX package's ``_walk_path_masks``."""
+    n_words = max(32, 1 << num_levels) // 32
+    masks = np.empty((num_levels, n_words), np.uint32)
+    widx = np.arange(n_words, dtype=np.uint64)
+    for l in range(num_levels):
+        b = num_levels - 1 - l
+        if b >= 5:
+            masks[l] = np.where((widx >> np.uint64(b - 5)) & np.uint64(1), _FULL32, 0)
+        else:
+            masks[l] = np.uint32(sum(1 << i for i in range(32) if (i >> b) & 1))
+    return masks
+
+
+_FULL32 = np.uint32(0xFFFFFFFF)
+
+
+def _check_host_levels(host_levels: Optional[int], stop_level: int) -> int:
+    if host_levels is None:
+        return min(5, stop_level)
+    if host_levels < 0:
+        raise InvalidArgumentError(f"host_levels must be non-negative, got {host_levels}")
+    return min(host_levels, stop_level)
+
+
+class PreparedKeyBatch:
+    """Key material packed and uploaded ONCE, reusable across full-domain
+    calls: the JAX package's ``PreparedKeyBatch``.
+
+    ``full_domain_evaluate_chunks`` (modes "levels" and "fused", leaf or
+    lane order, no lane_slab) takes an instance in place of `keys` and
+    skips the per-call host pre-expansion and upload of the seed and
+    correction tables. `key_chunk` and `host_levels` are fixed here; a call
+    passing a conflicting value raises InvalidArgumentError (leave them at
+    None to inherit the prepared choice). `device`: None = CUDA.
+    """
+
+    def __init__(self, dpf, keys: Sequence[DpfKey], hierarchy_level: int = -1,
+                 key_chunk: int = 128, host_levels: Optional[int] = None, device=None):
+        v = dpf.validator
+        if hierarchy_level < 0:
+            hierarchy_level = v.num_hierarchy_levels - 1
+        if key_chunk < 1:
+            raise InvalidArgumentError(f"key_chunk must be positive, got {key_chunk}")
+        self.dpf = dpf
+        self.hierarchy_level = hierarchy_level
+        self.key_chunk = key_chunk
+        self.num_keys = len(keys)
+        batch = KeyBatch.from_keys(dpf, keys, hierarchy_level, device=device)
+        self.device = batch.device
+        self.values = _values_of(batch, dpf, hierarchy_level)
+        stop_level = batch.num_levels
+        if host_levels is not None and host_levels < 5 and stop_level >= 5:
+            raise InvalidArgumentError(
+                f"PreparedKeyBatch requires host_levels >= 5 (one full packed word), "
+                f"got {host_levels}"
+            )
+        self.host_levels = _check_host_levels(host_levels, stop_level)
+        self.device_levels = stop_level - self.host_levels
+        self.domain = 1 << v.parameters[hierarchy_level].log_domain_size
+        self.chunks = [
+            _prepare_chunk(kb, valid, self.host_levels, self.values.bits)
+            for kb, valid in _key_chunks(batch, self.num_keys, key_chunk)
+        ]
+
+    def _check_call(self, dpf, hierarchy_level: int, key_chunk, host_levels, device) -> None:
+        """The prepared tables encode one (parameters, chunking, split,
+        device) choice; a call with other knobs would run against the wrong
+        tables."""
+        if hierarchy_level < 0:
+            hierarchy_level = dpf.validator.num_hierarchy_levels - 1
+        if dpf is not self.dpf or hierarchy_level != self.hierarchy_level:
+            raise InvalidArgumentError(
+                "PreparedKeyBatch was built for a different DPF instance or hierarchy level"
+            )
+        if key_chunk is not None and key_chunk != self.key_chunk:
+            raise InvalidArgumentError(
+                f"PreparedKeyBatch was prepared at key_chunk={self.key_chunk}, call "
+                f"requested {key_chunk}"
+            )
+        if host_levels is not None and host_levels != self.host_levels:
+            raise InvalidArgumentError(
+                f"PreparedKeyBatch was prepared at host_levels={self.host_levels}, call "
+                f"requested {host_levels}"
+            )
+        if device is not None and resolve_device(device) != self.device:
+            raise InvalidArgumentError(
+                f"PreparedKeyBatch lies on {self.device}, call requested {device}"
+            )
+
+
+def full_domain_evaluate_chunks(
+    dpf: DistributedPointFunction,
+    keys,
+    hierarchy_level: int = -1,
+    key_chunk: Optional[int] = None,
+    host_levels: Optional[int] = None,
+    leaf_order: bool = True,
+    mode: str = "levels",
+    lane_slab: Optional[int] = None,
+    device=None,
+) -> Iterator[Tuple[int, object]]:
+    """Full-domain evaluation, yielding values that stay on the device.
+
+    Yields (num_valid_keys, values) per key chunk: values is an int32
+    tensor [key_chunk, domain_size, lpe] of uint32 limbs (mod-N residues
+    for IntModN), or a tuple of per-component tensors for a tuple type;
+    rows past num_valid_keys are padding. Every value type of the JAX
+    package's ``full_domain_evaluate_chunks`` is handled: scalar
+    Int/XorWrapper on the fast path, IntModN and tuples through
+    ops/value_codec.py.
+
+    Args:
+      keys: DpfKeys of one party, or a ``PreparedKeyBatch`` (modes "levels"
+        and "fused" without lane_slab).
+      key_chunk: keys a chunk (default 32; prepared: its own).
+      host_levels: tree levels expanded on the host (default 5, one packed
+        word; a shallower split pads the lanes to 32 and trims them).
+      leaf_order: False yields lane (expansion) order, padded lanes
+        included, for consumers that permute static data once with
+        ``lane_order_map``.
+      mode: "levels" and "fused" (the JAX package's per-level programs and
+        single program a chunk) run the same launches here, where a kernel
+        launch has no program boundary: K2 a device level, K4 a value
+        block, then the plain-torch finalize. "walk": every leaf lane walks
+        its own root-to-leaf path, one K6 launch a tree level (the path
+        masks shared by the keys), then K4 a block and the finalize; lane i
+        is leaf i, so there is no gather, and leaf_order=False or
+        host_levels raise.
+      lane_slab: mode "fused" in leaf order only: each chunk's expansion
+        runs in pieces of `lane_slab` host lanes (a multiple of 32),
+        yielding ceil(M / lane_slab) leaf-contiguous pieces a chunk; piece j
+        covers domain indices [j * lane_slab * 2^device_levels * keep,
+        ...). ``plan_slabs`` sizes it.
+      device: None = CUDA; "cpu" runs the kernels' plain versions.
+    """
+    if mode not in FULL_DOMAIN_MODES:
+        raise InvalidArgumentError(
+            f"mode must be 'levels', 'fused' or 'walk', got {mode!r}"
+        )
+    if lane_slab is not None:
+        if mode != "fused" or not leaf_order:
+            raise InvalidArgumentError(
+                "lane_slab requires mode='fused' with leaf_order=True "
+                "(lane-order consumers cannot model the slab structure)"
+            )
+        if lane_slab % 32 or lane_slab <= 0:
+            raise InvalidArgumentError(
+                f"lane_slab must be a positive multiple of 32, got {lane_slab}"
+            )
+    if mode == "walk" and (not leaf_order or host_levels is not None):
+        # Walk output is always leaf order: a caller that permuted its data
+        # with lane_order_map would reduce against the wrong indices.
+        raise InvalidArgumentError(
+            "mode='walk' always yields leaf order and does no host "
+            "pre-expansion; leaf_order=False / host_levels are not "
+            "compatible with it"
+        )
+    v = dpf.validator
+    if hierarchy_level < 0:
+        hierarchy_level = v.num_hierarchy_levels - 1
+    if isinstance(keys, PreparedKeyBatch):
+        if mode == "walk" or lane_slab is not None:
+            raise InvalidArgumentError(
+                "PreparedKeyBatch supports mode='levels'/'fused' without "
+                "lane_slab (walk mode and slabbing re-derive their inputs "
+                "per call)"
+            )
+        keys._check_call(dpf, hierarchy_level, key_chunk, host_levels, device)
+        vf, domain, dev = keys.values, keys.domain, keys.device
+        m_lanes = keys.chunks[0].seeds.shape[1]
+        order = _order_on_device(keys.chunks[0].m, m_lanes, keys.device_levels, dev)
+        for ch in keys.chunks:
+            out = _evaluate_chunk(ch, keys.device_levels, order if leaf_order else None, vf)
+            yield ch.valid, _trim(out, domain, leaf_order)
+        return
+    if key_chunk is None:
+        key_chunk = 32
+    if key_chunk < 1:
+        raise InvalidArgumentError(f"key_chunk must be positive, got {key_chunk}")
+    batch = KeyBatch.from_keys(dpf, keys, hierarchy_level, device=device)
+    vf = _values_of(batch, dpf, hierarchy_level)
+    domain = 1 << v.parameters[hierarchy_level].log_domain_size
+    stop_level = batch.num_levels
+    chunks = _key_chunks(batch, len(keys), key_chunk)
+
+    if mode == "walk":
+        path_masks = _upload(_walk_path_masks(stop_level), batch.device)
+        for kb, valid in chunks:
+            wch = prepare_walk_chunk(kb, vf.bits)
+            stream, control = _walk_leaves(wch, path_masks, vf.spec.blocks_needed)
+            yield valid, _trim(_finalize(stream, control, wch.corr, None, vf), domain, True)
+        return
+
+    host_levels = _check_host_levels(host_levels, stop_level)
+    device_levels = stop_level - host_levels
+    for kb, valid in chunks:
+        if lane_slab is None:
+            ch = _prepare_chunk(kb, valid, host_levels, vf.bits)
+            order = (_order_on_device(ch.m, ch.seeds.shape[1], device_levels, batch.device)
+                     if leaf_order else None)
+            yield valid, _trim(_evaluate_chunk(ch, device_levels, order, vf), domain, leaf_order)
+            continue
+        # Pieces slice the host-side expansion before it is uploaded.
+        seeds_p, mask_p, cw, ccl, ccr, corr, m = _prepare_chunk_host(kb, host_levels, vf.bits)
+        m_lanes = seeds_p.shape[1]
+        # A host expansion below one packed word was padded to 32 lanes:
+        # slicing it would emit pieces of padding, so it runs as one piece.
+        slab = m_lanes if m < 32 else min(lane_slab, m_lanes)
+        if slab < m_lanes and m_lanes * (1 << device_levels) * vf.keep != domain:
+            raise InvalidArgumentError(
+                "lane_slab pieces would not partition the domain exactly "
+                f"(lanes={m_lanes}, device_levels={device_levels}, keep={vf.keep}, "
+                f"domain={domain})"
+            )
+        up = functools.partial(_upload, device=batch.device)
+        tables = dict(cw=up(cw), ccl=up(ccl), ccr=up(ccr),
+                      corr=up(corr) if vf.bits else tuple(up(a) for a in corr))
+        for lo in range(0, m_lanes, slab):
+            s = min(slab, m_lanes - lo)
+            ch = _Chunk(valid=valid, seeds=up(seeds_p[:, lo : lo + s]),
+                        control_mask=up(mask_p[:, lo // 32 : (lo + s) // 32]),
+                        m=m if s == m_lanes else s, **tables)
+            order = _order_on_device(ch.m, s, device_levels, batch.device)
+            yield valid, _trim(_evaluate_chunk(ch, device_levels, order, vf), domain, True)
+
+
+def _trim(out, domain: int, leaf_order: bool):
+    """Leaf order trimmed to the domain (block packing may overshoot it);
+    lane order keeps its padded lanes for the consumer's permutation."""
+    if not leaf_order:
+        return out
+    if isinstance(out, tuple):
+        return tuple(o[:, :domain] for o in out)
+    return out[:, :domain]
+
+
+# Without an explicit budget, ``plan_slabs`` lets one piece write at most
+# this share of the card's memory. An IntModN(64) piece peaks at about 25
+# times its output on an H100 (27.66 GiB at 2^27 leaves, ~200 bytes a leaf
+# live in the finalize's int64 limbs against 8 bytes of output: PERF.md
+# §5), so a piece stays near 40 % of the card.
+SLAB_OUTPUT_SHARE = 1 / 64
+# On the CPU, where the plain versions run at test sizes, a fixed budget.
+CPU_SLAB_OUTPUT_BYTES = 64 << 20
+
+
+def plan_slabs(
+    dpf: DistributedPointFunction,
+    key_chunk: int,
+    hierarchy_level: int = -1,
+    max_out_bytes: Optional[int] = None,
+    min_host_levels: int = 5,
+    device=None,
+) -> Tuple[int, Optional[int]]:
+    """Sizes (host_levels, lane_slab) so that one piece of mode "fused"
+    writes at most `max_out_bytes` of values for a key_chunk-key chunk: the
+    JAX package's ``plan_slabs`` arithmetic. Chunks under the budget need
+    no slabbing and get (min_host_levels, None). Pass the result to
+    ``full_domain_evaluate_chunks(..., mode="fused", host_levels=h,
+    lane_slab=s)``.
+
+    The default budget is the port's own: ``SLAB_OUTPUT_SHARE`` of the
+    card's memory (``torch.cuda.get_device_properties(device).total_memory``;
+    `device` None = CUDA), or ``CPU_SLAB_OUTPUT_BYTES`` on the CPU.
+    """
+    if max_out_bytes is None:
+        dev = resolve_device(device)
+        max_out_bytes = (
+            int(torch.cuda.get_device_properties(dev).total_memory * SLAB_OUTPUT_SHARE)
+            if dev.type == "cuda" else CPU_SLAB_OUTPUT_BYTES
+        )
+    v = dpf.validator
+    if hierarchy_level < 0:
+        hierarchy_level = v.num_hierarchy_levels - 1
+    stop_level = v.hierarchy_to_tree[hierarchy_level]
+    spec = value_codec.build_spec(
+        v.parameters[hierarchy_level].value_type, v.blocks_needed[hierarchy_level]
+    )
+    lds = v.parameters[hierarchy_level].log_domain_size
+    keep = 1 << (lds - stop_level)
+    bytes_per_leaf = keep * 4 * sum(c.lpe for c in spec.components)
+    budget_leaves = max(1, max_out_bytes // (bytes_per_leaf * key_chunk))
+    if (1 << stop_level) <= budget_leaves:
+        return min(min_host_levels, stop_level), None
+    # Host-expand until one 32-lane slab fits the budget, then take as many
+    # whole 32-lane groups a piece as fit.
+    h = min(min_host_levels, stop_level)
+    while h < stop_level and (32 << (stop_level - h)) > budget_leaves:
+        h += 1
+    leaves_per_lane = 1 << (stop_level - h)
+    return h, max(32, (budget_leaves // leaves_per_lane) // 32 * 32)
+
+
+def full_domain_evaluate(
+    dpf: DistributedPointFunction,
+    keys: Sequence[DpfKey],
+    hierarchy_level: int = -1,
+    key_chunk: int = 32,
+    host_levels: Optional[int] = None,
+    device=None,
+):
+    """Full-domain evaluation of a key batch, results on the host.
+
+    Returns uint32[K, domain_size, lpe] limb values (mod-N residues for
+    IntModN), or for a tuple type a tuple of such per-component arrays;
+    ``value_codec.values_to_host`` turns either into host values and
+    ``values_to_numpy`` a scalar's into integers. For values that stay on
+    the device use ``full_domain_evaluate_chunks``, which this drives in
+    mode "levels". `device`: None = CUDA.
+    """
+    outs = [
+        tuple(aes_torch.from_words(o[:valid]) for o in out) if isinstance(out, tuple)
+        else aes_torch.from_words(out[:valid])
+        for valid, out in full_domain_evaluate_chunks(
+            dpf, keys, hierarchy_level, key_chunk, host_levels, device=device)
+    ]
+    if isinstance(outs[0], tuple):
+        return tuple(np.concatenate([o[c] for o in outs]) for c in range(len(outs[0])))
+    return np.concatenate(outs)
 
 
 # ---------------------------------------------------------------------------
@@ -961,15 +1409,17 @@ class WalkChunk:
     cw: torch.Tensor  # int32[K, L, 128]
     ccl: torch.Tensor  # int32[K, L]
     ccr: torch.Tensor  # int32[K, L]
-    corr: torch.Tensor  # int32[K, epb, lpe]
+    corr: object  # int32[K, epb, lpe], or the codec's tuple of them
 
 
 def prepare_walk_chunk(kb: KeyBatch, bits: int) -> WalkChunk:
-    """One chunk's walk tables on the host (numpy), one upload each."""
+    """One chunk's walk tables on the host (numpy), one upload each; `bits`
+    > 0 takes the scalar corrections of that width, 0 the codec's."""
+    corr = (_upload(_correction_limbs(kb.value_corrections, bits), kb.device) if bits
+            else tuple(_upload(a, kb.device) for a in kb.codec_corrections))
     return WalkChunk(
         kb.party, _upload(backend_torch.cw_seed_planes(kb.seeds), kb.device),
-        *(_upload(a, kb.device) for a in kb.device_cw_arrays()),
-        _upload(_correction_limbs(kb.value_corrections, bits), kb.device),
+        *(_upload(a, kb.device) for a in kb.device_cw_arrays()), corr,
     )
 
 
@@ -980,7 +1430,8 @@ class WalkPoints:
 
     mode: str  # "walk" or "walkkernel"
     num_points: int
-    bits: int
+    spec: value_codec.ValueSpec
+    bits: int  # the scalar fast path's width; 0: the codec path
     xor_group: bool
     keep: int  # elements per block
     path_masks: torch.Tensor  # int32[L, Wp]: lane i of word w is point 32 w + i
@@ -1004,17 +1455,15 @@ def prepare_walk_points(
         hierarchy_level = v.num_hierarchy_levels - 1
     if mode not in ("walk", "walkkernel"):
         raise InvalidArgumentError(f"mode must be 'walk' or 'walkkernel', got {mode!r}")
-    value_type = v.parameters[hierarchy_level].value_type
-    if not isinstance(value_type, (Int, XorWrapper)) or v.blocks_needed[hierarchy_level] != 1:
-        raise UnimplementedError(
-            f"the port's evaluate_at_batch handles scalar Int/XorWrapper values; "
-            f"{value_type} needs the codec walk (ROADMAP Queue 1 item 3)"
-        )
-    bits, xor_group = _value_kind(value_type)
-    if mode == "walkkernel" and bits % 32:
+    spec = value_codec.build_spec(
+        v.parameters[hierarchy_level].value_type, v.blocks_needed[hierarchy_level]
+    )
+    bits, xor_group = _scalar_kind(spec)
+    if mode == "walkkernel" and (not bits or bits % 32):
         raise NotImplementedError(
             "mode='walkkernel' handles scalar Int/XorWrapper values with "
-            f"32-bit-multiple widths, got {bits}-bit values; use mode='walk'"
+            "32-bit-multiple widths; use mode='walk' for codec (IntModN/Tuple) "
+            "or sub-word outputs"
         )
     lds = v.parameters[hierarchy_level].log_domain_size
     points = [int(pt) for pt in points]
@@ -1045,33 +1494,42 @@ def prepare_walk_points(
         p_pad = -(-p // 32) * 32
         select = torch.from_numpy(block_sel).to(device)
     path_masks = _upload(backend_torch.path_bit_masks(paths, num_levels, p_pad), device)
-    return WalkPoints(mode, p, bits, xor_group, keep, path_masks, select)
+    return WalkPoints(mode, p, spec, bits, xor_group, keep, path_masks, select)
 
 
-def evaluate_walk_chunk(ch: WalkChunk, wp: WalkPoints) -> torch.Tensor:
-    """One key chunk at every point -> int32[K, P, lpe], in ``wp.mode``."""
+def evaluate_walk_chunk(ch: WalkChunk, wp: WalkPoints):
+    """One key chunk at every point -> int32[K, P, lpe] (a tuple of them
+    for a tuple type), in ``wp.mode``."""
     if wp.mode == "walkkernel":
         return _walkkernel_chunk(ch, wp)
     return _walk_chunk(ch, wp)
 
 
-def _walk_chunk(ch: WalkChunk, wp: WalkPoints) -> torch.Tensor:
-    """Mode "walk": the root seeds broadcast to every point, one K6 launch
-    per level, K4 on the leaves, then unpack, correction and the element
-    select in plain PyTorch (the JAX package's ``_evaluate_points_jit``
-    with ``use_pallas``)."""
-    (k, _), w = ch.seed_planes.shape, wp.path_masks.shape[1]
+def _walk_leaves(ch: WalkChunk, path_masks: torch.Tensor, blocks_needed: int):
+    """The root seeds broadcast to every lane, one K6 launch a level along
+    the lanes' paths (path_masks int32[L, W], shared by the keys), then
+    the value-hash stream, K4 a block -> (stream int32[K, 32 W, 4 *
+    blocks_needed], control int32[K, W])."""
+    (k, _), w = ch.seed_planes.shape, path_masks.shape[1]
     dev = ch.seed_planes.device
     planes = ch.seed_planes[:, :, None].expand(k, 128, w).contiguous()
     control = torch.full((k, w), -1 if ch.party else 0, dtype=torch.int32, device=dev)
-    planes, control = aes_cuda.walk_levels(planes, control, wp.path_masks, ch.cw, ch.ccl, ch.ccr)
-    hashed = aes_cuda.hash_value_planes(planes)
-    del planes
-    blocks = aes_torch.unpack_from_planes(hashed)  # [K, 32 w, 4]
-    del hashed
+    planes, control = aes_cuda.walk_levels(planes, control, path_masks, ch.cw, ch.ccl, ch.ccr)
+    stream = backend_torch.hash_value_stream(planes, blocks_needed, aes_cuda.hash_value_planes)
+    return stream, control
+
+
+def _walk_chunk(ch: WalkChunk, wp: WalkPoints):
+    """Mode "walk": ``_walk_leaves``, then unpack, correction and the
+    element select in plain PyTorch (the JAX package's
+    ``_evaluate_points_jit`` with ``use_pallas``, and its codec walk
+    ``_evaluate_points_codec_jit``)."""
+    stream, control = _walk_leaves(ch, wp.path_masks, wp.spec.blocks_needed)
     ctrl = backend_torch.unpack_mask_device(control)  # [K, 32 w]
-    values = _correct_values(blocks, ctrl, ch.corr[:, None], wp.bits, ch.party, wp.xor_group)
-    return values[:, torch.arange(wp.num_points, device=dev), wp.select]
+    points = torch.arange(wp.num_points, device=ctrl.device)
+    outs = tuple(v[:, points, wp.select] for v in _correct(
+        stream, ctrl, ch.corr, wp.spec, wp.bits, wp.xor_group, ch.party))
+    return outs if wp.spec.is_tuple else outs[0]
 
 
 def _walkkernel_chunk(ch: WalkChunk, wp: WalkPoints) -> torch.Tensor:
@@ -1099,25 +1557,25 @@ def evaluate_at_batch(
 ):
     """Evaluates every key at every point: batched EvaluateAt.
 
-    The port of the JAX package's ``evaluate_at_batch`` for scalar
-    Int/XorWrapper outputs. Returns the values as uint32[K, P, lpe] limbs
-    (lpe = max(bits // 32, 1)) in numpy, or, with ``device_output``, as an
-    int32 tensor of the same bits on the device. ``values_to_numpy`` turns
-    limbs into integers.
+    The port of the JAX package's ``evaluate_at_batch``. Returns the values
+    as uint32[K, P, lpe] limbs (lpe = max(bits // 32, 1) for Int and
+    XorWrapper; the residue's limbs for IntModN) in numpy, or, with
+    ``device_output``, as an int32 tensor of the same bits on the device;
+    a tuple type gives a tuple of per-component arrays.
+    ``values_to_numpy`` turns scalar limbs into integers,
+    ``value_codec.values_to_host`` any type's into host values.
 
     Args:
       keys: DpfKeys of one party.
       points: domain indices at ``hierarchy_level``, any number, repeats
         allowed.
       key_chunk: keys per chunk (default: the whole batch in one chunk).
-      mode: "walk" (one K6 launch per tree level, then K4 and the
-        correction in plain PyTorch) or "walkkernel" (one K7 launch per
-        chunk at ``lane_words(P)`` words; value widths that are multiples
-        of 32 bits, at least one tree level).
+      mode: "walk" (one K6 launch per tree level, then K4 a value block and
+        the correction in plain PyTorch, every value type) or "walkkernel"
+        (one K7 launch per chunk at ``lane_words(P)`` words; scalar
+        Int/XorWrapper widths that are multiples of 32 bits, at least one
+        tree level; other types raise NotImplementedError).
       device: ``None`` = CUDA; ``"cpu"`` runs the plain PyTorch versions.
-
-    IntModN and tuple outputs (the JAX package's codec walk) are not ported
-    yet and raise UnimplementedError.
     """
     wp = prepare_walk_points(dpf, points, hierarchy_level, mode, device)
     batch = KeyBatch.from_keys(dpf, keys, hierarchy_level, device=wp.path_masks.device)
@@ -1126,12 +1584,19 @@ def evaluate_at_batch(
         key_chunk = num_keys
     if key_chunk < 1:
         raise InvalidArgumentError(f"key_chunk must be positive, got {key_chunk}")
-    outs = [
-        evaluate_walk_chunk(prepare_walk_chunk(kb, wp.bits), wp)[:valid]
+    pieces = [
+        (evaluate_walk_chunk(prepare_walk_chunk(kb, wp.bits), wp), valid)
         for kb, valid in _key_chunks(batch, num_keys, key_chunk)
     ]
-    out = torch.cat(outs) if len(outs) > 1 else outs[0]
-    return out if device_output else aes_torch.from_words(out)
+
+    def gather(parts):
+        parts = [o[:valid] for o, (_, valid) in zip(parts, pieces)]
+        out = parts[0] if len(parts) == 1 else torch.cat(parts)
+        return out if device_output else aes_torch.from_words(out)
+
+    if wp.spec.is_tuple:
+        return tuple(gather([o[c] for o, _ in pieces]) for c in range(len(wp.spec.components)))
+    return gather([o for o, _ in pieces])
 
 
 def _value_kind(value_type) -> Tuple[int, bool]:

@@ -1,8 +1,10 @@
 """The PyTorch/CUDA port on a CUDA card: kernels against their plain
 versions, and the fold and PIR paths through the kernels (K2-K4, and K5 in
 mode="megakernel"), batched EvaluateAt (K6 and K4 in mode="walk", K7 in
-mode="walkkernel"), the DCF's batch_evaluate (K6 and K4 in mode="walk",
-K7's DCF form in mode="walkkernel"), the hierarchical advance (K2 and K4
+mode="walkkernel"; its codec walk), full-domain evaluation with values out
+(IntModN and a two-block tuple: K2 and K4, or K6 and K4), the DCF's
+batch_evaluate (K6 and K4 in mode="walk", K7's DCF form in
+mode="walkkernel"), the hierarchical advance (K2 and K4
 in mode="fused", K8 in mode="hierkernel") and batched keygen (K2's one-key
 view and K4 in mode="perlevel", K9 in mode="megakernel") against the same
 paths on the CPU.
@@ -321,6 +323,52 @@ def test_evaluate_at_batch_on_the_card_matches_the_cpu(cuda, mode, party):
     want = [3 * levels, 3, 0] if mode == "walk" else [0, 0, 3]
     assert [aes_cuda.K6.launches, aes_cuda.K4.launches, aes_cuda.K7.launches] == want
     assert np.array_equal(from_words(on_card), run("cpu"))
+
+
+CODEC_TYPES = {
+    "IntModN(64)": port.IntModN(64, 2**64 - 59),
+    "Tuple(5 x Int32)": port.TupleType(*[port.Int(32)] * 5),  # two value blocks
+}
+
+
+@pytest.mark.parametrize("party", [0, 1])
+@pytest.mark.parametrize("name", list(CODEC_TYPES))
+def test_full_domain_codec_on_the_card_matches_the_cpu(cuda, name, party):
+    """``full_domain_evaluate_chunks`` of IntModN(64) and of the 160-bit
+    tuple (two K4 launches a chunk) on the card, in modes "levels" and
+    "walk", equals the CPU in chunks of 2 keys (3 chunks, the last padded):
+    K2 a device level and K4 a value block, or K6 a tree level and K4 a
+    block; and the codec walk of ``evaluate_at_batch`` equals the CPU."""
+    vt = CODEC_TYPES[name]
+    dpf = port.DistributedPointFunction.create(port.DpfParameters(11, vt))
+    rng = np.random.default_rng(11)
+    alphas = [0, 5, 700, 2047, 1024]
+    betas = ([int(b) for b in rng.integers(1, 2**62, size=5)] if name == "IntModN(64)"
+             else [tuple(int(x) for x in rng.integers(0, 2**32, size=5)) for _ in alphas])
+    seeds = rng.integers(0, 2**32, size=(5, 2, 4), dtype=np.uint32)
+    keys = dpf.generate_keys_batch(alphas, [betas], seeds=seeds)[party]
+    levels = dpf.validator.hierarchy_to_tree[0]
+    blocks = dpf.validator.blocks_needed[0]
+
+    def run(device, mode):
+        outs = []
+        for valid, out in evaluator.full_domain_evaluate_chunks(
+                dpf, keys, key_chunk=2, mode=mode, device=device):
+            out = out if isinstance(out, tuple) else (out,)
+            outs.append([from_words(o[:valid]) for o in out])
+        return [np.concatenate([o[c] for o in outs]) for c in range(len(outs[0]))]
+
+    for mode, want in (("levels", [3 * (levels - 5), 3 * blocks, 0]),
+                       ("walk", [0, 3 * blocks, 3 * levels])):
+        aes_cuda.reset_launch_counts()
+        on_card = run(cuda, mode)
+        assert [aes_cuda.K2.launches, aes_cuda.K4.launches, aes_cuda.K6.launches] == want
+        assert all(np.array_equal(a, b) for a, b in zip(on_card, run("cpu", mode))), mode
+    points = alphas + [int(p) for p in rng.integers(0, 1 << 11, size=60)]
+    on_card, on_cpu = (evaluator.evaluate_at_batch(dpf, keys, points, key_chunk=2, device=d)
+                       for d in (cuda, "cpu"))
+    on_card, on_cpu = ((x,) if not isinstance(x, tuple) else x for x in (on_card, on_cpu))
+    assert all(np.array_equal(a, b) for a, b in zip(on_card, on_cpu))
 
 
 @pytest.mark.parametrize(

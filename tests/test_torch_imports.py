@@ -1,6 +1,6 @@
 """The PyTorch/CUDA port stands alone: it imports neither JAX nor the JAX
-package (its fold, PIR, EvaluateAt, DCF, hierarchical and keygen paths
-driven in a fresh process), and its entry points do not run on the CPU
+package (its fold, full-domain, PIR, EvaluateAt, DCF, hierarchical and
+keygen paths driven in a fresh process), and its entry points do not run on the CPU
 unless asked to.
 
 The import guard runs in a subprocess: tests/conftest.py imports jax into
@@ -38,6 +38,12 @@ assert len(folds) == 1
 for mode in ("walk", "walkkernel"):
     assert evaluator.evaluate_at_batch(dpf, keys, [3, 4], mode=mode, device="cpu").shape == (1, 2, 2)
 assert len(dpf.evaluate_at(keys[0], 0, [3, 4])) == 2
+mdpf = port.DistributedPointFunction.create(port.DpfParameters(6, port.IntModN(64, 2**64 - 59)))
+mkeys, _ = mdpf.generate_keys_batch([3], [[5]], seeds=np.ones((1, 2, 4), np.uint32))
+for mode in evaluator.FULL_DOMAIN_MODES:
+    (valid, values), = evaluator.full_domain_evaluate_chunks(mdpf, mkeys, mode=mode, device="cpu")
+    assert tuple(values.shape) == (1, 64, 2)
+assert evaluator.evaluate_at_batch(mdpf, mkeys, [3, 4], device="cpu").shape == (1, 2, 2)
 from distributed_point_functions_tpu_torch.dcf import batch as dcf_batch
 dcf = port.DistributedComparisonFunction.create(6, port.Int(64))
 dkeys, _ = dcf.generate_keys_batch([3], 5, seeds=np.ones((1, 2, 4), np.uint32))
@@ -94,6 +100,19 @@ def test_evaluate_at_batch_without_a_card_raises(monkeypatch):
     keys, _ = dpf.generate_keys_batch([1], [[1]])
     with pytest.raises(UnavailableError):
         evaluator.evaluate_at_batch(dpf, keys, [1])
+
+
+def test_full_domain_evaluate_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dpf = port.DistributedPointFunction.create(
+        port.DpfParameters(6, port.IntModN(64, 2**64 - 59)))
+    keys, _ = dpf.generate_keys_batch([1], [[1]])
+    with pytest.raises(UnavailableError):
+        evaluator.full_domain_evaluate(dpf, keys)
+    with pytest.raises(UnavailableError):
+        evaluator.PreparedKeyBatch(dpf, keys)
+    with pytest.raises(UnavailableError):
+        evaluator.plan_slabs(dpf, 1)
 
 
 def test_dcf_batch_evaluate_without_a_card_raises(monkeypatch):

@@ -275,11 +275,11 @@ def test_plan_walkkernel_matches_jax(budget):
 
 
 def test_evaluate_at_edges_and_refusals(int64):
-    """Refusals: mode "walkkernel" on a sub-word type, IntModN (not ported
-    yet), an unknown mode, a tree without levels in mode "walkkernel", a
-    point outside the domain, keys of two parties, a context on the host
-    EvaluateAt and a captures tuple of K7's DCF form that does not hold a
-    flag per depth. Edges: no points, and mode "walk" on a tree without
+    """Refusals: mode "walkkernel" on a sub-word type and on IntModN (the
+    codec walk is mode "walk"), an unknown mode, a tree without levels in
+    mode "walkkernel", a point outside the domain, keys of two parties, a
+    context on the host EvaluateAt and a captures tuple of K7's DCF form
+    that does not hold a flag per depth. Edges: no points, and mode "walk" on a tree without
     levels."""
     dpf, keys = int64["port_dpf"], int64["port_keys"]
     int16 = port.DistributedPointFunction.create(port.DpfParameters(10, port.Int(16)))
@@ -290,8 +290,8 @@ def test_evaluate_at_edges_and_refusals(int64):
         port.DpfParameters(9, port.IntModN(64, (1 << 64) - 59))
     )
     km, _ = modn.generate_keys_batch([1], [[2]])
-    with pytest.raises(UnimplementedError, match="Queue 1 item 3"):
-        port_ev.evaluate_at_batch(modn, km, [1], device="cpu")
+    with pytest.raises(NotImplementedError, match="use mode='walk' for codec"):
+        port_ev.evaluate_at_batch(modn, km, [1], mode="walkkernel", device="cpu")
     with pytest.raises(InvalidArgumentError, match="mode"):
         port_ev.evaluate_at_batch(dpf, keys[0], [1], mode="fold", device="cpu")
     jax_flat, (jkf, _), flat, (kf, _) = make_keys([(1, "Int", (64,))], [1], [[2]], seed=1)
