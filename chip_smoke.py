@@ -128,14 +128,39 @@ Phases (any failure raises and exits non-zero before the result line):
    (K6 a tree level, K4) equal at levels 0-4, ``lane_slab`` pieces and two
    ``PreparedKeyBatch`` replays at level 5, mode "levels" at level 6; the
    host ``dpf.evaluate_at`` equal to the card for 2 keys a party at 16
-   points a level.
+   points a level;
+16. FSS gates at benchmarks/bench_gates.py's configuration (log-group 16,
+   2048 masked inputs from default_rng(0x9A7E), 5 fractional bits, vector
+   payloads): K6 and K4 at the sigmoid gate's shapes (K = 1, W = 1024; nb
+   x W = 4 x 1024 words) and K7's DCF form at DReLU's (K = 1, W = 128) and
+   bit decomposition's (K = 16, W = 2048), each exact against its plain
+   version and timed; then DReLU (one Int(128) key, 4,096 points), ReLU
+   (a Tuple(Int(32) x 4) key, 8,192), sigmoid and tanh (16 Int(32)s in 4
+   value blocks, 32,768), bit decomposition (16 Int(128) keys, 65,536)
+   and the scalar-payload ReLU (4 Int(128) keys) through ``batch_eval``,
+   both parties, mode walk (K6 a tree level, K4 a depth) and, for DReLU,
+   bit decomposition and the scalar ReLU, mode walkkernel (one launch of
+   K7's DCF form); every input reconstructs ((s0 + s1 - r_out) mod N, mod
+   2 for bit decomposition) to the plaintext, the modes agree, the host
+   ``gate.eval`` equals 4 inputs a gate (bit decomposition: the host DCF
+   equals the card's pass at the 32 sites of one input that its combine
+   reads), and the dealers on the card (K9 for DReLU and ReLU, mode
+   perlevel for sigmoid) give the host dealer's bytes; each gate's dealer
+   time and ``batch_eval``'s own step times (``timings``: plan, tables,
+   walk and the card's part of it, pull, Python ints, combine), wall,
+   gate evaluations/s, DCF walks/s and peak memory; and
+   examples/secure_relu_demo.py's flow: a ReLU layer of 256 and a sigmoid
+   layer of 64 activations from ``gen_bundle``, each party's keys through
+   ``serialize_gate_key`` / ``parse_gate_key``, ``bundle_eval`` on the
+   card, every activation reconstructing to the plaintext.
 
 Each path of the main path (fold default, fused and megakernel; PIR fold
 and megakernel; EvaluateAt walk and walkkernel, and the codec walk; DCF
 walk and walkkernel; heavy hitters fused and hierkernel; keygen
 megakernel, perlevel and numpy-threaded at each configuration; config 3's
-fused pass at each level, and its walk, slab, prepared and levels checks)
-runs with every launch count set to 0
+fused pass at each level, and its walk, slab, prepared and levels checks;
+each gate's modes, the gate dealers on the card and the two layers) runs
+with every launch count set to 0
 just before it, and every kernel of that path must have launched just after
 it. The line before
 the last is the ``{"kernels": [...]}`` JSON, the last line ``{"ok": true,
@@ -217,6 +242,20 @@ C3_CPU_POINTS = 16
 CODEC_WALK_LOG_DOMAIN = 24
 CODEC_WALK_KEYS = 64
 CODEC_WALK_POINTS = 256
+# FSS gates: benchmarks/bench_gates.py at its full configuration (log-group
+# 16, a batch of 2048 masked inputs and 5 input sets drawn from
+# default_rng(0x9A7E), fixed point at 5 fractional bits, vector payloads),
+# and examples/secure_relu_demo.py's layers (default_rng(0xAC71)) at 256
+# ReLU and 64 sigmoid activations.
+GATE_LOG_GROUP = 16
+GATE_BATCH = 2048
+GATE_REPS = 5
+GATE_SEED = 0x9A7E
+GATE_FRAC_BITS = 5
+GATE_ORACLE_INPUTS = 4
+LAYER_SEED = 0xAC71
+RELU_LAYER = 256
+SIGMOID_LAYER = 64
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 at 3.35 TB/s; 32-bit integer
 # logic at 64 lanes per SM per clock, 132 SMs, 1980 MHz boost clock.
@@ -1981,6 +2020,272 @@ def main() -> None:
           f"{C3_CPU_POINTS} points a level")
     torch.cuda.empty_cache()
 
+    # -- 16. the FSS gates at bench_gates.py's configuration -------------------
+    from distributed_point_functions_tpu_torch import gates, protos
+    from distributed_point_functions_tpu_torch.gates import framework as gate_fw
+
+    # The gates' DCFs have log-domain 16: 15 tree levels, 16 capturing depths.
+    glevels = GATE_LOG_GROUP - 1
+    gcaps = (True,) * (glevels + 1)
+    # Sigmoid: 16 sites an input, 32,768 points (W = 1024) and a tuple of 16
+    # Int(32)s in nb = 4 value blocks, hashed as 4 W words a depth.
+    sig_w, sig_nb = 16 * GATE_BATCH // 32, 4
+    a = walk_level_args(1, sig_w)
+    hold("K6", aes_cuda.walk_level(*a), backend_torch.walk_level(*a))
+    ms, device_ms = launch_ms(torch, lambda: aes_cuda.walk_level(*a), a[0].numel() * 4)
+    plain_ms = time_ms(torch, lambda: backend_torch.walk_level(*a), 2)
+    b_ms, b_by = bound_ms(*walk_level_cost(key_planes, 1, sig_w))
+    rows["K6 gates"] = dict(kernel=aes_cuda.K6, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by)
+    print(f"K6 at the sigmoid gate's shape K=1, W={sig_w}: {ms:.4f} ms (device "
+          f"{device_ms:.4f} ms; plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
+    planes_g = rnd(1, 128, sig_nb * sig_w)
+    hold("K4", aes_cuda.hash_value_planes(planes_g), backend_torch.hash_value_planes(planes_g))
+    ms, device_ms = launch_ms(torch, lambda: aes_cuda.hash_value_planes(planes_g),
+                              planes_g.numel() * 4)
+    plain_ms = time_ms(torch, lambda: backend_torch.hash_value_planes(planes_g), 2)
+    b_ms, b_by = bound_ms(*hash_cost(key_planes, 1, sig_nb * sig_w))
+    rows["K4 gates"] = dict(kernel=aes_cuda.K4, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by)
+    print(f"K4 at the sigmoid capture's shape K=1, nb x W={sig_nb} x {sig_w}: {ms:.4f} ms "
+          f"(device {device_ms:.4f} ms; plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
+    del a, planes_g
+    # K7's DCF form at DReLU's shape (one Int(128) key, 2 sites an input:
+    # 4,096 points, W = 128) and bit decomposition's (16 keys, 32 sites:
+    # 65,536 points, W = 2048).
+    for row, k, w, party in (("K7 DCF drelu", 1, 2 * GATE_BATCH // 32, 1),
+                             ("K7 DCF bits", GATE_LOG_GROUP, 32 * GATE_BATCH // 32, 0)):
+        kw = dict(bits=128, party=party, xor_group=False, keep=1, captures=gcaps)
+        a = dcf_mk_args(k, w, glevels, 128, 1)
+        hold("K7 DCF", aes_cuda.walk_megakernel(*a, **kw), backend_torch.walk_megakernel(*a, **kw))
+        plain_ms = time_ms(torch, lambda: backend_torch.walk_megakernel(*a, **kw), 1)
+        ms, device_ms = launch_ms(torch, lambda: aes_cuda.walk_megakernel(*a, **kw),
+                                  4 * k * 128 * w)
+        b_ms, b_by = bound_ms(*walk_megakernel_cost(key_planes, k, w, glevels, 128, 1, party,
+                                                    False, gcaps))
+        rows[row] = dict(kernel=aes_cuda.K7_DCF, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+        print(f"K7 DCF form at K={k}, W={w}, L={glevels}, Int(128), party {party}, "
+              f"{glevels + 1} captures: {ms:.4f} ms (device {device_ms:.4f} ms; plain "
+              f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
+        del a
+    torch.cuda.empty_cache()
+
+    # The gates, drawn as bench_gates.py draws them: per gate r_in, r_outs
+    # and GATE_REPS input sets, the first evaluated; bit decomposition and
+    # the scalar-payload ReLU after them from the same stream. Key material
+    # is pinned (CounterRng, dcf_seeds) so that the dealer's modes compare.
+    grng = np.random.default_rng(GATE_SEED)
+    srng = np.random.default_rng(GATE_SEED + 1)
+    walk_only = dcf_batch.MODES[:1]
+    gate_defs = (
+        ("drelu", gates.DReluGate.create(GATE_LOG_GROUP), dcf_batch.MODES, "megakernel"),
+        ("relu", gates.ReluGate.create(GATE_LOG_GROUP, payload="vector"), walk_only,
+         "megakernel"),
+        ("sigmoid", gates.SigmoidGate.create(GATE_LOG_GROUP, frac_bits=GATE_FRAC_BITS,
+                                             payload="vector"), walk_only, "perlevel"),
+        ("tanh", gates.TanhGate.create(GATE_LOG_GROUP, frac_bits=GATE_FRAC_BITS,
+                                       payload="vector"), walk_only, None),
+        ("bits", gates.BitDecompositionGate.create(GATE_LOG_GROUP), dcf_batch.MODES, None),
+        ("relu scalar", gates.ReluGate.create(GATE_LOG_GROUP, payload="scalar"),
+         dcf_batch.MODES, None),
+    )
+    gate_launches = {k.name: 0 for k in aes_cuda.KERNELS}
+    k7_gate_launches = {}
+    gate_rows = []
+
+    def gate_plaintext(name, gate, x_real):
+        if name == "drelu":
+            return [int(x_real < gate.n // 2)]
+        if name == "bits":
+            return [(x_real >> j) & 1 for j in range(gate.log_group_size)]
+        return [gate.plaintext(x_real)]
+
+    def gate_key_bytes(gate, key):
+        return protos.serialize_gate_key(key, gate.dcf.dpf.validator.parameters)
+
+    for name, gate, modes, dealer_mode in gate_defs:
+        n = gate.n
+        out_mod = 2 if name == "bits" else n
+        r_in = int(grng.integers(0, n))
+        r_outs = [int(r) for r in grng.integers(0, out_mod, size=gate.num_outputs)]
+        xs_sets = [[int(x) for x in grng.integers(0, n, size=GATE_BATCH)]
+                   for _ in range(GATE_REPS if name in ("drelu", "relu", "sigmoid", "tanh")
+                                  else 1)]
+        xs = xs_sets[0]
+        seeds = [(int.from_bytes(srng.bytes(16), "little"),
+                  int.from_bytes(srng.bytes(16), "little")) for _ in range(gate.num_components)]
+        pin = b"chip-smoke-" + name.encode()
+        t = time.perf_counter()
+        keys = gate.gen(r_in, r_outs, prng=gates.CounterRng(pin), dcf_seeds=seeds)
+        dealer_ms = (time.perf_counter() - t) * 1e3
+        key_bytes = len(gate_key_bytes(gate, keys[0]))
+        card_dealer = ""
+        if dealer_mode is not None:
+            aes_cuda.reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            card_keys = gate.gen(r_in, r_outs, prng=gates.CounterRng(pin), dcf_seeds=seeds,
+                                 keygen_mode=dealer_mode)
+            card_ms = (time.perf_counter() - t) * 1e3
+            need = ((aes_cuda.K9,) if dealer_mode == "megakernel"
+                    else (aes_cuda.K2, aes_cuda.K4))
+            counts = {k.name: k.launches for k in aes_cuda.KERNELS}
+            for kern in need:
+                if kern.launches == 0:
+                    fail(f"gate {name}: the {dealer_mode} dealer ran without launching {kern.name}")
+                main_launches[kern.name] = main_launches.get(kern.name, 0) + kern.launches
+            for party in (0, 1):
+                if gate_key_bytes(gate, card_keys[party]) != gate_key_bytes(gate, keys[party]):
+                    fail(f"gate {name}: the {dealer_mode} dealer's keys differ from the host "
+                         f"dealer's (party {party})")
+            card_dealer = (f"; dealer mode {dealer_mode} on the card {card_ms:.1f} ms, "
+                           f"byte-identical, launches "
+                           f"{ {k: v for k, v in counts.items() if v} }")
+        outs = {}
+        for mode in modes:
+            aes_cuda.reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            secs = []
+            for party in (0, 1):
+                t = time.perf_counter()
+                outs[(mode, party)] = gate.batch_eval(keys[party], xs, mode=mode)
+                secs.append(time.perf_counter() - t)
+            peak = torch.cuda.max_memory_allocated()
+            counts = {k.name: k.launches for k in aes_cuda.KERNELS}
+            want = ({aes_cuda.K6.name: 2 * glevels, aes_cuda.K4.name: 2 * (glevels + 1)}
+                    if mode == "walk" else {aes_cuda.K7_DCF.name: 2})
+            if counts != {k.name: want.get(k.name, 0) for k in aes_cuda.KERNELS}:
+                fail(f"gate {name}, mode {mode}: launches {counts}, expected {want}")
+            for kname, v in counts.items():
+                main_launches[kname] = main_launches.get(kname, 0) + v
+                gate_launches[kname] += v
+            if mode == "walkkernel":
+                k7_gate_launches[name] = counts[aes_cuda.K7_DCF.name]
+            # Every input reconstructs to the plaintext of its unmasked value.
+            bad = 0
+            for i, x in enumerate(xs):
+                x_real = (x - r_in) % n
+                got = [(int(a) + int(b) - r) % out_mod for a, b, r in
+                       zip(outs[(mode, 0)][i], outs[(mode, 1)][i], r_outs)]
+                bad += got != gate_plaintext(name, gate, x_real)
+            if bad:
+                fail(f"gate {name}, mode {mode}: {bad} of {GATE_BATCH} inputs do not reconstruct")
+            if mode != modes[0] and any(
+                    outs[(mode, p)].tolist() != outs[(modes[0], p)].tolist() for p in (0, 1)):
+                fail(f"gate {name}: modes {modes[0]} and {mode} differ")
+            # Where party 0's pass goes: batch_eval's own step times (the
+            # plan, the DCF's key and point tables with their upload, the
+            # walk on the card, the pull, the Python ints, the combine).
+            steps = {}
+            shares = gate.batch_eval(keys[0], xs, mode=mode, timings=steps)
+            if shares.tolist() != outs[(mode, 0)].tolist():
+                fail(f"gate {name}, mode {mode}: the timed pass differs from the first")
+            del shares
+            dev_ms = steps.pop("walk_card") * 1e3
+            steps = {k: v * 1e3 for k, v in steps.items() if not k.endswith("_card")}
+            walks = gate.num_components * gate.num_sites * GATE_BATCH
+            print(f"gate {name}, mode {mode}: {gate.num_components} component key(s) x "
+                  f"{gate.payload_elems} element(s), {key_bytes} B a key; host dealer "
+                  f"{dealer_ms:.1f} ms{card_dealer}; {GATE_BATCH} inputs x {gate.num_sites} "
+                  f"sites, wall {secs[0] * 1e3:.1f} / {secs[1] * 1e3:.1f} ms (parties 0 / 1) = "
+                  f"{GATE_BATCH / min(secs):.4e} gate evals/s, {walks / min(secs):.4e} DCF "
+                  f"walks/s; party 0: plan {steps['plan']:.1f} ms, key + point tables and "
+                  f"upload {steps['tables']:.1f} ms, walk {steps['walk']:.1f} ms of which "
+                  f"the card {dev_ms:.3f} ms, pull "
+                  f"{steps['pull']:.1f} ms, Python ints {steps['ints']:.1f} ms, combine "
+                  f"{steps['combine']:.1f} ms; launches "
+                  f"{ {k: v for k, v in counts.items() if v} }; peak {peak / 2**20:.1f} MiB "
+                  f"({(peak - base) / 2**20:.1f} MiB above what was allocated before)")
+            gate_rows.append(dict(gate=name, mode=mode, wall_ms=[x * 1e3 for x in secs],
+                                  device_ms=dev_ms, dealer_ms=dealer_ms,
+                                  peak_mib=(peak - base) / 2**20, **steps))
+            card_dealer = ""
+        # The host gate.eval (one DCF evaluation a component and site, each
+        # a root walk a level) against batch_eval, party 0. Bit decomposition
+        # takes 512 such evaluations an input (~50 s on a CPU core at
+        # log-group 16); its combine reads 2 of the 32 sites of each bit's
+        # key, so there the host DCF is held against the card's pass at
+        # those 32 sites of one input (the combine is held by every input's
+        # reconstruction above).
+        t = time.perf_counter()
+        if name == "bits":
+            checked = 1
+            pts = gate_fw.GatePlan.build(gate, xs[:1]).points
+            card = evaluator.values_to_numpy(
+                gate.dcf.batch_evaluate(keys[0].dcf_keys, pts, mode=modes[0]), 128)
+            for j, dk in enumerate(keys[0].dcf_keys):
+                for site in (2 * j, 2 * j + 1):
+                    if gate.dcf.evaluate(dk, pts[site]) != card[j, site]:
+                        fail(f"gate {name}: the host DCF differs from the card's at key {j}, "
+                             f"site {site}")
+            what = "the host DCF equals the card's pass at the 32 sites the combine reads"
+        else:
+            checked = GATE_ORACLE_INPUTS
+            host = [gate.eval(keys[0], xs[i]) for i in range(checked)]
+            if host != outs[(modes[0], 0)][:checked].tolist():
+                fail(f"gate {name}: the host gate.eval differs from batch_eval")
+            what = "the host gate.eval equals batch_eval"
+        print(f"gate {name}: every input reconstructs (mod {out_mod}) to the plaintext, "
+              f"the modes agree, and {what} for {checked} input(s) "
+              f"({time.perf_counter() - t:.2f} s on the host)")
+        del outs
+        torch.cuda.empty_cache()
+
+    # The secure-inference leg (examples/secure_relu_demo.py): one key pair
+    # an activation from gen_bundle, each party's keys through the wire
+    # format, each server's layer in one bundle_eval on the card.
+    lrng = np.random.default_rng(LAYER_SEED)
+    layer_gates = {name: gate for name, gate, _, _ in gate_defs if name in ("relu", "sigmoid")}
+    for name, size in (("relu", RELU_LAYER), ("sigmoid", SIGMOID_LAYER)):
+        gate = layer_gates[name]
+        n = gate.n
+        if name == "relu":
+            x_real = [int(v) for v in lrng.integers(-(n // 2), n // 2, size=size)]
+        else:
+            lim = int(6.0 * (1 << GATE_FRAC_BITS))
+            x_real = [int(v) for v in lrng.integers(-lim, lim + 1, size=size)]
+        x_raw = [v % n for v in x_real]
+        r_ins = [int(r) for r in lrng.integers(0, n, size=size)]
+        r_outs = [int(r) for r in lrng.integers(0, n, size=size)]
+        t = time.perf_counter()
+        bundle = gate.gen_bundle(r_ins, [[r] for r in r_outs])
+        dealer_s = time.perf_counter() - t
+        params = gate.dcf.dpf.validator.parameters
+        wires = [[protos.serialize_gate_key(k, params) for k in ks] for ks in bundle]
+        masked = [(x + r) % n for x, r in zip(x_raw, r_ins)]
+        aes_cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        secs, layer = [], []
+        for party in (0, 1):
+            t = time.perf_counter()
+            parsed = [protos.parse_gate_key(b) for b in wires[party]]
+            layer.append(gates.bundle_eval(gate, parsed, masked))
+            secs.append(time.perf_counter() - t)
+        counts = {k.name: k.launches for k in aes_cuda.KERNELS}
+        want = {aes_cuda.K6.name: 2 * glevels, aes_cuda.K4.name: 2 * (glevels + 1)}
+        if counts != {k.name: want.get(k.name, 0) for k in aes_cuda.KERNELS}:
+            fail(f"{name} layer: launches {counts}, expected {want}")
+        for kname, v in counts.items():
+            main_launches[kname] = main_launches.get(kname, 0) + v
+            gate_launches[kname] += v
+        bad = sum((int(layer[0][b, 0]) + int(layer[1][b, 0]) - r_outs[b]) % n
+                  != gate.plaintext(x_raw[b]) for b in range(size))
+        if bad:
+            fail(f"{name} layer: {bad} of {size} activations do not reconstruct")
+        print(f"{name} layer: {size} activations, dealer (gen_bundle) {dealer_s * 1e3:.1f} ms, "
+              f"{sum(map(len, wires[0])) / size:.0f} B a key on the wire; parse + bundle_eval "
+              f"({size} keys x {size * gate.num_sites} points, one DCF pass) "
+              f"{secs[0] * 1e3:.1f} / {secs[1] * 1e3:.1f} ms (servers A / B); launches "
+              f"{ {k: v for k, v in counts.items() if v} }; the client's reconstruction equals "
+              "the plaintext for every activation")
+        del layer, bundle
+    print(card)
+    print("gates: " + json.dumps(gate_rows))
+    torch.cuda.empty_cache()
+
     if "jax" in sys.modules:
         fail("JAX was imported")
     if any(m == "distributed_point_functions_tpu" or m.startswith("distributed_point_functions_tpu.")
@@ -2029,7 +2334,8 @@ def main() -> None:
         "launches": (walk_launches[aes_cuda.K6.name] + walk_launches[aes_cuda.K7.name]
                      + dcf_launches[aes_cuda.K6.name] + dcf_launches[aes_cuda.K7_DCF.name]
                      + hh_launches[aes_cuda.K8.name] + codec_walk_launches[aes_cuda.K6.name]
-                     + walk_launches_c3[aes_cuda.K6.name]),
+                     + walk_launches_c3[aes_cuda.K6.name] + gate_launches[aes_cuda.K6.name]
+                     + gate_launches[aes_cuda.K7_DCF.name]),
         "max_abs_err": checks["K6"],
         "ms": rows["K6"]["ms"],
         "device_ms": rows["K6"].get("device_ms"),
@@ -2045,7 +2351,15 @@ def main() -> None:
               "K4 hh": ("the hierarchy's shape", hh_launches),
               "K2 c3": ("config 3's widest shape", c3_launches),
               "K4 c3": ("config 3's widest shape", c3_launches),
-              "K6 c3": ("the full-domain walk's shape, config 3", walk_launches_c3)}
+              "K6 c3": ("the full-domain walk's shape, config 3", walk_launches_c3),
+              "K4 gates": ("the sigmoid gate's capture, nb x W = 4 x 1024; launches: every "
+                           "gate path", gate_launches),
+              "K6 gates": ("the sigmoid gate's shape, K = 1, W = 1024; launches: every gate "
+                           "path", gate_launches),
+              "K7 DCF drelu": ("DReLU's shape, K = 1, W = 128, Int(128)",
+                               {aes_cuda.K7_DCF.name: k7_gate_launches["drelu"]}),
+              "K7 DCF bits": ("bit decomposition's shape, K = 16, W = 2048, Int(128)",
+                              {aes_cuda.K7_DCF.name: k7_gate_launches["bits"]})}
     for name, line, source in (("K2", 315, "expand.cu"), ("K3", 421, "expand.cu"),
                                ("K4", 462, "expand.cu"), ("K4 walk", 462, "expand.cu"),
                                ("K4 dcf", 462, "expand.cu"),
@@ -2056,7 +2370,10 @@ def main() -> None:
                                ("K2 hh", 315, "expand.cu"), ("K4 hh", 462, "expand.cu"),
                                ("K8", 1393, "hier_megakernel.cu"),
                                ("K2 c3", 315, "expand.cu"), ("K4 c3", 462, "expand.cu"),
-                               ("K6 c3", 522, "walk.cu")):
+                               ("K6 c3", 522, "walk.cu"), ("K4 gates", 462, "expand.cu"),
+                               ("K6 gates", 522, "walk.cu"),
+                               ("K7 DCF drelu", 1518, "walk_megakernel.cu"),
+                               ("K7 DCF bits", 1518, "walk_megakernel.cu")):
         r = rows[name]
         launches = main_launches.get(r["kernel"].name, 0)
         label = r["kernel"].name
@@ -2070,7 +2387,7 @@ def main() -> None:
             "source": f"distributed_point_functions_tpu_torch/csrc/{source}",
             "replaces": f"distributed_point_functions_tpu/ops/aes_pallas.py:{line}",
             "launches": launches,
-            "max_abs_err": checks["K7 DCF" if name == "K7 DCF" else name.split()[0]],
+            "max_abs_err": checks["K7 DCF" if name.startswith("K7 DCF") else name.split()[0]],
             "ms": r["ms"],
             "device_ms": r.get("device_ms"),
             "plain_ms": r["plain_ms"],

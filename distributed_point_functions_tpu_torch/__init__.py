@@ -6,7 +6,8 @@ protocol layers it needs (``core/``) are its own copies. Slice by slice it
 ports the JAX package's paths; so far full-domain evaluation folded on the
 device or with its values out (every value type: Int, XorWrapper, IntModN,
 tuples), its two-server PIR inner product, batched EvaluateAt, batched DCF
-evaluation, the heavy-hitters hierarchical advance and batched two-party
+evaluation (tuple payloads included) and the FSS gates on it with their
+wire format, the heavy-hitters hierarchical advance and batched two-party
 key generation:
 
     from distributed_point_functions_tpu_torch import (
@@ -32,6 +33,13 @@ key generation:
     dcf_a, dcf_b = dcf.generate_keys_batch(alphas, betas, seeds=seeds)
     shares = dcf_batch.batch_evaluate(dcf, dcf_a, xs, mode="walkkernel")
     # shares of party 0 + party 1 == beta where x < alpha, else 0
+
+    from distributed_point_functions_tpu_torch import gates, protos
+    relu = gates.ReluGate.create(16)  # one Tuple(Int(32) x 4) DCF key a gate
+    k0, k1 = relu.gen(r_in, [r_out])  # the dealer
+    wire = protos.serialize_gate_key(k0, relu.dcf.dpf.validator.parameters)
+    s0 = relu.batch_eval(protos.parse_gate_key(wire), masked_xs)  # K6 + K4
+    # (s0 + s1 - r_out) mod 2^16 == max(x_real, 0), x_real signed
 
     from distributed_point_functions_tpu_torch.ops import hierarchical
     hh = DistributedPointFunction.create_incremental(

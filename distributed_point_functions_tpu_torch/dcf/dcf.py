@@ -157,7 +157,8 @@ class DistributedComparisonFunction:
         """Every key at every point in one walk per point
         (``batch.batch_evaluate``; `device_kwargs` are its keyword
         arguments: key_chunk, mode, device, device_output). Returns
-        uint32[K, P, lpe] limbs.
+        uint32[K, P, lpe] limbs, or uint32[K, P, n_elems, 4] for a uniform
+        tuple payload (each element zero-padded to 4 limbs).
 
         engine="host" (the JAX package's native AES-NI engine) is not
         ported yet and raises UnimplementedError.

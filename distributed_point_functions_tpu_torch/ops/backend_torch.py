@@ -126,14 +126,14 @@ def hash_value_stream(planes, blocks_needed: int, hash_planes=hash_value_planes)
     if blocks_needed > 1:
         seeds = aes_torch.unpack_from_planes(planes)
         for j in range(1, blocks_needed):
-            hashed = hash_planes(aes_torch.pack_to_planes(_add_small_constant(seeds, j)))
+            hashed = hash_planes(aes_torch.pack_to_planes(seed_plus(seeds, j)))
             parts.append(aes_torch.unpack_from_planes(hashed))
     return parts[0] if blocks_needed == 1 else torch.cat(parts, dim=-1)
 
 
-def _add_small_constant(limbs, j: int):
-    """int32[..., 4] uint128 limbs + a small constant j, the carry running
-    up through the limbs."""
+def seed_plus(limbs, j: int):
+    """The seed of value block j, seed + j: int32[..., 4] uint128 limbs
+    plus a small constant, the carry running up through the limbs."""
     out = []
     carry = j
     for l in range(4):

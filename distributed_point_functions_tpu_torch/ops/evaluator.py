@@ -58,7 +58,7 @@ import torch
 from ..core import backend_numpy, uint128
 from ..core.dpf import DistributedPointFunction
 from ..core.keys import DpfKey
-from ..core.value_types import Int, XorWrapper
+from ..core.value_types import Int, TupleType, XorWrapper
 from ..utils.devices import resolve_device
 from ..utils.errors import InvalidArgumentError
 from . import aes_cuda, aes_torch, backend_torch, value_codec
@@ -1605,8 +1605,38 @@ def _value_kind(value_type) -> Tuple[int, bool]:
     if isinstance(value_type, XorWrapper):
         return value_type.bitsize, True
     raise NotImplementedError(
-        f"the fold supports scalar Int/XorWrapper outputs, got {value_type}"
+        f"device evaluator supports Int/XorWrapper outputs, got {value_type}; "
+        "use the host path (DistributedPointFunction.evaluate_*) instead"
     )
+
+
+def _payload_kind(value_type) -> Tuple[int, bool, int]:
+    """(bits, xor_group, n_elems) of a scalar Int/XorWrapper or of a uniform
+    tuple of them (the gates' vector payloads).
+
+    Tuples are taken over identical 32-, 64- or 128-bit elements only:
+    whole-limb widths that divide the block, so the elements pack densely
+    into ceil(n_elems * bits / 128) value-hash blocks (128 // bits a block,
+    the reference's byte layout) and never straddle a block boundary. The
+    JAX package's ``ops/evaluator._payload_kind``.
+    """
+    if isinstance(value_type, TupleType):
+        elems = value_type.elements
+        first = elems[0]
+        if not all(e == first for e in elems[1:]):
+            raise NotImplementedError(
+                "batched evaluator supports uniform tuple payloads only, "
+                f"got {value_type}"
+            )
+        bits, xor_group = _value_kind(first)
+        if bits not in (32, 64, 128):
+            raise NotImplementedError(
+                "batched evaluator supports tuples of 32/64/128-bit "
+                f"elements only (whole-limb block packing), got {value_type}"
+            )
+        return bits, xor_group, len(elems)
+    bits, xor_group = _value_kind(value_type)
+    return bits, xor_group, 1
 
 
 def _correction_limbs(vc: np.ndarray, bits: int) -> np.ndarray:

@@ -4,10 +4,10 @@ mode="megakernel"), batched EvaluateAt (K6 and K4 in mode="walk", K7 in
 mode="walkkernel"; its codec walk), full-domain evaluation with values out
 (IntModN and a two-block tuple: K2 and K4, or K6 and K4), the DCF's
 batch_evaluate (K6 and K4 in mode="walk", K7's DCF form in
-mode="walkkernel"), the hierarchical advance (K2 and K4
-in mode="fused", K8 in mode="hierkernel") and batched keygen (K2's one-key
-view and K4 in mode="perlevel", K9 in mode="megakernel") against the same
-paths on the CPU.
+mode="walkkernel"; tuple payloads) and the FSS gates on it, the
+hierarchical advance (K2 and K4 in mode="fused", K8 in mode="hierkernel")
+and batched keygen (K2's one-key view and K4 in mode="perlevel", K9 in
+mode="megakernel") against the same paths on the CPU.
 
 Every test here needs a card and skips without one. The file imports no
 JAX, so on a machine without JAX it runs without the suite's conftest:
@@ -429,6 +429,66 @@ def test_dcf_batch_evaluate_on_the_card_matches_the_cpu(cuda, mode, party):
            aes_cuda.K7_DCF.launches]
     assert got == want
     assert np.array_equal(from_words(on_card), run("cpu"))
+
+
+@pytest.mark.parametrize("party", [0, 1])
+@pytest.mark.parametrize("widths", [(32,) * 16, (64,) * 3, (32,) * 4, (128,) * 2])
+def test_dcf_tuple_payload_on_the_card_matches_the_cpu(cuda, widths, party):
+    """The tuple capture on the card equals the same call on the CPU, in
+    chunks of 2 keys (3 chunks, the last padded), nb = 4, 2, 1 and 2 value
+    blocks: T K6 launches and T + 1 K4 launches a chunk, every block of a
+    depth in one K4 launch."""
+    dcf = port.DistributedComparisonFunction.create(
+        10, port.TupleType(*(port.Int(b) for b in widths)))
+    rng = np.random.default_rng(len(widths))
+    alphas = [0, 1, 77, 1000, 1023]
+    betas = [tuple(int(v) for v in rng.integers(0, 2**31, size=len(widths))) for _ in alphas]
+    seeds = rng.integers(0, 2**32, size=(5, 2, 4), dtype=np.uint32)
+    keys = dcf.generate_keys_batch(alphas, betas, seeds=seeds)[party]
+    xs = alphas + [76, 999] + [int(x) for x in rng.integers(0, 1 << 10, size=90)]
+    aes_cuda.reset_launch_counts()
+    on_card = dcf_batch.batch_evaluate(dcf, keys, xs, key_chunk=2)
+    assert [aes_cuda.K6.launches, aes_cuda.K4.launches] == [3 * 9, 3 * 10]
+    assert on_card.shape == (5, len(xs), len(widths), 4)
+    assert np.array_equal(on_card, dcf_batch.batch_evaluate(dcf, keys, xs, key_chunk=2,
+                                                            device="cpu"))
+
+
+def test_gates_on_the_card_match_the_cpu(cuda):
+    """A sigmoid gate (a four-block tuple payload) and a DReLU gate in both
+    modes evaluate on the card as on the CPU, batch_eval and bundle_eval,
+    both parties."""
+    from distributed_point_functions_tpu_torch import gates
+
+    rng = np.random.default_rng(16)
+    for gate, modes in ((gates.SigmoidGate.create(12, frac_bits=4), dcf_batch.MODES[:1]),
+                        (gates.DReluGate.create(12), dcf_batch.MODES)):
+        pair = gate.gen(77, [5], prng=gates.CounterRng(b"card"))
+        xs = [int(x) for x in rng.integers(0, gate.n, size=100)]
+        bundle = gate.gen_bundle([3, 4, 5], [[1], [2], [3]])
+        for party in (0, 1):
+            want = gate.batch_eval(pair[party], xs, device="cpu")
+            for mode in modes:
+                assert gate.batch_eval(pair[party], xs, mode=mode).tolist() == want.tolist()
+            assert gates.bundle_eval(gate, bundle[party], xs[:3]).tolist() == (
+                gates.bundle_eval(gate, bundle[party], xs[:3], device="cpu").tolist())
+
+
+def test_gate_timings_on_the_card_give_the_card_seconds(cuda):
+    """On the card ``batch_eval(timings=)`` gives the same shares, every
+    step's host seconds and the DCF steps' "_card" seconds (CUDA events),
+    the card's part of the walk no longer than the synchronized step."""
+    from distributed_point_functions_tpu_torch import gates
+
+    gate = gates.ReluGate.create(12, payload="vector")
+    pair = gate.gen(77, [5], prng=gates.CounterRng(b"card"))
+    xs = [int(x) for x in np.random.default_rng(17).integers(0, gate.n, size=100)]
+    timings = {}
+    got = gate.batch_eval(pair[0], xs, timings=timings)
+    assert got.tolist() == gate.batch_eval(pair[0], xs, device="cpu").tolist()
+    steps = ["plan", "tables", "walk", "pull", "ints", "combine"]
+    assert sorted(timings) == sorted(steps + ["tables_card", "walk_card", "pull_card"])
+    assert 0 < timings["walk_card"] <= timings["walk"] + 1e-3
 
 
 @pytest.mark.parametrize("name", list(hier_cases.CASES))

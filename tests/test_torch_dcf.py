@@ -6,7 +6,11 @@ and K4 with the capture in plain PyTorch (mode "walk") and of K7's DCF form
 The references:
 
 - the JAX package's host engine ``dcf.batch.batch_evaluate_host`` (native
-  AES-NI, no JAX compile), for every value type, party and chunking;
+  AES-NI, no JAX compile), for every value type, party and chunking, and
+  its numpy walk for uniform tuple payloads;
+- its host ``DistributedComparisonFunction.evaluate`` for tuples narrower
+  than half a block, where its batched tuple walk reads the correction of
+  the block's last element instead of the first (ROADMAP Queue 3);
 - its ``DistributedComparisonFunction.generate_keys`` /
   ``generate_keys_batch`` and ``evaluate`` for the host layer;
 - for K7's DCF form, the eager replay ``aes_pallas.walk_megakernel_reference_rows``
@@ -181,17 +185,125 @@ def test_one_bit_domain_in_mode_walk():
         assert np.array_equal(as_host(got, 64), want)
 
 
+# name: (log-domain, element class, element widths); the widths' sum over
+# 128 bits is the value blocks a capture hashes.
+TUPLE_CASES = {
+    "int32x5": (7, "Int", (32,) * 5),
+    "int64x3": (6, "Int", (64,) * 3),
+    "xor128x2": (6, "XorWrapper", (128,) * 2),
+}
+
+
+def tuple_dcfs(lds, name, widths):
+    return (JaxDcf.create(lds, jax_vt.TupleType(*(getattr(jax_vt, name)(b) for b in widths))),
+            port.DistributedComparisonFunction.create(
+                lds, port.TupleType(*(getattr(port, name)(b) for b in widths))))
+
+
+@functools.lru_cache(maxsize=None)
+def tuple_case(case):
+    """Both packages' tuple-payload DCFs and key pairs from the same seeds,
+    45 points holding every alpha and alpha - 1, and the JAX host engine's
+    shares, uint64[K, P, n_elems, 2]."""
+    lds, name, widths = TUPLE_CASES[case]
+    rng = np.random.default_rng(lds * len(widths))
+    alphas = [0, (1 << lds) - 1] + [int(a) for a in rng.integers(0, 1 << lds, size=NUM_KEYS - 2)]
+    betas = [tuple(int.from_bytes(rng.bytes(16), "little") % (1 << b) for b in widths)
+             for _ in alphas]
+    seeds = rng.integers(0, 2**32, size=(NUM_KEYS, 2, 4), dtype=np.uint32)
+    jax_dcf, port_dcf = tuple_dcfs(lds, name, widths)
+    xs = alphas + [a - 1 for a in alphas if a > 0]
+    xs += [int(x) for x in rng.integers(0, 1 << lds, size=45 - len(xs))]
+    jax_keys = jax_dcf.generate_keys_batch(alphas, betas, seeds=seeds)
+    port_keys = port_dcf.generate_keys_batch(alphas, betas, seeds=seeds)
+    want = [jax_batch.batch_evaluate_host(jax_dcf, jax_keys[p], xs) for p in (0, 1)]
+    return dict(alphas=alphas, betas=betas, xs=xs, widths=widths, jax_dcf=jax_dcf,
+                port_dcf=port_dcf, port_keys=port_keys, want=want)
+
+
+def tuple_as_ints(limbs: np.ndarray) -> np.ndarray:
+    """uint32[..., 4] limbs (the port's) or uint64[..., 2] (lo, hi) pairs
+    (the JAX host engine's) -> Python ints."""
+    return port_ev.values_to_numpy(limbs, 128) if limbs.shape[-1] == 4 else (
+        limbs[..., 0].astype(object) | (limbs[..., 1].astype(object) << 64))
+
+
+@pytest.mark.parametrize("case, party", [(c, p) for c in TUPLE_CASES for p in (0, 1)])
+def test_tuple_payloads_match_the_host_engine(case, party):
+    """Mode "walk" on uniform tuples of 5 Int(32)s (two value blocks), 3
+    Int(64)s (two) and 2 XorWrapper(128)s (two) equals the JAX package's
+    host engine exactly, in chunks of 3 keys (the last padded), both
+    parties, each element zero-padded to 4 limbs; party 0 + party 1 is
+    beta where x < alpha (elementwise, at each element's width)."""
+    c = tuple_case(case)
+    got = port_batch.batch_evaluate(c["port_dcf"], c["port_keys"][party], c["xs"],
+                                    key_chunk=KEY_CHUNK, device="cpu")
+    n = len(c["widths"])
+    assert got.dtype == np.uint32 and got.shape == (NUM_KEYS, len(c["xs"]), n, 4)
+    assert np.array_equal(tuple_as_ints(got), tuple_as_ints(c["want"][party]))
+    if party == 1:
+        shares = [tuple_as_ints(port_batch.batch_evaluate(
+            c["port_dcf"], c["port_keys"][p], c["xs"], device="cpu")) for p in (0, 1)]
+        xor = TUPLE_CASES[case][1] == "XorWrapper"
+        total = shares[0] ^ shares[1] if xor else shares[0] + shares[1]
+        for e, b in enumerate(c["widths"]):
+            below = np.array(c["xs"])[None, :] < np.array(c["alphas"])[:, None]
+            beta = np.array([bt[e] for bt in c["betas"]], dtype=object)[:, None]
+            assert np.array_equal(total[..., e] % (1 << b), np.where(below, beta, 0))
+
+
+@pytest.mark.parametrize("widths", [(32, 32), (64,), (32,)])
+def test_narrow_tuples_match_the_host_evaluate(widths):
+    """Tuples narrower than half a block (two Int(32)s, and one-element
+    tuples of Int(64) and Int(32)) equal the JAX package's per-point host
+    ``evaluate`` at every point of a log-domain-6 DCF, both parties; its
+    batched host engine differs there (ROADMAP Queue 3)."""
+    jax_dcf, port_dcf = tuple_dcfs(6, "Int", widths)
+    seeds = np.arange(40, dtype=np.uint32).reshape(5, 2, 4)
+    alphas, betas = [0, 63, 5, 17, 33], [tuple(7 + i + e for e in range(len(widths)))
+                                         for i in range(5)]
+    jax_keys = jax_dcf.generate_keys_batch(alphas, betas, seeds=seeds)
+    port_keys = port_dcf.generate_keys_batch(alphas, betas, seeds=seeds)
+    xs = list(range(64))
+    for party in (0, 1):
+        got = port_ev.values_to_numpy(
+            port_batch.batch_evaluate(port_dcf, port_keys[party], xs, device="cpu"), 128)
+        want = [[jax_dcf.evaluate(k, x) for x in xs] for k in jax_keys[party]]
+        if len(widths) == 1:
+            want = [[v[0] for v in row] for row in want]
+            assert got.tolist() == want
+        else:
+            assert [[tuple(v) for v in row] for row in got.tolist()] == want
+
+
+def test_tuple_capture_hashes_all_blocks_in_one_k4_launch(monkeypatch):
+    """At each depth the tuple capture hashes its nb value blocks in one
+    K4 call over the nb seed copies side by side: a capture of 5 Int(32)s
+    at W words calls it once on 2 W words."""
+    c = tuple_case("int32x5")
+    calls = []
+    real = aes_cuda.hash_value_planes
+    monkeypatch.setattr(aes_cuda, "hash_value_planes",
+                        lambda planes: calls.append(planes.shape) or real(planes))
+    port_batch.batch_evaluate(c["port_dcf"], c["port_keys"][0], c["xs"], device="cpu")
+    w = -(-len(c["xs"]) // 32)
+    assert calls == [(NUM_KEYS, 128, 2 * w)] * c["port_dcf"].log_domain_size
+
+
 def refusal(name):
     """(callable, exception, match) of one refusal."""
     c = dcf_case("int64")
     dcf, keys, xs = c["port_dcf"], c["port_keys"][0], c["xs"]
-    if name in ("modn", "tuple"):  # refused by value type, before any key is read
-        vt = (port.IntModN(64, (1 << 64) - 59) if name == "modn"
-              else port.TupleType((port.Int(32), port.Int(32))))
+    vts = {"modn": (port.IntModN(64, (1 << 64) - 59), "Int/XorWrapper"),
+           "tuple": (port.TupleType(port.Int(32), port.Int(64)), "uniform tuple payloads only"),
+           "sub-word tuple": (port.TupleType(port.Int(16), port.Int(16)), "32/64/128-bit"),
+           "walkkernel tuple": (port.TupleType(port.Int(32), port.Int(32)), "IntModN/Tuple")}
+    if name in vts:  # refused by value type, before any key is read
+        vt, match = vts[name]
         other = port.DistributedComparisonFunction.create(9, vt)
-        exc, match = ((NotImplementedError, "Int/XorWrapper") if name == "modn"
-                      else (UnimplementedError, "Queue 1 item 3"))
-        return lambda: port_batch.batch_evaluate(other, keys, [1], device="cpu"), exc, match
+        mode = MODES[1] if name == "walkkernel tuple" else MODES[0]
+        return (lambda: port_batch.batch_evaluate(other, keys, [1], mode=mode, device="cpu"),
+                NotImplementedError, match)
     if name == "sub-word walkkernel":
         int8 = dcf_case("int8")
         return (lambda: port_batch.batch_evaluate(int8["port_dcf"], int8["port_keys"][0], [1],
@@ -216,12 +328,14 @@ def refusal(name):
 
 
 @pytest.mark.parametrize("name", [
-    "modn", "tuple", "sub-word walkkernel", "walkkernel without tree levels", "host engine",
-    "outside the domain", "unknown mode", "two parties",
+    "modn", "tuple", "sub-word tuple", "walkkernel tuple", "sub-word walkkernel",
+    "walkkernel without tree levels", "host engine", "outside the domain", "unknown mode",
+    "two parties",
 ])
 def test_refusals(name):
-    """IntModN (NotImplementedError, as the JAX package), tuple payloads
-    (not ported yet), mode "walkkernel" on a sub-word type or a tree
+    """IntModN, a tuple that is not uniform, a tuple of sub-word elements
+    and mode "walkkernel" on a tuple (NotImplementedError, with the JAX
+    package's words), mode "walkkernel" on a sub-word type or a tree
     without levels, the host engine (not ported yet), a point outside the
     domain, an unknown mode and keys of two parties are refused."""
     call, exc, match = refusal(name)

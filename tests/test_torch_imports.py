@@ -1,6 +1,6 @@
 """The PyTorch/CUDA port stands alone: it imports neither JAX nor the JAX
-package (its fold, full-domain, PIR, EvaluateAt, DCF, hierarchical and
-keygen paths driven in a fresh process), and its entry points do not run on the CPU
+package (its fold, full-domain, PIR, EvaluateAt, DCF, hierarchical,
+keygen, gate and wire-format paths driven in a fresh process), and its entry points do not run on the CPU
 unless asked to.
 
 The import guard runs in a subprocess: tests/conftest.py imports jax into
@@ -64,6 +64,17 @@ for mode in keygen_batch.KEYGEN_MODES:
     pair = keygen_batch.generate_keys_batch(dpf, [3], [[5]], mode=mode,
                                             seeds=np.ones((1, 2, 4), np.uint32), device="cpu")
     assert pair[0] == keys, mode
+from distributed_point_functions_tpu_torch import gates, protos
+for gate in (gates.DReluGate.create(6), gates.SigmoidGate.create(8, frac_bits=2)):
+    g0, g1 = gate.gen(5, [7], prng=gates.CounterRng(b"guard"))
+    params = gate.dcf.dpf.validator.parameters
+    g0 = protos.parse_gate_key(protos.serialize_gate_key(g0, params))
+    s0, s1 = (gate.batch_eval(k, [9, 60], device="cpu") for k in (g0, g1))
+    x_real = [(x - 5) % gate.n for x in (9, 60)]
+    want = ([int(x < gate.n // 2) for x in x_real] if gate.num_sites == 2
+            else [gate.plaintext(x) for x in x_real])
+    assert [(int(a) + int(b) - 7) % gate.n for a, b in zip(s0[:, 0], s1[:, 0])] == want
+    assert gates.bundle_eval(gate, [g0], [9], device="cpu").shape == (1, 1)
 jax_package = "distributed_point_functions_tpu"
 bad = sorted(
     m for m in sys.modules
@@ -135,6 +146,18 @@ def test_evaluate_levels_fused_without_a_card_raises(monkeypatch):
         with pytest.raises(UnavailableError):
             hierarchical.evaluate_levels_fused(ctx, [(0, []), (1, [0])], mode=mode)
         assert ctx.previous_hierarchy_level == -1
+
+
+def test_gate_batch_eval_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from distributed_point_functions_tpu_torch import gates
+
+    gate = gates.ReluGate.create(6)
+    keys, _ = gate.gen(3, [1])
+    with pytest.raises(UnavailableError):
+        gate.batch_eval(keys, [1])
+    with pytest.raises(UnavailableError):
+        gates.bundle_eval(gate, [keys], [1])
 
 
 def test_pir_entry_points_without_a_card_raise(monkeypatch):
