@@ -152,14 +152,49 @@ Phases (any failure raises and exits non-zero before the result line):
    examples/secure_relu_demo.py's flow: a ReLU layer of 256 and a sigmoid
    layer of 64 activations from ``gen_bundle``, each party's keys through
    ``serialize_gate_key`` / ``parse_gate_key``, ``bundle_eval`` on the
-   card, every activation reconstructing to the plaintext.
+   card, every activation reconstructing to the plaintext;
+17. the EvaluationContext API, both parties: BASELINE config 1 (one
+   XorWrapper(128) key pair at log-domain 20) through
+   ``hierarchical.evaluate_until_batch`` (K2 a tree level, K4), the shares
+   XORing to beta at alpha and 0 elsewhere, the host ``evaluate_until`` on
+   ``backend_torch.TorchBackend`` (K2, K4) equal, the numpy host
+   ``evaluate_at`` equal at 4,096 points; BM_IsrgExampleHierarchy
+   (benchmarks/bench_isrg.py: Int(32), log-domain 12 in full, then 2^13
+   leaves under each of the 32 prefixes from default_rng(13)), the shares
+   reconstructing, the numpy host ``evaluate_next`` equal at both levels,
+   ``evaluate_next`` and ``evaluate_at(ctx=...)`` on TorchBackend (K2, K4,
+   K6) equal at 256 points; BM_HeavyHitters one ``evaluate_until_batch`` a
+   level (phase 10's keys and plan), every level equal to phase 10's mode
+   fused bit for bit, per level the wall, the steps (KeyBatch, positions,
+   K2, K4, finalize on CUDA events) and the launches, 2 keys' contexts
+   exported at level 62 (``to_evaluation_contexts``, the wire format) and
+   resumed on the host for levels 63 and 64 (the U128 crossing) equal, a
+   context advanced per level to 62 and finished by
+   ``evaluate_levels_fused`` equal; config 3's hierarchy (phase 15's keys)
+   and a Tuple(Int(32), IntModN(64)) hierarchy under the heavy-hitters
+   access pattern (level 0 in full, then the prefixes of the alphas and
+   4,096 / 256 random leaves), every share pair reconstructing; and
+   examples/heavy_hitters_demo.py's protocol at 10,000 clients (16 bits, 2
+   a level, threshold 8): keys dealt, serialized and parsed with the
+   port's wire format, each server's per-level ``evaluate_until_batch`` on
+   the card summed over the clients, the reconstructed counts equal to the
+   plaintext at every level and the heavy hitters found equal to the
+   plaintext's;
+18. PIR in natural order: BASELINE config 5 (2^24 records x XorWrapper(128),
+   64 queries a server, key chunk 8) through ``pir_query_batch_chunked`` in
+   modes levels (mode fold's path: K2, K4, the fold over the lane order), fused (K2, K4,
+   ``lane_slab`` pieces against the natural order) and fold; and mode walk
+   (K6, K4) on phase 4's 2^20 database; every answer reconstructs its
+   record, the modes agree (walk with phase 4's fold), each mode's wall a
+   batch, kernel time (torch.profiler) and peak memory printed.
 
 Each path of the main path (fold default, fused and megakernel; PIR fold
 and megakernel; EvaluateAt walk and walkkernel, and the codec walk; DCF
 walk and walkkernel; heavy hitters fused and hierkernel; keygen
 megakernel, perlevel and numpy-threaded at each configuration; config 3's
 fused pass at each level, and its walk, slab, prepared and levels checks;
-each gate's modes, the gate dealers on the card and the two layers) runs
+each gate's modes, the gate dealers on the card and the two layers; each
+path of phases 17 and 18) runs
 with every launch count set to 0
 just before it, and every kernel of that path must have launched just after
 it. The line before
@@ -174,6 +209,7 @@ nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import bisect
+import collections
 import functools
 import json
 import statistics
@@ -578,6 +614,580 @@ def k5_probe(torch, args, kw, k: int, ms: float, dev, what: str) -> None:
           f"{again_ms:.4f} ms, one block a key {one_ms:.4f} ms")
 
 
+# -- phases 17 and 18, functions so that a CPU rehearsal can call them at tiny
+# sizes (device "cpu", the kernels' plain versions) ---------------------------
+
+# Phase 17: the EvaluationContext API. BASELINE config 1
+# (BASELINE.md: one XorWrapper(128) key pair at log-domain 20);
+# BM_IsrgExampleHierarchy (reference
+# dpf/distributed_point_function_benchmark.cc:182-222, benchmarks/bench_isrg.py:
+# Int(32) at log-domains 12 and 25, 32 prefixes from default_rng(13));
+# BM_HeavyHitters level by level (phase 10's configuration); config 3's
+# hierarchy under the heavy-hitters access pattern; and
+# examples/heavy_hitters_demo.py's protocol at 10,000 clients.
+PHASE17 = dict(
+    c1_log_domain=20, c1_points=4096,
+    isrg_domains=(12, 25), isrg_nonzeros=32, isrg_key_draws=6, isrg_points=256,
+    hh_split=63, hh_export_keys=2,
+    c3_random_leaves=4096, tuple_domains=(4, 8, 12, 16), tuple_keys=64,
+    demo_bits=16, demo_bits_per_level=2, demo_clients=10_000, demo_threshold=8,
+)
+# Phase 18: PIR in natural order. BASELINE config 5 (2^24 records x
+# XorWrapper(128), 64 queries a server) on one card at a key chunk of 8, and
+# mode walk on phase 4's 2^20 database.
+PHASE18 = dict(c5_log_domain=24, c5_queries=64, c5_chunk=8, walk_chunk=64)
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def reset_peak(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gib(torch, dev) -> float:
+    return torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
+
+
+def device_busy_ms(torch, dev, fn):
+    """The card's kernel time over one call of `fn` (torch.profiler, the
+    device time of every kernel summed), or None where the profiler shows
+    none (or on the CPU)."""
+    if dev.type != "cuda":
+        fn()
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
+    # The kernels' own events: a CPU operator's entry repeats the device
+    # time of the kernels it launched.
+    total = sum(
+        getattr(evt, "self_device_time_total", getattr(evt, "self_cuda_time_total", 0))
+        for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA)
+    return total / 1e3 if total > 0 else None
+
+
+class PathCounts:
+    """Runs each path of a phase with every launch count set to 0 just before
+    it and checks just after it that each of its kernels launched and no
+    other did; tallies the launches by kernel."""
+
+    def __init__(self, aes_cuda, launches: bool = True):
+        self.aes_cuda = aes_cuda
+        self.check = launches
+        self.total = {k.name: 0 for k in aes_cuda.KERNELS}
+
+    def start(self) -> None:
+        self.aes_cuda.reset_launch_counts()
+
+    def end(self, what: str, need) -> dict:
+        counts = {k.name: k.launches for k in self.aes_cuda.KERNELS}
+        if self.check:
+            missing = [k.name for k in need if counts[k.name] == 0]
+            extra = [n for n, c in counts.items() if c and n not in {k.name for k in need}]
+            if missing or extra:
+                fail(f"{what}: launches {counts}; expected {[k.name for k in need]} only")
+        for n, c in counts.items():
+            self.total[n] += c
+        return {n: c for n, c in counts.items() if c}
+
+
+def limbs_of_ints(values, lpe: int):
+    """Python ints -> uint32[n, lpe] little-endian limbs."""
+    raw = b"".join(int(v).to_bytes(4 * lpe, "little") for v in values)
+    return np.frombuffer(raw, dtype=np.uint32).reshape(-1, lpe)
+
+
+def prefix_ints(prefixes) -> list:
+    """A plan's prefix array (uint64 or U128) as Python ints."""
+    from distributed_point_functions_tpu_torch.core import uint128
+
+    if isinstance(prefixes, np.ndarray) and prefixes.dtype == uint128.U128:
+        return uint128.u128_to_ints(prefixes)
+    return [int(p) for p in prefixes]
+
+
+def modn_sum(a: np.ndarray, b: np.ndarray, modulus: int) -> np.ndarray:
+    """(a + b) mod N of residues uint64 < N < 2^64, without overflow."""
+    s = a + b
+    wrapped = s < a
+    return np.where(wrapped, s + np.uint64((1 << 64) - modulus),
+                    np.where(s >= np.uint64(modulus), s - np.uint64(modulus), s))
+
+
+def phase_17(torch, T, dev, hh, c3, cfg, counts: PathCounts) -> None:
+    """The EvaluationContext API at full width, both parties (module
+    docstring, phase 17). `hh`: phase 10's DPF, keys, plan and mode fused's
+    outputs a party; `c3`: phase 15's DPF, keys, alphas, betas and
+    log-domains."""
+    from distributed_point_functions_tpu_torch.ops import (
+        aes_cuda, aes_torch, evaluator, hierarchical, value_codec,
+    )
+    from distributed_point_functions_tpu_torch.ops.backend_torch import TorchBackend
+    from distributed_point_functions_tpu_torch.protos import serialization as ser
+
+    K2, K4, K6 = aes_cuda.K2, aes_cuda.K4, aes_cuda.K6
+    rng = np.random.default_rng(SEED + 17)
+
+    def until(ctx, level, prefixes=(), timings=None, device_output=False):
+        return hierarchical.evaluate_until_batch(ctx, level, prefixes, device=dev,
+                                                 timings=timings, device_output=device_output)
+
+    def steps(t) -> str:
+        return ", ".join(f"{k} {v * 1e3:.2f}" for k, v in t.items() if not k.endswith("_card")) \
+            + "; card " + ", ".join(f"{k[:-5]} {v * 1e3:.3f}" for k, v in t.items()
+                                    if k.endswith("_card"))
+
+    # -- 17a. BASELINE config 1: one XorWrapper(128) key pair, log-domain 20.
+    lds = cfg["c1_log_domain"]
+    params = [T.DpfParameters(lds, T.XorWrapper(128))]
+    c1 = T.DistributedPointFunction.create_incremental(params)
+    alpha = int(rng.integers(0, 1 << lds))
+    beta = int.from_bytes(rng.bytes(16), "little") | 1
+    (k0,), (k1,) = c1.generate_keys_batch(
+        [alpha], [[beta]], seeds=rng.integers(0, 2**32, size=(1, 2, 4), dtype=np.uint32))
+    shares, walls = [], []
+    counts.start()
+    for key in (k0, k1):
+        t = {}
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        shares.append(until(hierarchical.BatchedContext.create(c1, [key]), 0, timings=t)[0])
+        walls.append(time.perf_counter() - t0)
+        if key is k0:
+            c1_steps = steps(t)
+    c1_launches = counts.end("config 1 through evaluate_until_batch", (K2, K4))
+    rec = shares[0] ^ shares[1]
+    want = np.zeros_like(rec)
+    want[alpha] = limbs_of_ints([beta], 4)[0]
+    if not np.array_equal(rec, want):
+        fail(f"config 1: {int((rec != want).any(axis=1).sum())} shares do not XOR to beta at "
+             "alpha and 0 elsewhere")
+    ct = T.DistributedPointFunction.create_incremental(params, backend=TorchBackend(dev))
+    counts.start()
+    t0 = time.perf_counter()
+    host_vals = ct.evaluate_until(0, [], ct.create_evaluation_context(k0))
+    host_s = time.perf_counter() - t0
+    tb_launches = counts.end("config 1 through the host evaluate_until on TorchBackend",
+                             (K2, K4))
+    if not np.array_equal(limbs_of_ints(host_vals, 4), shares[0]):
+        fail("config 1: the host evaluate_until on TorchBackend differs from the batched path")
+    del host_vals
+    pts = sorted({alpha} | {int(x) for x in rng.integers(0, 1 << lds, size=cfg["c1_points"] - 1)})
+    t0 = time.perf_counter()
+    numpy_vals = c1.evaluate_at(k0, 0, pts)
+    numpy_s = time.perf_counter() - t0
+    if not np.array_equal(limbs_of_ints(numpy_vals, 4), shares[0][pts]):
+        fail("config 1: the numpy host evaluate_at differs from the card")
+    print(f"phase 17, config 1 (XorWrapper(128), log-domain {lds}, one key pair): "
+          f"evaluate_until_batch {walls[0] * 1e3:.1f} / {walls[1] * 1e3:.1f} ms a party = "
+          f"{(1 << lds) / walls[0]:.4e} evals/s (party 0 steps, ms: {c1_steps}); launches "
+          f"{c1_launches}; the shares XOR to beta at alpha, 0 elsewhere; the host "
+          f"evaluate_until on TorchBackend equals it ({host_s:.2f} s, launches {tb_launches}); "
+          f"the numpy host evaluate_at equals it at {len(pts)} points ({numpy_s:.2f} s)")
+    del shares, rec, want
+
+    # -- 17b. BM_IsrgExampleHierarchy.
+    lds0, lds1 = cfg["isrg_domains"]
+    irng = np.random.default_rng(13)
+    draws = irng.integers(0, 1 << lds1, size=cfg["isrg_key_draws"])
+    iprefixes = [int(p) for p in np.unique(
+        irng.integers(0, 1 << lds0, size=cfg["isrg_nonzeros"]).astype(np.uint64))]
+    # The key's alpha under the first prefix, so that the level-1 check sees
+    # a nonzero; its low bits from the benchmark's first key draw.
+    ialpha = (iprefixes[0] << (lds1 - lds0)) | (int(draws[0]) & ((1 << (lds1 - lds0)) - 1))
+    iparams = [T.DpfParameters(lds0, T.Int(32)), T.DpfParameters(lds1, T.Int(32))]
+    idpf = T.DistributedPointFunction.create_incremental(iparams)
+    ikeys = idpf.generate_keys_batch(
+        [ialpha], [[1], [1]], seeds=rng.integers(0, 2**32, size=(1, 2, 4), dtype=np.uint32))
+    iout, iwall = [], []
+    counts.start()
+    for party in (0, 1):
+        ctx = hierarchical.BatchedContext.create(idpf, ikeys[party])
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        o0 = until(ctx, 0)[0, :, 0]
+        t1 = time.perf_counter()
+        o1 = until(ctx, 1, iprefixes)[0, :, 0]
+        t2 = time.perf_counter()
+        iout.append((o0, o1))
+        iwall.append((t1 - t0, t2 - t1))
+    isrg_launches = counts.end("BM_IsrgExampleHierarchy through evaluate_until_batch", (K2, K4))
+    span = 1 << (lds1 - lds0)
+    col1 = iprefixes.index(ialpha >> (lds1 - lds0)) * span + (ialpha & (span - 1))
+    for level, col in ((0, ialpha >> (lds1 - lds0)), (1, col1)):
+        total = (iout[0][level].astype(np.uint64) + iout[1][level]) & np.uint64(0xFFFFFFFF)
+        want = np.zeros_like(total)
+        want[col] = 1
+        if not np.array_equal(total, want):
+            fail(f"BM_IsrgExampleHierarchy level {level}: the shares do not reconstruct")
+    t0 = time.perf_counter()
+    for party in (0, 1):
+        hctx = idpf.create_evaluation_context(ikeys[party][0])
+        for level, pre in ((0, []), (1, iprefixes)):
+            if not np.array_equal(np.array(idpf.evaluate_next(pre, hctx), np.uint32),
+                                  iout[party][level]):
+                fail(f"BM_IsrgExampleHierarchy level {level}: the numpy host evaluate_next "
+                     f"differs from the card (party {party})")
+    ihost_s = time.perf_counter() - t0
+    itorch = T.DistributedPointFunction.create_incremental(iparams, backend=TorchBackend(dev))
+    ipts = sorted({(iprefixes[int(i)] << (lds1 - lds0)) | int(x) for i, x in zip(
+        rng.integers(0, len(iprefixes), size=cfg["isrg_points"]),
+        rng.integers(0, span, size=cfg["isrg_points"]))})
+    cols = [iprefixes.index(p >> (lds1 - lds0)) * span + (p & (span - 1)) for p in ipts]
+    counts.start()
+    key = ikeys[0][0]
+    actx = itorch.create_evaluation_context(key)
+    if itorch.evaluate_next([], actx) != [int(x) for x in iout[0][0]]:
+        fail("BM_IsrgExampleHierarchy: evaluate_next on TorchBackend differs from the card")
+    at_vals = itorch.evaluate_at(key, 1, ipts, ctx=actx)
+    at_launches = counts.end("evaluate_next and evaluate_at(ctx=) on TorchBackend", (K2, K4, K6))
+    if at_vals != [int(x) for x in iout[0][1][cols]] or actx.previous_hierarchy_level != 1:
+        fail("BM_IsrgExampleHierarchy: evaluate_at(ctx=) on TorchBackend differs from the card")
+    n_out = (1 << lds0) + len(iprefixes) * span
+    print(f"phase 17, BM_IsrgExampleHierarchy (Int(32), log-domains {lds0} and {lds1}, "
+          f"{len(iprefixes)} prefixes, one key pair): level 0 {iwall[0][0] * 1e3:.2f} / "
+          f"{iwall[1][0] * 1e3:.2f} ms, level 1 {iwall[0][1] * 1e3:.2f} / "
+          f"{iwall[1][1] * 1e3:.2f} ms (parties 0 / 1) = "
+          f"{n_out / sum(iwall[0]):.4e} outputs/s; launches {isrg_launches}; the shares "
+          f"reconstruct at both levels; the numpy host evaluate_next equals the card at both "
+          f"levels ({ihost_s:.2f} s, both parties); on TorchBackend evaluate_next and "
+          f"evaluate_at(key, 1, {len(ipts)} points, ctx=ctx) equal it (launches {at_launches})")
+    del iout
+
+    # -- 17c. BM_HeavyHitters level by level.
+    hdpf, hkeys, hplan, hfused = hh["dpf"], hh["keys"], hh["plan"], hh["fused"]
+    levels = len(hplan)
+    split = cfg["hh_split"]
+    nkeys = len(hkeys[0])
+    per_level = []
+    exported = None
+    counts.start()
+    hh_walls = []
+    for party in (0, 1):
+        ctx = hierarchical.BatchedContext.create(hdpf, hkeys[party])
+        sync(torch, dev)
+        t_party = time.perf_counter()
+        for h, prefixes in hplan:
+            t = {} if party == 0 else None
+            before = (K2.launches, K4.launches)
+            t0 = time.perf_counter()
+            got = until(ctx, h, prefixes, timings=t)
+            wall = time.perf_counter() - t0
+            level_launches = (K2.launches - before[0], K4.launches - before[1])
+            if not np.array_equal(got, hfused[party][h]):
+                fail(f"heavy hitters level by level: level {h} (party {party}) differs from "
+                     "evaluate_levels_fused(mode='fused')")
+            if party == 0:
+                per_level.append((h, wall, t, got.shape[1], level_launches))
+                if h == split - 1:
+                    exported = [ser.serialize_evaluation_context(x) for x in
+                                ctx.to_evaluation_contexts(range(cfg["hh_export_keys"]))]
+        hh_walls.append(time.perf_counter() - t_party)
+    hh_launches = counts.end("heavy hitters through evaluate_until_batch", (K2, K4))
+    hh_values = sum(p[3] for p in per_level)
+    for h, wall, t, n, (n2, n4) in per_level:
+        print(f"  hh level {h}: {n} values a key, K2 x {n2}, K4 x {n4}, wall {wall * 1e3:.2f} ms; ms: "
+              f"keys {t.get('keys', 0) * 1e3:.2f}, positions {t.get('positions', 0) * 1e3:.2f}, "
+              f"compact {t.get('compact_card', 0) * 1e3:.3f}, K2 "
+              f"{t.get('expand_card', t.get('expand', 0)) * 1e3:.3f}, K4 "
+              f"{t.get('hash_card', t.get('hash', 0)) * 1e3:.3f}, finalize "
+              f"{t.get('finalize_card', t.get('finalize', 0)) * 1e3:.3f}, pull "
+              f"{t.get('pull', 0) * 1e3:.2f}")
+    sums = {k: sum(p[2].get(k, 0.0) for p in per_level) * 1e3 for k in (
+        "keys", "positions", "tables", "expand_card", "compact_card", "hash_card",
+        "finalize_card", "state_card", "select", "pull")}
+    print(f"phase 17, heavy hitters level by level ({nkeys} keys x {hh_values} values a party, "
+          f"{levels} evaluate_until_batch calls a party): {hh_walls[0]:.3f} / {hh_walls[1]:.3f} "
+          f"s (parties 0 / 1; party 0 with a synchronizing clock a step) = "
+          f"{nkeys * hh_values / hh_walls[1]:.4e} values/s (party 1); party 0's steps summed, "
+          "ms: " + ", ".join(f"{k} {v:.1f}" for k, v in sums.items())
+          + f"; launches {hh_launches}; every level equals phase 10's evaluate_levels_fused "
+          "(mode fused) bit for bit")
+    # The U128 crossing: exported contexts resumed on the host API.
+    for i, raw in enumerate(exported):
+        hctx = ser.parse_evaluation_context(raw)
+        for h in (split, split + 1):
+            got = hdpf.evaluate_next(prefix_ints(hplan[h][1]), hctx)
+            want = [int(x) for x in evaluator.values_to_numpy(hfused[0][h][i], 64)]
+            if got != want:
+                fail(f"heavy hitters: key {i}'s context exported at level {split - 1} and "
+                     f"resumed on the host differs from the card at level {h}")
+    # A context advanced per level to split - 1, finished by the fused path.
+    counts.start()
+    ctx = hierarchical.BatchedContext.create(hdpf, hkeys[0])
+    for h, prefixes in hplan[:split]:
+        until(ctx, h, prefixes, device_output=True)
+    rest = hierarchical.evaluate_levels_fused(ctx, hplan[split:], mode="fused", device=dev)
+    mixed_launches = counts.end("heavy hitters, per level then fused", (K2, K4))
+    if not all(np.array_equal(a, b) for a, b in zip(rest, hfused[0][split:])):
+        fail(f"heavy hitters: a context advanced per level to level {split - 1} and finished "
+             "by evaluate_levels_fused differs from the per-level run")
+    print(f"phase 17, heavy hitters: {len(exported)} keys' contexts after level {split - 1} "
+          f"(to_evaluation_contexts, serialize, parse) resumed for levels {split} and "
+          f"{split + 1} on the host equal the card; per level to {split - 1} then "
+          f"evaluate_levels_fused equals the per-level run (launches {mixed_launches})")
+    del rest, ctx
+
+    # -- 17d. Config 3's hierarchy under the heavy-hitters access pattern.
+    def pruned_run(dpf, keys, leaves, domains):
+        """Level 0 in full, then each level under the unique prefixes of
+        `leaves` (the alphas and random leaves: the heavy-hitters access
+        pattern); both parties. Returns per level (prefix list, [party 0,
+        party 1] outputs, walls)."""
+        runs = []
+        ctxs = [hierarchical.BatchedContext.create(dpf, keys[p]) for p in (0, 1)]
+        prefixes = []
+        for level, d in enumerate(domains):
+            if level:
+                prefixes = sorted({x >> (domains[-1] - domains[level - 1]) for x in leaves})
+            outs, walls = [], []
+            for ctx in ctxs:
+                sync(torch, dev)
+                t0 = time.perf_counter()
+                outs.append(until(ctx, level, prefixes))
+                walls.append(time.perf_counter() - t0)
+            runs.append((prefixes, outs, walls))
+        return runs
+
+    def target_cols(prefixes, alphas, domains, level):
+        shift = domains[-1] - domains[level]
+        if not level:
+            return [a >> shift for a in alphas]
+        span = domains[level] - domains[level - 1]
+        return [prefixes.index(a >> (shift + span)) * (1 << span) + ((a >> shift) & ((1 << span) - 1))
+                for a in alphas]
+
+    modulus = c3["dpf"].validator.parameters[0].value_type.modulus
+    counts.start()
+    c3leaves = c3["alphas"] + [int(x) for x in np.random.default_rng(3).integers(
+        0, 1 << c3["domains"][-1], size=cfg["c3_random_leaves"])]
+    c3runs = pruned_run(c3["dpf"], c3["keys"], c3leaves, c3["domains"])
+    c3_launches = counts.end("config 3's hierarchy through evaluate_until_batch", (K2, K4))
+    rows_k = np.arange(len(c3["alphas"]))
+    for level, (prefixes, (a, b), _) in enumerate(c3runs):
+        total = modn_sum(evaluator.values_to_numpy(a, 64), evaluator.values_to_numpy(b, 64),
+                         modulus)
+        cols = target_cols(prefixes, c3["alphas"], c3["domains"], level)
+        if not np.array_equal(total[rows_k, cols],
+                              np.array([c3["betas"][level][i] for i in rows_k], np.uint64)):
+            fail(f"config 3 pruned, level {level}: the shares at alpha's prefix do not "
+                 "reconstruct beta")
+        total[rows_k, cols] = 0
+        if total.any():
+            fail(f"config 3 pruned, level {level}: {int((total != 0).sum())} share pairs "
+                 "are not 0 off alpha's prefix")
+    c3_line = "; ".join(f"level {lv}: {len(p) or 1} prefixes, {a.shape[1]} values a key, "
+                        f"{w[0] * 1e3:.1f} / {w[1] * 1e3:.1f} ms"
+                        for lv, (p, (a, _), w) in enumerate(c3runs))
+    print(f"phase 17, config 3's hierarchy pruned ({len(c3['alphas'])} keys, IntModN(64, "
+          f"2^64 - 59), a level under the prefixes of the alphas and "
+          f"{cfg['c3_random_leaves']} random leaves): {c3_line}; launches {c3_launches}; (r0 + r1) mod N is beta at alpha's "
+          "prefix and 0 elsewhere at every level")
+    del c3runs
+    # The tuple arm: Tuple(Int(32), IntModN(64)) at a smaller size.
+    tdomains = cfg["tuple_domains"]
+    tvt = T.TupleType(T.Int(32), T.IntModN(64, C3_MODULUS))
+    tdpf = T.DistributedPointFunction.create_incremental(
+        [T.DpfParameters(d, tvt) for d in tdomains])
+    trng = np.random.default_rng(4)
+    talphas = [int(x) for x in trng.integers(0, 1 << tdomains[-1], size=cfg["tuple_keys"])]
+    tbetas = [[(int(trng.integers(1, 2**32)), int(trng.integers(1, 2**62)))
+               for _ in talphas] for _ in tdomains]
+    tkeys = tdpf.generate_keys_batch(
+        talphas, tbetas,
+        seeds=trng.integers(0, 2**32, size=(len(talphas), 2, 4), dtype=np.uint32))
+    counts.start()
+    tleaves = talphas + [int(x) for x in trng.integers(0, 1 << tdomains[-1], size=256)]
+    truns = pruned_run(tdpf, tkeys, tleaves, tdomains)
+    t_launches = counts.end("the tuple hierarchy through evaluate_until_batch", (K2, K4))
+    trows = np.arange(len(talphas))
+    for level, (prefixes, (a, b), _) in enumerate(truns):
+        cols = target_cols(prefixes, talphas, tdomains, level)
+        s32 = (a[0][..., 0].astype(np.uint64) + b[0][..., 0]) & np.uint64(0xFFFFFFFF)
+        smod = modn_sum(evaluator.values_to_numpy(a[1], 64), evaluator.values_to_numpy(b[1], 64),
+                        C3_MODULUS)
+        for comp, total in enumerate((s32, smod)):
+            want = np.zeros_like(total)
+            want[trows, cols] = [tbetas[level][i][comp] for i in trows]
+            if not np.array_equal(total, want):
+                fail(f"tuple hierarchy level {level}: component {comp} does not reconstruct")
+        if level == 0:
+            cctx = hierarchical.BatchedContext.create(tdpf, tkeys[0][:2])
+            cpu_ctx_out = hierarchical.evaluate_until_batch(cctx, 0, device="cpu")
+            if not all(np.array_equal(x[:2], y) for x, y in zip(a, cpu_ctx_out)):
+                fail("tuple hierarchy: the CPU path differs from the card at level 0")
+    print(f"phase 17, Tuple(Int(32), IntModN(64)) hierarchy at log-domains {tdomains}, "
+          f"{len(talphas)} keys, the prefixes of the alphas and 256 random leaves: launches {t_launches}; both "
+          "components reconstruct at every level; the CPU path equals the card at level 0")
+    del truns
+
+    # -- 17e. examples/heavy_hitters_demo.py's protocol (HH_MODE=host flow).
+    bits, bpl = cfg["demo_bits"], cfg["demo_bits_per_level"]
+    nclients, threshold = cfg["demo_clients"], cfg["demo_threshold"]
+    drng = np.random.default_rng(2026)
+    heavy = [0xBEEF, 0x1234, 0xC0DE]
+    values = []
+    for hv in heavy:
+        values += [hv & ((1 << bits) - 1)] * (threshold + int(drng.integers(0, 5)))
+    while len(values) < nclients:
+        values.append(int(drng.integers(0, 1 << bits)))
+    drng.shuffle(values)
+    values = values[:nclients]
+    true_counts = collections.Counter(values)
+    want_hh = sorted(v for v, c in true_counts.items() if c >= threshold)
+    dparams = [T.DpfParameters(d, T.Int(64)) for d in range(bpl, bits + 1, bpl)]
+    ddpf = T.DistributedPointFunction.create_incremental(dparams)
+    nlev = len(dparams)
+    t0 = time.perf_counter()
+    dk0, dk1 = ddpf.generate_keys_batch(
+        values, [[1] * nclients] * nlev,
+        seeds=drng.integers(0, 2**32, size=(nclients, 2, 4), dtype=np.uint32))
+    wire = [[ser.serialize_dpf_key(k, dparams) for k in ks] for ks in (dk0, dk1)]
+    deal_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    server_keys = [[ser.parse_dpf_key(b) for b in w] for w in wire]
+    parse_s = time.perf_counter() - t0
+    key_bytes = sum(len(b) for b in wire[0]) / nclients
+    del dk0, dk1, wire
+    ctxs = [hierarchical.BatchedContext.create(ddpf, ks) for ks in server_keys]
+    prefixes = []
+    demo_levels = []
+    counts.start()
+    sync(torch, dev)
+    t_all = time.perf_counter()
+    for level in range(nlev):
+        aggs, walls = [], []
+        for ctx in ctxs:
+            t0 = time.perf_counter()
+            v = until(ctx, level, prefixes, device_output=True)
+            # Each server sums its shares over the clients, mod 2^64, limb by limb.
+            lo = value_codec.unsigned(v[..., 0]).sum(dim=0).tolist()
+            hi = value_codec.unsigned(v[..., 1]).sum(dim=0).tolist()
+            aggs.append([(x + (y << 32)) % (1 << 64) for x, y in zip(lo, hi)])
+            walls.append(time.perf_counter() - t0)
+            del v
+        counts_l = [(a + b) % (1 << 64) for a, b in zip(*aggs)]
+        cand = hierarchical.candidate_children(prefixes, level * bpl, (level + 1) * bpl)
+        shift = bits - (level + 1) * bpl
+        plain = collections.Counter(x >> shift for x in values)
+        if counts_l != [plain.get(int(c), 0) for c in cand]:
+            fail(f"heavy-hitters demo level {level}: the reconstructed counts differ from the "
+                 "plaintext")
+        prefixes = [int(cand[i]) for i, c in enumerate(counts_l) if c >= threshold]
+        demo_levels.append((len(cand), len(prefixes), walls))
+        if not prefixes:
+            break
+    sync(torch, dev)
+    demo_s = time.perf_counter() - t_all
+    demo_launches = counts.end("the heavy-hitters demo through evaluate_until_batch", (K2, K4))
+    if sorted(prefixes) != want_hh:
+        fail(f"heavy-hitters demo: found {[hex(v) for v in prefixes]}, the plaintext count "
+             f"gives {[hex(v) for v in want_hh]}")
+    print(f"phase 17, the heavy-hitters demo's protocol ({nclients} clients, {bits} bits, "
+          f"{bpl} a level, threshold {threshold}): dealer keygen + serialize {deal_s:.2f} s "
+          f"({key_bytes:.0f} B a key), parse {parse_s:.2f} s a pair of servers; aggregation "
+          f"{demo_s:.2f} s: " + "; ".join(
+              f"level {i}: {c} candidates -> {s}, {w[0] * 1e3:.0f} / {w[1] * 1e3:.0f} ms"
+              for i, (c, s, w) in enumerate(demo_levels))
+          + f"; launches {demo_launches}; found {[hex(v) for v in prefixes]} = the plaintext "
+          "count's heavy hitters, and every level's counts equal the plaintext")
+
+
+def phase_18(torch, T, dev, p4, cfg, counts: PathCounts) -> None:
+    """PIR in natural order (module docstring, phase 18). `p4`: phase 4's
+    DPF, database, query targets, keys and mode fold's answers."""
+    from distributed_point_functions_tpu_torch.ops import aes_cuda
+    from distributed_point_functions_tpu_torch.parallel import pir
+
+    K2, K4, K6 = aes_cuda.K2, aes_cuda.K4, aes_cuda.K6
+    need = {"levels": (K2, K4), "fused": (K2, K4), "fold": (K2, K4), "walk": (K6, K4)}
+
+    def run_mode(what, dpf, keys, pdb, mode, chunk):
+        """Both parties' answers in one mode, timed: wall a batch (synchronized),
+        the card's kernel time over a second batch (party 0), peak memory."""
+        answers, walls = [], []
+        reset_peak(torch, dev)
+        counts.start()
+        for party in (0, 1):
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            answers.append(pir.pir_query_batch_chunked(dpf, keys[party], pdb, key_chunk=chunk,
+                                                       mode=mode))
+            walls.append(time.perf_counter() - t0)
+        launches = counts.end(f"{what}, PIR mode {mode}", need[mode])
+        peak = peak_gib(torch, dev)
+        busy = device_busy_ms(torch, dev, lambda: pir.pir_query_batch_chunked(
+            dpf, keys[0], pdb, key_chunk=chunk, mode=mode))
+        return answers, dict(wall_ms=[w * 1e3 for w in walls], busy_ms=busy, peak_gib=peak,
+                             launches=launches)
+
+    def report(what, mode, r, nq):
+        busy = r["busy_ms"]
+        host = "not measured" if busy is None else f"{r['wall_ms'][0] - busy:.1f} ms"
+        busy_s = "not measured" if busy is None else f"{busy:.1f} ms"
+        print(f"phase 18, {what}, mode {mode}: wall {r['wall_ms'][0]:.1f} / {r['wall_ms'][1]:.1f} "
+              f"ms a batch of {nq} (parties 0 / 1) = {nq / r['wall_ms'][0] * 1e3:.1f} queries/s; "
+              f"device (kernel time, torch.profiler, party 0) {busy_s}, wall less device "
+              f"{host}; peak {r['peak_gib']:.2f} GiB; launches {r['launches']}")
+
+    # -- 18a. BASELINE config 5 on one card.
+    lds = cfg["c5_log_domain"]
+    nq = cfg["c5_queries"]
+    rng = np.random.default_rng(SEED + 18)
+    dpf = T.DistributedPointFunction.create(T.DpfParameters(lds, T.XorWrapper(128)))
+    t0 = time.perf_counter()
+    db = rng.integers(0, 2**32, size=(1 << lds, 4), dtype=np.uint32)
+    targets = [int(x) for x in rng.integers(0, 1 << lds, size=nq)]
+    keys = dpf.generate_keys_batch(targets, [(1 << 128) - 1],
+                                   seeds=rng.integers(0, 2**32, size=(nq, 2, 4), dtype=np.uint32))
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dbs = {order: pir.prepare_pir_database(dpf, db, order=order, device=dev)
+           for order in ("lane", "natural")}
+    prep_s = time.perf_counter() - t0
+    print(f"phase 18, BASELINE config 5 (2^{lds} x XorWrapper(128) = "
+          f"{db.nbytes / 2**20:.0f} MiB, {nq} queries a server, key chunk {cfg['c5_chunk']}): "
+          f"database and keys made in {gen_s:.2f} s, laid out in lane and natural order and "
+          f"uploaded in {prep_s:.2f} s")
+    answers = {}
+    for mode in ("levels", "fused", "fold"):
+        answers[mode], r = run_mode("config 5", dpf, keys, dbs[pir.MODE_ORDER[mode]], mode,
+                                    cfg["c5_chunk"])
+        rec = answers[mode][0] ^ answers[mode][1]
+        if not np.array_equal(rec, db[targets]):
+            fail(f"config 5, PIR mode {mode}: {int((rec != db[targets]).any(axis=1).sum())} of "
+                 f"{nq} answers do not reconstruct their record")
+        report("config 5", mode, r, nq)
+    for mode in ("levels", "fused"):
+        if not all(np.array_equal(a, b) for a, b in zip(answers[mode], answers["fold"])):
+            fail(f"config 5: PIR modes {mode} and fold differ")
+    print("phase 18, config 5: every answer reconstructs its record (ra ^ rb == db[alpha]) in "
+          "modes levels, fused and fold, and the three modes agree")
+    del dbs, db, answers
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- 18b. Mode walk on phase 4's database.
+    pdb = pir.prepare_pir_database(p4["dpf"], p4["db"], order="natural", device=dev)
+    got, r = run_mode("phase 4's database", p4["dpf"], p4["keys"], pdb, "walk", cfg["walk_chunk"])
+    if not np.array_equal(got[0] ^ got[1], p4["db"][p4["targets"]]):
+        fail("PIR mode walk: the answers do not reconstruct their records")
+    if not all(np.array_equal(a, b) for a, b in zip(got, p4["fold"])):
+        fail("PIR mode walk differs from phase 4's mode fold")
+    report(f"phase 4's 2^{p4['dpf'].validator.parameters[0].log_domain_size} database", "walk",
+           r, len(p4["targets"]))
+    print("phase 18, mode walk: every answer reconstructs its record and equals phase 4's "
+          "mode fold")
+
+
 def main() -> None:
     import torch
 
@@ -907,7 +1517,9 @@ def main() -> None:
     print(f"PIR: all {PIR_QUERIES} answers reconstruct (ra ^ rb == db[alpha]) in "
           f"both modes, and the modes agree; main-path launches {main_launches}")
 
-    del prepared, prepared_mk, db
+    # Phase 18 runs mode walk on this database against these answers.
+    p4 = dict(dpf=pdpf, db=db, targets=targets, keys=(qa, qb), fold=pir_answers["fold"])
+    del prepared, prepared_mk
     torch.cuda.empty_cache()
 
     # -- 5. the walk kernels K6 and K7 against their plain versions ----------
@@ -1514,6 +2126,8 @@ def main() -> None:
     print(f"heavy hitters values/s, fused / hierkernel (parties 0 / 1): "
           f"{hh_rates['fused'][0]:.4e} / {hh_rates['fused'][1]:.4e}, "
           f"{hh_rates['hierkernel'][0]:.4e} / {hh_rates['hierkernel'][1]:.4e}")
+    # Phase 17 holds its level-by-level run against mode fused's outputs.
+    hh = dict(dpf=hdpf, keys=hkeys, plan=hplan, fused=[hh_out[("fused", p)] for p in (0, 1)])
     del hh_out
     torch.cuda.empty_cache()
 
@@ -2214,11 +2828,11 @@ def main() -> None:
         if name == "bits":
             checked = 1
             pts = gate_fw.GatePlan.build(gate, xs[:1]).points
-            card = evaluator.values_to_numpy(
+            on_card = evaluator.values_to_numpy(
                 gate.dcf.batch_evaluate(keys[0].dcf_keys, pts, mode=modes[0]), 128)
             for j, dk in enumerate(keys[0].dcf_keys):
                 for site in (2 * j, 2 * j + 1):
-                    if gate.dcf.evaluate(dk, pts[site]) != card[j, site]:
+                    if gate.dcf.evaluate(dk, pts[site]) != on_card[j, site]:
                         fail(f"gate {name}: the host DCF differs from the card's at key {j}, "
                              f"site {site}")
             what = "the host DCF equals the card's pass at the 32 sites the combine reads"
@@ -2286,6 +2900,20 @@ def main() -> None:
     print("gates: " + json.dumps(gate_rows))
     torch.cuda.empty_cache()
 
+    # -- 17. the EvaluationContext API; 18. PIR in natural order -------------------
+    new_paths = PathCounts(aes_cuda)
+    phase_17(torch, T, dev, hh, dict(dpf=c3dpf, keys=c3keys, alphas=c3_alphas, betas=c3_betas,
+                                     domains=c3_domains), PHASE17, new_paths)
+    del hh
+    torch.cuda.empty_cache()
+    print(card)
+    phase_18(torch, T, dev, p4, PHASE18, new_paths)
+    print(card)
+    for name, n in new_paths.total.items():
+        main_launches[name] = main_launches.get(name, 0) + n
+    print(f"phases 17 and 18: launches {new_paths.total}")
+    torch.cuda.empty_cache()
+
     if "jax" in sys.modules:
         fail("JAX was imported")
     if any(m == "distributed_point_functions_tpu" or m.startswith("distributed_point_functions_tpu.")
@@ -2335,7 +2963,7 @@ def main() -> None:
                      + dcf_launches[aes_cuda.K6.name] + dcf_launches[aes_cuda.K7_DCF.name]
                      + hh_launches[aes_cuda.K8.name] + codec_walk_launches[aes_cuda.K6.name]
                      + walk_launches_c3[aes_cuda.K6.name] + gate_launches[aes_cuda.K6.name]
-                     + gate_launches[aes_cuda.K7_DCF.name]),
+                     + gate_launches[aes_cuda.K7_DCF.name] + new_paths.total[aes_cuda.K6.name]),
         "max_abs_err": checks["K6"],
         "ms": rows["K6"]["ms"],
         "device_ms": rows["K6"].get("device_ms"),

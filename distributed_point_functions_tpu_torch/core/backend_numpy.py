@@ -5,7 +5,9 @@ key's first levels (ops/evaluator.py) runs the left and right PRGs on a few
 dozen blocks per key; ``hash_expanded_seeds`` is the host form of
 HashExpandedSeeds (reference dpf/distributed_point_function.cc:500-524);
 ``evaluate_seeds`` walks seeds down the tree along their paths, the host
-EvaluateAt's walk (core/dpf.py) and the oracle the card is checked against.
+EvaluateAt's walk (core/dpf.py) and the oracle the card is checked against;
+``expand_seeds`` is the host doubling expansion of EvaluateUntil, children
+in leaf order.
 Pure numpy over core/aes_numpy.py; unlike the JAX package's copy there is no
 native AES-NI path.
 
@@ -93,4 +95,46 @@ def evaluate_seeds(
             bool(correction_controls_left[level]),
         )
         control = new_control ^ (control & cc)
+    return seeds, control
+
+
+def expand_seeds(
+    seeds: np.ndarray,
+    control_bits: np.ndarray,
+    correction_seeds: np.ndarray,
+    correction_controls_left: np.ndarray,
+    correction_controls_right: np.ndarray,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Full doubling expansion over ``len(correction_seeds)`` levels.
+
+    Semantics of DistributedPointFunction::ExpandSeeds (reference
+    dpf/distributed_point_function.cc:271-349): each level hashes every seed
+    with both PRGs, applies the seed and control corrections, and
+    interleaves the children as [left_0, right_0, left_1, right_1, ...], so
+    the output is in leaf order. Returns (uint32[N << L, 4] seeds,
+    bool[N << L] control bits).
+    """
+    seeds = np.array(seeds, dtype=np.uint32)
+    control = np.asarray(control_bits, dtype=bool).copy()
+    for level in range(len(correction_seeds)):
+        n = seeds.shape[0]
+        left = _PRG_LEFT.evaluate_limbs(seeds)
+        right = _PRG_RIGHT.evaluate_limbs(seeds)
+        correction = np.where(
+            control[:, None], correction_seeds[level][None, :], 0
+        ).astype(np.uint32)
+        left ^= correction
+        right ^= correction
+        children = np.stack([left, right], axis=1).reshape(2 * n, 4)
+        child_control = (children[:, 0] & 1).astype(bool)
+        children[:, 0] &= np.uint32(0xFFFFFFFE)
+        cc = np.stack(
+            [
+                control & bool(correction_controls_left[level]),
+                control & bool(correction_controls_right[level]),
+            ],
+            axis=1,
+        ).reshape(2 * n)
+        control = child_control ^ cc
+        seeds = children
     return seeds, control

@@ -10,7 +10,9 @@ the CUDA kernels K2, K3, K4, K5, K6, K7 in both its forms, K8 and K9
 view: same arguments, same outputs, written as tensor algebra over a
 leading key axis (K9's lanes are keys: it has none). ``hash_value_stream``
 chains the value hash over a type's value blocks, with K4's wrapper or its
-plain version.
+plain version. ``TorchBackend`` is the host API's backend on the card
+(core/dpf.py ``backend=``): the three primitives of ``NumpyBackend``,
+numpy in and numpy out, through K6, K2 and K4's wrappers.
 The wrappers in ops/aes_cuda.py run them for CPU tensors; chip_smoke.py
 holds the kernels against them on the card. The JAX package's functions
 take one key and are vmapped; these take the key axis explicitly, as the
@@ -31,6 +33,7 @@ import torch
 
 from ..core import constants
 from ..utils import errors
+from ..utils.devices import resolve_device
 from . import aes_torch, value_codec
 
 _FULL = np.uint32(0xFFFFFFFF)
@@ -577,3 +580,99 @@ def expansion_output_order(
     valid = prefix >= 0
     order[prefix[valid]] = np.nonzero(valid)[0]
     return order
+
+
+def _pad_seed_lanes(seeds: np.ndarray, control: np.ndarray):
+    """uint32[N, 4] seeds and bool[N] control -> both padded with zero lanes
+    to a whole number of 32-lane words (at least one)."""
+    n = seeds.shape[0]
+    padded = max(32, -(-n // 32) * 32)
+    seeds_p = np.zeros((padded, 4), np.uint32)
+    seeds_p[:n] = seeds
+    control_p = np.zeros(padded, bool)
+    control_p[:n] = control
+    return seeds_p, control_p
+
+
+class TorchBackend:
+    """The host API's three primitives on the card: numpy in, numpy out, as
+    the JAX package's ``JaxBackend``. ``DistributedPointFunction.
+    create_incremental(params, backend=TorchBackend())`` runs the
+    expansions of ``evaluate_until`` / ``evaluate_next`` / ``evaluate_at``
+    here, one key's N seeds as the lanes of one kernel key (padded to whole
+    32-lane words):
+
+    - ``evaluate_seeds``: one ``aes_cuda.walk_levels`` call (K6 a level),
+      each lane's path bits as the level masks (``path_bit_masks``);
+    - ``expand_seeds``: K2 a level, the children restored to leaf order by
+      ``expansion_output_order``;
+    - ``hash_expanded_seeds``: K4 a value block (``hash_value_stream``).
+
+    `device`: None = CUDA; "cpu" runs the kernels' plain versions."""
+
+    name = "torch"
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+
+    def _up(self, a: np.ndarray) -> torch.Tensor:
+        """uint32 host words -> int32 [1, ...] on the device: one kernel key."""
+        return torch.from_numpy(aes_torch.as_words(a)).to(self.device)[None]
+
+    def _tables(self, correction_seeds, ccl, ccr):
+        return (self._up(cw_seed_planes(correction_seeds)), self._up(control_masks(ccl)),
+                self._up(control_masks(ccr)))
+
+    def evaluate_seeds(self, seeds, control_bits, paths, correction_seeds,
+                       correction_controls_left, correction_controls_right):
+        from . import aes_cuda
+
+        seeds = np.asarray(seeds, np.uint32)
+        n, levels = seeds.shape[0], len(correction_seeds)
+        if levels == 0 or n == 0:
+            return seeds.copy(), np.asarray(control_bits, bool).copy()
+        seeds_p, control_p = _pad_seed_lanes(seeds, np.asarray(control_bits, bool))
+        path_masks = self._up(path_bit_masks(np.asarray(paths, np.uint32), levels,
+                                             seeds_p.shape[0]))[0]
+        planes, mask = aes_cuda.walk_levels(
+            aes_torch.pack_to_planes(self._up(seeds_p)),
+            self._up(aes_torch.pack_bit_mask(control_p)), path_masks,
+            *self._tables(correction_seeds, correction_controls_left,
+                          correction_controls_right))
+        out = aes_torch.from_words(aes_torch.unpack_from_planes(planes)[0])
+        control = aes_torch.from_words(unpack_mask_device(mask)[0]).astype(bool)
+        return out[:n], control[:n]
+
+    def expand_seeds(self, seeds, control_bits, correction_seeds,
+                     correction_controls_left, correction_controls_right):
+        from . import aes_cuda
+
+        seeds = np.asarray(seeds, np.uint32)
+        n, levels = seeds.shape[0], len(correction_seeds)
+        if levels == 0 or n == 0:
+            return seeds.copy(), np.asarray(control_bits, bool).copy()
+        seeds_p, control_p = _pad_seed_lanes(seeds, np.asarray(control_bits, bool))
+        planes = aes_torch.pack_to_planes(self._up(seeds_p))
+        mask = self._up(aes_torch.pack_bit_mask(control_p))
+        cw, ccl, ccr = self._tables(correction_seeds, correction_controls_left,
+                                    correction_controls_right)
+        for level in range(levels):
+            planes, mask = aes_cuda.expand_one_level(
+                planes, mask, cw[:, level], ccl[:, level], ccr[:, level])
+        order = torch.from_numpy(
+            expansion_output_order(n, seeds_p.shape[0], levels)).to(self.device)
+        out = aes_torch.unpack_from_planes(planes)[0].index_select(0, order)
+        control = unpack_mask_device(mask)[0].index_select(0, order)
+        return aes_torch.from_words(out), aes_torch.from_words(control).astype(bool)
+
+    def hash_expanded_seeds(self, seeds, blocks_needed: int):
+        from . import aes_cuda
+
+        seeds = np.asarray(seeds, np.uint32)
+        n = seeds.shape[0]
+        if n == 0 or blocks_needed == 0:
+            return np.zeros((n, blocks_needed, 4), np.uint32)
+        seeds_p, _ = _pad_seed_lanes(seeds, np.zeros(n, bool))
+        stream = hash_value_stream(aes_torch.pack_to_planes(self._up(seeds_p)), blocks_needed,
+                                   aes_cuda.hash_value_planes)
+        return aes_torch.from_words(stream[0, :n]).reshape(n, blocks_needed, 4)

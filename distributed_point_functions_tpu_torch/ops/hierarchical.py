@@ -1,14 +1,35 @@
-"""Batched hierarchical evaluation with prefix sets: the heavy-hitters advance.
+"""Batched hierarchical evaluation with prefix sets: the device analog of
+EvaluateUntil / EvaluateNext over an EvaluationContext.
 
-The port's counterpart of the JAX package's ``ops/hierarchical.py``, cut to
-``evaluate_levels_fused``: a batch of keys of one party advances through
-many hierarchy levels whose prefix sets are known upfront (the reference's
-BM_HeavyHitters, dpf/distributed_point_function_benchmark.cc:306-340), and
-a ``BatchedContext`` keeps, per key batch, the resumable expansion state
-(sorted parent prefixes and the leaf-ordered seeds and control bits on the
-device).
+The port's counterpart of the JAX package's ``ops/hierarchical.py``. A
+``BatchedContext`` keeps, per key batch of one party, the resumable
+expansion state (sorted parent prefixes and the leaf-ordered seeds and
+control bits on the device), which two entry points advance:
 
-Per call:
+``evaluate_until_batch``: one hierarchy level a call, every value type, the
+batched EvaluateUntil. Per call:
+
+1. host: ``KeyBatch.from_keys`` (correction words, value corrections) and
+   the prefix bookkeeping (``_as_prefix_array``, ``_positions_for_prefixes``:
+   one search over the parent array, uint64 or U128 prefixes);
+2. device: the parents' state gathered and padded to whole 32-lane words;
+   one K2 launch a tree level (ops/aes_cuda.expand_one_level), the pad
+   lanes dropped by a gather once the real lanes fill whole words (a first
+   call's one parent after 5 levels), K4 a value block
+   (``backend_torch.hash_value_stream``), then ``evaluator._finalize`` in
+   plain PyTorch (the scalar correction, or the codec of
+   ops/value_codec.py for IntModN and tuples, and the leaf-order gather);
+3. device: each prefix's block slice where prefixes share a tree index,
+   and the context's new state in leaf order.
+
+``BatchedContext.to_evaluation_contexts`` exports the state as the host
+API's ``EvaluationContext`` per key (core/dpf.py; wire format in
+protos/serialization.py).
+
+``evaluate_levels_fused``: many levels whose prefix sets are known upfront,
+the heavy-hitters access pattern (the reference's BM_HeavyHitters,
+dpf/distributed_point_function_benchmark.cc:306-340), scalar Int /
+XorWrapper. Per call:
 
 1. host (numpy): ``prepare_levels_fused`` walks the plan over a virtual
    context and composes every gather and select table, uploaded once to the
@@ -30,13 +51,16 @@ Per call:
      outputs gathered (the JAX package's ``_hier_window_jit``, whose kernel
      walks every lane from its window-entry ancestor).
 
-Outputs are ordered by sorted prefix, then leaf, as the reference's
-EvaluateUntil orders them. Words are int32 tensors carrying uint32 bit
-patterns (ops/aes_torch.py).
+Both leave the same context state, so a context advanced by one continues
+on the other. Outputs are ordered by sorted prefix, then leaf, as the
+reference's EvaluateUntil orders them. Words are int32 tensors carrying
+uint32 bit patterns (ops/aes_torch.py).
 
-Not ported yet: ``evaluate_until_batch`` (one level per call) and its codec
-arm, ``BatchedContext.to_evaluation_contexts`` and the host
-``EvaluationContext`` walk, the sharded path, and the robust wrapper.
+Refused: ``evaluate_until_batch(engine="host")``, which waits for the
+port's host engine (ROADMAP Queue 1 item 5), and ``mesh=``, the
+multi-device path (item 6); both raise UnimplementedError. Not ported yet:
+``integrity=`` and the robust wrapper ``evaluate_levels_fused_robust``
+(item 5).
 """
 
 from __future__ import annotations
@@ -49,10 +73,11 @@ import torch
 
 from ..core import uint128
 from ..core.dpf import DistributedPointFunction
-from ..core.keys import DpfKey
+from ..core.keys import DpfKey, EvaluationContext, PartialEvaluation
 from ..core.value_types import Int, XorWrapper
 from ..utils.devices import resolve_device
-from ..utils.errors import InvalidArgumentError
+from ..utils.errors import InvalidArgumentError, UnimplementedError
+from ..utils.timing import StepClock
 from . import aes_cuda, aes_torch, backend_torch, evaluator
 
 MODES = ("fused", "hierkernel")
@@ -87,6 +112,53 @@ class BatchedContext:
             if key.party != party:
                 raise InvalidArgumentError("all keys in a batch must belong to one party")
         return cls(dpf=dpf, keys=list(keys))
+
+    def _child_prefixes(self) -> Optional[list]:
+        """The stored prefix set as Python ints, in leaf order (the rows of
+        seeds / control); None before the first advance."""
+        if self.parent_tree is None:
+            return None
+        parents = (
+            uint128.u128_to_ints(self.parent_tree)
+            if self.parent_tree.dtype == uint128.U128
+            else [int(p) for p in self.parent_tree]
+        )
+        n = 1 << self.child_levels
+        return [(p << self.child_levels) + leaf for p in parents for leaf in range(n)]
+
+    def to_evaluation_contexts(self, key_indices: Optional[Sequence[int]] = None
+                               ) -> List[EvaluationContext]:
+        """Per key the serializable ``EvaluationContext`` of the host API
+        (checkpoint / resume, protos/serialization.serialize_evaluation_context):
+        the stored prefixes with each key's seed and control bit as its
+        partial evaluations. `key_indices` exports only those keys (default
+        all), pulling only their rows of the state from the device."""
+        v = self.dpf.validator
+        idx = list(range(len(self.keys))) if key_indices is None else [int(i) for i in key_indices]
+        prefix_ints = self._child_prefixes()
+        if prefix_ints is not None:
+            rows = torch.tensor(idx, dtype=torch.int64, device=self.seeds.device)
+            n = len(prefix_ints)
+            seeds_np = aes_torch.from_words(self.seeds.index_select(0, rows)[:, :n])
+            control_np = aes_torch.from_words(self.control.index_select(0, rows)[:, :n])
+        out = []
+        for j, i in enumerate(idx):
+            partials = []
+            if prefix_ints is not None:
+                seed_ints = uint128.limbs_to_array(seeds_np[j])
+                partials = [
+                    PartialEvaluation(prefix=int(prefix), seed=int(seed_ints[r]),
+                                      control_bit=bool(control_np[j, r]))
+                    for r, prefix in enumerate(prefix_ints)
+                ]
+            out.append(EvaluationContext(
+                parameters=list(v.parameters),
+                key=self.keys[i],
+                previous_hierarchy_level=self.previous_hierarchy_level,
+                partial_evaluations=partials,
+                partial_evaluations_level=self.previous_hierarchy_level,
+            ))
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +249,26 @@ def _positions_for_prefixes(parent_tree, child_levels, prev_lds, start_level, pr
     return positions, tree, tree_pos_of_prefix
 
 
+def _block_select(prefix_arr, tree_pos_of_prefix, prev_lds: int, start_level: int,
+                  lds: int) -> np.ndarray:
+    """int64 output positions of each prefix's outputs in its tree prefix's
+    expansion (elements in leaf order). Where the previous level's domain
+    index carries block bits (epb > 1), distinct prefixes share one tree
+    index and each takes the slice [block_index * outputs_per_prefix, ...)
+    of its tree prefix's expansion: the prefix_map reassembly of
+    EvaluateUntil (reference dpf/distributed_point_function.h:822-835)."""
+    shift = prev_lds - start_level
+    opp = 1 << (lds - prev_lds)  # outputs per prefix
+    etp = 1 << (lds - start_level)  # elements per tree prefix
+    block_index = (
+        uint128.u128_and_low(prefix_arr, shift)
+        if prefix_arr.dtype == uint128.U128
+        else prefix_arr & np.uint64((1 << shift) - 1)
+    )
+    starts = tree_pos_of_prefix.astype(np.int64) * etp + block_index.astype(np.int64) * opp
+    return (starts[:, None] + np.arange(opp, dtype=np.int64)).reshape(-1)
+
+
 def _level_value_corrections(keys, v, hierarchy_level, bits):
     """uint32[K, epb, lpe] value-correction limbs at one hierarchy level."""
     stop = v.hierarchy_to_tree[hierarchy_level]
@@ -190,6 +282,194 @@ def _level_value_corrections(keys, v, hierarchy_level, bits):
         for j, c in enumerate(corrections):
             vc[i, j] = uint128.to_limbs(int(c))
     return evaluator._correction_limbs(vc, bits)
+
+
+# ---------------------------------------------------------------------------
+# One hierarchy level a call: evaluate_until_batch
+# ---------------------------------------------------------------------------
+
+def _compact_after(num_parents: int) -> int:
+    """Tree levels after which `num_parents` lanes, doubled each level, fill
+    whole 32-lane words: 0 when they already do, 5 for one parent."""
+    return 0 if num_parents % 32 == 0 else 5 - ((num_parents & -num_parents).bit_length() - 1)
+
+
+def _expand_batch(batch: evaluator.KeyBatch, seeds0: torch.Tensor, control0: torch.Tensor,
+                  start_level: int, levels: int, vf, need_state: bool, clock: StepClock):
+    """Doubling expansion of the parents seeds0 int32[K, Np, 4] / control0
+    int32[K, Np] (0 / 1, on the batch's device) by `levels` tree levels from
+    `start_level`, then the value hash and correction: the JAX package's
+    ``_expand_batch``. The parent axis is padded to whole 32-lane words and
+    each tree level is one K2 launch. Where pad lanes were added, they
+    double with the real ones only until the real lanes fill whole words
+    (``_compact_after``: 5 levels for a first call's one parent); there an
+    on-card gather packs the real lanes in leaf order and the pad lanes are
+    dropped. Then K4 a value block (``backend_torch.hash_value_stream``) and
+    ``evaluator._finalize`` (the scalar fast path or the codec). Returns
+    (values int32[K, Np << levels * keep, lpe] or a tuple of them, seeds
+    int32[K, Np << levels, 4], control int32[K, Np << levels]), all in leaf
+    order; the state is None unless `need_state`."""
+    dev = batch.device
+    k, m = seeds0.shape[:2]
+    pad = max(32, -(-m // 32) * 32) - m
+    if pad:
+        seeds0 = torch.cat([seeds0, seeds0.new_zeros((k, pad, 4))], dim=1)
+        control0 = torch.cat([control0, control0.new_zeros((k, pad))], dim=1)
+    compact = _compact_after(m)
+    if compact >= levels:
+        compact = 0
+    planes = aes_torch.pack_to_planes(seeds0)
+    mask = backend_torch.pack_mask_device(control0)
+    cw, ccl, ccr = (evaluator._upload(np.ascontiguousarray(np.swapaxes(a, 0, 1)), dev)
+                    for a in batch.device_cw_arrays(start_level))
+    corr = (evaluator._upload(evaluator._correction_limbs(batch.value_corrections, vf.bits), dev)
+            if vf.bits else tuple(evaluator._upload(a, dev) for a in batch.codec_corrections))
+    clock("tables")
+    for lvl in range(levels):
+        if lvl and lvl == compact:
+            clock("expand")
+            real = torch.from_numpy(backend_torch.expansion_output_order(m, m + pad, lvl)).to(dev)
+            planes = aes_torch.pack_to_planes(
+                aes_torch.unpack_from_planes(planes).index_select(1, real))
+            mask = backend_torch.pack_mask_device(
+                backend_torch.unpack_mask_device(mask).index_select(1, real))
+            m, pad = m << lvl, 0
+            clock("compact")
+        planes, mask = aes_cuda.expand_one_level(planes, mask, cw[lvl], ccl[lvl], ccr[lvl])
+    clock("expand")
+    order = torch.from_numpy(
+        backend_torch.expansion_output_order(m, m + pad, levels - compact)).to(dev)
+    stream = backend_torch.hash_value_stream(planes, vf.spec.blocks_needed,
+                                             aes_cuda.hash_value_planes)
+    clock("hash")
+    outs = evaluator._finalize(stream, mask, corr, order, vf)
+    del stream
+    clock("finalize")
+    if not need_state:
+        return outs, None, None
+    new_seeds = aes_torch.unpack_from_planes(planes).index_select(1, order)
+    new_control = backend_torch.unpack_mask_device(mask).index_select(1, order)
+    clock("state")
+    return outs, new_seeds, new_control
+
+
+def evaluate_until_batch(
+    ctx: BatchedContext,
+    hierarchy_level: int,
+    prefixes: Sequence[int] = (),
+    device_output: bool = False,
+    mesh=None,
+    engine: str = "device",
+    device=None,
+    timings: Optional[dict] = None,
+):
+    """Advances every key of `ctx` to `hierarchy_level`, expanding under
+    `prefixes`: the batched EvaluateUntil, one hierarchy level a call.
+
+    `prefixes` are unique domain indices at ``ctx.previous_hierarchy_level``
+    (empty iff this is the context's first call), in any order; outputs
+    cover the full expansion of every prefix, ordered by sorted prefix,
+    then leaf (the reference's order for sorted unique prefixes). Every
+    value type: Int and XorWrapper on the scalar fast path, IntModN and
+    tuples through the codec (ops/value_codec.py). Returns uint32[K,
+    n_outputs, lpe] limbs (mod-N residues for IntModN), a tuple of such
+    arrays for a tuple type, or with `device_output` the int32 tensors on
+    the device.
+
+    The context it leaves (sorted parent prefixes, ``child_levels``, int32
+    [K, M, 4] seeds and [K, M] 0/1 control in leaf order on the device) is
+    the one ``evaluate_levels_fused`` reads and writes, so either entry
+    point continues a context the other advanced.
+
+    `device`: None = CUDA; "cpu" runs the kernels' plain versions.
+    `timings`: a dict that gets each step's seconds (utils/timing.py:
+    "keys", "positions", "tables", "expand" (K2), "compact", "hash"
+    (K4), "finalize", "state", "select", "pull"; on the card with "_card"
+    twins). `engine="host"` (the JAX package's native AES-NI engine) waits
+    for the port's host rung (ROADMAP Queue 1 item 5) and `mesh` for the
+    multi-device path (item 6): both raise UnimplementedError.
+    """
+    if engine != "device":
+        if engine == "host":
+            raise UnimplementedError(
+                "evaluate_until_batch(engine='host') needs the port of the host "
+                "engine (core/host_eval.py), ROADMAP Queue 1 item 5")
+        raise InvalidArgumentError(f"engine must be 'device' or 'host', got {engine!r}")
+    if mesh is not None:
+        raise UnimplementedError(
+            "evaluate_until_batch(mesh=...) is the multi-device path, ROADMAP Queue 1 "
+            "item 6")
+    dpf, v = ctx.dpf, ctx.dpf.validator
+    if hierarchy_level <= ctx.previous_hierarchy_level:
+        raise InvalidArgumentError(
+            "`hierarchy_level` must be greater than `ctx.previous_hierarchy_level`"
+        )
+    if hierarchy_level >= v.num_hierarchy_levels:
+        raise InvalidArgumentError(
+            "`hierarchy_level` must be less than the number of hierarchy levels"
+        )
+    if (ctx.previous_hierarchy_level < 0) != (len(prefixes) == 0):
+        raise InvalidArgumentError(
+            "`prefixes` must be empty if and only if this is the first call"
+        )
+    prev_lds = (0 if ctx.previous_hierarchy_level < 0
+                else v.parameters[ctx.previous_hierarchy_level].log_domain_size)
+    lds = v.parameters[hierarchy_level].log_domain_size
+    if lds - prev_lds > 62:
+        raise InvalidArgumentError(
+            "Output size would be larger than 2**62. Please evaluate fewer "
+            "hierarchy levels at once."
+        )
+    dev = resolve_device(device)
+    clock = StepClock(timings, dev)
+    stop_level = v.hierarchy_to_tree[hierarchy_level]
+    batch = evaluator.KeyBatch.from_keys(dpf, ctx.keys, hierarchy_level, device=dev)
+    vf = evaluator._values_of(batch, dpf, hierarchy_level)
+    clock("keys")
+
+    if ctx.previous_hierarchy_level < 0:
+        start_level = 0
+        tree = tree_pos_of_prefix = prefix_arr = None
+        seeds0 = evaluator._upload(batch.seeds[:, None, :], dev)
+        control0 = torch.full((len(ctx.keys), 1), batch.party, dtype=torch.int32, device=dev)
+    else:
+        start_level = v.hierarchy_to_tree[ctx.previous_hierarchy_level]
+        prefix_arr = _as_prefix_array(prefixes, prev_lds)
+        positions, tree, tree_pos_of_prefix = _positions_for_prefixes(
+            ctx.parent_tree, ctx.child_levels, prev_lds, start_level, prefix_arr,
+            hierarchy_level)
+        pos = torch.from_numpy(positions.astype(np.int64)).to(dev)
+        seeds0 = ctx.seeds.to(dev).index_select(1, pos)
+        control0 = ctx.control.to(dev).index_select(1, pos)
+    clock("positions")
+
+    levels = stop_level - start_level
+    need_state = hierarchy_level < v.num_hierarchy_levels - 1
+    outs, new_seeds, new_control = _expand_batch(batch, seeds0, control0, start_level, levels,
+                                                 vf, need_state, clock)
+
+    if prefix_arr is not None and prev_lds - start_level:
+        sel = torch.from_numpy(_block_select(prefix_arr, tree_pos_of_prefix, prev_lds,
+                                             start_level, lds)).to(dev)
+        outs = (tuple(o.index_select(1, sel) for o in outs) if isinstance(outs, tuple)
+                else outs.index_select(1, sel))
+        clock("select")
+
+    if need_state:
+        ctx.parent_tree = tree if tree is not None else np.zeros(1, dtype=np.uint64)
+        ctx.child_levels = levels
+        ctx.seeds, ctx.control = new_seeds, new_control
+    else:
+        ctx.parent_tree, ctx.child_levels, ctx.seeds, ctx.control = None, 0, None, None
+    ctx.previous_hierarchy_level = hierarchy_level
+    if device_output:
+        return outs
+    if isinstance(outs, tuple):
+        out = tuple(aes_torch.from_words(o) for o in outs)
+    else:
+        out = aes_torch.from_words(outs)
+    clock("pull")
+    return out
 
 
 def bitwise_hierarchy_plan(levels: int, finals) -> list:
@@ -467,7 +747,7 @@ def prepare_levels_fused(
         if not isinstance(vt, (Int, XorWrapper)) or v.blocks_needed[h] != 1:
             raise InvalidArgumentError(
                 "evaluate_levels_fused supports scalar Int/XorWrapper outputs; "
-                "codec value types are not ported yet"
+                "use evaluate_until_batch for codec value types"
             )
     bits, xor_group = evaluator._value_kind(v.parameters[plan[-1][0]].value_type)
     if mode == "hierkernel" and bits % 32:
@@ -517,20 +797,9 @@ def prepare_levels_fused(
             )
         num_parents = positions.shape[0]
         epb = v.parameters[h].value_type.elements_per_block()
-        # The output select in this level's element space: distinct prefixes
-        # can share a tree index when the previous level's domain index
-        # carries block bits; each takes its slice of the tree expansion.
+        # The output select in this level's element space.
         if prev_level >= 0 and prev_lds - start_level:
-            shift = prev_lds - start_level
-            opp = 1 << (lds - prev_lds)  # outputs per prefix
-            etp = 1 << (lds - start_level)  # elements per tree prefix
-            block_index = (
-                uint128.u128_and_low(prefix_arr, shift)
-                if prefix_arr.dtype == uint128.U128
-                else prefix_arr & np.uint64((1 << shift) - 1)
-            )
-            starts = tree_pos_of_prefix.astype(np.int64) * etp + block_index.astype(np.int64) * opp
-            sel = (starts[:, None] + np.arange(opp, dtype=np.int64)).reshape(-1)
+            sel = _block_select(prefix_arr, tree_pos_of_prefix, prev_lds, start_level, lds)
         else:
             sel = np.arange((num_parents << levels_d) * keep, dtype=np.int64)
         raw.append((positions, num_parents, levels_d, sel, keep, epb, start_level, h))

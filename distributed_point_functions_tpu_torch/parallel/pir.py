@@ -1,15 +1,36 @@
-"""Single-device two-server PIR over the full-domain fold.
+"""Single-device two-server PIR over the full-domain expansion.
 
-The port's counterpart of the fold path of the JAX package's
-``parallel/sharded.py``: ``prepare_pir_database`` permutes a database once
-into the expansion's lane order and uploads it, and
-``pir_query_batch_chunked(mode="fold")`` answers a batch of queries with the
-in-device inner product of ops/evaluator.full_domain_fold_chunks — each
-answer is the XOR, over the domain, of (value share AND record). With
-XorWrapper keys whose beta is all ones, the two servers' answers XOR to the
-queried record. ``order="megakernel"`` lays the database out for the slab
-megakernel instead (``evaluator.megakernel_db_rows``), which
-``mode="megakernel"`` ANDs against inside K5.
+The port's counterpart of the single-device path of the JAX package's
+``parallel/sharded.py``. ``prepare_pir_database`` lays a database out once
+for its consumer and uploads it, and ``pir_query_batch_chunked`` answers a
+batch of queries: each answer is the XOR, over the domain, of (value share
+AND record). With XorWrapper keys whose beta is all ones, the two servers'
+answers XOR to the queried record. The modes and the database order each
+reads:
+
+- ``"fold"`` (the port's default): the inner product in the fold of
+  ops/evaluator.full_domain_fold_chunks (K2 a level, K4, the plain-torch
+  tail), over the expansion's lane order (``order="lane"``);
+- ``"megakernel"``: the inner product inside K5, one launch a chunk, over
+  the megakernel's row layout (``order="megakernel"``);
+- ``"levels"``: the JAX package's name for the inner product over the
+  lane-order database (``order="lane"``). There it folds the chunk's
+  materialised values; the port answers it on mode fold's path, which
+  computes the same fold without writing the values out;
+- ``"walk"``: the same entry point in mode "walk" (K6 a tree level on every
+  leaf's path, K4), leaf order, folded against the natural-order database
+  (``order="natural"``);
+- ``"fused"``: the same entry point in mode "fused", in ``lane_slab``
+  pieces sized by ``evaluator.plan_slabs``; each leaf-contiguous piece
+  folds against its rows of the natural-order database and the pieces XOR
+  into the chunk's answer (``order="natural"``).
+
+The JAX package's default mode is ``"levels"``; the port keeps ``"fold"``.
+The fold of modes walk and fused (``_pir_fold``) is plain PyTorch,
+as the JAX package computes it in XLA outside any Pallas kernel. The JAX
+package's sentinel probe (``integrity=``) waits for the port's
+``utils/integrity.py`` (ROADMAP Queue 1 item 5), and its mesh-sharded modes
+for the multi-device path (item 6).
 """
 
 from __future__ import annotations
@@ -21,19 +42,26 @@ import torch
 
 from ..core.dpf import DistributedPointFunction
 from ..core.keys import DpfKey
-from ..ops import aes_torch, evaluator
+from ..ops import aes_torch, backend_torch, evaluator
 from ..utils.devices import resolve_device
-from ..utils.errors import InvalidArgumentError, UnimplementedError
+from ..utils.errors import InvalidArgumentError
+
+ORDERS = ("lane", "natural", "megakernel")
+MODES = ("fold", "megakernel", "levels", "walk", "fused")
+# The database order each mode reads.
+MODE_ORDER = {"fold": "lane", "levels": "lane", "megakernel": "megakernel",
+              "walk": "natural", "fused": "natural"}
 
 
 class PreparedPirDatabase:
-    """A device-resident PIR database permuted for its consumer
-    (``prepare_pir_database``): the fold's lane order, or the megakernel's
-    row layout under one MegakernelPlan. A type of its own so that a bare
-    array in natural order is never mistaken for it: for
-    one-element-per-block value types the lane order has the same shape."""
+    """A device-resident PIR database in the row order of the mode that
+    reads it (``prepare_pir_database``): the expansion's lane order, the
+    natural (domain) order, or the megakernel's row layout under one
+    MegakernelPlan. A type of its own so that a bare array is never
+    mistaken for it: for one-element-per-block value types the lane order
+    has the natural order's shape."""
 
-    __slots__ = ("lane_db", "order", "host_levels", "plan")
+    __slots__ = ("lane_db", "order", "host_levels", "plan", "_nat_host")
 
     def __init__(
         self,
@@ -43,9 +71,42 @@ class PreparedPirDatabase:
         plan: Optional[evaluator.MegakernelPlan] = None,
     ):
         self.lane_db = lane_db  # int32[positions, lpe] or megakernel rows
-        self.order = order  # "lane" | "megakernel"
-        self.host_levels = host_levels  # the permutation's parameter
+        self.order = order  # one of ORDERS
+        self.host_levels = host_levels  # the lane permutation's parameter
         self.plan = plan  # order "megakernel": the plan the rows encode
+        self._nat_host = None
+
+    def natural_host(self, dpf: DistributedPointFunction) -> np.ndarray:
+        """The database in natural order on the host, uint32[domain, lpe]:
+        one pull and the inverse of the prepare-time layout, computed on
+        first use and kept (the database is immutable)."""
+        if self._nat_host is not None:
+            return self._nat_host
+        lane_host = aes_torch.from_words(self.lane_db)
+        v = dpf.validator
+        lds = v.parameters[-1].log_domain_size
+        if self.order == "natural":
+            nat = lane_host
+        elif self.order == "megakernel":
+            # Row (e * lpe + l) * 32 + i at word w holds limb l of element e
+            # of the block at lane 32 w + i, whose domain row is
+            # leaves[lane] * keep + e (evaluator.megakernel_db_rows).
+            keep = 1 << (lds - v.hierarchy_to_tree[-1])
+            lpe = lane_host.shape[0] // (keep * 32)
+            blocks = evaluator._megakernel_block_leaves(self.plan).reshape(-1, 32)
+            nat = np.zeros((1 << lds, lpe), np.uint32)
+            for e in range(keep):
+                rows = blocks * keep + e
+                for l in range(lpe):
+                    nat[rows, l] = lane_host[(e * lpe + l) * 32 : (e * lpe + l + 1) * 32].T
+        else:
+            # Padded lane positions hold zeros and map to no domain row.
+            m = evaluator.lane_order_map(dpf, -1, self.host_levels)
+            nat = np.zeros((1 << lds, lane_host.shape[1]), np.uint32)
+            valid = m >= 0
+            nat[m[valid]] = lane_host[valid]
+        self._nat_host = nat
+        return nat
 
 
 def prepare_pir_database(
@@ -55,13 +116,14 @@ def prepare_pir_database(
     order: str = "lane",
     device=None,
 ) -> PreparedPirDatabase:
-    """Permutes a uint32[D, lpe] database (D = the DPF domain) for its
-    consumer and uploads it to `device` once: order="lane" (the fold's lane
-    order, ``evaluator.lane_order_map``; padded positions hold zeros) for
-    mode="fold", order="megakernel" (``evaluator.megakernel_db_rows`` under
-    ``plan_megakernel``, which the prepared database records) for
-    mode="megakernel". A server's database is static: prepare it at setup
-    and query it many times."""
+    """Lays a uint32[D, lpe] database (D = the DPF domain) out for its
+    consumer and uploads it to `device` once: order="lane" (the
+    expansion's lane order, ``evaluator.lane_order_map``; padded positions
+    hold zeros) for modes "fold" and "levels", order="natural" (domain
+    order as given) for modes "walk" and "fused", order="megakernel"
+    (``evaluator.megakernel_db_rows`` under ``plan_megakernel``, which the
+    prepared database records) for mode "megakernel". A server's database
+    is static: prepare it at setup and query it many times."""
     v = dpf.validator
     hierarchy_level = v.num_hierarchy_levels - 1
     domain = 1 << v.parameters[hierarchy_level].log_domain_size
@@ -71,24 +133,56 @@ def prepare_pir_database(
             f"db has shape {db_limbs.shape}; the DPF domain has {domain} "
             "elements — it must be [domain, limbs]"
         )
+    if order not in ORDERS:
+        raise InvalidArgumentError(
+            f"order must be 'lane', 'natural' or 'megakernel', got {order!r}"
+        )
     device = resolve_device(device)
+    if order == "natural":
+        return PreparedPirDatabase(evaluator._upload(db_limbs, device), order, None)
     if order == "megakernel":
         plan = evaluator.plan_megakernel(dpf, hierarchy_level, host_levels)
         rows = evaluator.megakernel_db_rows(dpf, db_limbs, plan, hierarchy_level)
-        return PreparedPirDatabase(
-            torch.from_numpy(aes_torch.as_words(rows)).to(device), order,
-            plan.host_levels, plan,
-        )
-    if order != "lane":
-        raise InvalidArgumentError(
-            f"order must be 'lane' or 'megakernel', got {order!r}"
-        )
+        return PreparedPirDatabase(evaluator._upload(rows, device), order,
+                                   plan.host_levels, plan)
     m = evaluator.lane_order_map(dpf, hierarchy_level, host_levels)
     db_lane = np.zeros((m.shape[0], db_limbs.shape[1]), dtype=np.uint32)
     valid = m >= 0
     db_lane[valid] = db_limbs[m[valid]]
-    lane = torch.from_numpy(aes_torch.as_words(db_lane)).to(device)
-    return PreparedPirDatabase(lane, order, host_levels)
+    return PreparedPirDatabase(evaluator._upload(db_lane, device), order, host_levels)
+
+
+def _pir_fold(values: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+    """XOR inner product of a chunk's values int32[K, N, lpe] against a
+    database int32[N, lpe] in the same order -> int32[K, lpe]: the JAX
+    package's ``_pir_fold``, and its ``_pir_fold_slab`` when `db` is the
+    slice of rows a leaf-contiguous piece covers."""
+    return backend_torch.xor_reduce(values & db[None], dim=1)
+
+
+def _check_prepared(dpf, pdb: PreparedPirDatabase, mode: str, host_levels, device) -> None:
+    want_order = MODE_ORDER[mode]
+    if pdb.order != want_order:
+        raise InvalidArgumentError(
+            f"mode={mode!r} needs a {want_order!r}-order "
+            f"PreparedPirDatabase, got {pdb.order!r}"
+        )
+    if device is not None and resolve_device(device) != pdb.lane_db.device:
+        raise InvalidArgumentError(
+            f"device={device} disagrees with the database's {pdb.lane_db.device}"
+        )
+    if pdb.order != "natural" and host_levels is not None and host_levels != pdb.host_levels:
+        raise InvalidArgumentError(
+            f"host_levels={host_levels} disagrees with the database's "
+            f"{pdb.order} order (prepared at host_levels={pdb.host_levels})"
+        )
+    if pdb.order == "megakernel" and pdb.plan != evaluator.plan_megakernel(
+        dpf, host_levels=pdb.host_levels
+    ):
+        raise InvalidArgumentError(
+            f"the database was laid out under {pdb.plan}, which this DPF "
+            "and the megakernel budget no longer plan; prepare it again"
+        )
 
 
 def pir_query_batch_chunked(
@@ -104,60 +198,69 @@ def pir_query_batch_chunked(
     """PIR answers uint32[len(keys), lpe] of one server for a batch of keys.
 
     `db_limbs` is the PreparedPirDatabase from ``prepare_pir_database``
-    (upload once, query many), or a host uint32[D, lpe] array, which is then
-    permuted and uploaded on this call. With a prepared database the
-    evaluation runs on the database's device, and `device`, if given, must
-    name it. `mode` is "fold" (K2 per level, then the inner product in
-    plain PyTorch, over a lane-order database) or "megakernel" (the inner
-    product inside K5, one launch per chunk, over a megakernel-order
-    database, under the plan it was prepared with); a database prepared in
-    the other order is refused.
-    """
-    if mode not in ("fold", "megakernel"):
-        raise UnimplementedError(
-            f"mode={mode!r} is not ported yet; the port has mode='fold' and "
-            "mode='megakernel'"
+    (upload once, query many) in the order the mode reads (module
+    docstring; a database in another order is refused), or a host
+    uint32[D, lpe] array, which is then laid out and uploaded on this call.
+    With a prepared database the evaluation runs on the database's device,
+    and `device`, if given, must name it. `mode` is one of ``MODES``:
+    "fold" (the port's default; the JAX package's is "levels"),
+    "megakernel", "levels", "walk" or "fused". `key_chunk` keys are
+    evaluated at a time: in mode walk their values (key_chunk x D x 16
+    bytes for XorWrapper(128)) are on the card at once, in mode fused one
+    ``plan_slabs`` piece of them. `fuse_last_hash` is for modes fold and
+    levels (K3 for the last level)."""
+    if mode not in MODES:
+        raise InvalidArgumentError(
+            f"mode must be one of {', '.join(repr(m) for m in MODES)}, got {mode!r}"
         )
-    want_order = "lane" if mode == "fold" else "megakernel"
     if isinstance(db_limbs, PreparedPirDatabase):
         pdb = db_limbs
-        if pdb.order != want_order:
-            raise InvalidArgumentError(
-                f"mode={mode!r} needs a {want_order!r}-order "
-                f"PreparedPirDatabase, got {pdb.order!r}"
-            )
-        if device is not None and resolve_device(device) != pdb.lane_db.device:
-            raise InvalidArgumentError(
-                f"device={device} disagrees with the database's "
-                f"{pdb.lane_db.device}"
-            )
-        if host_levels is not None and host_levels != pdb.host_levels:
-            raise InvalidArgumentError(
-                f"host_levels={host_levels} disagrees with the database's "
-                f"{pdb.order} order (prepared at host_levels={pdb.host_levels})"
-            )
-        if pdb.order == "megakernel" and pdb.plan != evaluator.plan_megakernel(
-            dpf, host_levels=pdb.host_levels
-        ):
-            raise InvalidArgumentError(
-                f"the database was laid out under {pdb.plan}, which this DPF "
-                "and the megakernel budget no longer plan; prepare it again"
-            )
+        _check_prepared(dpf, pdb, mode, host_levels, device)
     elif isinstance(db_limbs, torch.Tensor):
         raise InvalidArgumentError(
             "pass the PreparedPirDatabase from prepare_pir_database (or a "
             "host array); a bare tensor's row order is ambiguous"
         )
     else:
-        pdb = prepare_pir_database(
-            dpf, db_limbs, host_levels, order=want_order, device=device
-        )
-    rows = [
-        aes_torch.from_words(fold)[:valid]
-        for valid, fold in evaluator.full_domain_fold_chunks(
+        pdb = prepare_pir_database(dpf, db_limbs, host_levels, order=MODE_ORDER[mode],
+                                   device=device)
+    db, dev = pdb.lane_db, pdb.lane_db.device
+    if mode in ("fold", "levels", "megakernel"):
+        folds = evaluator.full_domain_fold_chunks(
             dpf, keys, key_chunk=key_chunk, host_levels=pdb.host_levels,
-            db_lane=pdb.lane_db, fuse_last_hash=fuse_last_hash, mode=mode,
-            device=pdb.lane_db.device,
+            db_lane=db, fuse_last_hash=fuse_last_hash,
+            mode="megakernel" if mode == "megakernel" else "fold", device=dev,
         )
-    ]
+    elif mode == "fused":
+        folds = _fused_folds(dpf, keys, db, key_chunk, host_levels, dev)
+    else:
+        folds = (
+            (valid, _pir_fold(vals, db))
+            for valid, vals in evaluator.full_domain_evaluate_chunks(
+                dpf, keys, key_chunk=key_chunk, leaf_order=True, mode="walk", device=dev,
+            )
+        )
+    rows = [aes_torch.from_words(fold)[:valid] for valid, fold in folds]
     return np.concatenate(rows, axis=0)
+
+
+def _fused_folds(dpf, keys, db: torch.Tensor, key_chunk: int, host_levels, dev):
+    """Mode "fused": per key chunk, the ``lane_slab`` pieces of
+    ``full_domain_evaluate_chunks(mode="fused")`` under ``plan_slabs``,
+    each folded against its rows of the natural-order database and XORed
+    into the chunk's answer. Yields (valid, fold int32[key_chunk, lpe])."""
+    floor = {} if host_levels is None else {"min_host_levels": host_levels}
+    h, slab = evaluator.plan_slabs(dpf, max(1, min(key_chunk, len(keys))), device=dev,
+                                   **floor)
+    acc, off = None, 0
+    for valid, vals in evaluator.full_domain_evaluate_chunks(
+        dpf, keys, key_chunk=key_chunk, host_levels=h, mode="fused", lane_slab=slab,
+        device=dev,
+    ):
+        fold = _pir_fold(vals, db[off : off + vals.shape[1]])
+        off += vals.shape[1]
+        del vals
+        acc = fold if acc is None else acc ^ fold
+        if off >= db.shape[0]:  # the chunk's last piece
+            yield valid, acc
+            acc, off = None, 0

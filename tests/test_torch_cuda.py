@@ -5,8 +5,10 @@ mode="walkkernel"; its codec walk), full-domain evaluation with values out
 (IntModN and a two-block tuple: K2 and K4, or K6 and K4), the DCF's
 batch_evaluate (K6 and K4 in mode="walk", K7's DCF form in
 mode="walkkernel"; tuple payloads) and the FSS gates on it, the
-hierarchical advance (K2 and K4 in mode="fused", K8 in mode="hierkernel")
-and batched keygen (K2's one-key view and K4 in mode="perlevel", K9 in
+hierarchical advance (K2 and K4 in mode="fused", K8 in mode="hierkernel";
+one level a call through evaluate_until_batch), the host API's
+TorchBackend (K6, K2, K4), PIR in modes levels, walk and fused, and batched
+keygen (K2's one-key view and K4 in mode="perlevel", K9 in
 mode="megakernel") against the same paths on the CPU.
 
 Every test here needs a card and skips without one. The file imports no
@@ -20,6 +22,7 @@ import pytest
 import torch
 
 import distributed_point_functions_tpu_torch as port
+from distributed_point_functions_tpu_torch.core.dpf import NumpyBackend
 from distributed_point_functions_tpu_torch.dcf import batch as dcf_batch
 from distributed_point_functions_tpu_torch.ops import aes_cuda, backend_torch, evaluator
 from distributed_point_functions_tpu_torch.ops import hier_cases, hierarchical, keygen_batch
@@ -604,3 +607,75 @@ def test_keygen_modes_on_the_card_match_the_host_dealer(cuda, log_domain, value_
     want = dcf.generate_keys_batch(dalphas, betas[:9], seeds=seeds[:9])
     got = dcf.generate_keys_batch(dalphas, betas[:9], seeds=seeds[:9], mode="megakernel")
     assert got == want
+
+
+@pytest.mark.parametrize("n", [1, 37, 4096])
+def test_torch_backend_on_the_card_matches_numpy(cuda, n):
+    """TorchBackend's three primitives on the card (K6, K2, K4) equal the
+    numpy backend's, at lane counts that are and are not whole words."""
+    rng = np.random.default_rng(n)
+    seeds = rng.integers(0, 2**32, size=(n, 4), dtype=np.uint32)
+    control = rng.integers(0, 2, size=n).astype(bool)
+    paths = rng.integers(0, 2**32, size=(n, 4), dtype=np.uint32)
+    cs = rng.integers(0, 2**32, size=(7, 4), dtype=np.uint32)
+    ccl, ccr = rng.integers(0, 2, size=(2, 7)).astype(bool)
+    tb, nb = backend_torch.TorchBackend(cuda), NumpyBackend()
+    aes_cuda.reset_launch_counts()
+    for got, want in ((tb.evaluate_seeds(seeds, control, paths, cs, ccl, ccr),
+                       nb.evaluate_seeds(seeds, control, paths, cs, ccl, ccr)),
+                      (tb.expand_seeds(seeds, control, cs[:4], ccl[:4], ccr[:4]),
+                       nb.expand_seeds(seeds, control, cs[:4], ccl[:4], ccr[:4]))):
+        assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    for blocks in (1, 2):
+        assert np.array_equal(tb.hash_expanded_seeds(seeds, blocks),
+                              nb.hash_expanded_seeds(seeds, blocks))
+    assert aes_cuda.K6.launches == 7 and aes_cuda.K2.launches == 4
+    assert aes_cuda.K4.launches == 3
+
+
+@pytest.mark.parametrize("value_type", [port.Int(64), port.IntModN(64, 2**64 - 59),
+                                        port.TupleType(port.Int(32), port.Int(32))])
+def test_evaluate_until_batch_on_the_card_matches_the_cpu(cuda, value_type):
+    """Three levels (a first call, whose pad lanes are dropped on the card
+    after 5 levels, a call under about 40 parents, one under 3), both
+    parties: the card's outputs and context state equal the CPU's, through
+    K2 and K4."""
+    dpf = port.DistributedPointFunction.create_incremental(
+        [port.DpfParameters(d, value_type) for d in (10, 16, 22)])
+    rng = np.random.default_rng(22)
+    alphas = [int(a) for a in rng.integers(0, 1 << 22, size=5)]
+    sample = ((1, 2) if isinstance(value_type, port.TupleType) else 3)
+    keys = dpf.generate_keys_batch(alphas, [[sample] * 5] * 3,
+                                   seeds=rng.integers(0, 2**32, size=(5, 2, 4), dtype=np.uint32))
+    plan = [[], sorted({a >> 12 for a in alphas} | set(range(0, 1 << 10, 29))),
+            sorted({a >> 6 for a in alphas})]
+    for party in (0, 1):
+        ctxs = [hierarchical.BatchedContext.create(dpf, keys[party]) for _ in range(2)]
+        aes_cuda.reset_launch_counts()
+        for level, prefixes in enumerate(plan):
+            got, want = (hierarchical.evaluate_until_batch(c, level, prefixes, device=d)
+                         for c, d in zip(ctxs, (cuda, "cpu")))
+            got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+            assert all(np.array_equal(a, b) for a, b in zip(got, want)), level
+            if level < 2:
+                assert torch.equal(ctxs[0].seeds.cpu(), ctxs[1].seeds)
+                assert torch.equal(ctxs[0].control.cpu(), ctxs[1].control)
+        assert aes_cuda.K2.launches > 0 and aes_cuda.K4.launches > 0
+
+
+@pytest.mark.parametrize("mode", ["levels", "walk", "fused"])
+def test_pir_natural_modes_on_the_card_match_the_cpu(cuda, mode):
+    dpf = port.DistributedPointFunction.create(port.DpfParameters(14, port.XorWrapper(128)))
+    rng = np.random.default_rng(14)
+    db = rng.integers(0, 2**32, size=(1 << 14, 4), dtype=np.uint32)
+    targets = [int(t) for t in rng.integers(0, 1 << 14, size=5)]
+    qa, qb = dpf.generate_keys_batch(targets, [(1 << 128) - 1],
+                                     seeds=rng.integers(0, 2**32, size=(5, 2, 4), dtype=np.uint32))
+    order = pir.MODE_ORDER[mode]
+    answers = [pir.pir_query_batch_chunked(
+        dpf, qa, pir.prepare_pir_database(dpf, db, order=order, device=d), key_chunk=2,
+        mode=mode) for d in (cuda, "cpu")]
+    assert np.array_equal(answers[0], answers[1])
+    rb = pir.pir_query_batch_chunked(dpf, qb, pir.prepare_pir_database(dpf, db, order=order,
+                                                                       device=cuda), mode=mode)
+    assert np.array_equal(answers[0] ^ rb, db[targets])

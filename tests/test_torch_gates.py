@@ -169,6 +169,37 @@ def test_host_eval_matches_jax_and_batch_eval(name):
             assert got == c["want"][party][i].tolist()
 
 
+@pytest.mark.parametrize("party", (0, 1))
+def test_a_narrow_tuple_payload_matches_the_host_eval(party):
+    """A one-piece degree-1 spline at log-group 16 over [100, 5000] carries
+    a Tuple(Int(32), Int(32)) payload, two elements a block (ROADMAP Queue
+    3): ``batch_eval(device="cpu")`` equals the JAX package's per-point host
+    ``eval`` (not its ``batch_eval(engine="host")``, whose batched tuple walk
+    takes the last block element's correction there), and the shares
+    reconstruct the plaintext at the interval's ends, just outside them and
+    at random inputs."""
+    make = lambda g: g.SplineGate.create(16, [(100, 5000)], [[3, 5]], payload="vector")  # noqa: E731
+    jgate, pgate = make(jax_gates), make(port_gates)
+    assert pgate.payload_elems == 2
+    n = jgate.n
+    rng = np.random.default_rng(0x5EED)
+    r_in = int(rng.integers(0, n))
+    r_outs = [int(r) for r in rng.integers(0, n, size=jgate.num_outputs)]
+    seeds = pinned_seeds(rng, jgate.num_components)
+    pin = b"torch-gates-narrow-tuple"
+    jkeys = jgate.gen(r_in, r_outs, prng=jax_gates.CounterRng(pin), dcf_seeds=seeds)
+    pkeys = pgate.gen(r_in, r_outs, prng=port_gates.CounterRng(pin), dcf_seeds=seeds)
+    assert dataclasses.asdict(pkeys[party]) == dataclasses.asdict(jkeys[party])
+    x_real = [0, 99, 100, 101, 2500, 4999, 5000, 5001, n - 1] + [
+        int(x) for x in rng.integers(0, n, size=7)]
+    xs = [(x + r_in) % n for x in x_real]
+    shares = [pgate.batch_eval(pkeys[p], xs, device="cpu") for p in (0, 1)]
+    assert shares[party].tolist() == [jgate.eval(jkeys[party], x) for x in xs]
+    for i, x in enumerate(x_real):
+        got = [(int(a) + int(b) - r) % n for a, b, r in zip(shares[0][i], shares[1][i], r_outs)]
+        assert got == [pgate.plaintext(x)], (i, x)
+
+
 BUNDLE = 5
 BUNDLE_GATES = ["drelu", "relu_vector", "sigmoid", "bitdecomp"]
 

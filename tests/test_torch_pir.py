@@ -22,10 +22,7 @@ import distributed_point_functions_tpu_torch as port
 from distributed_point_functions_tpu_torch.ops import evaluator as port_ev
 from distributed_point_functions_tpu_torch.ops.aes_torch import from_words
 from distributed_point_functions_tpu_torch.parallel import pir
-from distributed_point_functions_tpu_torch.utils.errors import (
-    InvalidArgumentError,
-    UnimplementedError,
-)
+from distributed_point_functions_tpu_torch.utils.errors import InvalidArgumentError
 from torch_fold_case import one_torch_thread  # noqa: F401 (autouse fixture)
 
 LOG_DOMAIN = 8
@@ -216,8 +213,10 @@ def test_pir_rejects_what_it_cannot_serve(xor128, monkeypatch):
         megakernel_answers(dpf, keys, mk)
     monkeypatch.undo()
     with pytest.raises(InvalidArgumentError, match="order must be"):
-        pir.prepare_pir_database(dpf, xor128["db"], order="natural", device="cpu")
-    with pytest.raises(UnimplementedError, match="mode='walk' is not ported"):
+        pir.prepare_pir_database(dpf, xor128["db"], order="diagonal", device="cpu")
+    with pytest.raises(InvalidArgumentError, match="mode must be one of"):
+        pir.pir_query_batch_chunked(dpf, keys, prepared, mode="scan")
+    with pytest.raises(InvalidArgumentError, match="'natural'-order"):
         pir.pir_query_batch_chunked(dpf, keys, prepared, mode="walk")
     with pytest.raises(InvalidArgumentError, match="host_levels"):
         pir.pir_query_batch_chunked(dpf, keys, prepared, host_levels=6)

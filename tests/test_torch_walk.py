@@ -37,10 +37,7 @@ from distributed_point_functions_tpu_torch.core import uint128
 from distributed_point_functions_tpu_torch.core.keys import EvaluationContext
 from distributed_point_functions_tpu_torch.ops import aes_cuda, aes_torch, backend_torch
 from distributed_point_functions_tpu_torch.ops import evaluator as port_ev
-from distributed_point_functions_tpu_torch.utils.errors import (
-    InvalidArgumentError,
-    UnimplementedError,
-)
+from distributed_point_functions_tpu_torch.utils.errors import InvalidArgumentError
 from torch_fold_case import one_torch_thread  # noqa: F401 (autouse fixture)
 
 LOG_DOMAIN = 11
@@ -302,9 +299,9 @@ def test_evaluate_at_edges_and_refusals(int64):
         port_ev.evaluate_at_batch(dpf, keys[0], [1 << LOG_DOMAIN], device="cpu")
     with pytest.raises(InvalidArgumentError, match="one party"):
         port_ev.evaluate_at_batch(dpf, [keys[0][0], keys[1][0]], [1], device="cpu")
-    with pytest.raises(UnimplementedError, match="Queue 1 item 8"):
+    with pytest.raises(InvalidArgumentError, match="must refer to the same object"):
         dpf.evaluate_at(keys[0][0], 0, [1], ctx=EvaluationContext(
-            parameters=list(dpf.validator.parameters), key=keys[0][0]))
+            parameters=list(dpf.validator.parameters), key=keys[0][1]))
     ops = [torch.zeros(s, dtype=torch.int32) for s in ((1, 128), (2, 1), (1, 2, 128), (1, 2),
                                                         (1, 2), (1, 6, 2), (6, 1))]
     with pytest.raises(InvalidArgumentError, match=r"levels \+ 1 = 3 flags"):
