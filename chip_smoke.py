@@ -186,7 +186,32 @@ Phases (any failure raises and exits non-zero before the result line):
    ``lane_slab`` pieces against the natural order) and fold; and mode walk
    (K6, K4) on phase 4's 2^20 database; every answer reconstructs its
    record, the modes agree (walk with phase 4's fold), each mode's wall a
-   batch, kernel time (torch.profiler) and peak memory printed.
+   batch, kernel time (torch.profiler) and peak memory printed;
+19. the resilience layer: the self-test (the value hash's known answers
+   through K4); bench.py's configuration (phase 3's keys) through
+   ``full_domain_fold_chunks`` in modes fold and megakernel with
+   ``pipeline=False`` and ``True`` in alternating passes, bit-identical
+   with equal launch counts, each setting's median wall and spread, the card's busy share (torch.profiler), the telemetry
+   counters and spans, and the host syncs on the path
+   (``torch.cuda.set_sync_debug_mode("warn")``); phase 4's PIR through
+   ``supervisor.pir_query_batch_robust(mode="megakernel")`` with the
+   sentinel probe and without, pipelined and serial, every answer
+   reconstructing and the probe verifying each call; a fault matrix at
+   log-domain 14 and 16 keys (output corruption: megakernel/cuda degrades
+   to fold/cuda; an injected ResourceExhaustedError: the chunk halves; an
+   UnavailableError: a retry; a hang under a 2 s deadline: a retry), each
+   equal to the host oracle with its events printed, and an Unavailable
+   error or output corruption on every card rung, where the wrapper raises
+   with every event on the cuda rungs (nothing but the kernels answers for
+   the card); a real
+   out-of-memory error at log-domain 20 (a key chunk whose measured peak
+   exceeds the card, halved until it fits, the values checked against K5's
+   folds and the host oracle) and a failing launch check in a child
+   process; the chunk journal (a job killed after 2 of 4 groups resumes
+   with the launches of the other 2 only); and
+   ``evaluate_until_batch(engine="host")`` at BASELINE config 1's shape
+   equal to the card. No run without an armed fault emits a retry,
+   degrade or chunk-halved event.
 
 Each path of the main path (fold default, fused and megakernel; PIR fold
 and megakernel; EvaluateAt walk and walkkernel, and the codec walk; DCF
@@ -194,7 +219,7 @@ walk and walkkernel; heavy hitters fused and hierkernel; keygen
 megakernel, perlevel and numpy-threaded at each configuration; config 3's
 fused pass at each level, and its walk, slab, prepared and levels checks;
 each gate's modes, the gate dealers on the card and the two layers; each
-path of phases 17 and 18) runs
+path of phases 17, 18 and 19) runs
 with every launch count set to 0
 just before it, and every kernel of that path must have launched just after
 it. The line before
@@ -210,12 +235,16 @@ from __future__ import annotations
 
 import bisect
 import collections
+import contextlib
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -1188,6 +1217,485 @@ def phase_18(torch, T, dev, p4, cfg, counts: PathCounts) -> None:
           "mode fold")
 
 
+# Phase 19: the resilience layer. bench.py's configuration (bench.py:105-120:
+# log-domain 20, Int(64), 1024 keys a party, key chunk 128) through the
+# pipelined fold; phase 4's 2^20 x XorWrapper(128) PIR behind the supervisor
+# with the sentinel probe; a fault matrix at log-domain 14 and 16 keys; a real
+# out-of-memory error at log-domain 20; the chunk journal; the self-test and
+# the host engine at BASELINE config 1's shape.
+PHASE19 = dict(fault_log_domain=14, fault_keys=16, fault_chunk=8, hang_seconds=4.0,
+               deadline_seconds=2.0, journal_log_domain=14, journal_keys=16, journal_chunk=4,
+               oom_probe_keys=(8, 16), oom_margin=1.1, c1_log_domain=20,
+               pipeline_passes=(False, True, True, False, False, True))
+DEGRADE_KINDS = ("retry", "degrade", "chunk-halved")
+
+
+class EventLog:
+    """Every integrity event of the run, and the windows of it in which a
+    fault was armed on purpose (or, for the real out-of-memory run,
+    provoked): outside those windows no retry / degrade / chunk-halved
+    event may occur."""
+
+    def __init__(self, integrity):
+        self.events = []
+        self.windows = []
+        integrity.add_event_hook(self.events.append)
+
+    @contextlib.contextmanager
+    def armed(self):
+        start = len(self.events)
+        try:
+            yield
+        finally:
+            self.windows.append((start, len(self.events)))
+
+    def kinds(self, start: int) -> list:
+        return [e.kind for e in self.events[start:]]
+
+    def clean_since(self, start: int, what: str) -> None:
+        bad = [e.kind for e in self.events[start:] if e.kind in DEGRADE_KINDS]
+        if bad:
+            fail(f"{what}: degrade-kind events {bad} on a run with no fault armed")
+
+    def check_all(self) -> int:
+        armed = set()
+        for a, b in self.windows:
+            armed.update(range(a, b))
+        bad = [(i, e.kind, e.detail) for i, e in enumerate(self.events)
+               if e.kind in DEGRADE_KINDS and i not in armed]
+        if bad:
+            fail(f"degrade-kind events outside an armed fault: {bad[:5]}")
+        return len(self.events)
+
+
+LAUNCH_ERROR_PROBE = r"""
+import json, sys, torch
+from distributed_point_functions_tpu_torch.ops import aes_cuda, degrade
+lib = aes_cuda.library()
+dev = torch.device("cuda")
+empty = torch.empty((0, 128, 1), dtype=torch.int32, device=dev)
+out = {}
+try:
+    lib.value_hash(empty, torch.empty_like(empty))  # a grid of 0 blocks
+    torch.cuda.synchronize()
+    out["raised"] = None
+except BaseException as e:
+    err = degrade.classify_exception(e)
+    out.update(raised=type(e).__name__, bases=[c.__name__ for c in type(e).__mro__[1:4]],
+               message=str(e).splitlines()[0][:160],
+               classified=None if err is None else type(err).__name__)
+planes = torch.zeros((1, 128, 1), dtype=torch.int32, device=dev)
+out["next_launch_ok"] = bool(torch.equal(aes_cuda.hash_value_planes(planes),
+                                         aes_cuda.hash_value_planes(planes)))
+print(json.dumps(out))
+"""
+
+
+def phase_19(torch, T, dev, fold_case, p4, cfg, counts: PathCounts, log: EventLog) -> dict:
+    """The resilience layer on the main path (module docstring, phase 19).
+    `fold_case`: phase 3's DPF and key pairs; `p4`: phase 4's PIR DPF,
+    database, targets and keys. Returns the launches by path."""
+    from distributed_point_functions_tpu_torch.core import host_eval
+    from distributed_point_functions_tpu_torch.ops import (
+        aes_cuda, aes_torch, degrade, evaluator, hierarchical, supervisor,
+    )
+    from distributed_point_functions_tpu_torch.parallel import pir
+    from distributed_point_functions_tpu_torch.utils import faultinject, integrity, telemetry
+    from distributed_point_functions_tpu_torch.utils.errors import (
+        DataCorruptionError, ResourceExhaustedError, UnavailableError,
+    )
+
+    K2, K4, K5 = aes_cuda.K2, aes_cuda.K4, aes_cuda.K5
+    cuda = dev.type == "cuda"
+    policy = degrade.DegradationPolicy(backoff_seconds=0.0)
+    launches = {}
+
+    # -- 19f (first: it runs K4 once, outside every counted path). The KAT.
+    t0 = time.perf_counter()
+    integrity.selftest_device(dev)
+    integrity.ensure_selftest(dev)
+    print(f"phase 19f, self-test: the value hash's known answers through "
+          f"{'K4' if cuda else 'K4 plain'} on {dev} ({(time.perf_counter() - t0) * 1e3:.1f} ms "
+          "with the host oracle's)")
+
+    # -- 19a. The executor at bench.py's configuration, both fold modes.
+    dpf, keys = fold_case["dpf"], fold_case["keys"]
+    chunk = cfg["fold_chunk"]
+    need = {"fold": (K2, K4), "megakernel": (K5,)}
+    t0 = time.perf_counter()
+    evaluator.KeyBatch.from_keys(dpf, keys[0], device=dev)
+    print(f"phase 19a: the key batch's host tables (KeyBatch.from_keys, {len(keys[0])} keys, "
+          f"once a call, inside each wall below) {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    rows = {}
+    for mode in ("fold", "megakernel"):
+        per = {}
+        # Passes alternate off, on, on, off, ...: the first pass of each
+        # setting is checked and counted; every pass adds two walls (one a
+        # party) to its setting's spread.
+        for pass_no, pipe in enumerate(cfg["pipeline_passes"]):
+            first = pipe not in per
+            start = len(log.events)
+            walls, folds = [], []
+            counts.start()
+            with telemetry.capture() as tel:
+                for party in (0, 1):
+                    sync(torch, dev)
+                    t0 = time.perf_counter()
+                    out = [f[:v] for v, f in evaluator.full_domain_fold_chunks(
+                        dpf, keys[party], key_chunk=chunk, mode=mode, pipeline=pipe,
+                        device=dev)]
+                    folds.append(aes_torch.from_words(torch.cat(out)))
+                    walls.append(time.perf_counter() - t0)
+            got = counts.end(f"19a, fold mode {mode}, pipeline={pipe}, pass {pass_no}", need[mode])
+            log.clean_since(start, f"19a, mode {mode}, pipeline={pipe}, pass {pass_no}")
+            if not first:
+                for party in (0, 1):
+                    if not np.array_equal(per[pipe]["folds"][party], folds[party]):
+                        fail(f"19a, mode {mode}, pipeline={pipe}: pass {pass_no} differs")
+                if got != per[pipe]["launches"]:
+                    fail(f"19a, mode {mode}, pipeline={pipe}: pass {pass_no} launches {got}")
+                per[pipe]["walls"].extend(walls)
+                continue
+            snap = tel.snapshot()
+            busy = device_busy_ms(torch, dev, lambda: [f for _, f in evaluator.full_domain_fold_chunks(
+                dpf, keys[0], key_chunk=chunk, mode=mode, pipeline=pipe, device=dev)])
+            per[pipe] = dict(folds=folds, walls=list(walls), launches=got, busy=busy, snap=snap)
+        for pipe in (False, True):
+            walls, snap, busy = per[pipe]["walls"], per[pipe]["snap"], per[pipe]["busy"]
+            med = float(np.median(walls))
+            pc = {k: v for k, v in snap["counters"].items() if k.startswith(("pipeline.", "bytes."))}
+            spans = {k[5:]: dict(count=v["count"], total_ms=round(v["sum"] * 1e3, 3),
+                                 p50_ms=round(v["p50"] * 1e3, 3))
+                     for k, v in snap["histograms"].items()
+                     if k.startswith("span.pipeline.") and "[" not in k}
+            share = "not measured" if busy is None else f"{busy / (med * 1e3):.3f}"
+            print(f"phase 19a, mode {mode}, pipeline={pipe}: wall median {med * 1e3:.1f} ms, "
+                  f"min {min(walls) * 1e3:.1f}, max {max(walls) * 1e3:.1f} over {len(walls)} "
+                  f"party calls ({len(keys[0])} keys x 2^"
+                  f"{dpf.validator.parameters[0].log_domain_size}, key chunk {chunk}) = "
+                  f"{med * 1e3 / -(-len(keys[0]) // chunk):.2f} ms a chunk; walls ms "
+                  f"{[round(w * 1e3, 1) for w in walls]}; "
+                  f"card busy (kernel time, torch.profiler, party 0) "
+                  f"{'not measured' if busy is None else f'{busy:.1f} ms'} = share {share} of "
+                  f"the median wall; launches {per[pipe]['launches']}; telemetry counters {pc}; "
+                  f"spans {spans}; decisions {snap['decisions_by_source']}")
+        for party in (0, 1):
+            if not np.array_equal(per[False]["folds"][party], per[True]["folds"][party]):
+                fail(f"19a, mode {mode}: pipeline=True and pipeline=False folds differ "
+                     f"(party {party})")
+        if per[False]["launches"] != per[True]["launches"]:
+            fail(f"19a, mode {mode}: launches differ, {per[False]['launches']} vs "
+                 f"{per[True]['launches']}")
+        rows[mode] = per
+        launches[f"19a {mode}"] = per[True]["launches"]
+    for party in (0, 1):
+        if not np.array_equal(rows["fold"][True]["folds"][party],
+                              rows["megakernel"][True]["folds"][party]):
+            fail(f"19a: modes fold and megakernel differ (party {party})")
+    print("phase 19a: pipeline=True == pipeline=False bit for bit with equal launch counts "
+          "in both modes, and the modes agree")
+    if cuda:
+        syncs = {}
+        for mode in ("fold", "megakernel"):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    for _ in evaluator.full_domain_fold_chunks(
+                            dpf, keys[0], key_chunk=chunk, mode=mode, pipeline=True, device=dev):
+                        pass
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs[mode] = sorted({f"{w.filename.split('/')[-1]}:{w.lineno} {str(w.message)[:60]}"
+                                  for w in caught})
+        print(f"phase 19a, host syncs on the fold's path (set_sync_debug_mode('warn'), "
+              f"one pipelined pass a mode): {json.dumps(syncs)}")
+
+    # -- 19b. PIR behind the supervisor, with and without the probe.
+    pdpf, db, targets = p4["dpf"], p4["db"], p4["targets"]
+    pdb = pir.prepare_pir_database(pdpf, db, order="megakernel", device=dev)
+    t0 = time.perf_counter()
+    pdb.natural_host(pdpf)
+    nat_s = time.perf_counter() - t0
+    # The probe's host-oracle values are computed once per parameter set and
+    # party, on the first call; timed apart here.
+    first = []
+    for party in (0, 1):
+        t0 = time.perf_counter()
+        supervisor.pir_query_batch_robust(pdpf, p4["keys"][party], pdb, key_chunk=cfg["pir_chunk"],
+                                          policy=policy, mode="megakernel")
+        first.append(time.perf_counter() - t0)
+    print(f"phase 19b, first probed call a party (the probe key's host-oracle values over "
+          f"2^{pdpf.validator.parameters[0].log_domain_size} positions, once a parameter set "
+          f"and party): {first[0]:.2f} / {first[1]:.2f} s")
+    pir_rows = {}
+    for pass_no, pipe in enumerate(cfg["pipeline_passes"]):
+        for verify in (True, False):
+            pol = degrade.DegradationPolicy(backoff_seconds=0.0, verify=verify)
+            start = len(log.events)
+            answers, walls = [], []
+            counts.start()
+            for party in (0, 1):
+                sync(torch, dev)
+                t0 = time.perf_counter()
+                answers.append(supervisor.pir_query_batch_robust(
+                    pdpf, p4["keys"][party], pdb, key_chunk=cfg["pir_chunk"], policy=pol,
+                    pipeline=pipe, mode="megakernel"))
+                walls.append(time.perf_counter() - t0)
+            got = counts.end(f"19b, PIR verify={verify} pipeline={pipe} pass {pass_no}", (K5,))
+            log.clean_since(start, f"19b, PIR verify={verify}, pipeline={pipe}, pass {pass_no}")
+            kinds = collections.Counter(log.kinds(start))
+            if not np.array_equal(answers[0] ^ answers[1], db[targets]):
+                fail(f"19b, verify={verify}, pipeline={pipe}: answers do not reconstruct")
+            if verify and kinds["sentinel-ok"] != 2:
+                fail(f"19b: the probe verified {kinds['sentinel-ok']} of 2 calls")
+            row = pir_rows.setdefault((verify, pipe), dict(walls=[], launches=got,
+                                                           events=dict(kinds)))
+            if got != row["launches"]:
+                fail(f"19b, verify={verify}, pipeline={pipe}: pass {pass_no} launches {got}")
+            row["walls"].extend(walls)
+            launches[f"19b verify={verify} pipeline={pipe}"] = got
+    for (verify, pipe), row in sorted(pir_rows.items()):
+        walls = row["walls"]
+        print(f"phase 19b, pir_query_batch_robust(mode='megakernel', pipeline={pipe}), "
+              f"probe {'on' if verify else 'off'}: wall median "
+              f"{float(np.median(walls)) * 1e3:.1f} ms, min {min(walls) * 1e3:.1f}, max "
+              f"{max(walls) * 1e3:.1f} over {len(walls)} party calls ({len(targets)} queries, "
+              f"key chunk {cfg['pir_chunk']}); walls ms {[round(w * 1e3, 1) for w in walls]}; "
+              f"launches {row['launches']}; events {row['events']}")
+    cost = {pipe: (float(np.median(pir_rows[(True, pipe)]["walls"]))
+                   - float(np.median(pir_rows[(False, pipe)]["walls"]))) * 1e3
+            for pipe in (False, True)}
+    print(f"phase 19b: every answer reconstructs its record (ra ^ rb == db[alpha]); no retry, "
+          f"degrade or chunk-halved event; the probe verified each call; probe cost a call "
+          f"(median with minus median without) {cost[False]:.1f} ms serial, "
+          f"{cost[True]:.1f} ms pipelined (the natural-order copy of the "
+          f"database, {nat_s * 1e3:.1f} ms, is made once a database); K5 launches with the "
+          f"probe {pir_rows[(True, True)]['launches']}, without "
+          f"{pir_rows[(False, True)]['launches']}")
+
+    # -- 19c. The fault matrix at a small shape.
+    lds = cfg["fault_log_domain"]
+    rng = np.random.default_rng(SEED + 19)
+    fdpf = T.DistributedPointFunction.create(T.DpfParameters(lds, T.XorWrapper(128)))
+    fdb = rng.integers(0, 2**32, size=(1 << lds, 4), dtype=np.uint32)
+    nk = cfg["fault_keys"]
+    ftargets = [int(x) for x in rng.integers(0, 1 << lds, size=nk)]
+    fkeys, _ = fdpf.generate_keys_batch(ftargets, [(1 << 128) - 1],
+                                        seeds=rng.integers(0, 2**32, size=(nk, 2, 4),
+                                                           dtype=np.uint32))
+    oracle = supervisor._host_pir_fold(fdpf, fkeys, fdb, 128)
+    fpdb = pir.prepare_pir_database(fdpf, fdb, order="megakernel", device=dev)
+    hang_policy = degrade.DegradationPolicy(backoff_seconds=0.0,
+                                            deadline_seconds=cfg["deadline_seconds"])
+    matrix = [
+        ("output corruption", [faultinject.FaultPlan(stage="device_output", pattern="lane",
+                                                     lane=3, max_fires=1)],
+         policy, ["degrade", "recovered"]),
+        ("ResourceExhaustedError", [faultinject.FaultPlan(
+            stage="device_call", exception=ResourceExhaustedError("RESOURCE_EXHAUSTED: injected"),
+            max_fires=1)], policy, ["chunk-halved"]),
+        ("UnavailableError", [faultinject.FaultPlan(
+            stage="device_call", exception=UnavailableError("UNAVAILABLE: injected"),
+            max_fires=1)], policy, ["retry"]),
+        ("device_hang under a deadline", [faultinject.FaultPlan(
+            stage="device_hang", hang_seconds=cfg["hang_seconds"], hang_point="finalize",
+            max_fires=1)], hang_policy, ["deadline-expired", "retry"]),
+    ]
+    for name, plans, pol, want_kinds in matrix:
+        start = len(log.events)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        with log.armed(), faultinject.inject(*plans):
+            got = supervisor.pir_query_batch_robust(
+                fdpf, fkeys, fpdb, key_chunk=cfg["fault_chunk"], policy=pol, pipeline=True,
+                mode="megakernel")
+        secs = time.perf_counter() - t0
+        if not np.array_equal(got, oracle):
+            fail(f"19c, {name}: the answers differ from the host oracle")
+        seq = [k for k in log.kinds(start) if k not in ("sentinel-ok", "pir-db-reprepared")]
+        ends = [e.backend for e in log.events[start:] if e.kind == "recovered"]
+        if seq != want_kinds:
+            fail(f"19c, {name}: events {seq}, expected {want_kinds}")
+        if cuda and ends not in ([], ["cuda"]):
+            fail(f"19c, {name}: served by {ends}, not a kernel rung")
+        print(f"phase 19c, {name}: equal to the host oracle bit for bit in {secs:.2f} s; events "
+              f"{seq}" + (f"; served by {ends[0]}" if ends else ""))
+    # A fault on every card rung: the wrapper raises. Neither the kernels'
+    # plain versions nor the host answer for the card.
+    for name, plan, want_err, want_kinds in (
+        ("unavailable on every card rung", faultinject.FaultPlan(
+            stage="device_call", exception=UnavailableError("UNAVAILABLE: injected"),
+            backends=frozenset({"cuda"})), UnavailableError,
+         ["retry", "retry", "degrade", "retry", "retry"]),
+        ("output corruption on every card rung", faultinject.FaultPlan(
+            stage="device_output", pattern="lane", lane=3, backends=frozenset({"cuda"})),
+         DataCorruptionError, ["degrade"]),
+    ):
+        if not cuda:
+            continue
+        start = len(log.events)
+        try:
+            with log.armed(), faultinject.inject(plan):
+                supervisor.pir_query_batch_robust(
+                    fdpf, fkeys, fpdb, key_chunk=cfg["fault_chunk"], policy=policy,
+                    pipeline=True, mode="megakernel")
+            fail(f"19c, {name}: the wrapper answered")
+        except want_err as e:
+            raised = f"{type(e).__name__}: {str(e).splitlines()[0][:100]}"
+        seq = [k for k in log.kinds(start)
+               if k not in ("sentinel-ok", "pir-db-reprepared", "selftest-ok")]
+        backends = sorted({e.backend for e in log.events[start:]
+                           if e.kind in DEGRADE_KINDS + ("recovered",)})
+        if seq != want_kinds or backends != ["cuda"]:
+            fail(f"19c, {name}: events {seq} on backends {backends}, expected {want_kinds} "
+                 "on cuda only")
+        print(f"phase 19c, {name}: raised {raised}; events {seq}, every one on the cuda rungs")
+
+    # -- 19d. One real out-of-memory error at log-domain 20.
+    if cuda:
+        odpf = dpf
+        per_key = []
+        for n in cfg["oom_probe_keys"]:
+            torch.cuda.empty_cache()
+            reset_peak(torch, dev)
+            base = torch.cuda.memory_allocated()
+            evaluator.full_domain_evaluate(odpf, keys[0][:n], key_chunk=n, device=dev,
+                                           integrity=False, pipeline=False)
+            per_key.append((torch.cuda.max_memory_allocated() - base) / n)
+        total = torch.cuda.get_device_properties(dev).total_memory
+        slope = max(per_key)
+        oom_chunk = 1
+        while oom_chunk * slope <= cfg["oom_margin"] * total:
+            oom_chunk *= 2
+        okeys = (list(keys[0]) * (-(-oom_chunk // len(keys[0]))))[:oom_chunk]
+        print(f"phase 19d: full_domain_evaluate peaks at {slope / 2**20:.1f} MiB a key "
+              f"(measured at {cfg['oom_probe_keys']} keys); the card holds "
+              f"{total / 2**30:.1f} GiB, so a key chunk of {oom_chunk} needs "
+              f"{oom_chunk * slope / 2**30:.1f} GiB")
+        del per_key
+        oom_policy = degrade.DegradationPolicy(backoff_seconds=0.0, verify=False)
+        torch.cuda.empty_cache()
+        reset_peak(torch, dev)
+        start = len(log.events)
+        t0 = time.perf_counter()
+        with log.armed():
+            # No probe (it would pad a second chunk of the same size) and one
+            # chunk in flight: the values of a chunk are gigabytes on the host.
+            vals = supervisor.full_domain_evaluate_robust(
+                odpf, okeys, key_chunk=oom_chunk, policy=oom_policy, pipeline=False, device=dev)
+        secs = time.perf_counter() - t0
+        peak = peak_gib(torch, dev)
+        evs = log.events[start:]
+        halved = [e.data["key_chunk"] for e in evs if e.kind == "chunk-halved"]
+        others = [e.kind for e in evs if e.kind in ("retry", "degrade")]
+        if not halved or others or any(e.backend != "cuda" or e.data.get("cause") !=
+                                       "OutOfMemoryError" for e in evs
+                                       if e.kind == "chunk-halved"):
+            fail(f"19d: expected chunk halvings on the cuda rung only, got "
+                 f"{[(e.kind, e.backend) for e in evs if e.kind != 'sentinel-ok']}")
+        # The XOR fold of each key's values is order-free: it must equal K5's fold.
+        folds = np.bitwise_xor.reduce(vals, axis=1)
+        k5 = np.concatenate([aes_torch.from_words(f[:v]) for v, f in
+                             evaluator.full_domain_fold_chunks(odpf, okeys[:len(keys[0])],
+                                                               key_chunk=chunk,
+                                                               mode="megakernel", device=dev)])
+        k5 = np.tile(k5, (-(-oom_chunk // len(keys[0])), 1))[:oom_chunk]
+        sample = [0, len(okeys) - 1]
+        want = host_eval.values_to_limbs(host_eval.full_domain_evaluate_host(
+            odpf, [okeys[i] for i in sample]), 64)
+        if not np.array_equal(folds, k5) or not np.array_equal(vals[sample], want):
+            fail("19d: the values after the halvings differ from K5's folds or the host oracle")
+        print(f"phase 19d: a real torch.OutOfMemoryError at key chunk {oom_chunk}, classified "
+              f"ResourceExhaustedError; the chain halved the chunk to {halved} and answered "
+              f"{vals.shape} values bit-exact (every key's XOR fold equals K5's, keys "
+              f"{sample} equal the host oracle) in {secs:.1f} s; peak {peak:.2f} GiB")
+        del vals, folds, k5
+        torch.cuda.empty_cache()
+        probe = subprocess.run([sys.executable, "-c", LAUNCH_ERROR_PROBE], capture_output=True,
+                               text=True, timeout=300)
+        line = probe.stdout.strip().splitlines()[-1] if probe.stdout.strip() else ""
+        print(f"phase 19d, a failing launch check (a grid of 0 blocks through K4's binding, in "
+              f"a child process): rc {probe.returncode}; {line or probe.stderr[-400:]}")
+        if probe.returncode != 0:
+            fail("the launch-error probe did not exit cleanly")
+        seen = json.loads(line)
+        if seen["raised"] is None or seen["classified"] != "UnavailableError" \
+                or not seen["next_launch_ok"]:
+            fail(f"a failing launch check is not a classified, non-sticky error: {seen}")
+
+    # -- 19e. The chunk journal.
+    jl = cfg["journal_log_domain"]
+    jdpf = T.DistributedPointFunction.create(T.DpfParameters(jl, T.Int(64)))
+    jn = cfg["journal_keys"]
+    jkeys, _ = jdpf.generate_keys_batch(
+        [int(x) for x in rng.integers(0, 1 << jl, size=jn)], [[7] * jn],
+        seeds=rng.integers(0, 2**32, size=(jn, 2, 4), dtype=np.uint32))
+    jc = cfg["journal_chunk"]
+    groups = jn // jc
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fd.journal")
+        full = supervisor.full_domain_evaluate_robust(jdpf, jkeys, key_chunk=jc, policy=policy,
+                                                      device=dev)
+        counts.start()
+        whole = supervisor.full_domain_evaluate_robust(
+            jdpf, jkeys, key_chunk=jc, policy=policy, journal=os.path.join(tmp, "whole.journal"),
+            device=dev)
+        full_launches = counts.end("19e, the whole journaled job", (K2, K4))
+        if not np.array_equal(whole, full):
+            fail("19e: the journaled job differs from the job without a journal")
+        # Each group of jc keys and its probe run as two executor chunks.
+        kill_after = 2
+        start = len(log.events)
+        with log.armed(), faultinject.inject(faultinject.FaultPlan(
+                stage="chunk_launch", exception=RuntimeError("killed"),
+                skip_fires=2 * kill_after)):
+            try:
+                supervisor.full_domain_evaluate_robust(jdpf, jkeys, key_chunk=jc,
+                                                       policy=policy, journal=path, device=dev)
+                fail("19e: the injected kill did not stop the job")
+            except RuntimeError as e:
+                if "killed" not in str(e):
+                    raise
+        counts.start()
+        resumed = supervisor.full_domain_evaluate_robust(jdpf, jkeys, key_chunk=jc,
+                                                         policy=policy, journal=path, device=dev)
+        rerun = counts.end("19e, the resumed job", (K2, K4))
+    want = {k: v * (groups - kill_after) // groups for k, v in full_launches.items()}
+    if not np.array_equal(resumed, full) or rerun != want:
+        fail(f"19e: resumed job launches {rerun} (expected {want}) or values differ")
+    print(f"phase 19e, the journal: {groups} groups of {jc} keys at log-domain {jl}; killed "
+          f"after {kill_after} groups; the resumed job re-dispatched only the other "
+          f"{groups - kill_after}: launches {rerun} against {full_launches} for the whole "
+          "journaled job, values equal to the job without a journal")
+    launches["19e"] = rerun
+
+    # -- 19f. The host engine at BASELINE config 1's shape.
+    cl = cfg["c1_log_domain"]
+    c1 = T.DistributedPointFunction.create_incremental([T.DpfParameters(cl, T.XorWrapper(128))])
+    alpha = int(rng.integers(0, 1 << cl))
+    beta = int.from_bytes(rng.bytes(16), "little") | 1
+    (k0,), (k1,) = c1.generate_keys_batch([alpha], [[beta]],
+                                          seeds=rng.integers(0, 2**32, size=(1, 2, 4),
+                                                             dtype=np.uint32))
+    host_s = []
+    for key in (k0, k1):
+        card_vals = hierarchical.evaluate_until_batch(
+            hierarchical.BatchedContext.create(c1, [key]), 0, device=dev)
+        t0 = time.perf_counter()
+        host_vals = hierarchical.evaluate_until_batch(
+            hierarchical.BatchedContext.create(c1, [key]), 0, engine="host")
+        host_s.append(time.perf_counter() - t0)
+        if not np.array_equal(host_vals, card_vals):
+            fail("19f: evaluate_until_batch(engine='host') differs from the card")
+    print(f"phase 19f, evaluate_until_batch(engine='host') at config 1's shape (XorWrapper(128), "
+          f"log-domain {cl}, one key a party): equal to the card, {host_s[0]:.2f} / "
+          f"{host_s[1]:.2f} s a party on the host")
+    print(f"phase 19: {log.check_all()} integrity events so far, no retry, degrade or "
+          "chunk-halved event outside an armed fault")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -1204,6 +1712,9 @@ def main() -> None:
     except ImportError as e:
         fail(f"the port is not in this checkout: {e}")
 
+    from distributed_point_functions_tpu_torch.utils import integrity
+
+    events = EventLog(integrity)
     dev = torch.device("cuda")
     key_planes = {
         t: int(np.count_nonzero(backend_torch._rk_np(t))) for t in ("left", "right", "value")
@@ -1353,6 +1864,7 @@ def main() -> None:
     seeds = rng.integers(0, 2**32, size=(NUM_KEYS, 2, 4), dtype=np.uint32)
     t0 = time.perf_counter()
     keys = dpf.generate_keys_batch(alphas, [betas], seeds=seeds)
+    fold_case = dict(dpf=dpf, keys=keys)  # phase 19 runs them again
     print(f"keygen: {NUM_KEYS} Int(64) key pairs at log-domain {LOG_DOMAIN} in "
           f"{time.perf_counter() - t0:.2f} s (host)")
 
@@ -2912,6 +3424,17 @@ def main() -> None:
     for name, n in new_paths.total.items():
         main_launches[name] = main_launches.get(name, 0) + n
     print(f"phases 17 and 18: launches {new_paths.total}")
+    torch.cuda.empty_cache()
+
+    # -- 19. the resilience layer ---------------------------------------------
+    resilience = PathCounts(aes_cuda)
+    phase_19(torch, T, dev, fold_case, p4,
+             dict(PHASE19, fold_chunk=KEY_CHUNK, pir_chunk=KEY_CHUNK), resilience, events)
+    print(card)
+    for name, n in resilience.total.items():
+        main_launches[name] = main_launches.get(name, 0) + n
+    print(f"phase 19: launches {resilience.total}")
+    events.check_all()
     torch.cuda.empty_cache()
 
     if "jax" in sys.modules:

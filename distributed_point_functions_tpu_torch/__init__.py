@@ -54,8 +54,23 @@ key generation:
     keys_a, keys_b = keygen_batch.generate_keys_batch(
         dpf, alphas, [betas], mode="megakernel")  # one K9 launch
 
+The bulk entry points run their key chunks through a pipelined executor
+(``ops/pipeline.py``, ``pipeline=``: the host packs chunk N+1 while the card
+runs chunk N), take ``integrity=`` (a sentinel probe key checked against the
+host oracle, ``utils/integrity.py``), and report to the telemetry bus
+(``utils/telemetry.py``). The ``*_robust`` wrappers of ``ops/supervisor.py``
+walk a degradation chain with retries, chunk halving, deadlines and a
+crash-safe journal: on a card its rungs are the kernel modes only (a kernel
+mode, then the per-level kernels), on the CPU the plain versions and then
+the numpy host engine of ``core/host_eval.py``:
+
+    from distributed_point_functions_tpu_torch.ops import supervisor
+    answers = supervisor.pir_query_batch_robust(dpf, keys_a, prepared_db,
+                                                mode="megakernel")
+
 Entry points run on the first CUDA device unless the caller passes
-``device="cpu"``; with no card and no ``device="cpu"`` they raise.
+``device="cpu"``; with no card and no ``device="cpu"`` they raise. Only
+the ``*_robust`` wrappers fall back, and only when asked to.
 """
 
 from .core.dpf import DistributedPointFunction

@@ -42,6 +42,7 @@ tables), ``prepare_chunk`` (one chunk's upload) and ``evaluate_chunk``
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -49,6 +50,9 @@ import torch
 
 from ..core import uint128
 from ..ops import aes_cuda, aes_torch, backend_torch, evaluator, value_codec
+from ..ops import pipeline as _pl
+from ..utils import faultinject
+from ..utils import telemetry as _tm
 from ..utils.devices import resolve_device
 from ..utils.errors import InvalidArgumentError
 from ..utils.timing import StepClock
@@ -217,17 +221,18 @@ class DcfChunk:
     corr: torch.Tensor  # int32[K, T+1, E, lpe]
 
 
-def prepare_chunk(batch: evaluator.KeyBatch, corr: np.ndarray, idx: np.ndarray) -> DcfChunk:
-    """Rows `idx` of the key tables (``prepare_keys``), one upload each."""
+def prepare_chunk(batch: evaluator.KeyBatch, corr: np.ndarray, idx: np.ndarray,
+                  ring: Optional[_pl.PinnedRing] = None) -> DcfChunk:
+    """Rows `idx` of the key tables (``prepare_keys``), one upload each
+    (through `ring`'s pinned buffers when given)."""
     kb = batch.take(idx)
-
-    def up(a: np.ndarray) -> torch.Tensor:
-        return evaluator._upload(a, batch.device)
-
-    return DcfChunk(
-        kb.party, up(backend_torch.cw_seed_planes(kb.seeds)),
-        *(up(a) for a in kb.device_cw_arrays()), up(corr[idx]),
-    )
+    arrays = ((backend_torch.cw_seed_planes(kb.seeds),) + tuple(kb.device_cw_arrays())
+              + (corr[idx],))
+    if ring is not None:
+        up = ring.upload(arrays)
+    else:
+        up = [evaluator._upload(a, batch.device) for a in arrays]
+    return DcfChunk(kb.party, *up)
 
 
 def evaluate_chunk(ch: DcfChunk, dp: DcfPoints) -> torch.Tensor:
@@ -309,15 +314,17 @@ def _walkkernel_chunk(ch: DcfChunk, dp: DcfPoints) -> torch.Tensor:
     return out.reshape(k, words * 32, lpe)[:, : dp.num_points]
 
 
+@_tm.traced("dcf.batch_evaluate")
 def batch_evaluate(
     dcf,
     keys,
     xs: Sequence[int],
     key_chunk: Optional[int] = None,
-    mode: str = "walk",
+    mode: Optional[str] = None,
     device=None,
     device_output: bool = False,
     timings: Optional[dict] = None,
+    pipeline: Optional[bool] = None,
 ):
     """Evaluates every DCF key at every point x: the shares of [x < alpha]
     * beta.
@@ -332,34 +339,53 @@ def batch_evaluate(
       keys: DcfKeys of one party.
       xs: points of the domain, any number, repeats allowed.
       key_chunk: keys per chunk (default: the whole batch in one chunk).
-      mode: "walk" (T K6 and T + 1 K4 launches per chunk, the captures in
-        plain PyTorch) or "walkkernel" (one launch of K7's DCF form per
-        chunk; scalar widths that are multiples of 32 bits, at least one
-        tree level).
+      mode: "walk" (the default: T K6 and T + 1 K4 launches per chunk, the
+        captures in plain PyTorch) or "walkkernel" (one launch of K7's DCF
+        form per chunk; scalar widths that are multiples of 32 bits, at
+        least one tree level).
       device: ``None`` = CUDA; ``"cpu"`` runs the plain PyTorch versions.
       timings: a dict to which the call adds the seconds of its steps
         (``utils.timing.StepClock``): "tables" (the point and key tables
         and their upload), "walk" (the chunks on the device), "pull" (the
         copy to the host); on the card also each step's "_card" seconds.
+        Timing a step waits for the card, so it serializes the chunks.
+      pipeline: None = DPF_TPU_PIPELINE / on for a CUDA device
+        (ops/pipeline.py): chunk N+1's key tables upload while chunk N's
+        kernels run.
 
     IntModN, tuples that are not uniform or have elements narrower than 32
     bits, and mode "walkkernel" on a tuple raise NotImplementedError, as in
     the JAX package.
     """
+    source = "explicit"
+    if mode is None:
+        mode, source = "walk", "default"
     clock = StepClock(timings, None if timings is None else resolve_device(device))
     dp = prepare_points(dcf, xs, mode, device)
-    batch, corr = prepare_keys(dcf, keys, device=dp.path_masks.device)
+    _tm.decision("dcf.batch_evaluate", mode, source)
+    dev = dp.path_masks.device
+    backend = evaluator._fi_backend(dev)
+    batch, corr = prepare_keys(dcf, keys, device=dev)
+    evaluator._inject_batch_faults(batch, backend)
     num_keys = batch.seeds.shape[0]
     if key_chunk is None:
         key_chunk = num_keys
     if key_chunk < 1:
         raise InvalidArgumentError(f"key_chunk must be positive, got {key_chunk}")
-    outs = []
-    for idx, valid in evaluator.chunk_indices(num_keys, key_chunk):
-        ch = prepare_chunk(batch, corr, idx)
+    pipe = _pl.resolve(pipeline, dev)
+    ring = _pl.PinnedRing(dev, 1 + (_pl.depth_default() if pipe else 0))
+
+    def run(idx, valid):
+        ch = prepare_chunk(batch, corr, idx, ring)
         clock("tables")
-        outs.append(evaluate_chunk(ch, dp)[:valid])
+        out = evaluate_chunk(ch, dp)[:valid]
         clock("walk")
+        return out
+
+    outs = list(_pl.prefetch_thunks(
+        (functools.partial(run, idx, valid)
+         for idx, valid in _pl.chunk_indices(num_keys, key_chunk)),
+        pipe, backend=backend, op="dcf.batch_evaluate"))
     out = torch.cat(outs) if len(outs) > 1 else outs[0]
     if dp.n_elems > 1:
         out = torch.nn.functional.pad(out, (0, 4 - out.shape[-1]))
@@ -367,4 +393,4 @@ def batch_evaluate(
         return out
     out = aes_torch.from_words(out)
     clock("pull")
-    return out
+    return faultinject.corrupt_output(out, backend=backend)

@@ -160,13 +160,15 @@ class DistributedComparisonFunction:
         uint32[K, P, lpe] limbs, or uint32[K, P, n_elems, 4] for a uniform
         tuple payload (each element zero-padded to 4 limbs).
 
-        engine="host" (the JAX package's native AES-NI engine) is not
-        ported yet and raises UnimplementedError.
+        engine="host" (the JAX package's native AES-NI engine,
+        ``dcf/batch.batch_evaluate_host``) waits for the port of
+        ``native/`` and raises UnimplementedError; the host ``evaluate``
+        serves one point at a time.
         """
         if engine == "host":
             raise UnimplementedError(
-                "the DCF host engine (native AES-NI) is not ported yet "
-                "(ROADMAP Queue 1 item 10); use engine='device'"
+                "the DCF host engine (native AES-NI) waits for the port of "
+                "native/ (ROADMAP Queue 1 item 9); use engine='device'"
             )
         if engine != "device":
             raise InvalidArgumentError(f"engine must be 'device' or 'host', got {engine!r}")

@@ -71,6 +71,7 @@ import numpy as np
 from ..core import uint128
 from ..dcf.dcf import DcfKey
 from ..ops import evaluator
+from ..utils import telemetry as _tm
 from ..utils.errors import InvalidArgumentError
 from ..utils.timing import StepClock
 from .prng import BasicRng, SecurePrng
@@ -590,6 +591,7 @@ class MaskedGate(abc.ABC):
                     vals[c, s] = v % n
         return self._combine_one(dcf_keys[0].key.party, shares, int(x), vals)
 
+    @_tm.traced("gate.batch_eval")
     def batch_eval(
         self, key, xs: Sequence[int], engine: str = "device",
         timings: Optional[dict] = None, **device_kwargs,

@@ -41,9 +41,14 @@ launch of the walk megakernel K7 per chunk (ops/aes_cuda.walk_megakernel),
 at ``lane_words(P)`` lane words (the JAX package's ``WalkkernelPlan``,
 ``plan_walkkernel``, is kept for the tests that hold the two plans equal).
 
-Chunks run one after another (no prefetch pipeline yet). Words are int32
-tensors carrying uint32 bit patterns (ops/aes_torch.py); limb carries are
-computed in int64.
+Chunks run through the pipelined executor of ops/pipeline.py
+(``pipeline=``, default on for a CUDA device): chunk N+1's host pack and
+pinned upload overlap chunk N on the card and chunk N-1's pull. The
+entry points never fall back: on a CUDA device they launch the kernels
+or raise. ``full_domain_evaluate`` and ``evaluate_at_batch`` take ``integrity=``,
+the sentinel probe of utils/integrity.py. Words are int32 tensors carrying
+uint32 bit patterns (ops/aes_torch.py); limb carries are computed in
+int64.
 """
 
 from __future__ import annotations
@@ -59,9 +64,12 @@ from ..core import backend_numpy, uint128
 from ..core.dpf import DistributedPointFunction
 from ..core.keys import DpfKey
 from ..core.value_types import Int, TupleType, XorWrapper
+from ..utils import faultinject
+from ..utils import telemetry as _tm
 from ..utils.devices import resolve_device
 from ..utils.errors import InvalidArgumentError
 from . import aes_cuda, aes_torch, backend_torch, value_codec
+from . import pipeline as _pl
 
 # ---------------------------------------------------------------------------
 # Host-side key batch preparation
@@ -269,18 +277,23 @@ def _correct_values(
 
 
 def _host_expand(
-    seeds: np.ndarray,  # uint32[K, 4]
-    control: np.ndarray,  # bool[K]
+    seeds: np.ndarray,  # uint32[K, Np, 4]
+    control: np.ndarray,  # bool[K, Np]
     batch: KeyBatch,
     levels: int,
+    start_level: int = 0,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Expands each key `levels` levels on the host -> ([K, 2^levels, 4],
-    [K, 2^levels]) in leaf order, vectorized numpy. The device takes over
-    once the lanes fill one packed word (5 levels)."""
+    """Expands every key's parents `levels` tree levels from `start_level`
+    on the host, each key under its own correction words, vectorized numpy
+    over keys and parents -> ([K, Np << levels, 4], [K, Np << levels]) in
+    leaf order. The fold and the full-domain paths hand the device over
+    once the lanes fill one packed word (5 levels); the host engines
+    (core/host_eval.py, ``hierarchical.evaluate_until_batch(engine=
+    "host")``) expand to the leaves."""
     k = seeds.shape[0]
-    seeds = seeds[:, None, :]  # [K, M, 4]
-    control = control[:, None]
-    for level in range(levels):
+    seeds = np.array(seeds, dtype=np.uint32)
+    control = np.array(control, dtype=bool)
+    for level in range(start_level, start_level + levels):
         m = seeds.shape[1]
         flat = seeds.reshape(k * m, 4)
         left = backend_numpy._PRG_LEFT.evaluate_limbs(flat).reshape(k, m, 4)
@@ -306,22 +319,10 @@ def _host_expand(
     return seeds, control
 
 
-def chunk_indices(num_keys: int, key_chunk: int) -> Iterator[Tuple[np.ndarray, int]]:
-    """Yields (key indices, num_valid_keys) in key_chunk-sized chunks,
-    padding the last chunk with key 0 so every chunk has one shape (no pad
-    when the whole batch is smaller than key_chunk). Padded rows are
-    trimmed by the caller."""
-    for start in range(0, num_keys, key_chunk):
-        idx = np.arange(start, min(start + key_chunk, num_keys))
-        valid = idx.shape[0]
-        if num_keys > key_chunk and valid < key_chunk:
-            idx = np.concatenate([idx, np.zeros(key_chunk - valid, dtype=np.int64)])
-        yield idx, valid
-
-
 def _key_chunks(batch: KeyBatch, num_keys: int, key_chunk: int):
-    """Yields (key_batch, num_valid_keys) per chunk of ``chunk_indices``."""
-    for idx, valid in chunk_indices(num_keys, key_chunk):
+    """Yields (key_batch, num_valid_keys) per chunk of
+    ``pipeline.chunk_indices``."""
+    for idx, valid in _pl.chunk_indices(num_keys, key_chunk):
         yield batch.take(idx), valid
 
 
@@ -348,7 +349,8 @@ def _prepare_chunk_host(kb: KeyBatch, host_levels: int, bits: int):
     control_mask, cw, ccl, ccr, corr, m): the JAX package's
     ``_prepare_chunk_host``."""
     k = kb.seeds.shape[0]
-    seeds_h, control_h = _host_expand(kb.seeds, np.full(k, bool(kb.party)), kb, host_levels)
+    seeds_h, control_h = _host_expand(kb.seeds[:, None], np.full((k, 1), bool(kb.party)), kb,
+                                     host_levels)
     m = seeds_h.shape[1]
     if m < 32:
         seeds_h = np.concatenate([seeds_h, np.zeros((k, 32 - m, 4), np.uint32)], axis=1)
@@ -359,23 +361,47 @@ def _prepare_chunk_host(kb: KeyBatch, host_levels: int, bits: int):
             corr, m)
 
 
-def _prepare_chunk(kb: KeyBatch, valid: int, host_levels: int, bits: int) -> _Chunk:
-    """``_prepare_chunk_host``, then one upload each to the batch's device."""
+def _prepare_chunk(kb: KeyBatch, valid: int, host_levels: int, bits: int,
+                   ring: Optional[_pl.PinnedRing] = None) -> _Chunk:
+    """``_prepare_chunk_host``, then one upload each to the batch's device:
+    through `ring`'s pinned buffers, which do not make the host wait, or,
+    without one, from pageable memory (a key batch prepared once)."""
     seeds_h, control_mask, cw, ccl, ccr, corr, m = _prepare_chunk_host(kb, host_levels, bits)
-
-    def up(a: np.ndarray) -> torch.Tensor:
-        return _upload(a, kb.device)
-
+    corr = (corr,) if bits else tuple(corr)
+    arrays = (seeds_h, control_mask, cw, ccl, ccr) + corr
+    if ring is not None:
+        up = ring.upload(arrays)
+    else:
+        up = [_upload(a, kb.device) for a in arrays]
     return _Chunk(
         valid=valid,
-        seeds=up(seeds_h),
-        control_mask=up(control_mask),
-        cw=up(cw),
-        ccl=up(ccl),
-        ccr=up(ccr),
-        corr=up(corr) if bits else tuple(up(a) for a in corr),
+        seeds=up[0],
+        control_mask=up[1],
+        cw=up[2],
+        ccl=up[3],
+        ccr=up[4],
+        corr=up[5] if bits else tuple(up[5:]),
         m=m,
     )
+
+
+def _fi_backend(device: torch.device) -> str:
+    """The fault-injection and event label of a call's backend: "cuda" for
+    the kernels on a card, "torch" on the CPU, where the kernel wrappers
+    run their plain versions."""
+    return "cuda" if device.type == "cuda" else "torch"
+
+
+def _inject_batch_faults(batch: KeyBatch, backend: str) -> None:
+    """Applies armed seed / correction-word fault plans to the prepared key
+    batch (utils/faultinject.py). One truthiness check when no plan is
+    armed. Not called by the host oracle (core/host_eval.py builds its own
+    KeyBatch): injected faults model device-side corruption, so the oracle
+    and the numpy rung always see clean data."""
+    if not faultinject.is_active():
+        return
+    batch.seeds = faultinject.corrupt_seeds(batch.seeds, backend=backend)
+    batch.cw_seeds = faultinject.corrupt_cw(batch.cw_seeds, backend=backend)
 
 
 def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -434,54 +460,38 @@ def _fold_chunk(
     return backend_torch.xor_reduce(values, dim=1)
 
 
-def full_domain_fold_chunks(
-    dpf: DistributedPointFunction,
-    keys,
-    hierarchy_level: int = -1,
-    key_chunk: Optional[int] = None,
-    host_levels: Optional[int] = None,
-    db_lane=None,
-    fuse_last_hash: bool = False,
-    mode: str = "fold",
-    device=None,
-) -> Iterator[Tuple[int, torch.Tensor]]:
-    """Full-domain evaluation with the XOR fold computed on the device.
+class _FoldSetup(NamedTuple):
+    """A validated fold call: its batch, chunking, database and mode."""
 
-    Yields (num_valid_keys, fold) per key chunk, where fold is int32[key_chunk,
-    lpe] on the device (uint32 bit patterns): the XOR fold of every
-    lane-order domain value of each key, AND-masked against `db_lane` first
-    when given (the two-server-PIR inner product). Rows past num_valid_keys
-    are padding.
+    batch: KeyBatch
+    mode: str
+    key_chunk: int
+    host_levels: int
+    device_levels: int
+    db: Optional[torch.Tensor]
+    plan: Optional["MegakernelPlan"]
+    bits: int
+    xor_group: bool
+    keep: int
+    fuse_last_hash: bool
+    backend: str
 
-    Args:
-      keys: DpfKeys of one party, or a KeyBatch (``KeyBatch.from_keys`` /
-        ``key_batch_from_numpy``), which then fixes the device.
-      key_chunk: keys per chunk (default 128).
-      host_levels: tree levels expanded on the host (default 5 = one packed
-        word of lanes; at least 5).
-      db_lane: uint32 numpy or int32 tensor [positions, lpe] in lane order
-        (``parallel.pir.prepare_pir_database``); with mode="megakernel" the
-        megakernel row layout [keep * lpe * 32, total_words] instead
-        (``megakernel_db_rows`` under ``plan_megakernel(dpf, hierarchy_level,
-        host_levels)``, or ``prepare_pir_database(order="megakernel")``).
-      fuse_last_hash: run the last level and the value hash as one kernel
-        (K3) instead of K2 then K4 (mode="fold" only).
-      mode: "fold" (K2 per level, K4 or K3, then the fold in plain
-        PyTorch) or "megakernel" (one K5 launch per chunk under
-        ``plan_megakernel(dpf, hierarchy_level, host_levels)``; value widths
-        that are multiples of 32 bits, at least one device level).
-      device: ``None`` = CUDA; ``"cpu"`` runs the plain PyTorch versions.
 
-    Scalar Int/XorWrapper value types only (the XOR fold of mod-N limb shares
-    has no protocol meaning).
-    """
+def _fold_setup(dpf, keys, hierarchy_level, key_chunk, host_levels, db_lane,
+                fuse_last_hash, mode, device) -> _FoldSetup:
+    """Checks a ``full_domain_fold_chunks`` call and resolves its mode (one
+    telemetry decision record) -> _FoldSetup."""
     v = dpf.validator
     if hierarchy_level < 0:
         hierarchy_level = v.num_hierarchy_levels - 1
+    source = "explicit"
+    if mode is None:
+        mode, source = "fold", "default"
     if mode not in ("fold", "megakernel"):
         raise InvalidArgumentError(
             f"mode must be 'fold' or 'megakernel', got {mode!r}"
         )
+    _tm.decision("full_domain_fold_chunks", mode, source)
     if mode == "megakernel" and fuse_last_hash:
         raise InvalidArgumentError("fuse_last_hash applies to mode='fold' only")
     if isinstance(keys, KeyBatch):
@@ -506,7 +516,6 @@ def full_domain_fold_chunks(
         )
     lds = v.parameters[hierarchy_level].log_domain_size
     keep = 1 << (lds - stop_level)
-    num_keys = batch.seeds.shape[0]
     if key_chunk is None:
         key_chunk = 128
     if key_chunk < 1:
@@ -519,8 +528,8 @@ def full_domain_fold_chunks(
             f"packed word), got {host_levels}"
         )
     host_levels = min(host_levels, stop_level)
-    device_levels = stop_level - host_levels
 
+    plan = None
     if mode == "megakernel":
         if bits % 32:
             raise NotImplementedError(
@@ -543,18 +552,86 @@ def full_domain_fold_chunks(
             raise InvalidArgumentError(
                 f"db_lane must be {list(want)} in {order}, got {tuple(db.shape)}"
             )
+    return _FoldSetup(batch, mode, key_chunk, host_levels, stop_level - host_levels, db, plan,
+                      bits, xor_group, keep, fuse_last_hash,
+                      _fi_backend(batch.device))
 
-    for kb, valid in _key_chunks(batch, num_keys, key_chunk):
-        ch = _prepare_chunk(kb, valid, host_levels, bits)
-        if mode == "megakernel":
-            yield valid, _megakernel_fold_chunk(
-                ch, db, plan, bits, batch.party, xor_group, keep
-            )
+
+def _fold_thunks(fs: _FoldSetup, pipeline: bool, pull: bool):
+    """One thunk a key chunk of a fold call: the host pack, the pinned
+    upload, the kernels and, with `pull`, the copy of the [key_chunk, lpe]
+    fold back into pinned host memory (``pipeline.HostPull``). Each returns
+    (num_valid_keys, fold tensor or HostPull)."""
+    batch = fs.batch
+    _inject_batch_faults(batch, fs.backend)
+    ring = _pl.PinnedRing(batch.device, _pl.depth_default() + 1 if pipeline else 1)
+
+    def run(kb, valid):
+        ch = _prepare_chunk(kb, valid, fs.host_levels, fs.bits, ring)
+        if fs.mode == "megakernel":
+            fold = _megakernel_fold_chunk(ch, fs.db, fs.plan, fs.bits, batch.party,
+                                          fs.xor_group, fs.keep)
         else:
-            yield valid, _fold_chunk(
-                ch, db, device_levels, bits, batch.party, xor_group, keep,
-                fuse_last_hash,
-            )
+            fold = _fold_chunk(ch, fs.db, fs.device_levels, fs.bits, batch.party, fs.xor_group,
+                               fs.keep, fs.fuse_last_hash)
+        return valid, (_pl.HostPull(fold) if pull else fold)
+
+    for kb, valid in _key_chunks(batch, batch.seeds.shape[0], fs.key_chunk):
+        yield functools.partial(run, kb, valid)
+
+
+def full_domain_fold_chunks(
+    dpf: DistributedPointFunction,
+    keys,
+    hierarchy_level: int = -1,
+    key_chunk: Optional[int] = None,
+    host_levels: Optional[int] = None,
+    db_lane=None,
+    fuse_last_hash: bool = False,
+    mode: Optional[str] = None,
+    device=None,
+    pipeline: Optional[bool] = None,
+) -> Iterator[Tuple[int, torch.Tensor]]:
+    """Full-domain evaluation with the XOR fold computed on the device.
+
+    Yields (num_valid_keys, fold) per key chunk, where fold is int32[key_chunk,
+    lpe] on the device (uint32 bit patterns): the XOR fold of every
+    lane-order domain value of each key, AND-masked against `db_lane` first
+    when given (the two-server-PIR inner product). Rows past num_valid_keys
+    are padding.
+
+    Args:
+      keys: DpfKeys of one party, or a KeyBatch (``KeyBatch.from_keys`` /
+        ``key_batch_from_numpy``), which then fixes the device.
+      key_chunk: keys per chunk (default 128).
+      host_levels: tree levels expanded on the host (default 5 = one packed
+        word of lanes; at least 5).
+      db_lane: uint32 numpy or int32 tensor [positions, lpe] in lane order
+        (``parallel.pir.prepare_pir_database``); with mode="megakernel" the
+        megakernel row layout [keep * lpe * 32, total_words] instead
+        (``megakernel_db_rows`` under ``plan_megakernel(dpf, hierarchy_level,
+        host_levels)``, or ``prepare_pir_database(order="megakernel")``).
+      fuse_last_hash: run the last level and the value hash as one kernel
+        (K3) instead of K2 then K4 (mode="fold" only).
+      mode: "fold" (the default: K2 per level, K4 or K3, then the fold in
+        plain PyTorch) or "megakernel" (one K5 launch per chunk under
+        ``plan_megakernel(dpf, hierarchy_level, host_levels)``; value widths
+        that are multiples of 32 bits, at least one device level).
+      device: ``None`` = CUDA; ``"cpu"`` runs the plain PyTorch versions.
+      pipeline: None = ``DPF_TPU_PIPELINE`` / on for a CUDA device
+        (ops/pipeline.py): chunk N+1's host pack and pinned upload run
+        while chunk N's kernels do, up to ``DPF_TPU_PIPELINE_DEPTH`` chunks
+        ahead. Both settings yield the same folds in the same order and
+        launch the same kernels.
+
+    Scalar Int/XorWrapper value types only (the XOR fold of mod-N limb shares
+    has no protocol meaning).
+    """
+    fs = _fold_setup(dpf, keys, hierarchy_level, key_chunk, host_levels, db_lane,
+                     fuse_last_hash, mode, device)
+    pipe = _pl.resolve(pipeline, fs.batch.device)
+    yield from _pl.prefetch_thunks(_fold_thunks(fs, pipe, pull=False), pipe, backend=fs.backend,
+                                   op="full_domain_fold_chunks")
 
 
 def _db_tensor(db, device: torch.device) -> torch.Tensor:
@@ -810,9 +887,10 @@ def full_domain_evaluate_chunks(
     key_chunk: Optional[int] = None,
     host_levels: Optional[int] = None,
     leaf_order: bool = True,
-    mode: str = "levels",
+    mode: Optional[str] = None,
     lane_slab: Optional[int] = None,
     device=None,
+    pipeline: Optional[bool] = None,
 ) -> Iterator[Tuple[int, object]]:
     """Full-domain evaluation, yielding values that stay on the device.
 
@@ -833,10 +911,11 @@ def full_domain_evaluate_chunks(
       leaf_order: False yields lane (expansion) order, padded lanes
         included, for consumers that permute static data once with
         ``lane_order_map``.
-      mode: "levels" and "fused" (the JAX package's per-level programs and
-        single program a chunk) run the same launches here, where a kernel
-        launch has no program boundary: K2 a device level, K4 a value
-        block, then the plain-torch finalize. "walk": every leaf lane walks
+      mode: "levels" (the default) and "fused" (the JAX package's
+        per-level programs and single program a chunk) run the same
+        launches here, where a kernel launch has no program boundary: K2
+        a device level, K4 a value block, then the plain-torch finalize.
+        "walk": every leaf lane walks
         its own root-to-leaf path, one K6 launch a tree level (the path
         masks shared by the keys), then K4 a block and the finalize; lane i
         is leaf i, so there is no gather, and leaf_order=False or
@@ -847,7 +926,28 @@ def full_domain_evaluate_chunks(
         covers domain indices [j * lane_slab * 2^device_levels * keep,
         ...). ``plan_slabs`` sizes it.
       device: None = CUDA; "cpu" runs the kernels' plain versions.
+      pipeline: None = ``DPF_TPU_PIPELINE`` / on for a CUDA device: chunk
+        N+1's host pack and pinned upload run while chunk N's kernels do
+        (ops/pipeline.py); the same values in the same order either way.
     """
+    source = "explicit"
+    if mode is None:
+        mode, source = "levels", "default"
+    _tm.decision("full_domain_evaluate_chunks", mode, source)
+    thunks, dev, backend = _evaluate_thunks(dpf, keys, hierarchy_level, key_chunk, host_levels,
+                                            leaf_order, mode, lane_slab, device,
+                                            pipeline, pull=False)
+    pipe = _pl.resolve(pipeline, dev)
+    yield from _pl.prefetch_thunks(thunks, pipe, depth=1, backend=backend,
+                                   op="full_domain_evaluate_chunks")
+
+
+def _evaluate_thunks(dpf, keys, hierarchy_level, key_chunk, host_levels, leaf_order, mode,
+                     lane_slab, device, pipeline, pull: bool):
+    """Checks a ``full_domain_evaluate_chunks`` call -> (thunks, device,
+    fault-injection backend): one thunk a key chunk, or a ``lane_slab``
+    piece, each returning (num_valid_keys, values) with the values on the
+    device, or, with `pull`, a ``pipeline.HostPull`` of them."""
     if mode not in FULL_DOMAIN_MODES:
         raise InvalidArgumentError(
             f"mode must be 'levels', 'fused' or 'walk', got {mode!r}"
@@ -873,6 +973,10 @@ def full_domain_evaluate_chunks(
     v = dpf.validator
     if hierarchy_level < 0:
         hierarchy_level = v.num_hierarchy_levels - 1
+
+    def out(valid, values):
+        return valid, (_pl.HostPull(values) if pull else values)
+
     if isinstance(keys, PreparedKeyBatch):
         if mode == "walk" or lane_slab is not None:
             raise InvalidArgumentError(
@@ -884,59 +988,91 @@ def full_domain_evaluate_chunks(
         vf, domain, dev = keys.values, keys.domain, keys.device
         m_lanes = keys.chunks[0].seeds.shape[1]
         order = _order_on_device(keys.chunks[0].m, m_lanes, keys.device_levels, dev)
-        for ch in keys.chunks:
-            out = _evaluate_chunk(ch, keys.device_levels, order if leaf_order else None, vf)
-            yield ch.valid, _trim(out, domain, leaf_order)
-        return
+
+        def run_prepared(ch):
+            vals = _evaluate_chunk(ch, keys.device_levels, order if leaf_order else None, vf)
+            return out(ch.valid, _trim(vals, domain, leaf_order))
+
+        return ((functools.partial(run_prepared, ch) for ch in keys.chunks), dev,
+                _fi_backend(dev))
     if key_chunk is None:
         key_chunk = 32
     if key_chunk < 1:
         raise InvalidArgumentError(f"key_chunk must be positive, got {key_chunk}")
     batch = KeyBatch.from_keys(dpf, keys, hierarchy_level, device=device)
+    dev = batch.device
+    backend = _fi_backend(dev)
+    _inject_batch_faults(batch, backend)
     vf = _values_of(batch, dpf, hierarchy_level)
     domain = 1 << v.parameters[hierarchy_level].log_domain_size
     stop_level = batch.num_levels
-    chunks = _key_chunks(batch, len(keys), key_chunk)
+    ring = _pl.PinnedRing(dev, 2 + (_pl.depth_default() if _pl.resolve(pipeline, dev) else 0))
 
     if mode == "walk":
-        path_masks = _upload(_walk_path_masks(stop_level), batch.device)
-        for kb, valid in chunks:
-            wch = prepare_walk_chunk(kb, vf.bits)
+        path_masks = _upload(_walk_path_masks(stop_level), dev)
+
+        def run_walk(kb, valid):
+            wch = prepare_walk_chunk(kb, vf.bits, ring)
             stream, control = _walk_leaves(wch, path_masks, vf.spec.blocks_needed)
-            yield valid, _trim(_finalize(stream, control, wch.corr, None, vf), domain, True)
-        return
+            return out(valid, _trim(_finalize(stream, control, wch.corr, None, vf), domain, True))
+
+        return (functools.partial(run_walk, kb, valid)
+                for kb, valid in _key_chunks(batch, len(keys), key_chunk)), dev, backend
 
     host_levels = _check_host_levels(host_levels, stop_level)
     device_levels = stop_level - host_levels
-    for kb, valid in chunks:
-        if lane_slab is None:
-            ch = _prepare_chunk(kb, valid, host_levels, vf.bits)
-            order = (_order_on_device(ch.m, ch.seeds.shape[1], device_levels, batch.device)
-                     if leaf_order else None)
-            yield valid, _trim(_evaluate_chunk(ch, device_levels, order, vf), domain, leaf_order)
-            continue
-        # Pieces slice the host-side expansion before it is uploaded.
-        seeds_p, mask_p, cw, ccl, ccr, corr, m = _prepare_chunk_host(kb, host_levels, vf.bits)
-        m_lanes = seeds_p.shape[1]
-        # A host expansion below one packed word was padded to 32 lanes:
-        # slicing it would emit pieces of padding, so it runs as one piece.
-        slab = m_lanes if m < 32 else min(lane_slab, m_lanes)
-        if slab < m_lanes and m_lanes * (1 << device_levels) * vf.keep != domain:
-            raise InvalidArgumentError(
-                "lane_slab pieces would not partition the domain exactly "
-                f"(lanes={m_lanes}, device_levels={device_levels}, keep={vf.keep}, "
-                f"domain={domain})"
-            )
-        up = functools.partial(_upload, device=batch.device)
-        tables = dict(cw=up(cw), ccl=up(ccl), ccr=up(ccr),
-                      corr=up(corr) if vf.bits else tuple(up(a) for a in corr))
-        for lo in range(0, m_lanes, slab):
-            s = min(slab, m_lanes - lo)
-            ch = _Chunk(valid=valid, seeds=up(seeds_p[:, lo : lo + s]),
-                        control_mask=up(mask_p[:, lo // 32 : (lo + s) // 32]),
-                        m=m if s == m_lanes else s, **tables)
-            order = _order_on_device(ch.m, s, device_levels, batch.device)
-            yield valid, _trim(_evaluate_chunk(ch, device_levels, order, vf), domain, True)
+
+    def run_chunk(kb, valid):
+        ch = _prepare_chunk(kb, valid, host_levels, vf.bits, ring)
+        order = (_order_on_device(ch.m, ch.seeds.shape[1], device_levels, dev)
+                 if leaf_order else None)
+        return out(valid, _trim(_evaluate_chunk(ch, device_levels, order, vf), domain,
+                                leaf_order))
+
+    def run_piece(prep, lo, s, valid):
+        seeds_p, mask_p, m, tables = prep()
+        up = ring.upload((seeds_p[:, lo : lo + s], mask_p[:, lo // 32 : (lo + s) // 32]))
+        ch = _Chunk(valid=valid, seeds=up[0], control_mask=up[1],
+                    m=m if s == seeds_p.shape[1] else s, **tables)
+        order = _order_on_device(ch.m, s, device_levels, dev)
+        return out(valid, _trim(_evaluate_chunk(ch, device_levels, order, vf), domain, True))
+
+    def slab_prep(kb):
+        """A chunk's host pack and table upload, run by its first piece."""
+        memo = {}
+
+        def prep():
+            if not memo:
+                seeds_p, mask_p, cw, ccl, ccr, corr, m = _prepare_chunk_host(
+                    kb, host_levels, vf.bits)
+                corr = (corr,) if vf.bits else tuple(corr)
+                up = ring.upload((cw, ccl, ccr) + corr)
+                memo["v"] = (seeds_p, mask_p, m, dict(
+                    cw=up[0], ccl=up[1], ccr=up[2],
+                    corr=up[3] if vf.bits else tuple(up[3:])))
+            return memo["v"]
+        return prep
+
+    def thunks():
+        m_lanes = max(32, 1 << host_levels)
+        for kb, valid in _key_chunks(batch, len(keys), key_chunk):
+            if lane_slab is None:
+                yield functools.partial(run_chunk, kb, valid)
+                continue
+            # A host expansion below one packed word was padded to 32 lanes:
+            # slicing it would emit pieces of padding, so it runs as one piece.
+            slab = m_lanes if (1 << host_levels) < 32 else min(lane_slab, m_lanes)
+            if slab < m_lanes and m_lanes * (1 << device_levels) * vf.keep != domain:
+                raise InvalidArgumentError(
+                    "lane_slab pieces would not partition the domain exactly "
+                    f"(lanes={m_lanes}, device_levels={device_levels}, keep={vf.keep}, "
+                    f"domain={domain})"
+                )
+            prep = slab_prep(kb)
+            for lo in range(0, m_lanes, slab):
+                yield functools.partial(run_piece, prep, lo, min(slab, m_lanes - lo), valid)
+
+    return thunks(), dev, backend
 
 
 def _trim(out, domain: int, leaf_order: bool):
@@ -1006,6 +1142,7 @@ def plan_slabs(
     return h, max(32, (budget_leaves // leaves_per_lane) // 32 * 32)
 
 
+@_tm.traced("full_domain_evaluate")
 def full_domain_evaluate(
     dpf: DistributedPointFunction,
     keys: Sequence[DpfKey],
@@ -1013,6 +1150,8 @@ def full_domain_evaluate(
     key_chunk: int = 32,
     host_levels: Optional[int] = None,
     device=None,
+    integrity: Optional[bool] = None,
+    pipeline: Optional[bool] = None,
 ):
     """Full-domain evaluation of a key batch, results on the host.
 
@@ -1022,16 +1161,54 @@ def full_domain_evaluate(
     ``values_to_numpy`` a scalar's into integers. For values that stay on
     the device use ``full_domain_evaluate_chunks``, which this drives in
     mode "levels". `device`: None = CUDA.
+
+    `integrity` enables sentinel-key verification (None = the
+    DPF_TPU_INTEGRITY env default): one library-generated probe key rides
+    the batch through the same kernels at the same shape, and its output
+    is checked against the host oracle — a mismatch raises
+    DataCorruptionError carrying the corrupted lane pattern
+    (utils/integrity.py). Costs one extra key per batch: free when the last
+    chunk has a padding slot for it, one more chunk when len(keys) is a
+    multiple of `key_chunk`. Scalar Int/XorWrapper outputs only; codec
+    value types evaluate unverified with an "integrity-skip" event.
+
+    `pipeline` (None = DPF_TPU_PIPELINE / on for a CUDA device,
+    ops/pipeline.py) keeps three stages in flight: chunk N+1's host pack
+    and pinned upload (main thread), chunk N's kernels, and chunk N-1's pull
+    (worker thread), one chunk ahead, since every chunk in flight holds a
+    [key_chunk, domain, lpe] value buffer on the card.
     """
-    outs = [
-        tuple(aes_torch.from_words(o[:valid]) for o in out) if isinstance(out, tuple)
-        else aes_torch.from_words(out[:valid])
-        for valid, out in full_domain_evaluate_chunks(
-            dpf, keys, hierarchy_level, key_chunk, host_levels, device=device)
-    ]
+    from ..utils import integrity as _integrity
+
+    dev = resolve_device(device)
+    backend = _fi_backend(dev)
+    pipe = _pl.resolve(pipeline, dev)
+    keys, probe = _integrity.setup_probe(
+        dpf, hierarchy_level, keys, integrity, "full_domain_evaluate",
+        backend=backend, device=dev,
+    )
+    thunks, _, _ = _evaluate_thunks(dpf, keys, hierarchy_level, key_chunk, host_levels, True,
+                                    "levels", None, dev, pipe, pull=True)
+
+    def _pull(item):
+        valid, pull = item
+        out = pull.result()
+        if isinstance(out, tuple):
+            return tuple(aes_torch.from_words(o[:valid]).copy() for o in out)
+        return aes_torch.from_words(out[:valid]).copy()
+
+    outs = list(_pl.map_chunks(thunks, _pull, pipe, depth=1, backend=backend,
+                               op="full_domain_evaluate_chunks", device=dev))
     if isinstance(outs[0], tuple):
         return tuple(np.concatenate([o[c] for o in outs]) for c in range(len(outs[0])))
-    return np.concatenate(outs)
+    out = np.concatenate(outs)
+    out = faultinject.corrupt_output(out, backend=backend)
+    if probe is not None:
+        _integrity.verify_probe_values(
+            probe, out[-1], context="full_domain_evaluate", key_index=out.shape[0] - 1,
+        )
+        out = out[:-1]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1412,15 +1589,19 @@ class WalkChunk:
     corr: object  # int32[K, epb, lpe], or the codec's tuple of them
 
 
-def prepare_walk_chunk(kb: KeyBatch, bits: int) -> WalkChunk:
-    """One chunk's walk tables on the host (numpy), one upload each; `bits`
-    > 0 takes the scalar corrections of that width, 0 the codec's."""
-    corr = (_upload(_correction_limbs(kb.value_corrections, bits), kb.device) if bits
-            else tuple(_upload(a, kb.device) for a in kb.codec_corrections))
-    return WalkChunk(
-        kb.party, _upload(backend_torch.cw_seed_planes(kb.seeds), kb.device),
-        *(_upload(a, kb.device) for a in kb.device_cw_arrays()), corr,
-    )
+def prepare_walk_chunk(kb: KeyBatch, bits: int,
+                       ring: Optional[_pl.PinnedRing] = None) -> WalkChunk:
+    """One chunk's walk tables on the host (numpy), one upload each
+    (through `ring`'s pinned buffers when given); `bits` > 0 takes the
+    scalar corrections of that width, 0 the codec's."""
+    corr = ((_correction_limbs(kb.value_corrections, bits),) if bits
+            else tuple(kb.codec_corrections))
+    arrays = (backend_torch.cw_seed_planes(kb.seeds),) + tuple(kb.device_cw_arrays()) + corr
+    if ring is not None:
+        up = ring.upload(arrays)
+    else:
+        up = [_upload(a, kb.device) for a in arrays]
+    return WalkChunk(kb.party, *up[:4], up[4] if bits else tuple(up[4:]))
 
 
 @dataclasses.dataclass
@@ -1545,6 +1726,7 @@ def _walkkernel_chunk(ch: WalkChunk, wp: WalkPoints) -> torch.Tensor:
     return out.reshape(k, words * 32, lpe)[:, : wp.num_points]
 
 
+@_tm.traced("evaluate_at_batch")
 def evaluate_at_batch(
     dpf: DistributedPointFunction,
     keys: Sequence[DpfKey],
@@ -1552,8 +1734,10 @@ def evaluate_at_batch(
     hierarchy_level: int = -1,
     device_output: bool = False,
     key_chunk: Optional[int] = None,
-    mode: str = "walk",
+    mode: Optional[str] = None,
     device=None,
+    integrity: Optional[bool] = None,
+    pipeline: Optional[bool] = None,
 ):
     """Evaluates every key at every point: batched EvaluateAt.
 
@@ -1570,33 +1754,85 @@ def evaluate_at_batch(
       points: domain indices at ``hierarchy_level``, any number, repeats
         allowed.
       key_chunk: keys per chunk (default: the whole batch in one chunk).
-      mode: "walk" (one K6 launch per tree level, then K4 a value block and
-        the correction in plain PyTorch, every value type) or "walkkernel"
-        (one K7 launch per chunk at ``lane_words(P)`` words; scalar
-        Int/XorWrapper widths that are multiples of 32 bits, at least one
-        tree level; other types raise NotImplementedError).
+      mode: "walk" (the default: one K6 launch per tree level, then K4 a
+        value block and the correction in plain PyTorch, every value type)
+        or "walkkernel" (one K7 launch per chunk at ``lane_words(P)`` words;
+        scalar Int/XorWrapper widths that are multiples of 32 bits, at
+        least one tree level; other types raise NotImplementedError).
       device: ``None`` = CUDA; ``"cpu"`` runs the plain PyTorch versions.
+      integrity: the sentinel probe (None = DPF_TPU_INTEGRITY): one probe
+        key rides the batch and its values at `points` are checked against
+        the host oracle (utils/integrity.py); scalar types only.
+      pipeline: None = DPF_TPU_PIPELINE / on for a CUDA device
+        (ops/pipeline.py): chunk N+1's tables upload while chunk N's
+        kernels run.
     """
+    from ..utils import integrity as _integrity
+
+    source = "explicit"
+    if mode is None:
+        mode, source = "walk", "default"
     wp = prepare_walk_points(dpf, points, hierarchy_level, mode, device)
-    batch = KeyBatch.from_keys(dpf, keys, hierarchy_level, device=wp.path_masks.device)
+    _tm.decision("evaluate_at_batch", mode, source)
+    dev = wp.path_masks.device
+    backend = _fi_backend(dev)
+    pipe = _pl.resolve(pipeline, dev)
+    keys, probe = _integrity.setup_probe(
+        dpf, hierarchy_level, keys, integrity, "evaluate_at_batch", backend=backend, device=dev,
+    )
+    batch = KeyBatch.from_keys(dpf, keys, hierarchy_level, device=dev)
+    _inject_batch_faults(batch, backend)
     num_keys = batch.seeds.shape[0]
     if key_chunk is None:
         key_chunk = num_keys
     if key_chunk < 1:
         raise InvalidArgumentError(f"key_chunk must be positive, got {key_chunk}")
-    pieces = [
-        (evaluate_walk_chunk(prepare_walk_chunk(kb, wp.bits), wp), valid)
-        for kb, valid in _key_chunks(batch, num_keys, key_chunk)
-    ]
+    ring = _pl.PinnedRing(dev, 1 + (_pl.depth_default() if pipe else 0))
 
-    def gather(parts):
-        parts = [o[:valid] for o, (_, valid) in zip(parts, pieces)]
-        out = parts[0] if len(parts) == 1 else torch.cat(parts)
-        return out if device_output else aes_torch.from_words(out)
+    def run(kb, valid, pull):
+        out = evaluate_walk_chunk(prepare_walk_chunk(kb, wp.bits, ring), wp)
+        return valid, (_pl.HostPull(out) if pull else out)
 
+    def thunks(pull):
+        return (functools.partial(run, kb, valid, pull)
+                for kb, valid in _key_chunks(batch, num_keys, key_chunk))
+
+    n_comp = len(wp.spec.components)
+    if device_output:
+        pieces = list(_pl.prefetch_thunks(thunks(False), pipe, backend=backend,
+                                          op="evaluate_at_batch"))
+
+        def cat(parts):
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+        if wp.spec.is_tuple:
+            return tuple(cat([o[c][:valid] for valid, o in pieces]) for c in range(n_comp))
+        out = cat([o[:valid] for valid, o in pieces])
+        if probe is not None:
+            _integrity.verify_probe_at_points(
+                probe, points, aes_torch.from_words(out[-1]), key_index=out.shape[0] - 1,
+            )
+            out = out[:-1]
+        return out
+
+    def _pull(item):
+        valid, pull = item
+        out = pull.result()
+        if isinstance(out, tuple):
+            return tuple(aes_torch.from_words(o[:valid]).copy() for o in out)
+        return aes_torch.from_words(out[:valid]).copy()
+
+    pieces = list(_pl.map_chunks(thunks(True), _pull, pipe, backend=backend,
+                                 op="evaluate_at_batch", device=dev))
     if wp.spec.is_tuple:
-        return tuple(gather([o[c] for o, _ in pieces]) for c in range(len(wp.spec.components)))
-    return gather([o for o, _ in pieces])
+        return tuple(np.concatenate([p[c] for p in pieces]) for c in range(n_comp))
+    out = np.concatenate(pieces)
+    if wp.bits:
+        out = faultinject.corrupt_output(out, backend=backend)
+    if probe is not None:
+        _integrity.verify_probe_at_points(probe, points, out[-1], key_index=out.shape[0] - 1)
+        out = out[:-1]
+    return out
 
 
 def _value_kind(value_type) -> Tuple[int, bool]:

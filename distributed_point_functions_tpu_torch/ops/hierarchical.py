@@ -56,11 +56,11 @@ on the other. Outputs are ordered by sorted prefix, then leaf, as the
 reference's EvaluateUntil orders them. Words are int32 tensors carrying
 uint32 bit patterns (ops/aes_torch.py).
 
-Refused: ``evaluate_until_batch(engine="host")``, which waits for the
-port's host engine (ROADMAP Queue 1 item 5), and ``mesh=``, the
-multi-device path (item 6); both raise UnimplementedError. Not ported yet:
-``integrity=`` and the robust wrapper ``evaluate_levels_fused_robust``
-(item 5).
+``evaluate_until_batch(engine="host")`` runs the expansion on the host
+engine (numpy, core/host_eval.py) for scalar Int/XorWrapper types, with the
+JAX package's host-format outputs; its context continues on the card and
+back. Refused: ``mesh=``, the
+multi-device path (ROADMAP Queue 1 item 6), with UnimplementedError.
 """
 
 from __future__ import annotations
@@ -71,14 +71,17 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core import uint128
+from ..core import backend_numpy, uint128
 from ..core.dpf import DistributedPointFunction
 from ..core.keys import DpfKey, EvaluationContext, PartialEvaluation
 from ..core.value_types import Int, XorWrapper
+from ..utils import faultinject
+from ..utils import telemetry as _tm
 from ..utils.devices import resolve_device
 from ..utils.errors import InvalidArgumentError, UnimplementedError
 from ..utils.timing import StepClock
 from . import aes_cuda, aes_torch, backend_torch, evaluator
+from . import pipeline as _pl
 
 MODES = ("fused", "hierkernel")
 
@@ -385,15 +388,19 @@ def evaluate_until_batch(
     `timings`: a dict that gets each step's seconds (utils/timing.py:
     "keys", "positions", "tables", "expand" (K2), "compact", "hash"
     (K4), "finalize", "state", "select", "pull"; on the card with "_card"
-    twins). `engine="host"` (the JAX package's native AES-NI engine) waits
-    for the port's host rung (ROADMAP Queue 1 item 5) and `mesh` for the
-    multi-device path (item 6): both raise UnimplementedError.
+    twins). `mesh`, the multi-device path (ROADMAP Queue 1 item 6), raises
+    UnimplementedError.
+
+    engine="host" runs the expansion on the host engine (numpy, the
+    branch of the JAX package's host engine without its native library;
+    core/host_eval.py) instead of the card — scalar Int/XorWrapper types
+    only, and outputs come back host-format at the native element width,
+    as the JAX package's: uint32[K, n_outputs] for bits <= 32, uint64[...]
+    for 64-bit types, uint32[K, n_outputs, 4] limb rows for 128-bit types.
+    The context it leaves (seeds and control as int32 tensors on the CPU)
+    continues on either engine; `device` and `timings` are not read.
     """
-    if engine != "device":
-        if engine == "host":
-            raise UnimplementedError(
-                "evaluate_until_batch(engine='host') needs the port of the host "
-                "engine (core/host_eval.py), ROADMAP Queue 1 item 5")
+    if engine not in ("device", "host"):
         raise InvalidArgumentError(f"engine must be 'device' or 'host', got {engine!r}")
     if mesh is not None:
         raise UnimplementedError(
@@ -420,6 +427,8 @@ def evaluate_until_batch(
             "Output size would be larger than 2**62. Please evaluate fewer "
             "hierarchy levels at once."
         )
+    if engine == "host":
+        return _evaluate_until_host(ctx, hierarchy_level, prefixes, prev_lds, lds)
     dev = resolve_device(device)
     clock = StepClock(timings, dev)
     stop_level = v.hierarchy_to_tree[hierarchy_level]
@@ -470,6 +479,57 @@ def evaluate_until_batch(
         out = aes_torch.from_words(outs)
     clock("pull")
     return out
+
+
+def _evaluate_until_host(ctx: BatchedContext, hierarchy_level: int, prefixes, prev_lds: int,
+                         lds: int):
+    """``evaluate_until_batch(engine="host")``: the JAX package's host
+    branch of ``evaluate_until_batch``, on ``evaluator._host_expand``."""
+    from ..core import host_eval
+
+    v = ctx.dpf.validator
+    value_type = v.parameters[hierarchy_level].value_type
+    if not isinstance(value_type, (Int, XorWrapper)):
+        raise InvalidArgumentError(
+            "engine='host' supports Int/XorWrapper outputs; use the device "
+            "engine for other value types"
+        )
+    bits, xor_group = value_type.bitsize, isinstance(value_type, XorWrapper)
+    stop_level = v.hierarchy_to_tree[hierarchy_level]
+    keep_per_block = 1 << (lds - stop_level)
+    batch = evaluator.KeyBatch.from_keys(ctx.dpf, ctx.keys, hierarchy_level, device="cpu")
+    k = len(ctx.keys)
+    tree = prefix_arr = tree_pos_of_prefix = None
+    if ctx.previous_hierarchy_level < 0:
+        start_level = 0
+        seeds0 = batch.seeds[:, None, :]
+        control0 = np.full((k, 1), bool(batch.party))
+    else:
+        start_level = v.hierarchy_to_tree[ctx.previous_hierarchy_level]
+        prefix_arr = _as_prefix_array(prefixes, prev_lds)
+        positions, tree, tree_pos_of_prefix = _positions_for_prefixes(
+            ctx.parent_tree, ctx.child_levels, prev_lds, start_level, prefix_arr,
+            hierarchy_level)
+        pos = torch.from_numpy(positions.astype(np.int64))
+        seeds0 = aes_torch.from_words(ctx.seeds.cpu().index_select(1, pos))
+        control0 = ctx.control.cpu().index_select(1, pos).numpy().astype(bool)
+    levels = stop_level - start_level
+    need_state = hierarchy_level < v.num_hierarchy_levels - 1
+    seeds, control = evaluator._host_expand(seeds0, control0, batch, levels, start_level)
+    hashed = backend_numpy.hash_expanded_seeds(seeds.reshape(-1, 4), 1).reshape(seeds.shape)
+    outs = host_eval.correct_scalar_blocks(hashed, control, batch.value_corrections, bits,
+                                           xor_group, batch.party, keep_per_block)
+    if prefix_arr is not None and prev_lds - start_level:
+        outs = outs[:, _block_select(prefix_arr, tree_pos_of_prefix, prev_lds, start_level, lds)]
+    if need_state:
+        ctx.parent_tree = tree if tree is not None else np.zeros(1, dtype=np.uint64)
+        ctx.child_levels = levels
+        ctx.seeds = torch.from_numpy(aes_torch.as_words(seeds))
+        ctx.control = torch.from_numpy(control.astype(np.int32))
+    else:
+        ctx.parent_tree, ctx.child_levels, ctx.seeds, ctx.control = None, 0, None, None
+    ctx.previous_hierarchy_level = hierarchy_level
+    return outs
 
 
 def bitwise_hierarchy_plan(levels: int, finals) -> list:
@@ -986,7 +1046,7 @@ def advance(ctx: BatchedContext, prepared: PreparedLevelsPlan, lk: LevelKeys,
     if chunk < 1:
         raise InvalidArgumentError(f"key_chunk must be positive, got {chunk}")
     per_chunk = []
-    for idx, valid in evaluator.chunk_indices(k, chunk):
+    for idx, valid in _pl.chunk_indices(k, chunk):
         rows = torch.from_numpy(idx).to(dev)
         seeds, control = seeds0[rows], control0[rows]
         cw, ccl, ccr = lk.cw[rows], lk.ccl[rows], lk.ccr[rows]
@@ -1038,12 +1098,13 @@ def _check_prepared(ctx: BatchedContext, prepared: PreparedLevelsPlan, mode: str
         )
 
 
+@_tm.traced("evaluate_levels_fused")
 def evaluate_levels_fused(
     ctx: BatchedContext,
     plan,
     group: int = 16,
     device_output: bool = False,
-    mode: str = "fused",
+    mode: Optional[str] = None,
     key_chunk: Optional[int] = None,
     device=None,
 ) -> list:
@@ -1061,8 +1122,8 @@ def evaluate_levels_fused(
     Args:
       group: advances per prefix window in mode "hierkernel".
       device_output: return int32 tensors on the device instead of numpy.
-      mode: "fused" (one K2 launch per tree level and one K4 launch per
-        hierarchy level, the rest in plain PyTorch; every width) or
+      mode: "fused" (the default: one K2 launch per tree level and one K4
+        launch per hierarchy level, the rest in plain PyTorch; every width) or
         "hierkernel" (one K8 launch per key chunk and prefix window;
         32-bit-multiple widths).
       key_chunk: keys per K8 launch in mode "hierkernel" (default: all);
@@ -1072,6 +1133,10 @@ def evaluate_levels_fused(
     Returns per plan entry the values as uint32[K, n_outputs, lpe] limbs,
     ordered by sorted prefix, then leaf.
     """
+    source = "explicit"
+    if mode is None:
+        mode, source = "fused", "default"
+    _tm.decision("evaluate_levels_fused", mode, source)
     if mode not in MODES:
         raise InvalidArgumentError(f"mode must be 'fused' or 'hierkernel', got {mode!r}")
     if isinstance(plan, PreparedLevelsPlan):
@@ -1092,7 +1157,18 @@ def evaluate_levels_fused(
     ctx.previous_hierarchy_level = prepared.final_level
     if device_output:
         return outs
-    return pull(outs)
+    return _corrupt_outs(pull(outs), evaluator._fi_backend(prepared.device))
+
+
+def _corrupt_outs(outs: list, backend: str) -> list:
+    """Output-corruption seam for the integrity layer: the hierarchical
+    path has no sentinel-probe hook, so the supervisor's host-oracle spot
+    check (ops/supervisor.evaluate_levels_fused_robust) is what detects
+    device-side corruption, and this is where the fault harness injects it.
+    One truthiness check when no plan is armed."""
+    if not faultinject.is_active():
+        return outs
+    return [faultinject.corrupt_output(o, backend=backend) for o in outs]
 
 
 def pull(outs: Sequence[torch.Tensor]) -> list:

@@ -33,7 +33,9 @@ by construction, and to the JAX package's from the same seeds.
 Device rule: the card modes run on ``device`` (``None`` = CUDA; they raise
 without a card unless ``device="cpu"``, where the kernels' plain versions
 run). The host modes ignore ``device``. Nothing falls back: a parameter set
-that K9 does not take raises and names the modes that do.
+that K9 does not take raises ``degrade.RungUnsupported`` and names the modes
+that do; ``ops/supervisor.generate_keys_robust`` is the explicit opt-in that
+walks down the modes.
 """
 
 from __future__ import annotations
@@ -50,12 +52,17 @@ import torch
 from ..core import keygen as core_keygen
 from ..core import uint128
 from ..utils.devices import resolve_device
-from ..utils.errors import InvalidArgumentError, UnimplementedError
+from ..utils import telemetry as _tm
+from ..utils.errors import InvalidArgumentError
 from . import aes_cuda, aes_torch
 
 #: Execution modes of the batched keygen entry points.
 KEYGEN_MODES = ("numpy", "numpy-threaded", "perlevel", "megakernel")
 HOST_MODES = ("numpy", "numpy-threaded")
+#: The degradation ladder, fastest rung first: ops/supervisor.keygen_chain
+#: slices its rungs from here, so a new mode takes a position in both
+#: tuples (the chain builder asserts that they agree).
+KEYGEN_RUNG_ORDER = ("megakernel", "perlevel", "numpy-threaded", "numpy")
 
 
 def _draw_seeds(k: int, seeds: Optional[np.ndarray]) -> np.ndarray:
@@ -229,21 +236,25 @@ class MegakernelBatch:
 
 def _megakernel_refusals(v) -> Tuple[int, Tuple[bool, ...]]:
     """(levels, captures) of a parameter set K9 takes; raises
-    UnimplementedError, naming the other modes, for one it does not."""
+    ``degrade.RungUnsupported``, naming the other modes, for one it does
+    not: the keygen chain (ops/supervisor.keygen_chain) then skips to its
+    next rung without a retry, as the JAX package's chain does."""
+    from .degrade import RungUnsupported
+
     other = "modes 'perlevel', 'numpy-threaded' and 'numpy' take it"
     levels = v.tree_levels_needed - 1
     if levels < 1:
-        raise UnimplementedError(
+        raise RungUnsupported(
             f"keygen megakernel needs at least one tree level; {other}"
         )
     if any(b != 1 for b in v.blocks_needed):
-        raise UnimplementedError(
+        raise RungUnsupported(
             "keygen megakernel requires blocks_needed == 1 at every output level "
             f"(wide-value input offsets are host-only); {other}"
         )
     hier_in_loop = [v.tree_to_hierarchy[d] for d in range(levels) if d in v.tree_to_hierarchy]
     if hier_in_loop != list(range(v.num_hierarchy_levels - 1)):
-        raise UnimplementedError(
+        raise RungUnsupported(
             "keygen megakernel requires one capture depth per hierarchy level, got "
             f"{hier_in_loop} of {v.num_hierarchy_levels}; {other}"
         )
@@ -412,7 +423,7 @@ def generate_keys_batch(
     dpf,
     alphas: Sequence[int],
     betas: Sequence,
-    mode: str = "megakernel",
+    mode: Optional[str] = None,
     seeds: Optional[np.ndarray] = None,
     threads: Optional[int] = None,
     device=None,
@@ -422,14 +433,18 @@ def generate_keys_batch(
     Arguments as ``DistributedPointFunction.generate_keys_batch`` (alphas: K
     points; betas: per hierarchy level, a scalar or K values; seeds: an
     optional uint32[K, 2, 4] CSPRNG override), plus `mode` (one of
-    ``KEYGEN_MODES``; every mode gives byte-identical keys), `threads` (mode
+    ``KEYGEN_MODES``, default "megakernel"; every mode gives byte-identical
+    keys; one telemetry decision record), `threads` (mode
     "numpy-threaded": workers, None = every core) and `device` (modes
     "perlevel" and "megakernel": None = CUDA, "cpu" runs the kernels'
     plain versions). Returns (keys of party 0, keys of party 1).
     """
-    return run_resolved(
-        dpf, validated_mode(mode), alphas, betas, seeds=seeds, threads=threads, device=device
-    )
+    source = "explicit"
+    if mode is None:
+        mode, source = "megakernel", "default"
+    mode = validated_mode(mode)
+    _tm.decision("generate_keys", mode, source)
+    return run_resolved(dpf, mode, alphas, betas, seeds=seeds, threads=threads, device=device)
 
 
 def generate_key_batches(dpf, alphas: Sequence[int], betas: Sequence, hierarchy_level: int = -1,

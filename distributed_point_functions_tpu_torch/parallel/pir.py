@@ -27,14 +27,20 @@ reads:
 
 The JAX package's default mode is ``"levels"``; the port keeps ``"fold"``.
 The fold of modes walk and fused (``_pir_fold``) is plain PyTorch,
-as the JAX package computes it in XLA outside any Pallas kernel. The JAX
-package's sentinel probe (``integrity=``) waits for the port's
-``utils/integrity.py`` (ROADMAP Queue 1 item 5), and its mesh-sharded modes
-for the multi-device path (item 6).
+as the JAX package computes it in XLA outside any Pallas kernel.
+
+Every mode runs its chunks through the pipelined executor
+(ops/pipeline.py, ``pipeline=``), each chunk's [key_chunk, lpe] answer
+pulled into pinned host memory right behind its kernels. ``integrity=``
+appends the sentinel probe key (utils/integrity.py) whose folded answer is
+checked against the host oracle over the natural-order database
+(``PreparedPirDatabase.natural_host``). The JAX package's mesh-sharded
+modes wait for the multi-device path (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -43,6 +49,9 @@ import torch
 from ..core.dpf import DistributedPointFunction
 from ..core.keys import DpfKey
 from ..ops import aes_torch, backend_torch, evaluator
+from ..ops import pipeline as _pl
+from ..utils import faultinject
+from ..utils import telemetry as _tm
 from ..utils.devices import resolve_device
 from ..utils.errors import InvalidArgumentError
 
@@ -185,15 +194,18 @@ def _check_prepared(dpf, pdb: PreparedPirDatabase, mode: str, host_levels, devic
         )
 
 
+@_tm.traced("pir_query_batch_chunked")
 def pir_query_batch_chunked(
     dpf: DistributedPointFunction,
     keys: Sequence[DpfKey],
     db_limbs,
     key_chunk: int = 64,
     host_levels: Optional[int] = None,
-    mode: str = "fold",
+    mode: Optional[str] = None,
     fuse_last_hash: bool = False,
     device=None,
+    integrity: Optional[bool] = None,
+    pipeline: Optional[bool] = None,
 ) -> np.ndarray:
     """PIR answers uint32[len(keys), lpe] of one server for a batch of keys.
 
@@ -203,16 +215,29 @@ def pir_query_batch_chunked(
     uint32[D, lpe] array, which is then laid out and uploaded on this call.
     With a prepared database the evaluation runs on the database's device,
     and `device`, if given, must name it. `mode` is one of ``MODES``:
-    "fold" (the port's default; the JAX package's is "levels"),
+    "fold" (the default; the JAX package's is "levels"),
     "megakernel", "levels", "walk" or "fused". `key_chunk` keys are
     evaluated at a time: in mode walk their values (key_chunk x D x 16
     bytes for XorWrapper(128)) are on the card at once, in mode fused one
     ``plan_slabs`` piece of them. `fuse_last_hash` is for modes fold and
-    levels (K3 for the last level)."""
+    levels (K3 for the last level).
+
+    `integrity` (None = DPF_TPU_INTEGRITY) appends one sentinel probe key
+    whose answer is checked against the host oracle's fold over the
+    natural-order database (cached on a prepared database); a mismatch
+    raises DataCorruptionError. `pipeline` (None = DPF_TPU_PIPELINE / on
+    for a CUDA device) overlaps chunk N+1's pack and upload with chunk N's
+    kernels and chunk N-1's pull; the answers are the same either way."""
+    from ..utils import integrity as _integrity
+
+    source = "explicit"
+    if mode is None:
+        mode, source = "fold", "default"
     if mode not in MODES:
         raise InvalidArgumentError(
             f"mode must be one of {', '.join(repr(m) for m in MODES)}, got {mode!r}"
         )
+    _tm.decision("pir_query_batch_chunked", mode, source)
     if isinstance(db_limbs, PreparedPirDatabase):
         pdb = db_limbs
         _check_prepared(dpf, pdb, mode, host_levels, device)
@@ -225,42 +250,97 @@ def pir_query_batch_chunked(
         pdb = prepare_pir_database(dpf, db_limbs, host_levels, order=MODE_ORDER[mode],
                                    device=device)
     db, dev = pdb.lane_db, pdb.lane_db.device
+    backend = evaluator._fi_backend(dev)
+    pipe = _pl.resolve(pipeline, dev)
+    keys, probe = _integrity.setup_probe(
+        dpf, -1, keys, integrity, "pir_query_batch_chunked", backend=backend, device=dev,
+    )
+    db_nat = None
+    if probe is not None:
+        db_nat = (pdb.natural_host(dpf) if isinstance(db_limbs, PreparedPirDatabase)
+                  else np.asarray(db_limbs, dtype=np.uint32))
+
     if mode in ("fold", "levels", "megakernel"):
-        folds = evaluator.full_domain_fold_chunks(
-            dpf, keys, key_chunk=key_chunk, host_levels=pdb.host_levels,
-            db_lane=db, fuse_last_hash=fuse_last_hash,
-            mode="megakernel" if mode == "megakernel" else "fold", device=dev,
-        )
+        fs = evaluator._fold_setup(
+            dpf, keys, -1, key_chunk, pdb.host_levels, db, fuse_last_hash,
+            "megakernel" if mode == "megakernel" else "fold", dev)
+        thunks = evaluator._fold_thunks(fs, pipe, pull=True)
     elif mode == "fused":
-        folds = _fused_folds(dpf, keys, db, key_chunk, host_levels, dev)
+        thunks = _fused_thunks(dpf, keys, db, key_chunk, host_levels, dev, pipe)
     else:
-        folds = (
-            (valid, _pir_fold(vals, db))
-            for valid, vals in evaluator.full_domain_evaluate_chunks(
-                dpf, keys, key_chunk=key_chunk, leaf_order=True, mode="walk", device=dev,
-            )
-        )
-    rows = [aes_torch.from_words(fold)[:valid] for valid, fold in folds]
-    return np.concatenate(rows, axis=0)
+        values, _, _ = evaluator._evaluate_thunks(
+            dpf, keys, -1, key_chunk, None, True, "walk", None, dev, pipe, pull=False)
+        thunks = (_folded(t, db) for t in values)
+
+    def _pull(item):
+        valid, pull = item[0], item[1]
+        return (aes_torch.from_words(pull.result()[:valid]).copy(),) + tuple(item[2:])
+
+    rows, acc = [], None
+    for row, *last in _pl.map_chunks(thunks, _pull, pipe, backend=backend,
+                                     op="pir_query_batch_chunked", device=dev):
+        if not last:
+            rows.append(row)
+            continue
+        # Mode fused: a chunk's pieces XOR into its answer.
+        acc = row if acc is None else acc ^ row
+        if last[0]:
+            rows.append(acc)
+            acc = None
+    return _pir_verify_fold(probe, np.concatenate(rows, axis=0), db_nat, backend)
 
 
-def _fused_folds(dpf, keys, db: torch.Tensor, key_chunk: int, host_levels, dev):
+def _folded(thunk, db: torch.Tensor):
+    """A values thunk of mode walk followed by its chunk's fold against the
+    natural-order database, the answer pulled right behind it."""
+
+    def run():
+        valid, vals = thunk()
+        return valid, _pl.HostPull(_pir_fold(vals, db))
+
+    return run
+
+
+def _pir_verify_fold(probe, responses: np.ndarray, db_natural, backend: str) -> np.ndarray:
+    """Strips and checks the probe's answer row: its XOR fold against the
+    natural-order database is recomputed from the host oracle
+    (utils/integrity.verify_probe_fold). Returns the answers without the
+    probe row; raises DataCorruptionError on a mismatch. Armed
+    ``device_output`` fault plans corrupt the answers first (the "bit4"
+    pattern has no position axis here: use pattern="lane")."""
+    from ..utils import integrity as _integrity
+
+    responses = faultinject.corrupt_output(responses[:, None, :], backend=backend)[:, 0, :]
+    if probe is None:
+        return responses
+    _integrity.verify_probe_fold(probe, responses[-1], db_limbs=db_natural,
+                                 context="pir_query_batch_chunked",
+                                 key_index=responses.shape[0] - 1)
+    return responses[:-1]
+
+
+def _fused_thunks(dpf, keys, db: torch.Tensor, key_chunk: int, host_levels, dev, pipe):
     """Mode "fused": per key chunk, the ``lane_slab`` pieces of
     ``full_domain_evaluate_chunks(mode="fused")`` under ``plan_slabs``,
-    each folded against its rows of the natural-order database and XORed
-    into the chunk's answer. Yields (valid, fold int32[key_chunk, lpe])."""
+    each folded against its rows of the natural-order database, one thunk
+    a piece. Each returns (valid, HostPull of the piece's int32[key_chunk,
+    lpe] fold, whether it is the chunk's last piece); the consumer XORs a
+    chunk's pieces."""
     floor = {} if host_levels is None else {"min_host_levels": host_levels}
     h, slab = evaluator.plan_slabs(dpf, max(1, min(key_chunk, len(keys))), device=dev,
                                    **floor)
-    acc, off = None, 0
-    for valid, vals in evaluator.full_domain_evaluate_chunks(
-        dpf, keys, key_chunk=key_chunk, host_levels=h, mode="fused", lane_slab=slab,
-        device=dev,
-    ):
+    pieces, _, _ = evaluator._evaluate_thunks(dpf, keys, -1, key_chunk, h, True, "fused", slab,
+                                              dev, pipe, pull=False)
+    state = {"off": 0}
+
+    def run(thunk):
+        valid, vals = thunk()
+        off = state["off"]
         fold = _pir_fold(vals, db[off : off + vals.shape[1]])
         off += vals.shape[1]
         del vals
-        acc = fold if acc is None else acc ^ fold
-        if off >= db.shape[0]:  # the chunk's last piece
-            yield valid, acc
-            acc, off = None, 0
+        last = off >= db.shape[0]
+        state["off"] = 0 if last else off
+        return valid, _pl.HostPull(fold), last
+
+    return (functools.partial(run, t) for t in pieces)

@@ -17,6 +17,10 @@ class InvalidArgumentError(DpfError, ValueError):
     """Mirrors absl::InvalidArgumentError."""
 
 
+class FailedPreconditionError(DpfError, RuntimeError):
+    """Mirrors absl::FailedPreconditionError."""
+
+
 class UnimplementedError(DpfError, NotImplementedError):
     """Mirrors absl::UnimplementedError."""
 
@@ -26,6 +30,49 @@ class InternalError(DpfError, RuntimeError):
     broken (a kernel build that produced no library, an unknown table)."""
 
 
+class DataLossError(DpfError, RuntimeError):
+    """Mirrors absl::DataLossError: unrecoverable loss or corruption of
+    data — truncated wire bytes, garbled serialized keys."""
+
+
 class UnavailableError(DpfError, RuntimeError):
     """Mirrors absl::UnavailableError: a backend or engine is unreachable —
-    here, a CUDA device that the caller asked for and the process lacks."""
+    a CUDA device that the caller asked for and the process lacks, a failed
+    kernel launch, or a device wait past its deadline; the operation may
+    succeed on a retry or on a fallback rung (ops/degrade.py)."""
+
+
+class ResourceExhaustedError(DpfError, RuntimeError):
+    """Mirrors absl::ResourceExhaustedError: out of device memory or a
+    similar quota; retrying with a smaller batch may succeed."""
+
+
+class DataCorruptionError(DataLossError):
+    """Silent wrong results detected by the runtime integrity checks.
+
+    Raised when a sentinel probe key's device output disagrees with the
+    host oracle (utils/integrity.py), or a host-oracle spot check of a
+    robust wrapper fails (ops/supervisor.py). Carries the diagnostics an
+    operator needs:
+
+      key_index  — which row of the batch mismatched (the probe's row)
+      lanes      — corrupted output positions (possibly truncated)
+      pattern    — human-readable structure of the corruption, e.g.
+                   "all corrupted positions have index bit 4 set"
+      backend    — the rung's backend that produced the bad output
+    """
+
+    def __init__(
+        self,
+        message: str,
+        *,
+        key_index=None,
+        lanes=None,
+        pattern: str = "",
+        backend: str = "",
+    ):
+        super().__init__(message)
+        self.key_index = key_index
+        self.lanes = [] if lanes is None else list(lanes)
+        self.pattern = pattern
+        self.backend = backend

@@ -9,7 +9,9 @@ hierarchical advance (K2 and K4 in mode="fused", K8 in mode="hierkernel";
 one level a call through evaluate_until_batch), the host API's
 TorchBackend (K6, K2, K4), PIR in modes levels, walk and fused, and batched
 keygen (K2's one-key view and K4 in mode="perlevel", K9 in
-mode="megakernel") against the same paths on the CPU.
+mode="megakernel") against the same paths on the CPU; the pipelined
+executor against the serial one at the fold's full plan, and a real
+out-of-memory error through the degradation chain.
 
 Every test here needs a card and skips without one. The file imports no
 JAX, so on a machine without JAX it runs without the suite's conftest:
@@ -679,3 +681,66 @@ def test_pir_natural_modes_on_the_card_match_the_cpu(cuda, mode):
     rb = pir.pir_query_batch_chunked(dpf, qb, pir.prepare_pir_database(dpf, db, order=order,
                                                                        device=cuda), mode=mode)
     assert np.array_equal(answers[0] ^ rb, db[targets])
+
+
+@pytest.mark.parametrize("mode", ["fold", "megakernel"])
+def test_pipelined_fold_at_the_full_plan_matches_serial(cuda, mode):
+    """The pinned-ring executor at the fold's full plan (log-domain 20,
+    Int(64), key chunk 128, three chunks): pipeline=True equals
+    pipeline=False chunk for chunk, with the same launches."""
+    from distributed_point_functions_tpu_torch.ops import pipeline
+
+    dpf = port.DistributedPointFunction.create(port.DpfParameters(20, port.Int(64)))
+    rng = np.random.default_rng(20)
+    n = 300
+    keys, _ = dpf.generate_keys_batch([int(a) for a in rng.integers(0, 1 << 20, size=n)],
+                                      [[int(b) for b in rng.integers(1, 2**63, size=n,
+                                                                     dtype=np.uint64)]],
+                                      seeds=rng.integers(0, 2**32, size=(n, 2, 4),
+                                                         dtype=np.uint32))
+    runs, launches = [], []
+    for pipe in (False, True):
+        aes_cuda.reset_launch_counts()
+        runs.append([(v, from_words(f).copy()) for v, f in evaluator.full_domain_fold_chunks(
+            dpf, keys, key_chunk=128, mode=mode, device=cuda, pipeline=pipe)])
+        launches.append([k.launches for k in aes_cuda.KERNELS])
+    assert launches[0] == launches[1] and sum(launches[0]) > 0
+    assert [v for v, _ in runs[0]] == [v for v, _ in runs[1]] == [128, 128, 44]
+    assert all(np.array_equal(a, b) for (_, a), (_, b) in zip(*runs))
+    assert pipeline.resolve(None, cuda) is True
+
+
+def test_real_out_of_memory_is_classified_and_halved(cuda):
+    """A real torch.OutOfMemoryError (an allocation past the card's memory)
+    is ResourceExhaustedError to the chain, which halves the chunk; and the
+    robust full domain answers bit-exact after the halvings."""
+    from distributed_point_functions_tpu_torch.ops import degrade
+    from distributed_point_functions_tpu_torch.utils.errors import ResourceExhaustedError
+
+    total = torch.cuda.get_device_properties(cuda).total_memory
+    with pytest.raises(torch.OutOfMemoryError) as ei:
+        torch.empty(2 * total, dtype=torch.uint8, device=cuda)
+    assert isinstance(degrade.classify_exception(ei.value), ResourceExhaustedError)
+    torch.cuda.empty_cache()
+
+    dpf = port.DistributedPointFunction.create(port.DpfParameters(12, port.Int(64)))
+    keys, _ = dpf.generate_keys_batch([1, 2, 3, 4], [[5, 6, 7, 8]],
+                                      seeds=np.arange(32, dtype=np.uint32).reshape(4, 2, 4))
+    calls = []
+    real = evaluator.full_domain_evaluate
+
+    def oom_over_two(dpf_, keys_, *a, key_chunk=32, **kw):
+        calls.append(key_chunk)
+        if key_chunk > 2:
+            torch.empty(2 * total, dtype=torch.uint8, device=cuda)  # a real OOM
+        return real(dpf_, keys_, *a, key_chunk=key_chunk, **kw)
+
+    evaluator.full_domain_evaluate = oom_over_two
+    try:
+        got = degrade.full_domain_evaluate_robust(
+            dpf, keys, key_chunk=8, device=cuda,
+            policy=degrade.DegradationPolicy(backoff_seconds=0.0))
+    finally:
+        evaluator.full_domain_evaluate = real
+    assert calls == [8, 4, 2]
+    assert np.array_equal(got, evaluator.full_domain_evaluate(dpf, keys, device="cpu"))

@@ -315,7 +315,7 @@ def refusal(name):
         return (lambda: port_batch.batch_evaluate(flat, fk, [1], mode=MODES[1], device="cpu"),
                 InvalidArgumentError, "at least one tree level")
     if name == "host engine":
-        return lambda: dcf.batch_evaluate(keys, xs, engine="host"), UnimplementedError, "Queue 1 item 10"
+        return lambda: dcf.batch_evaluate(keys, xs, engine="host"), UnimplementedError, "Queue 1 item 9"
     if name == "outside the domain":
         return (lambda: port_batch.batch_evaluate(dcf, keys, [1 << 9], device="cpu"),
                 InvalidArgumentError, "outside the domain")

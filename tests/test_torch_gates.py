@@ -29,6 +29,7 @@ from distributed_point_functions_tpu_torch import gates as port_gates
 from distributed_point_functions_tpu_torch.dcf import batch as port_batch
 from distributed_point_functions_tpu_torch.gates import framework as port_framework
 from distributed_point_functions_tpu_torch.ops import aes_cuda, keygen_batch
+from distributed_point_functions_tpu_torch.ops.degrade import RungUnsupported
 from distributed_point_functions_tpu_torch.protos import serialization as port_ser
 from distributed_point_functions_tpu_torch.utils import errors as port_errors
 from torch_fold_case import one_torch_thread  # noqa: F401 (autouse fixture)
@@ -280,10 +281,11 @@ def test_dealer_modes_deal_the_same_bytes(name, keygen_mode):
 
 
 def test_megakernel_dealer_refuses_a_multi_block_payload():
-    """K9 takes one value block: sigmoid's 16 Int(32)s are 4, refused with
-    the other modes named, as the port's keygen does."""
+    """K9 takes one value block: sigmoid's 16 Int(32)s are 4, refused
+    (``degrade.RungUnsupported``, as the JAX package's K9 refuses) with the
+    other modes named, as the port's keygen does."""
     c = gate_case("sigmoid")
-    with pytest.raises(port_errors.UnimplementedError, match="perlevel"):
+    with pytest.raises(RungUnsupported, match="perlevel"):
         c["pgate"].gen(c["r_in"], c["r_outs"], keygen_mode=keygen_batch.KEYGEN_MODES[3],
                        device="cpu")
 

@@ -1,7 +1,9 @@
 """The PyTorch/CUDA port stands alone: it imports neither JAX nor the JAX
 package (its fold, full-domain, PIR, EvaluateAt, DCF, hierarchical,
-keygen, gate and wire-format paths driven in a fresh process), and its entry points do not run on the CPU
-unless asked to.
+keygen, gate and wire-format paths, the host engine, the robust wrappers,
+the executor, the deadline watchdog, telemetry, integrity, fault
+injection, profiling and the environment flags driven in a fresh process), and its entry points do not
+run on the CPU unless asked to.
 
 The import guard runs in a subprocess: tests/conftest.py imports jax into
 every pytest process.
@@ -75,6 +77,31 @@ for gate in (gates.DReluGate.create(6), gates.SigmoidGate.create(8, frac_bits=2)
             else [gate.plaintext(x) for x in x_real])
     assert [(int(a) + int(b) - 7) % gate.n for a, b in zip(s0[:, 0], s1[:, 0])] == want
     assert gates.bundle_eval(gate, [g0], [9], device="cpu").shape == (1, 1)
+from distributed_point_functions_tpu_torch.core import host_eval
+from distributed_point_functions_tpu_torch.ops import degrade, pipeline, supervisor
+from distributed_point_functions_tpu_torch.utils import (
+    deadline, envflags, faultinject, integrity, profiling, telemetry,
+)
+with telemetry.capture() as tel:
+    fd = supervisor.full_domain_evaluate_robust(dpf, keys, device="cpu", pipeline=True)
+    assert np.array_equal(fd, host_eval.values_to_limbs(host_eval.full_domain_evaluate_host(dpf, keys), 64))
+    assert degrade.evaluate_at_robust(dpf, keys, [3, 4], device="cpu").shape == (1, 2, 2)
+assert tel.snapshot()["dispatch_count"] >= 2
+pdpf = port.DistributedPointFunction.create(port.DpfParameters(6, port.XorWrapper(128)))
+pkeys, _ = pdpf.generate_keys_batch([3], [[1]], seeds=np.ones((1, 2, 4), np.uint32))
+db = np.arange(256, dtype=np.uint32).reshape(64, 4)
+with faultinject.inject(faultinject.FaultPlan(stage="device_output", pattern="lane", max_fires=1)):
+    ans = supervisor.pir_query_batch_robust(pdpf, pkeys, db, mode="megakernel", device="cpu")
+assert ans.shape == (1, 4)
+ctx = hierarchical.BatchedContext.create(hdpf, hkeys)
+assert hierarchical.evaluate_until_batch(ctx, 0, engine="host").shape == (1, 2)
+assert supervisor.batch_evaluate_robust(dcf, dkeys, [3, 4], device="cpu").shape == (1, 2, 2)
+assert len(supervisor.generate_keys_robust(dpf, [3], [[5]], seeds=np.ones((1, 2, 4), np.uint32), device="cpu")[0]) == 1
+assert envflags.env_bool("DPF_TPU_UNSET_FLAG") is False and profiling.Stopwatch().lap("x") >= 0
+assert list(pipeline.chunk_indices(3, 2))[1][1] == 1
+with deadline.deadline_scope(5.0):
+    assert deadline.current_deadline() == 5.0 and deadline.deadline_call(lambda: 7, "x") == 7
+integrity.selftest_device("cpu")
 jax_package = "distributed_point_functions_tpu"
 bad = sorted(
     m for m in sys.modules

@@ -30,10 +30,10 @@ from distributed_point_functions_tpu.dcf.dcf import DistributedComparisonFunctio
 from distributed_point_functions_tpu.ops import aes_pallas
 import distributed_point_functions_tpu_torch as port
 from distributed_point_functions_tpu_torch.ops import aes_torch, evaluator, keygen_batch
+from distributed_point_functions_tpu_torch.ops.degrade import RungUnsupported
 from distributed_point_functions_tpu_torch.utils.errors import (
     InvalidArgumentError,
     UnavailableError,
-    UnimplementedError,
 )
 from torch_fold_case import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -151,14 +151,16 @@ def test_threaded_dealer_is_byte_identical_at_any_thread_count():
 
 
 def test_refusals():
-    """K9 refuses what it cannot run and names the modes that can; an
-    unknown mode and a card mode with no card raise; nothing falls back."""
+    """K9 refuses what it cannot run with ``degrade.RungUnsupported`` (the
+    JAX package's refusal, which the keygen chain skips) and names the
+    modes that can; an unknown mode and a card mode with no card raise;
+    nothing falls back."""
     wide = port.DistributedPointFunction.create(
         port.DpfParameters(8, port.TupleType(port.Int(128), port.Int(64))))
-    with pytest.raises(UnimplementedError, match="blocks_needed.*'perlevel'"):
+    with pytest.raises(RungUnsupported, match="blocks_needed.*'perlevel'"):
         keygen_batch.generate_keys_batch(wide, [3], [[(1, 2)]], device="cpu")
     flat = port.DistributedPointFunction.create(port.DpfParameters(1, port.Int(64)))
-    with pytest.raises(UnimplementedError, match="at least one tree level"):
+    with pytest.raises(RungUnsupported, match="at least one tree level"):
         keygen_batch.generate_keys_batch(flat, [1], [[7]], device="cpu")
     # The modes K9 names take both.
     for dpf, betas in ((wide, [[(1, 2)]]), (flat, [[7]])):

@@ -261,14 +261,15 @@ def test_the_scalar_fast_path_and_the_codec_give_the_same_bytes(name, monkeypatc
 
 
 def test_refusals():
-    """engine="host" (item 5) and mesh= (item 6) raise UnimplementedError; an
+    """engine="host" refuses a codec type as the JAX package's host engine
+    does (InvalidArgumentError), mesh= (item 6) raises UnimplementedError; an
     unknown engine, a level not past the context's, prefixes on a first call
     and none after it, repeated prefixes, a prefix the context lacks and
     keys of both parties raise InvalidArgumentError."""
     c = codec_case("IntModN(32)")
     dpf, keys = c["port_dpf"], c["port_keys"][0]
     ctx = port_hier.BatchedContext.create(dpf, keys)
-    with pytest.raises(UnimplementedError, match="item 5"):
+    with pytest.raises(InvalidArgumentError, match="engine='host' supports Int/XorWrapper"):
         port_hier.evaluate_until_batch(ctx, 0, engine="host", device="cpu")
     with pytest.raises(UnimplementedError, match="item 6"):
         port_hier.evaluate_until_batch(ctx, 0, mesh=object(), device="cpu")
