@@ -211,7 +211,29 @@ Phases (any failure raises and exits non-zero before the result line):
    with the launches of the other 2 only); and
    ``evaluate_until_batch(engine="host")`` at BASELINE config 1's shape
    equal to the card. No run without an armed fault emits a retry,
-   degrade or chunk-halved event.
+   degrade or chunk-halved event;
+20. the serving plane: (a) BASELINE config 5 over two server processes
+   (``python -m distributed_point_functions_tpu_torch.serving.server``,
+   party 0 and party 1 on loopback ports, the kernel library built here
+   first): 64 queries as 16 concurrent requests of 4 through
+   ``TwoServerClient``, merged by each server's batcher, every answer
+   reconstructing its record, the merged widths, request latency p50 and
+   p95, the wall a merged batch beside the direct calls at that width in
+   this process, and the servers' launches equal to the direct robust
+   calls'; (b) ``benchmarks/bench_serving.py``'s mixed stream and one
+   request of each other kind (a DReLU gate, PIR on phase 4's database,
+   BM_HeavyHitters' first 16 levels, 64 keys dealt at depth 20) through
+   ``FrontDoor(engine="device")``: every merged batch equal to the direct
+   entry-point call on the same merged batch, bit for bit, at the same
+   launch counts, requests/s, p50, p95 and the batch-width histogram beside
+   the same schedule served one request at a time; (c) the router's anchors
+   (each op forced onto each device mode and onto the host engine, the
+   dispatch prior), auto-routed batches with their decision records, and
+   the learned state through a calibration file; (d) SIGTERM to one server
+   with requests in flight (they finish, it reports not-ready and exits 0)
+   and its restart on the same port, where the client's retry carries its
+   next call bit-exact. ``python3 chip_smoke.py --phase 20`` runs the
+   build and this phase alone.
 
 Each path of the main path (fold default, fused and megakernel; PIR fold
 and megakernel; EvaluateAt walk and walkkernel, and the codec walk; DCF
@@ -219,7 +241,8 @@ walk and walkkernel; heavy hitters fused and hierkernel; keygen
 megakernel, perlevel and numpy-threaded at each configuration; config 3's
 fused pass at each level, and its walk, slab, prepared and levels checks;
 each gate's modes, the gate dealers on the card and the two layers; each
-path of phases 17, 18 and 19) runs
+path of phases 17, 18, 19 and 20, whose servers report their launches in
+their stats) runs
 with every launch count set to 0
 just before it, and every kernel of that path must have launched just after
 it. The line before
@@ -1696,6 +1719,751 @@ def phase_19(torch, T, dev, fold_case, p4, cfg, counts: PathCounts, log: EventLo
     return launches
 
 
+# Phase 20: the serving plane on the card. 20a: BASELINE config 5 over two
+# server processes on loopback (`python -m ...serving.server`, ephemeral ports,
+# --ready-file, --pir-db cfg5:24:<seed>, key chunk 8 as phase 18 ran it); 16
+# concurrent requests of 4 queries merge in each server's batcher (a width
+# target of 64 and a 200 ms wait let one merged batch take them all). 20b:
+# benchmarks/bench_serving.py's mixed stream (:54-78, :734-770: 200 requests,
+# log-domain 14, Int(64), a pool of 32 DPF and 4 DCF keys, default_rng(17), a
+# mean gap of 5 ms, width 64, max_wait_ms 10, key chunk 32, undelayed) plus one
+# request a kind for a DReLU gate at log-group 16, PIR on phase 4's database,
+# BM_HeavyHitters' first 16 levels and 64 keys dealt at depth 20, through an
+# in-process FrontDoor(engine="device"). 20c: the router's anchors, each op
+# forced onto each device mode at these configurations and onto the host
+# engine at a small shape. 20d: SIGTERM and restart of one 20a server.
+PHASE20 = dict(
+    server_device="cuda", start_timeout=300.0, request_timeout=900.0,
+    c5_log_domain=24, c5_queries=64, c5_chunk=8, c5_requests=16, c5_wait_ms=200.0,
+    c5_db_spec=f"cfg5:24:{SEED}",
+    stream_requests=200, stream_log_domain=14, stream_pool=32, stream_dcf_keys=4,
+    stream_seed=17, stream_gap_ms=5.0, stream_width=64, stream_wait_ms=10.0,
+    stream_chunk=32, gate_log_group=16, gate_inputs=64, pir_keys=4, hh_levels=16,
+    hh_keys=8, hh_nonzeros=10_000, keygen_keys=64, keygen_log_domain=20,
+    drain_requests=4,
+    # 20c: (device shape, host shape) per op.
+    anchor_fd=((20, 32), (12, 4)), anchor_ea=((32, 1024, 4096), (32, 8, 64)),
+    anchor_dcf=((24, 512, 512), (24, 2, 16)), anchor_pir_host=(12, 4),
+    anchor_hh=((16, 64), (6, 2)), anchor_kg=((20, 1024), (20, 64)),
+    dispatch_reps=20,
+)
+
+
+def _serving_pcts(latencies) -> tuple:
+    v = np.sort(np.asarray(latencies)) * 1e3
+    return float(np.percentile(v, 50)), float(np.percentile(v, 95))
+
+
+class _Servers:
+    """The party processes of phase 20a, stopped on any exit."""
+
+    def __init__(self, cfg, tmp: str):
+        self.cfg, self.tmp = cfg, tmp
+        self.procs = {}
+
+    def start(self, name: str, port: int = 0, wait: bool = True):
+        cfg = self.cfg
+        ready = os.path.join(self.tmp, f"{name}.ready")
+        if os.path.exists(ready):
+            os.remove(ready)
+        cmd = [sys.executable, "-m", "distributed_point_functions_tpu_torch.serving.server",
+               "--port", str(port), "--ready-file", ready, "--device", cfg["server_device"],
+               "--engine", "device", "--key-chunk", str(cfg["c5_chunk"]),
+               "--max-wait-ms", str(cfg["c5_wait_ms"]), "--width-target",
+               str(cfg["c5_queries"]), "--pir-db", cfg["c5_db_spec"]]
+        log = open(os.path.join(self.tmp, f"{name}.log"), "ab")
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.procs[name] = (proc, ready)
+        return self.wait_ready(name) if wait else None
+
+    def wait_ready(self, name: str) -> int:
+        proc, ready = self.procs[name]
+        t0 = time.perf_counter()
+        while not os.path.exists(ready):
+            if proc.poll() is not None:
+                fail(f"server {name} exited with {proc.returncode} before it listened:\n"
+                     + self.log_tail(name))
+            if time.perf_counter() - t0 > self.cfg["start_timeout"]:
+                fail(f"server {name} did not listen within {self.cfg['start_timeout']} s")
+            time.sleep(0.05)
+        return int(open(ready).read())
+
+    def log_tail(self, name: str) -> str:
+        with open(os.path.join(self.tmp, f"{name}.log"), "rb") as f:
+            return f.read()[-3000:].decode("utf-8", "replace")
+
+    def stop(self, name: str, timeout: float = 60.0) -> int:
+        import signal
+
+        proc, _ = self.procs.pop(name)
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            return proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail(f"server {name} did not stop within {timeout} s of SIGTERM")
+
+    def stop_all(self) -> None:
+        for name in list(self.procs):
+            proc, _ = self.procs.pop(name)
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _launch_diff(after: dict, before: dict) -> dict:
+    return {n: c - before.get(n, 0) for n, c in after.items() if c - before.get(n, 0)}
+
+
+def phase_20(torch, T, dev, p4, cfg, counts: PathCounts, card: str = "") -> dict:
+    """The serving plane (module docstring, phase 20): 20a config 5 over two
+    server processes, 20b the mixed stream through an in-process front door,
+    20c the router's anchors and an auto-routed batch a op, 20d drain and
+    restart. `p4`: phase 4's DPF, database, targets and keys. Returns the
+    launches of the servers' kernels and the anchors measured."""
+    import threading
+
+    from distributed_point_functions_tpu_torch import gates, serving
+    from distributed_point_functions_tpu_torch.ops import aes_cuda
+    from distributed_point_functions_tpu_torch.parallel import pir
+    from distributed_point_functions_tpu_torch.serving import server as server_mod
+
+    out = {"server_launches": {}}
+    with tempfile.TemporaryDirectory(prefix="dpf-phase20-") as tmp:
+        servers = _Servers(cfg, tmp)
+        try:
+            _phase_20a_d(torch, T, dev, cfg, counts, servers, out, serving, pir, aes_cuda,
+                         server_mod, threading, card)
+        finally:
+            servers.stop_all()
+    print(card)
+    _phase_20b(torch, T, dev, p4, cfg, counts, serving, gates, aes_cuda, pir)
+    print(card)
+    with tempfile.TemporaryDirectory(prefix="dpf-phase20c-") as tmp:
+        out["anchors"] = _phase_20c(torch, T, dev, p4, cfg, serving, tmp)
+    print(card)
+    return out
+
+
+def _phase_20a_d(torch, T, dev, cfg, counts, servers, out, serving, pir, aes_cuda, server_mod,
+                 threading, card) -> None:
+    from distributed_point_functions_tpu_torch.ops import supervisor
+    from distributed_point_functions_tpu_torch.serving import frontdoor
+
+    # -- 20a. BASELINE config 5 over two server processes.
+    lds, nq, nreq = cfg["c5_log_domain"], cfg["c5_queries"], cfg["c5_requests"]
+    per = nq // nreq
+    name, db = server_mod._parse_pir_db(cfg["c5_db_spec"])
+    rng = np.random.default_rng(SEED + 20)
+    dpf = T.DistributedPointFunction.create(T.DpfParameters(lds, T.XorWrapper(128)))
+    params = dpf.validator.parameters
+    targets = [int(x) for x in rng.integers(0, 1 << lds, size=nq)]
+    k0, k1 = dpf.generate_keys_batch(targets, [(1 << 128) - 1], seeds=rng.integers(
+        0, 2**32, size=(nq, 2, 4), dtype=np.uint32))
+    t0 = time.perf_counter()
+    ports = [servers.start(f"party{p}", wait=False) for p in (0, 1)]
+    ports = [servers.wait_ready(f"party{p}") for p in (0, 1)]
+    start_s = time.perf_counter() - t0
+    policy = serving.RetryPolicy(attempts=4, attempt_timeout=cfg["request_timeout"],
+                                 connect_attempts=480, connect_backoff=0.25, seed=0)
+    endpoints = [("127.0.0.1", p) for p in ports]
+    clients = [serving.TwoServerClient(endpoints, policy=policy) for _ in range(nreq)]
+    stats = lambda i: clients[0].clients[i].stats(timeout=60)
+    t0 = time.perf_counter()
+    warm = clients[0].pir(params, (k0[:per], k1[:per]), name, deadline=cfg["request_timeout"])
+    warm_s = time.perf_counter() - t0
+    if not np.array_equal(warm[0] ^ warm[1], db[targets[:per]]):
+        fail("config 5 over two servers: the warm-up answers do not reconstruct")
+    print(f"phase 20a, BASELINE config 5 over two server processes (2^{lds} x XorWrapper(128), "
+          f"{nq} queries as {nreq} concurrent requests of {per}, key chunk {cfg['c5_chunk']}, "
+          f"mode fold (the PIR default), width target {nq}, max wait {cfg['c5_wait_ms']:.0f} ms): servers "
+          f"listening {start_s:.1f} s after start; the warm-up request (the card's kernel "
+          f"library, the database's lane layout and the probe's host oracle) {warm_s:.2f} s",
+          flush=True)
+    for c in clients:
+        for dc in c.clients:
+            dc.connect()
+    before = [stats(i) for i in (0, 1)]
+    answers = [None] * nreq
+    lat = [0.0] * nreq
+    errors = []
+    barrier = threading.Barrier(nreq)
+
+    def one(i):
+        try:
+            barrier.wait()
+            t = time.perf_counter()
+            s = slice(i * per, (i + 1) * per)
+            answers[i] = clients[i].pir(params, (k0[s], k1[s]), name,
+                                        deadline=cfg["request_timeout"])
+            lat[i] = time.perf_counter() - t
+        except BaseException as exc:  # noqa: BLE001 (reported below)
+            errors.append(exc)
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(nreq)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        fail(f"config 5 over two servers: {errors[0]!r}")
+    after = [stats(i) for i in (0, 1)]
+    rec = np.concatenate([a[0] ^ a[1] for a in answers])
+    if not np.array_equal(rec, db[targets]):
+        fail(f"config 5 over two servers: {int((rec != db[targets]).any(axis=1).sum())} of {nq} "
+             "answers do not reconstruct their record")
+    batches = [a["batches"][len(b["batches"]):] for a, b in zip(after, before)]
+    served = [_launch_diff(a["launches"], b["launches"]) for a, b in zip(after, before)]
+    # The direct calls at the merged batches' widths, in this process: the
+    # entry point the door's robust wrapper runs, its sentinel probe riding as
+    # one more key (integrity._probe_pair, the key the wrapper appends; its
+    # host-oracle check, which the servers made, is left out here), and
+    # phase 18's call without the probe.
+    from distributed_point_functions_tpu_torch.utils import integrity
+
+    pdb = pir.prepare_pir_database(dpf, db, order="lane", device=dev)
+    probe_pair, _ = integrity._probe_pair(dpf)
+    direct, direct_s, chunked_s = [], [], []
+    for party, keys in ((0, k0), (1, k1)):
+        want = {}
+        for b in batches[party]:
+            merged = frontdoor._pad_keys(list(keys[: b["width"]]), True, chunk=cfg["c5_chunk"])
+            counts_before = {k.name: k.launches for k in aes_cuda.KERNELS}
+            sync(torch, dev)
+            t = time.perf_counter()
+            got = pir.pir_query_batch_chunked(dpf, merged + [probe_pair[party]], pdb,
+                                              key_chunk=cfg["c5_chunk"], mode="fold",
+                                              integrity=False, device=dev)
+            sync(torch, dev)
+            direct_s.append(time.perf_counter() - t)
+            for n, c in _launch_diff({k.name: k.launches for k in aes_cuda.KERNELS},
+                                     counts_before).items():
+                want[n] = want.get(n, 0) + c
+            served_rows = np.concatenate([a[party] for a in answers])[: b["width"]]
+            if len(batches[party]) == 1 and not np.array_equal(got[: b["width"]], served_rows):
+                fail(f"config 5, party {party}: the served answers differ from the direct call")
+        direct.append(want)
+        sync(torch, dev)
+        t = time.perf_counter()
+        pir.pir_query_batch_chunked(dpf, keys, pdb, key_chunk=cfg["c5_chunk"], mode="fold",
+                                    integrity=False, device=dev)
+        sync(torch, dev)
+        chunked_s.append(time.perf_counter() - t)
+    del pdb
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    for party in (0, 1):
+        for n, c in served[party].items():
+            out["server_launches"][n] = out["server_launches"].get(n, 0) + c
+    p50, p95 = _serving_pcts(lat)
+    print("phase 20a: every answer reconstructs its record (ra ^ rb == db[alpha]) and equals "
+          "the direct call's on the merged batch")
+    for party in (0, 1):
+        print(f"phase 20a, party {party}: merged batches (requests, width, wall ms) "
+              f"{[(b['requests'], b['width'], round(b['seconds'] * 1e3, 1)) for b in batches[party]]}; "
+              f"launches {served[party]} = the direct calls' {direct[party]}")
+    print(f"phase 20a: {nreq} requests in {wall * 1e3:.1f} ms = {nreq / wall:.1f} requests/s, "
+          f"{nq / wall:.1f} queries/s a server pair; request latency p50 {p50:.1f} ms, p95 "
+          f"{p95:.1f} ms; direct in this process at the merged width: pir_query_batch_chunked "
+          f"with the probe key, unchecked, {[round(s * 1e3, 1) for s in direct_s]} ms, phase "
+          f"18's call without it {[round(s * 1e3, 1) for s in chunked_s]} ms (parties 0 / 1; "
+          "the two servers share the card while they serve)")
+    if served != direct:
+        fail(f"config 5 over two servers: served launches {served}, the direct robust calls "
+             f"at the merged batches' widths {direct}")
+    print(card)
+
+    # -- 20d. Drain and restart of party 1.
+    import signal
+
+    proc, _ = servers.procs["party1"]
+    points = targets[:per] + [int(x) for x in rng.integers(0, 1 << lds, size=60)]
+    ea_before = clients[0].evaluate_at(params, (k0[:per], k1[:per]), points,
+                                       deadline=cfg["request_timeout"])
+    health = serving.DpfClient("127.0.0.1", ports[1], policy=policy).connect()
+    before_b = stats(1)
+    nd = cfg["drain_requests"]
+    drained, derrors = [None] * nd, []
+
+    dclients = [serving.DpfClient("127.0.0.1", ports[1], policy=serving.RetryPolicy(
+        attempts=1, attempt_timeout=cfg["request_timeout"])).connect() for _ in range(nd)]
+
+    def drain_one(i):
+        try:
+            drained[i] = dclients[i].pir(params, k1[i * per:(i + 1) * per], name)
+        except BaseException as exc:  # noqa: BLE001 (reported below)
+            derrors.append(exc)
+
+    dthreads = [threading.Thread(target=drain_one, args=(i,)) for i in range(nd)]
+    for t in dthreads:
+        t.start()
+    t0 = time.perf_counter()
+    while health.health(timeout=30)["inflight"] < nd:
+        if time.perf_counter() - t0 > 60:
+            fail(f"20d: {nd} requests never were in flight on party 1 together")
+        time.sleep(0.002)
+    proc.send_signal(signal.SIGTERM)
+    t_term = time.perf_counter()
+    saw = None
+    while True:
+        try:
+            h = health.health(timeout=30)
+        except Exception:  # noqa: BLE001 (the drained server closed the connection)
+            break
+        if not h["ready"]:
+            saw = h
+            break
+        time.sleep(0.005)
+    for t in dthreads:
+        t.join()
+    for c in dclients + [health]:
+        c.close()
+    code = servers.stop("party1")
+    drain_s = time.perf_counter() - t_term
+    if derrors:
+        fail(f"20d: a request in flight at SIGTERM failed: {derrors[0]!r}")
+    for i, a in enumerate(drained):
+        if not np.array_equal(a, answers[i][1]):
+            fail("20d: a drained answer differs from 20a's")
+    if saw is None or saw["status"] != "draining":
+        fail(f"20d: party 1 never reported not-ready while draining (last health {saw})")
+    if code != 0:
+        fail(f"20d: party 1 exited with {code} after its drain")
+    t0 = time.perf_counter()
+    servers.start("party1", port=ports[1], wait=False)
+    again = clients[0].evaluate_at(params, (k0[:per], k1[:per]), points,
+                                   deadline=cfg["request_timeout"])
+    restart_s = time.perf_counter() - t0
+    if not all(np.array_equal(a, b) for a, b in zip(again, ea_before)):
+        fail("20d: the EvaluateAt call carried across the restart differs from the one before")
+    rec = again[0] ^ again[1]
+    if not all((rec[i, j] == (0xFFFFFFFF if p == targets[i] else 0)).all()
+               for i in range(per) for j, p in enumerate(points)):
+        fail("20d: the EvaluateAt shares do not reconstruct")
+    if servers.wait_ready("party1") != ports[1]:
+        fail("20d: party 1 restarted on another port")
+    end = [stats(0), clients[0].clients[1].stats(timeout=60)]
+    for n, c in _launch_diff(end[0]["launches"], after[0]["launches"]).items():
+        out["server_launches"][n] = out["server_launches"].get(n, 0) + c
+    for n, c in end[1]["launches"].items():
+        out["server_launches"][n] = out["server_launches"].get(n, 0) + c
+    for n, c in _launch_diff(before_b["launches"], after[1]["launches"]).items():
+        out["server_launches"][n] = out["server_launches"].get(n, 0) + c
+    print(f"phase 20d: SIGTERM to party 1 with {nd} requests in flight: every one answered "
+          f"(equal to 20a's), health reported {saw['status']!r} / ready {saw['ready']}, exit "
+          f"code {code}, {drain_s:.2f} s from SIGTERM to exit; restarted on port {ports[1]}, "
+          f"the client's retry carried its next call (EvaluateAt, {per} keys x {len(points)} "
+          f"points) across the restart in {restart_s:.2f} s, equal to the same call before the "
+          "SIGTERM and reconstructing")
+    for c in clients:
+        c.close()
+    for p in (0, 1):
+        if servers.stop(f"party{p}") != 0:
+            fail(f"party {p} did not exit cleanly")
+    for n, c in out["server_launches"].items():
+        counts.total[n] = counts.total.get(n, 0) + c
+    print(f"phases 20a and 20d: the servers' launches {out['server_launches']}")
+
+
+def _stream_schedule(T, serving, gates, cfg, p4):
+    """bench_serving.py's seeded mixed schedule (arrival offset s, Request),
+    with one request a kind for the gate, PIR, heavy hitters and keygen."""
+    from distributed_point_functions_tpu_torch.ops import hierarchical
+
+    Request = serving.Request
+    rng = np.random.default_rng(cfg["stream_seed"])
+    lds, pool = cfg["stream_log_domain"], cfg["stream_pool"]
+    dpf = T.DistributedPointFunction.create(T.DpfParameters(lds, T.Int(64)))
+    dcf = T.DistributedComparisonFunction.create(lds, T.Int(64))
+    alphas = [int(x) for x in rng.integers(0, 1 << lds, size=pool)]
+    betas = [[int(x) for x in rng.integers(1, 1000, size=pool)]]
+    keys_fd, _ = dpf.generate_keys_batch(alphas, betas, seeds=rng.integers(
+        0, 2**32, size=(pool, 2, 4), dtype=np.uint32))
+    nd = cfg["stream_dcf_keys"]
+    keys_dcf, _ = dcf.generate_keys_batch(
+        [int(rng.integers(0, 1 << lds)) for _ in range(nd)], [4242] * nd,
+        seeds=rng.integers(0, 2**32, size=(nd, 2, 4), dtype=np.uint32))
+    n = cfg["stream_requests"]
+    gaps = rng.exponential(cfg["stream_gap_ms"] / 1e3, size=n)
+    arrivals = np.cumsum(gaps) - gaps[0]
+    sched = []
+    for i in range(n):
+        kind = rng.integers(0, 3)
+        if kind == 0:
+            sched.append(Request.full_domain(dpf, [keys_fd[i % pool]]))
+        elif kind == 1:
+            pts = [int(x) for x in rng.integers(0, 1 << lds, size=8)]
+            sched.append(Request.evaluate_at(dpf, [keys_fd[i % pool]], pts))
+        else:
+            xs = [int(x) for x in rng.integers(0, 1 << lds, size=8)]
+            sched.append(Request.dcf(dcf, [keys_dcf[i % nd]], xs))
+    sched = list(zip(arrivals.tolist(), sched))
+    # One request a kind, spread over the stream.
+    span = float(arrivals[-1])
+    g = gates.DReluGate.create(cfg["gate_log_group"])
+    gkey = g.gen(int(rng.integers(0, g.n)), [int(rng.integers(0, 2))],
+                 prng=gates.CounterRng(b"phase-20b"),
+                 dcf_seeds=[(int(rng.integers(1, 2**62)), int(rng.integers(1, 2**62)))])[0]
+    gxs = [int(x) for x in rng.integers(0, g.n, size=cfg["gate_inputs"])]
+    hh_levels = cfg["hh_levels"]
+    hdpf = T.DistributedPointFunction.create_incremental(
+        [T.DpfParameters(i + 1, T.Int(64)) for i in range(hh_levels)])
+    halphas = hierarchical.draw_random_finals(hh_levels, cfg["hh_keys"], rng)
+    hkeys, _ = hdpf.generate_keys_batch(
+        halphas, [[1] * cfg["hh_keys"]] * hh_levels,
+        seeds=rng.integers(0, 2**32, size=(cfg["hh_keys"], 2, 4), dtype=np.uint32))
+    finals = hierarchical.draw_random_finals(hh_levels, cfg["hh_nonzeros"],
+                                             np.random.default_rng(7))
+    hplan = hierarchical.bitwise_hierarchy_plan(hh_levels, finals + halphas)
+    kdpf = T.DistributedPointFunction.create(T.DpfParameters(cfg["keygen_log_domain"], T.Int(64)))
+    nk = cfg["keygen_keys"]
+    extra = [
+        Request.gate(g, gkey, gxs),
+        Request.pir(p4["dpf"], p4["keys"][0][: cfg["pir_keys"]], p4["db"]),
+        Request.hierarchical(hdpf, hkeys, hplan, group=16),
+        Request.keygen(kdpf, [int(x) for x in rng.integers(0, 1 << cfg["keygen_log_domain"],
+                                                           size=nk)],
+                       [[int(x) for x in rng.integers(1, 2**62, size=nk)]]),
+    ]
+    for frac, req in zip((0.2, 0.4, 0.6, 0.8), extra):
+        sched.append((span * frac, req))
+    sched.sort(key=lambda ar: ar[0])
+    return sched
+
+
+def _replay(schedule):
+    import dataclasses
+
+    from distributed_point_functions_tpu_torch.serving.batcher import ServedFuture
+
+    return [(a, dataclasses.replace(r, future=ServedFuture())) for a, r in schedule]
+
+
+def _direct_call(door, op, reqs, dev, served):
+    """The merged batch's direct entry-point call: the robust wrapper the door
+    runs, on the same padded keys and points (the door's key chunk, width
+    target and warm PIR database). Returns each request's slice."""
+    from distributed_point_functions_tpu_torch.ops import degrade, hierarchical, supervisor
+    from distributed_point_functions_tpu_torch.serving import frontdoor as fd
+    from distributed_point_functions_tpu_torch.serving import wire
+
+    wt = door.batcher.width_target
+    merged = [k for r in reqs for k in r.keys]
+    r0 = reqs[0]
+    if op == "full_domain":
+        ck = door.key_chunk or 32
+        out = supervisor.full_domain_evaluate_robust(
+            r0.obj, fd._pad_keys(merged, True, chunk=ck), r0.hierarchy_level, key_chunk=ck,
+            device=dev)
+        return fd.FrontDoor._slice_rows(reqs, out)
+    if op in ("evaluate_at", "dcf"):
+        points, rows = fd._union([r.points for r in reqs])
+        keys = fd._pad_keys(merged, True, floor=wt)
+        points = fd._pad_points(points, True, floor=wt)
+        if op == "evaluate_at":
+            out = degrade.evaluate_at_robust(r0.obj, keys, points, r0.hierarchy_level, device=dev)
+        else:
+            out = supervisor.batch_evaluate_robust(r0.obj, keys, points, device=dev)
+        return fd.FrontDoor._slice_cols(reqs, np.asarray(out), rows)
+    if op == "gate":
+        xs, rows = fd._union([r.points for r in reqs])
+        out = supervisor.gate_batch_eval_robust(r0.obj, r0.keys[0],
+                                                fd._pad_points(xs, True, floor=wt), device=dev)
+        return [np.asarray(out)[cols] for cols in rows]
+    if op == "pir":
+        ck = door.key_chunk or 64
+        pdb = door.cache.pir_db(r0.obj, r0.db, "lane", device=dev)
+        out = supervisor.pir_query_batch_robust(r0.obj, fd._pad_keys(merged, True, chunk=ck), pdb,
+                                                key_chunk=ck, device=dev)
+        return fd.FrontDoor._slice_rows(reqs, out)
+    if op == "hierarchical":
+        ctx = hierarchical.BatchedContext.create(r0.obj, fd._pad_keys(merged, True))
+        outs = supervisor.evaluate_levels_fused_robust(ctx, r0.plan, r0.group, device=dev)
+        res, start = [], 0
+        for r in reqs:
+            res.append([o[start : start + len(r.keys)] for o in outs])
+            start += len(r.keys)
+        return res
+    # keygen: the served pairs' own seeds reproduce them.
+    from distributed_point_functions_tpu_torch.core import uint128
+
+    pairs = [wire.keygen_keys_from_arrays(b) for b in served]
+    seeds = np.array([[uint128.to_limbs(a.seed), uint128.to_limbs(b.seed)]
+                      for k0, k1 in pairs for a, b in zip(k0, k1)], dtype=np.uint32)
+    alphas = [a for r in reqs for a in r.points]
+    cols = [[b for r in reqs for b in r.betas[lv]] for lv in range(len(r0.betas))]
+    k0, k1 = supervisor.generate_keys_robust(r0.obj, alphas, cols, mode="megakernel",
+                                             seeds=seeds, device=dev)
+    blobs = wire.keygen_result_arrays(k0, k1, r0.obj.validator.parameters)
+    res, off = [], 0
+    for r in reqs:
+        kr = len(r.points)
+        res.append(blobs[off:off + kr] + blobs[len(alphas) + off:len(alphas) + off + kr])
+        off += kr
+    return res
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def _phase_20b(torch, T, dev, p4, cfg, counts, serving, gates, aes_cuda, pir) -> None:
+    from distributed_point_functions_tpu_torch.ops import evaluator, hierarchical, keygen_batch
+
+    sched = _stream_schedule(T, serving, gates, cfg, p4)
+    mix = collections.Counter(r.op for _, r in sched)
+    door_kw = dict(engine="device", max_wait_ms=cfg["stream_wait_ms"],
+                   width_target=cfg["stream_width"], key_chunk=cfg["stream_chunk"], device=dev)
+    record = []
+
+    def serve(schedule, log):
+        """The schedule through one front door: (door, wall, latencies)."""
+        door = serving.FrontDoor(**door_kw)
+        if log is not None:
+            orig = door._run
+
+            def recording_run(reqs, engine, mode, union=None):
+                before = {k.name: k.launches for k in aes_cuda.KERNELS}
+                res = orig(reqs, engine, mode, union)
+                sync(torch, dev)
+                log.append(dict(op=reqs[0].op, reqs=list(reqs), out=res, launches=_launch_diff(
+                    {k.name: k.launches for k in aes_cuda.KERNELS}, before)))
+                return res
+
+            door._run = recording_run
+        with door:
+            t0 = time.perf_counter()
+            futures = []
+            for arrival, req in schedule:
+                now = time.perf_counter() - t0
+                if now < arrival:
+                    time.sleep(arrival - now)
+                futures.append(door.submit(req))
+            for f in futures:
+                f.result(timeout=cfg["request_timeout"])
+            wall = time.perf_counter() - t0
+        lat = [f.completed_at - (t0 + a) for f, (a, _) in zip(futures, schedule)]
+        return door, wall, lat
+
+    def naive(schedule):
+        t0 = time.perf_counter()
+        lat = []
+        for arrival, req in schedule:
+            now = time.perf_counter() - t0
+            if now < arrival:
+                time.sleep(arrival - now)
+            keys, pts = list(req.keys), list(req.points)
+            if req.op == "full_domain":
+                evaluator.full_domain_evaluate(req.obj, keys, key_chunk=cfg["stream_chunk"],
+                                               device=dev)
+            elif req.op == "evaluate_at":
+                evaluator.evaluate_at_batch(req.obj, keys, pts, device=dev)
+            elif req.op == "dcf":
+                req.obj.batch_evaluate(keys, pts, device=dev)
+            elif req.op == "gate":
+                req.obj.batch_eval(keys[0], pts, device=dev)
+            elif req.op == "pir":
+                pir.pir_query_batch_chunked(req.obj, keys, req.db, key_chunk=cfg["stream_chunk"],
+                                            device=dev)
+            elif req.op == "hierarchical":
+                ctx = hierarchical.BatchedContext.create(req.obj, keys)
+                hierarchical.evaluate_levels_fused(ctx, req.plan, req.group, device=dev)
+            else:
+                keygen_batch.generate_keys_batch(req.obj, pts, req.betas, device=dev)
+            sync(torch, dev)
+            lat.append((time.perf_counter() - t0) - arrival)
+        return time.perf_counter() - t0, lat
+
+    # Warm both arms untimed: the probes' host oracles, the database layouts.
+    t0 = time.perf_counter()
+    serve(_replay(sched), None)
+    naive([(0.0, r) for _, r in _replay(sched) if r.op in ("pir", "hierarchical", "gate")])
+    warm_s = time.perf_counter() - t0
+    need = (aes_cuda.K2, aes_cuda.K4, aes_cuda.K6, aes_cuda.K9)
+    counts.start()
+    door, door_wall, door_lat = serve(_replay(sched), record)
+    door_launches = counts.end("20b, the mixed stream through the front door", need)
+    counts.start()
+    naive_wall, naive_lat = naive(_replay(sched))
+    naive_launches = counts.end("20b, the mixed stream one request at a time", need)
+    # Every merged batch against the direct call on the same merged batch.
+    for b in record:
+        before = {k.name: k.launches for k in aes_cuda.KERNELS}
+        want = _direct_call(door, b["op"], b["reqs"], dev, b["out"])
+        sync(torch, dev)
+        got_launches = _launch_diff({k.name: k.launches for k in aes_cuda.KERNELS}, before)
+        if not _same(b["out"], want):
+            fail(f"20b: a merged {b['op']} batch of {len(b['reqs'])} requests differs from the "
+                 "direct call on the same merged batch")
+        if got_launches != b["launches"]:
+            fail(f"20b: a merged {b['op']} batch launched {b['launches']}, the direct call "
+                 f"{got_launches}")
+    widths = collections.Counter()
+    for b in record:
+        widths[(b["op"], sum(r.width for r in b["reqs"]))] += 1
+    n = len(sched)
+    p50, p95 = _serving_pcts(door_lat)
+    q50, q95 = _serving_pcts(naive_lat)
+    print(f"phase 20b, bench_serving.py's mixed stream ({n} requests: {dict(mix)}; log-domain "
+          f"{cfg['stream_log_domain']}, width {cfg['stream_width']}, max wait "
+          f"{cfg['stream_wait_ms']:.0f} ms, key chunk {cfg['stream_chunk']}, undelayed) through "
+          f"FrontDoor(engine='device') on {dev}; warm-up {warm_s:.2f} s")
+    print(f"phase 20b: front door {n / door_wall:.1f} requests/s ({door_wall * 1e3:.1f} ms), "
+          f"latency p50 {p50:.1f} ms, p95 {p95:.1f} ms, {len(record)} merged batches; one "
+          f"request at a time {n / naive_wall:.1f} requests/s ({naive_wall * 1e3:.1f} ms), "
+          f"p50 {q50:.1f} ms, p95 {q95:.1f} ms; launches door {door_launches}, one at a time "
+          f"{naive_launches}")
+    print("phase 20b: batch widths (op, width): count "
+          + ", ".join(f"{op} {w}: {c}" for (op, w), c in sorted(widths.items())))
+    print("phase 20b: the front door's batches in order (op, width, wall ms): "
+          + ", ".join(f"{b['op']} {b['width']} {b['seconds'] * 1e3:.1f}" for b in door.batches))
+    print(f"phase 20b: every answer equals the direct entry-point call on the same merged batch, "
+          f"bit for bit, at the same launch counts, in all {len(record)} batches")
+
+
+def _phase_20c(torch, T, dev, p4, cfg, serving, tmp) -> dict:
+    """20c: the router's anchors. Each op forced onto each device mode at
+    phase 20's configurations and onto the host engine at a small shape,
+    one warm batch and then the measured one; the rate is the router's own
+    reading of that batch (CostModel.observe at this run's dispatch prior).
+    Then auto-routed batches on these anchors, their decision records, and
+    the learned state through a calibration file."""
+    from distributed_point_functions_tpu_torch.ops import evaluator, hierarchical
+    from distributed_point_functions_tpu_torch.serving import frontdoor
+    from distributed_point_functions_tpu_torch.serving import router as router_mod
+    from distributed_point_functions_tpu_torch.utils import telemetry
+
+    Request = serving.Request
+    rng = np.random.default_rng(SEED + 21)
+    seeds = lambda n: rng.integers(0, 2**32, size=(n, 2, 4), dtype=np.uint32)
+
+    # The dispatch prior: one key at one point, its launch and its pull.
+    d1 = T.DistributedPointFunction.create(T.DpfParameters(20, T.Int(64)))
+    k1, _ = d1.generate_keys_batch([5], [[1]], seeds=seeds(1))
+    times = []
+    for _ in range(cfg["dispatch_reps"] + 1):
+        sync(torch, dev)
+        t = time.perf_counter()
+        evaluator.evaluate_at_batch(d1, k1, [5], mode="walkkernel", device=dev)
+        times.append(time.perf_counter() - t)
+    prior = statistics.median(times[1:])
+
+    def dpf_keys(lds, n, vt=None):
+        dpf = T.DistributedPointFunction.create(T.DpfParameters(lds, vt or T.Int(64)))
+        alphas = [int(a) for a in rng.integers(0, 1 << min(lds, 62), size=n)]
+        beta = (1 << 128) - 1 if vt is not None else [int(b) for b in rng.integers(1, 2**62, size=n)]
+        return dpf, dpf.generate_keys_batch(alphas, [beta], seeds=seeds(n))[0]
+
+    def hh(levels, n):
+        hdpf = T.DistributedPointFunction.create_incremental(
+            [T.DpfParameters(i + 1, T.Int(64)) for i in range(levels)])
+        alphas = hierarchical.draw_random_finals(levels, n, rng)
+        keys, _ = hdpf.generate_keys_batch(alphas, [[1] * n] * levels, seeds=seeds(n))
+        finals = hierarchical.draw_random_finals(levels, cfg["hh_nonzeros"],
+                                                 np.random.default_rng(7))
+        return [Request.hierarchical(hdpf, keys, hierarchical.bitwise_hierarchy_plan(
+            levels, finals + alphas), group=16)]
+
+    def ea(lds, n, p):
+        dpf, keys = dpf_keys(lds, n)
+        return [Request.evaluate_at(dpf, keys, [int(x) for x in rng.integers(0, 1 << lds, size=p)])]
+
+    def dcf_reqs(lds, n, p):
+        dcf = T.DistributedComparisonFunction.create(lds, T.Int(64))
+        keys, _ = dcf.generate_keys_batch([int(a) for a in rng.integers(0, 1 << lds, size=n)],
+                                          [int(b) for b in rng.integers(1, 2**62, size=n)],
+                                          seeds=seeds(n))
+        return [Request.dcf(dcf, keys, [int(x) for x in rng.integers(0, 1 << lds, size=p)])]
+
+    def kg(lds, n):
+        dpf = T.DistributedPointFunction.create(T.DpfParameters(lds, T.Int(64)))
+        return [Request.keygen(dpf, [int(a) for a in rng.integers(0, 1 << lds, size=n)],
+                               [[int(b) for b in rng.integers(1, 2**62, size=n)]])]
+
+    def pir_host(lds, n):
+        dpf, keys = dpf_keys(lds, n, T.XorWrapper(128))
+        db = rng.integers(0, 2**32, size=(1 << lds, 4), dtype=np.uint32)
+        return [Request.pir(dpf, keys, db)]
+
+    (fd_dev, fd_host), (ea_dev, ea_host) = cfg["anchor_fd"], cfg["anchor_ea"]
+    (dcf_dev, dcf_host), (hh_dev, hh_host) = cfg["anchor_dcf"], cfg["anchor_hh"]
+    kg_dev, kg_host = cfg["anchor_kg"]
+    cases = {  # op: (device modes, device requests, host requests, door key chunk)
+        "full_domain": (("levels",), [Request.full_domain(*dpf_keys(*fd_dev))],
+                        [Request.full_domain(*dpf_keys(*fd_host))], None),
+        "evaluate_at": (("walk", "walkkernel"), ea(*ea_dev), ea(*ea_host), None),
+        "dcf": (("walk", "walkkernel"), dcf_reqs(*dcf_dev), dcf_reqs(*dcf_host), None),
+        "pir": (("fold", "megakernel"),
+                [Request.pir(p4["dpf"], p4["keys"][0], p4["db"])],
+                pir_host(*cfg["anchor_pir_host"]), KEY_CHUNK),
+        "hierarchical": (("fused", "hierkernel"), hh(*hh_dev), hh(*hh_host), None),
+        "keygen": (("perlevel", "megakernel"), kg(*kg_dev), kg(*kg_host), None),
+    }
+
+    def fresh(reqs):
+        return _replay([(0.0, r) for r in reqs])
+
+    anchors, rows = {}, []
+    for op, (modes, dev_reqs, host_reqs, ck) in cases.items():
+        for engine, mode, reqs in ([("device", m, dev_reqs) for m in modes]
+                                   + [("host", None, host_reqs)]):
+            door = serving.FrontDoor(engine=engine, mode=mode, device=dev, key_chunk=ck,
+                                     max_wait_ms=1.0)
+            # A first batch warms the mode (the probe's oracle, its layouts), uncounted.
+            for _ in range(2):
+                door.serve([r for _, r in fresh(reqs)], timeout=cfg["request_timeout"])
+            b = door.batches[-1]
+            union = (frontdoor._union([r.points for r in reqs]) if op in ("evaluate_at", "dcf")
+                     else None)
+            w = door._workload(reqs, union)
+            model = router_mod.CostModel(dispatch_seconds=prior, anchors={})
+            model.observe(w, engine, mode, b["seconds"])
+            (rate,) = model.learned.values()
+            anchors[(op, engine, mode)] = {w.value_kind: rate}
+            rows.append((op, engine, mode, w.value_kind, w.work_items(engine), b["seconds"],
+                         rate))
+    for op, engine, mode, kind, items, secs, rate in rows:
+        committed = router_mod.ANCHORS.get((op, engine, mode), {}).get(kind)
+        print(f"phase 20c, anchor {op} {engine}{'/' + mode if mode else ''} ({kind}): "
+              f"{items:.6g} items in {secs * 1e3:.2f} ms = {rate:.4e} items/s"
+              + (f" (router.py: {committed:.4e})" if committed else " (router.py: none)"))
+    print(f"phase 20c, dispatch prior (evaluate_at_batch, one key, one point, walkkernel, "
+          f"median of {cfg['dispatch_reps']}): {prior * 1e3:.4f} ms (router.py: "
+          f"{router_mod.DISPATCH_SECONDS_PRIOR * 1e3:.4f} ms)")
+    print("phase 20c, anchors as router.py writes them: " + repr(
+        {k: {kk: float(f"{vv:.4g}") for kk, vv in v.items()} for k, v in anchors.items()}))
+
+    # Auto-routed batches on this run's anchors, and the calibration file.
+    calib = os.path.join(tmp, "router_calib.json")
+    router = router_mod.Router(model=router_mod.CostModel(dispatch_seconds=prior,
+                                                          anchors=anchors), calibration=calib)
+    for op, (modes, dev_reqs, host_reqs, ck) in cases.items():
+        for what, reqs in (("wide", dev_reqs), ("small", host_reqs)):
+            door = serving.FrontDoor(router=router, device=dev, key_chunk=ck, max_wait_ms=1.0)
+            with telemetry.capture() as tel:
+                door.serve([r for _, r in fresh(reqs)], timeout=cfg["request_timeout"])
+            (rec,) = tel.decision_records(source="router")
+            d = rec["data"]
+            print(f"phase 20c, auto-routed {op} ({what}): decision(source='router') choice "
+                  f"{d['choice']}, predicted {d['predicted_ms']} ms, costs {d['costs_ms']}, "
+                  f"ran in {door.batches[-1]['seconds'] * 1e3:.2f} ms")
+    router.save_calibration()
+    back = router_mod.Router(model=router_mod.CostModel(anchors=anchors), calibration=calib)
+    if back.model.state() != router.model.state():
+        fail("20c: the calibration file did not read back to the same state")
+    state = router.model.state()
+    print(f"phase 20c: the learned state ({len(state['learned'])} rates, dispatch EWMA "
+          f"{state['dispatch_ewma']}) written to a calibration file and read back equal")
+    return anchors
+
+
 def main() -> None:
     import torch
 
@@ -1732,6 +2500,21 @@ def main() -> None:
     aes_cuda.library()
     print(f"build: csrc/{' + csrc/'.join(aes_cuda.SOURCES)} for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s")
+    if sys.argv[1:] == ["--phase", "20"]:
+        # Phase 20 alone (a development aid; the check runs every phase):
+        # phase 4's database and queries made the way phase 4 makes them.
+        rng = np.random.default_rng(SEED)
+        pdpf = T.DistributedPointFunction.create(T.DpfParameters(LOG_DOMAIN, T.XorWrapper(128)))
+        db = rng.integers(0, 2**32, size=(1 << LOG_DOMAIN, 4), dtype=np.uint32)
+        targets = [int(a) for a in rng.integers(0, 1 << LOG_DOMAIN, size=PIR_QUERIES)]
+        keys = pdpf.generate_keys_batch(targets, [(1 << 128) - 1], seeds=rng.integers(
+            0, 2**32, size=(PIR_QUERIES, 2, 4), dtype=np.uint32))
+        served = PathCounts(aes_cuda)
+        phase_20(torch, T, dev, dict(dpf=pdpf, db=db, targets=targets, keys=keys), PHASE20,
+                 served, card)
+        print(f"phase 20: launches {served.total}")
+        print(card)
+        return
     for kern in aes_cuda.KERNELS:
         if "registers" not in kern.ptxas:
             fail(f"no ptxas report for {kern.name}")
@@ -3437,6 +4220,14 @@ def main() -> None:
     events.check_all()
     torch.cuda.empty_cache()
 
+    # -- 20. the serving plane ------------------------------------------------
+    served = PathCounts(aes_cuda)
+    phase_20(torch, T, dev, p4, PHASE20, served, card)
+    for name, n in served.total.items():
+        main_launches[name] = main_launches.get(name, 0) + n
+    print(f"phase 20: launches {served.total}")
+    torch.cuda.empty_cache()
+
     if "jax" in sys.modules:
         fail("JAX was imported")
     if any(m == "distributed_point_functions_tpu" or m.startswith("distributed_point_functions_tpu.")
@@ -3486,7 +4277,9 @@ def main() -> None:
                      + dcf_launches[aes_cuda.K6.name] + dcf_launches[aes_cuda.K7_DCF.name]
                      + hh_launches[aes_cuda.K8.name] + codec_walk_launches[aes_cuda.K6.name]
                      + walk_launches_c3[aes_cuda.K6.name] + gate_launches[aes_cuda.K6.name]
-                     + gate_launches[aes_cuda.K7_DCF.name] + new_paths.total[aes_cuda.K6.name]),
+                     + gate_launches[aes_cuda.K7_DCF.name] + new_paths.total[aes_cuda.K6.name]
+                     + served.total[aes_cuda.K6.name] + served.total[aes_cuda.K7.name]
+                     + served.total[aes_cuda.K7_DCF.name] + served.total[aes_cuda.K8.name]),
         "max_abs_err": checks["K6"],
         "ms": rows["K6"]["ms"],
         "device_ms": rows["K6"].get("device_ms"),

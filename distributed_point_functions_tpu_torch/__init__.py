@@ -68,6 +68,19 @@ the numpy host engine of ``core/host_eval.py``:
     answers = supervisor.pir_query_batch_robust(dpf, keys_a, prepared_db,
                                                 mode="megakernel")
 
+The serving plane (``serving/``) puts those wrappers behind a continuous
+batcher, a cost-model router and a socket server speaking the JAX
+package's wire frames: two non-colluding servers, each one process
+holding one key share. Party 0 and party 1 each run
+``python -m distributed_point_functions_tpu_torch.serving.server --pir-db
+cfg5:24:7 --ready-file ...`` (``--device cpu`` for the CPU); then:
+
+    from distributed_point_functions_tpu_torch import serving
+    with serving.TwoServerClient([("127.0.0.1", port_0),
+                                  ("127.0.0.1", port_1)]) as client:
+        a0, a1 = client.pir(dpf.validator.parameters, (keys_a, keys_b), "cfg5")
+    # a0 ^ a1 == db[alpha] for each query: neither server learned alpha
+
 Entry points run on the first CUDA device unless the caller passes
 ``device="cpu"``; with no card and no ``device="cpu"`` they raise. Only
 the ``*_robust`` wrappers fall back, and only when asked to.

@@ -10,8 +10,10 @@ one level a call through evaluate_until_batch), the host API's
 TorchBackend (K6, K2, K4), PIR in modes levels, walk and fused, and batched
 keygen (K2's one-key view and K4 in mode="perlevel", K9 in
 mode="megakernel") against the same paths on the CPU; the pipelined
-executor against the serial one at the fold's full plan, and a real
-out-of-memory error through the degradation chain.
+executor against the serial one at the fold's full plan, a real
+out-of-memory error through the degradation chain, and the serving plane:
+a served batch of every op on the card against the same door on the CPU,
+with the launches of the direct call, and two servers' PIR over loopback.
 
 Every test here needs a card and skips without one. The file imports no
 JAX, so on a machine without JAX it runs without the suite's conftest:
@@ -744,3 +746,101 @@ def test_real_out_of_memory_is_classified_and_halved(cuda):
         evaluator.full_domain_evaluate = real
     assert calls == [8, 4, 2]
     assert np.array_equal(got, evaluator.full_domain_evaluate(dpf, keys, device="cpu"))
+
+
+def _served_requests(op):
+    """Small requests of one op for the serving legs: (requests, kernels
+    the card must launch)."""
+    from distributed_point_functions_tpu_torch import gates
+    from distributed_point_functions_tpu_torch.serving import Request
+
+    rng = np.random.default_rng(len(op))
+    seeds = lambda n: rng.integers(0, 2**32, size=(n, 2, 4), dtype=np.uint32)
+    if op in ("full_domain", "evaluate_at"):
+        dpf = port.DistributedPointFunction.create(port.DpfParameters(12, port.Int(64)))
+        keys, _ = dpf.generate_keys_batch([5, 77, 4095], [[1, 2, 3]], seeds=seeds(3))
+        if op == "full_domain":
+            return [Request.full_domain(dpf, keys[:1]), Request.full_domain(dpf, keys[1:])]
+        return [Request.evaluate_at(dpf, keys[:2], [5, 6]), Request.evaluate_at(dpf, keys[2:], [4095])]
+    if op == "dcf":
+        dcf = port.DistributedComparisonFunction.create(12, port.Int(64))
+        keys, _ = dcf.generate_keys_batch([9, 3000], [4, 5], seeds=seeds(2))
+        return [Request.dcf(dcf, keys[:1], [8, 9]), Request.dcf(dcf, keys[1:], [2999, 4000])]
+    if op == "gate":
+        gate = gates.DReluGate.create(12)
+        key = gate.gen(77, [5], prng=gates.CounterRng(b"served"),
+                       dcf_seeds=[(11, 22)] * gate.num_components)[0]
+        return [Request.gate(gate, key, [1, 2]), Request.gate(gate, key, [3000])]
+    if op == "pir":
+        dpf = port.DistributedPointFunction.create(port.DpfParameters(12, port.XorWrapper(128)))
+        keys, _ = dpf.generate_keys_batch([1, 2, 4000], [(1 << 128) - 1], seeds=seeds(3))
+        db = rng.integers(0, 2**32, size=(4096, 4), dtype=np.uint32)
+        return [Request.pir(dpf, keys[:2], db), Request.pir(dpf, keys[2:], db)]
+    if op == "hierarchical":
+        dpf = port.DistributedPointFunction.create_incremental(
+            [port.DpfParameters(i + 1, port.Int(64)) for i in range(6)])
+        keys, _ = dpf.generate_keys_batch([5, 40], [[1, 1]] * 6, seeds=seeds(2))
+        plan = hierarchical.bitwise_hierarchy_plan(6, [5, 40])
+        return [Request.hierarchical(dpf, keys[:1], plan), Request.hierarchical(dpf, keys[1:], plan)]
+    dpf = port.DistributedPointFunction.create(port.DpfParameters(20, port.Int(64)))
+    return [Request.keygen(dpf, [1, 2], [3]), Request.keygen(dpf, [99], [4])]
+
+
+SERVED = [("full_domain", None), ("evaluate_at", "walk"), ("evaluate_at", "walkkernel"),
+          ("dcf", "walk"), ("dcf", "walkkernel"), ("gate", "walk"), ("pir", "fold"),
+          ("pir", "megakernel"), ("hierarchical", "fused"), ("hierarchical", "hierkernel"),
+          ("keygen", "megakernel"), ("keygen", "perlevel")]
+
+
+@pytest.mark.parametrize("op, mode", SERVED, ids=[f"{o}-{m}" for o, m in SERVED])
+def test_served_batch_on_the_card_matches_the_cpu(cuda, op, mode):
+    """One merged batch through FrontDoor(engine="device") on the card (the
+    default device) equals the same door on the CPU, and launches kernels;
+    keygen's random seeds differ between the doors, so its pairs are checked
+    by their reconstruction instead."""
+    from distributed_point_functions_tpu_torch import serving
+    from distributed_point_functions_tpu_torch.serving import wire
+
+    def serve(device):
+        door = serving.FrontDoor(engine="device", mode=mode, device=device, width_target=4,
+                                 key_chunk=2, max_wait_ms=1.0)
+        aes_cuda.reset_launch_counts()
+        out = door.serve(_served_requests(op), timeout=600)
+        assert len(door.batches) == 1 and door.batches[0]["choice"].startswith("device")
+        return out, {k.name: k.launches for k in aes_cuda.KERNELS if k.launches}
+
+    on_card, launches = serve(None)
+    assert launches, "no kernel launched on the card"
+    if op == "keygen":
+        reqs = _served_requests(op)
+        dpf = reqs[0].obj
+        for blobs, req in zip(on_card, reqs):
+            k0, k1 = wire.keygen_keys_from_arrays(blobs)
+            for i, alpha in enumerate(req.points):
+                s = (int(dpf.evaluate_at(k0[i], 0, [alpha])[0])
+                     + int(dpf.evaluate_at(k1[i], 0, [alpha])[0])) % (1 << 64)
+                assert s == req.betas[0][i]
+        return
+    on_cpu, cpu_launches = serve("cpu")
+    assert not cpu_launches
+    for a, b in zip(on_card, on_cpu):
+        for x, y in zip(a if isinstance(a, list) else [a], b if isinstance(b, list) else [b]):
+            assert np.array_equal(np.asarray(x), np.asarray(y))
+
+
+def test_two_servers_on_the_card_reconstruct_pir(cuda):
+    from distributed_point_functions_tpu_torch import serving
+
+    reqs = _served_requests("pir")
+    dpf, db = reqs[0].obj, reqs[0].db
+    k0 = dpf.generate_keys_batch([7, 4095, 0, 1234], [(1 << 128) - 1],
+                                 seeds=np.arange(32, dtype=np.uint32).reshape(4, 2, 4))
+    params = dpf.validator.parameters
+    with serving.DpfServer(engine="device", key_chunk=2) as a, \
+            serving.DpfServer(engine="device", key_chunk=2) as b:
+        for srv in (a, b):
+            srv.register_db("db", db)
+        with serving.TwoServerClient([("127.0.0.1", a.port), ("127.0.0.1", b.port)]) as tsc:
+            r0, r1 = tsc.pir(params, k0, "db", deadline=600)
+        assert a.door.device.type == "cuda"
+    assert np.array_equal(r0 ^ r1, db[[7, 4095, 0, 1234]])

@@ -2,8 +2,9 @@
 package (its fold, full-domain, PIR, EvaluateAt, DCF, hierarchical,
 keygen, gate and wire-format paths, the host engine, the robust wrappers,
 the executor, the deadline watchdog, telemetry, integrity, fault
-injection, profiling and the environment flags driven in a fresh process), and its entry points do not
-run on the CPU unless asked to.
+injection, profiling, the environment flags and the serving plane (wire,
+front door, server and client) driven in a fresh process), and its entry
+points do not run on the CPU unless asked to.
 
 The import guard runs in a subprocess: tests/conftest.py imports jax into
 every pytest process.
@@ -102,6 +103,15 @@ assert list(pipeline.chunk_indices(3, 2))[1][1] == 1
 with deadline.deadline_scope(5.0):
     assert deadline.current_deadline() == 5.0 and deadline.deadline_call(lambda: 7, "x") == 7
 integrity.selftest_device("cpu")
+from distributed_point_functions_tpu_torch import serving
+from distributed_point_functions_tpu_torch.serving import wire
+assert wire.decode_pir(wire.encode_pir(pdpf.validator.parameters, pkeys, "db"))[2] == "db"
+with serving.FrontDoor(engine="device", device="cpu", max_wait_ms=1.0) as door:
+    assert door.serve([serving.Request.pir(pdpf, pkeys, db)])[0].shape == (1, 4)
+with serving.DpfServer(device="cpu", engine="host", max_wait_ms=1.0) as srv:
+    with serving.DpfClient("127.0.0.1", srv.port) as cli:
+        assert cli.evaluate_at(dpf.validator.parameters, keys, [3, 4]).shape == (1, 2, 2)
+        assert cli.stats()["batches"][0]["choice"] == "host"
 jax_package = "distributed_point_functions_tpu"
 bad = sorted(
     m for m in sys.modules
