@@ -233,7 +233,36 @@ Phases (any failure raises and exits non-zero before the result line):
    with requests in flight (they finish, it reports not-ready and exits 0)
    and its restart on the same port, where the client's retry carries its
    next call bit-exact. ``python3 chip_smoke.py --phase 20`` runs the
-   build and this phase alone.
+   build and this phase alone;
+21. the serving plane's replica tier: (a) examples/heavy_hitters_demo.py's
+   stream shape (16-bit values, 2 a level, threshold 8) at 10,000 clients
+   in windows of 2,500 keys, the keys dealt by K9, through two in-process
+   servers (the follower, then the leader with its peer) and
+   ``TwoServerClient.hh_ingest`` from 4 client threads, mode fused (K2, K4):
+   every window's heavy hitters and counts the plaintext's, each batch
+   counted once, a resent batch deduped; keys/s acked and the publish wall;
+   (b) a 16-level stream (32-bit values, Zipf-skewed, threshold 40, 2
+   windows of 8,192 K9-dealt keys) once in mode fused and once in mode
+   hierkernel (K8): every (window, level, party) share sum equal across the
+   modes and every level's counts the plaintext's, launches and wall a
+   level and a window; (c) benchmarks/bench_streaming.py's failover arm on
+   the card: the leader stopped with its lease held, the follower promoted
+   by expiry, the backlog window published once under the new epoch, a
+   zombie leg refused FAILED_PRECONDITION, the published log reloaded bit
+   for bit; (d) a FleetProxy a party over a ReplicaPool of 3 server
+   processes on the card (``--device cuda --engine device``), driven by
+   benchmarks/bench_serving.py's fleet mix (seed 17, MIC : DCF : EvaluateAt
+   3 : 1 : 1, 16 threads) against 1 live replica and 3, one replica
+   SIGKILLed mid-run and restarted: every answer reconstructs, the client's
+   retries carry every call, the restarted replica wins its rendezvous
+   range back, each proxy's merged launches are its replicas' sum; then a
+   ``--stream`` sheltered behind 2 replicas of party 1 on a shared
+   ``--stream-journal-root``, its owner SIGKILLed with the window open: the
+   survivor takes it over and the window publishes once; (e) the
+   AutoScaler (min 1, max 3) on party 0's proxy over a burst of the mix and
+   then a trickle: it scales up and drains back with no request lost, its
+   events printed, no kernel launched by this process.
+   ``python3 chip_smoke.py --phase 21`` runs the build and this phase alone.
 
 Each path of the main path (fold default, fused and megakernel; PIR fold
 and megakernel; EvaluateAt walk and walkkernel, and the codec walk; DCF
@@ -241,8 +270,8 @@ walk and walkkernel; heavy hitters fused and hierkernel; keygen
 megakernel, perlevel and numpy-threaded at each configuration; config 3's
 fused pass at each level, and its walk, slab, prepared and levels checks;
 each gate's modes, the gate dealers on the card and the two layers; each
-path of phases 17, 18, 19 and 20, whose servers report their launches in
-their stats) runs
+path of phases 17-21, whose servers and replicas report their launches
+in their stats) runs
 with every launch count set to 0
 just before it, and every kernel of that path must have launched just after
 it. The line before
@@ -272,6 +301,7 @@ import warnings
 import numpy as np
 
 SEED = 20261016
+T0 = 0.0  # perf_counter at main()'s start: each phase prints its start time from it
 LOG_DOMAIN = 20
 NUM_KEYS = 1024
 KEY_CHUNK = 128
@@ -1840,8 +1870,10 @@ def phase_20(torch, T, dev, p4, cfg, counts: PathCounts, card: str = "") -> dict
         finally:
             servers.stop_all()
     print(card)
+    print(f"[{time.perf_counter() - T0:.1f} s] 20b", flush=True)
     _phase_20b(torch, T, dev, p4, cfg, counts, serving, gates, aes_cuda, pir)
     print(card)
+    print(f"[{time.perf_counter() - T0:.1f} s] 20c", flush=True)
     with tempfile.TemporaryDirectory(prefix="dpf-phase20c-") as tmp:
         out["anchors"] = _phase_20c(torch, T, dev, p4, cfg, serving, tmp)
     print(card)
@@ -2464,8 +2496,1122 @@ def _phase_20c(torch, T, dev, p4, cfg, serving, tmp) -> dict:
     return anchors
 
 
+# Phase 21: the serving plane's replica tier on the card. 21a:
+# examples/heavy_hitters_demo.py's shape (16-bit values, 2 bits a level,
+# Int(64) counts, threshold 8) at 10,000 clients from the demo's
+# distribution in windows of 2,500 keys, through two in-process port servers
+# (follower, then the leader with its peer) and TwoServerClient.hh_ingest
+# from 4 client threads, advanced in mode fused. 21b: 32-bit values, 2 bits a
+# level (16 hierarchy levels), Zipf(1.2) truncated at 4,096 distinct values
+# from default_rng(SEED + 21), threshold 40 (21-46 prefixes survive each level
+# below the second), 2 windows of 8,192 keys dealt by K9, once in mode fused
+# and once in mode hierkernel. 21c: benchmarks/bench_streaming.py's failover
+# arm (16-bit, 2 a level, threshold 8, windows of 16 keys) at a 1 s lease.
+# 21d: one FleetProxy a party over a ReplicaPool of 3 port server processes
+# on the card (--device cuda --engine device), driven by
+# benchmarks/bench_serving.py's fleet mix (_fleet_workload: seed 17, MIC :
+# DCF : EvaluateAt 3 : 1 : 1, 16 threads; 16 requests an arm, one a thread,
+# where the bench sends 2,400, as a request costs a replica ~2.4 s of host
+# spot checks) against 1 live replica and against 3 with one SIGKILLed
+# mid-run and restarted, then a --stream sheltered behind two replicas of
+# party 1 on a shared --stream-journal-root. 21e: the AutoScaler (min 1, max
+# 3) on party 0's proxy over a burst of the mix and then a trickle.
+PHASE21 = dict(
+    device="cuda", request_timeout=600.0, publish_timeout=600.0, start_timeout=300.0,
+    demo_bits=16, demo_bpl=2, demo_threshold=8, demo_clients=10_000, demo_window=2_500,
+    demo_batch=100, demo_threads=4,
+    deep_bits=32, deep_bpl=2, deep_window=8_192, deep_windows=2, deep_zipf=1.2,
+    deep_distinct=4096, deep_threshold=40, deep_batch=512, deep_threads=4,
+    flip_ttl=1.0, flip_window=16, flip_threshold=8,
+    fleet_replicas=3, fleet_seed=17, fleet_threads=16, fleet_requests=16,
+    fleet_rehome_requests=12, fleet_wait_ms=2.0,
+    shelter_window=64, shelter_ttl=1.0,
+    scale_up_backlog=6.0, scale_down_backlog=1.0, scale_interval=0.25, scale_sustain=2,
+    scale_cooldown=2.0, scale_burst_s=60.0, scale_idle_s=60.0,
+)
+
+
+def _hh_policy(serving, cfg):
+    return serving.RetryPolicy(attempts=60, base_backoff=0.05, max_backoff=1.0,
+                               attempt_timeout=cfg["request_timeout"], connect_attempts=80,
+                               connect_backoff=0.1, seed=0)
+
+
+def _hh_pair(serving, scfg, dev, root):
+    """The follower's server, then the leader's with the follower as its
+    peer: in-process port servers, each stream advancing on `dev`."""
+    follower = serving.DpfServer(engine="device", max_wait_ms=1.0, device=dev)
+    follower.register_stream(serving.HeavyHitterStream(scfg, os.path.join(root, "p1"),
+                                                       device=dev))
+    follower.start()
+    leader = serving.DpfServer(engine="device", max_wait_ms=1.0, device=dev)
+    leader.register_stream(serving.HeavyHitterStream(
+        scfg, os.path.join(root, "p0"), peer=("127.0.0.1", follower.port), device=dev))
+    leader.start()
+    return leader, follower
+
+
+def _hh_ingest_all(serving, cfg, endpoints, scfg, batches, threads: int) -> float:
+    """Every (batch id, party 0 blobs, party 1 blobs) through
+    TwoServerClient.hh_ingest, spread over `threads` client threads; each ack
+    must be fresh on both parties. Returns the wall from the first send to
+    the last ack."""
+    policy = _hh_policy(serving, cfg)
+
+    def worker(t):
+        with serving.TwoServerClient(endpoints, policy=policy) as c:
+            for bid, b0, b1 in batches[t::threads]:
+                acks = c.hh_ingest(scfg.name, scfg.parameters, (b0, b1), bid,
+                                   deadline=cfg["request_timeout"])
+                if [d for _g, d in acks] != [False, False]:
+                    fail(f"hh_ingest: batch {bid} acknowledged {acks}, not fresh")
+
+    t0 = time.perf_counter()
+    _in_threads([lambda t=t: worker(t) for t in range(threads)], "hh_ingest")
+    return time.perf_counter() - t0
+
+
+def _hh_published(client, name: str, bids, timeout: float, what: str,
+                  idle: bool = True) -> dict:
+    """Polls a party's hh_snapshot until every batch id is published and,
+    with `idle`, no window is pending."""
+    t_end = time.perf_counter() + timeout
+    while True:
+        snap = client.hh_snapshot(name, deadline=60)
+        done = [b for w in snap["published"] for b in w["batch_ids"]]
+        if sorted(done) == sorted(bids) and (snap["pending_windows"] == 0 or not idle):
+            return snap
+        if time.perf_counter() > t_end:
+            fail(f"{what}: {len(done)} of {len(bids)} batches published within {timeout} s "
+                 f"(stats {snap['stats']})")
+        time.sleep(0.05)
+
+
+def _hh_check(snap: dict, values_of: dict, threshold: int, what: str) -> None:
+    """Each batch in exactly one published window, and each window's
+    heavy hitters and counts the plaintext's over its batches."""
+    seen = [b for w in snap["published"] for b in w["batch_ids"]]
+    if sorted(seen) != sorted(values_of):
+        fail(f"{what}: the published windows do not hold every batch exactly once")
+    for w in snap["published"]:
+        vals = [v for b in w["batch_ids"] for v in values_of[b]]
+        want = {v: c for v, c in collections.Counter(vals).items() if c >= threshold}
+        got = {int(p): int(c) for p, c in zip(w["prefixes"], w["counts"])}
+        if got != want:
+            fail(f"{what}: window {w['generation']} published {got}, the plaintext {want}")
+
+
+def _hh_blobs(T, ser, keygen_batch, scfg, values, seeds, dev, batch: int, tag: str):
+    """Keys for `values` dealt on the card (K9, mode megakernel), serialized,
+    in batches: [(batch id, party 0 blobs, party 1 blobs)], and each batch's
+    values."""
+    dpf = T.DistributedPointFunction.create_incremental(list(scfg.parameters))
+    k0, k1 = keygen_batch.generate_keys_batch(dpf, values, [1] * len(scfg.parameters),
+                                              mode="megakernel", seeds=seeds, device=dev)
+    batches, values_of = [], {}
+    for i in range(0, len(values), batch):
+        bid = f"{tag}-{i // batch}"
+        batches.append((bid, [ser.serialize_dpf_key(k, scfg.parameters) for k in k0[i:i + batch]],
+                        [ser.serialize_dpf_key(k, scfg.parameters) for k in k1[i:i + batch]]))
+        values_of[bid] = values[i:i + batch]
+    return batches, values_of
+
+
+def phase_21(torch, T, dev, cfg, counts: PathCounts, card: str = "") -> dict:
+    """The replica tier (module docstring, phase 21): 21a the demo's stream
+    at 10,000 clients, 21b a 16-level stream in modes fused and hierkernel,
+    21c leader failover, 21d the fleet over two replica pools with a kill,
+    21e the autoscaler. Returns the replicas' launches by kernel."""
+    from distributed_point_functions_tpu_torch import serving
+    from distributed_point_functions_tpu_torch.ops import aes_cuda
+
+    out = {"server_launches": {}}
+    stamp = lambda what: print(f"[{time.perf_counter() - T0:.1f} s] {what}", flush=True)
+    with tempfile.TemporaryDirectory(prefix="dpf-phase21-") as tmp:
+        stamp("21a")
+        _phase_21a(torch, T, dev, cfg, counts, serving, aes_cuda, os.path.join(tmp, "a"))
+        print(card, flush=True)
+        stamp("21b")
+        _phase_21b(torch, T, dev, cfg, counts, serving, aes_cuda, os.path.join(tmp, "b"))
+        print(card, flush=True)
+        stamp("21c")
+        _phase_21c(torch, T, dev, cfg, counts, serving, aes_cuda, os.path.join(tmp, "c"))
+        print(card, flush=True)
+        stamp("21d-e")
+        _phase_21de(torch, T, dev, cfg, counts, serving, aes_cuda, os.path.join(tmp, "d"), out)
+        print(card, flush=True)
+    for n, c in out["server_launches"].items():
+        counts.total[n] = counts.total.get(n, 0) + c
+    return out
+
+
+def _phase_21a(torch, T, dev, cfg, counts, serving, aes_cuda, root) -> None:
+    from distributed_point_functions_tpu_torch.ops import keygen_batch
+    from distributed_point_functions_tpu_torch.protos import serialization as ser
+
+    bits, bpl, threshold = cfg["demo_bits"], cfg["demo_bpl"], cfg["demo_threshold"]
+    nclients = cfg["demo_clients"]
+    drng = np.random.default_rng(2026)
+    values = []
+    for hv in (0xBEEF, 0x1234, 0xC0DE):
+        values += [hv & ((1 << bits) - 1)] * (threshold + int(drng.integers(0, 5)))
+    while len(values) < nclients:
+        values.append(int(drng.integers(0, 1 << bits)))
+    drng.shuffle(values)
+    values = values[:nclients]
+    nwin = -(-nclients // cfg["demo_window"])
+    scfg = serving.StreamConfig.bitwise("demo", bits, bpl, threshold,
+                                        window_keys=cfg["demo_window"],
+                                        max_pending_windows=nwin + 1, mode="fused")
+    counts.start()
+    t0 = time.perf_counter()
+    batches, values_of = _hh_blobs(
+        T, ser, keygen_batch, scfg, values,
+        drng.integers(0, 2**32, size=(nclients, 2, 4), dtype=np.uint32), dev,
+        cfg["demo_batch"], "a")
+    deal_s = time.perf_counter() - t0
+    counts.end("21a, the clients' keys dealt on the card", (aes_cuda.K9,))
+    leader, follower = _hh_pair(serving, scfg, dev, root)
+    endpoints = [("127.0.0.1", leader.port), ("127.0.0.1", follower.port)]
+    try:
+        counts.start()
+        ingest_s = _hh_ingest_all(serving, cfg, endpoints, scfg, batches, cfg["demo_threads"])
+        with serving.TwoServerClient(endpoints, policy=_hh_policy(serving, cfg)) as c:
+            t0 = time.perf_counter()
+            c.hh_ingest("demo", scfg.parameters, ([], []), "", flush=True,
+                        deadline=cfg["request_timeout"])
+            snap = _hh_published(c.clients[0], "demo", list(values_of), cfg["publish_timeout"],
+                                 "21a")
+            publish_s = time.perf_counter() - t0
+            sync(torch, dev)
+            launches = counts.end("21a, the demo's stream through two servers",
+                                  (aes_cuda.K2, aes_cuda.K4))
+            _hh_check(snap, values_of, threshold, "21a")
+            bid, b0, b1 = batches[0]
+            again = c.hh_ingest("demo", scfg.parameters, (b0, b1), bid,
+                                deadline=cfg["request_timeout"])
+            if [d for _g, d in again] != [True, True]:
+                fail(f"21a: a resent batch was acknowledged {again}, not deduped")
+            fstats = c.clients[1].stats()["streams"]["demo"]
+        lstats = snap["stats"]
+        for what, st in (("leader", lstats), ("follower", fstats)):
+            if st["accepted_batches"] != len(batches) or st["accepted_keys"] != nclients:
+                fail(f"21a: the {what} accepted {st['accepted_batches']} batches, "
+                     f"{st['accepted_keys']} keys")
+    finally:
+        leader.stop()
+        follower.stop()
+    wins = snap["published"]
+    print(f"phase 21a, the heavy-hitters demo's stream ({nclients} clients, {bits} bits, {bpl} a "
+          f"level, threshold {threshold}, windows of {cfg['demo_window']} keys, batches of "
+          f"{cfg['demo_batch']}, {cfg['demo_threads']} client threads, mode fused on "
+          f"{dev.type}): keys dealt by K9 and serialized in {deal_s:.2f} s; ingest "
+          f"{ingest_s:.2f} s = {nclients / ingest_s:.1f} keys/s acked on both parties; "
+          f"publish (final flush to the last window published) {publish_s:.2f} s; windows "
+          + "; ".join(f"{w['generation']}: {w['keys']} keys, advance "
+                      f"{w['keygen']['advance_ms']} ms, heavy hitters "
+                      f"{[hex(int(p)) for p in w['prefixes']]}" for w in wins)
+          + f"; launches {launches}; every window's counts and heavy hitters equal the "
+          "plaintext's, every batch counted once, a resent batch deduped on both parties",
+          flush=True)
+
+
+def _deep_stream_child(mode: str, inp: str, outp: str) -> None:
+    """21b's run of one mode, in a process of its own (each mode's host
+    work then has its own interpreter lock): the follower's and the leader's
+    servers in this process on the card, the batches ingested window by
+    window (a window's batches all before the next's, so both modes' windows
+    hold the same batches), every advance_level_robust call traced (its
+    party, level, prefixes, wall, launches and share sum), the backlog
+    published. Reads its inputs from and writes its results to pickle files
+    that the parent process wrote and reads."""
+    import pickle
+
+    import torch
+
+    from distributed_point_functions_tpu_torch import serving
+    from distributed_point_functions_tpu_torch.ops import aes_cuda, evaluator, supervisor
+
+    with open(inp, "rb") as f:
+        args = pickle.load(f)
+    cfg, batches, values_of = args["cfg"], args["batches"], args["values_of"]
+    dev = torch.device(cfg["device"])
+    scfg = serving.StreamConfig.bitwise(
+        f"deep-{mode}", cfg["deep_bits"], cfg["deep_bpl"], cfg["deep_threshold"],
+        window_keys=cfg["deep_window"], max_pending_windows=cfg["deep_windows"] + 1, mode=mode)
+    log = []
+    real = supervisor.advance_level_robust
+
+    def traced(ctx, level, prefixes, **kw):
+        before = {k.name: k.launches for k in aes_cuda.KERNELS}
+        t = time.perf_counter()
+        limbs = real(ctx, level, prefixes, **kw)
+        sync(torch, dev)
+        log.append(dict(party=ctx.keys[0].party, level=level, prefixes=list(prefixes),
+                        wall=time.perf_counter() - t,
+                        launches=_launch_diff({k.name: k.launches for k in aes_cuda.KERNELS},
+                                              before),
+                        agg=np.asarray(evaluator.values_to_numpy(limbs, 64)).sum(
+                            axis=0, dtype=np.uint64)))
+        return limbs
+
+    supervisor.advance_level_robust = traced
+    aes_cuda.reset_launch_counts()
+    leader, follower = _hh_pair(serving, scfg, dev, args["root"])
+    try:
+        endpoints = [("127.0.0.1", leader.port), ("127.0.0.1", follower.port)]
+        per = cfg["deep_window"] // cfg["deep_batch"]
+        ingest_s = sum(_hh_ingest_all(serving, cfg, endpoints, scfg, batches[i:i + per],
+                                      cfg["deep_threads"])
+                       for i in range(0, len(batches), per))
+        with serving.DpfClient(*endpoints[0], policy=_hh_policy(serving, cfg)) as c:
+            t0 = time.perf_counter()
+            snap = _hh_published(c, scfg.name, list(values_of), cfg["publish_timeout"],
+                                 f"21b {mode}")
+            publish_s = time.perf_counter() - t0
+        sync(torch, dev)
+    finally:
+        leader.stop()
+        follower.stop()
+    with open(outp, "wb") as f:
+        pickle.dump(dict(snap=snap, log=log, ingest_s=ingest_s, publish_s=publish_s,
+                         launches={k.name: k.launches for k in aes_cuda.KERNELS
+                                   if k.launches}), f)
+
+
+def _phase_21b(torch, T, dev, cfg, counts, serving, aes_cuda, root) -> None:
+    import pickle
+
+    from distributed_point_functions_tpu_torch.ops import hierarchical, keygen_batch
+    from distributed_point_functions_tpu_torch.protos import serialization as ser
+
+    bits, bpl, threshold = cfg["deep_bits"], cfg["deep_bpl"], cfg["deep_threshold"]
+    n = cfg["deep_window"] * cfg["deep_windows"]
+    rng = np.random.default_rng(SEED + 21)
+    table = rng.choice(1 << bits, size=cfg["deep_distinct"], replace=False)
+    # A Zipf truncated at deep_distinct: a rank above it is drawn again.
+    ranks = np.empty(0, dtype=np.int64)
+    while len(ranks) < n:
+        r = rng.zipf(cfg["deep_zipf"], size=n)
+        ranks = np.concatenate([ranks, r[r <= cfg["deep_distinct"]]])
+    ranks = ranks[:n] - 1
+    values = [int(v) for v in table[ranks]]
+    seeds = rng.integers(0, 2**32, size=(n, 2, 4), dtype=np.uint32)
+    base = serving.StreamConfig.bitwise("deep", bits, bpl, threshold,
+                                        window_keys=cfg["deep_window"])
+    counts.start()
+    batches, values_of = _hh_blobs(T, ser, keygen_batch, base, values, seeds, dev,
+                                   cfg["deep_batch"], "b")
+    counts.end("21b, the keys dealt on the card", (aes_cuda.K9,))
+    # One process a mode, both at once, each with its own journal directory.
+    os.makedirs(root, exist_ok=True)
+    inp = os.path.join(root, "in.pickle")
+    with open(inp, "wb") as f:
+        pickle.dump(dict(cfg=cfg, batches=batches, values_of=values_of,
+                         root=os.path.join(root, "journals")), f)
+    modes, need = ("fused", "hierkernel"), {"fused": (aes_cuda.K2, aes_cuda.K4),
+                                            "hierkernel": (aes_cuda.K8,)}
+    procs = {}
+    t0 = time.perf_counter()
+    for mode in modes:
+        log_path = os.path.join(root, f"{mode}.log")
+        with open(log_path, "wb") as log:
+            procs[mode] = subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; chip_smoke._deep_stream_child("
+                 "*sys.argv[1:])", mode, inp, os.path.join(root, f"{mode}.pickle")],
+                cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+                stderr=subprocess.STDOUT)
+    runs = {}
+    for mode, proc in procs.items():
+        try:
+            rc = proc.wait(timeout=cfg["publish_timeout"] * 2)
+        except subprocess.TimeoutExpired:
+            for p in procs.values():
+                p.kill()
+            fail(f"21b: mode {mode}'s process did not end")
+        if rc != 0:
+            with open(os.path.join(root, f"{mode}.log"), "rb") as f:
+                tail = f.read()[-3000:].decode("utf-8", "replace")
+            fail(f"21b: mode {mode}'s process exited with {rc}:\n{tail}")
+        with open(os.path.join(root, f"{mode}.pickle"), "rb") as f:
+            r = pickle.load(f)
+        extra = [k for k in r["launches"] if k not in {x.name for x in need[mode]}]
+        missing = [k.name for k in need[mode] if not r["launches"].get(k.name)]
+        if counts.check and (extra or missing):
+            fail(f"21b, mode {mode}: launches {r['launches']}; expected "
+                 f"{[k.name for k in need[mode]]} only")
+        for k, c in r["launches"].items():
+            counts.total[k] = counts.total.get(k, 0) + c
+        _hh_check(r["snap"], values_of, threshold, f"21b {mode}")
+        runs[mode] = (r["snap"], r["ingest_s"], r["publish_s"], r["log"], r["launches"])
+    both_s = time.perf_counter() - t0
+    # Per window, level and party: the share sums equal across the modes
+    # bit for bit, and the two parties' sums reconstruct the plaintext count
+    # of every candidate prefix.
+    levels = len(base.parameters)
+    by_mode = {}
+    for mode, (snap, _ingest_s, _publish_s, mlog, _launches) in runs.items():
+        table_m, seen = {}, collections.Counter()
+        for rec in mlog:
+            if rec["level"] == 0:
+                seen[rec["party"]] += 1
+            table_m[(seen[rec["party"]] - 1, rec["level"], rec["party"])] = rec
+        by_mode[mode] = table_m
+    if set(by_mode["fused"]) != set(by_mode["hierkernel"]):
+        fail("21b: the modes advanced different (window, level, party) sets")
+    published = runs["fused"][0]["published"]
+    same = lambda ws: [(sorted(w["batch_ids"]), w["prefixes"], w["counts"]) for w in ws]
+    if same(published) != same(runs["hierkernel"][0]["published"]):
+        fail("21b: the modes published different windows, heavy hitters or counts")
+    checked = 0
+    for (win, level, party), rec in by_mode["fused"].items():
+        other = by_mode["hierkernel"][(win, level, party)]
+        if rec["prefixes"] != other["prefixes"] or not np.array_equal(rec["agg"], other["agg"]):
+            fail(f"21b: window {win} level {level} party {party}: the modes' share sums differ")
+        if party != 0:
+            continue
+        peer = by_mode["fused"][(win, level, 1)]
+        total = rec["agg"] + peer["agg"]
+        prev = 0 if level == 0 else base.parameters[level - 1].log_domain_size
+        lds = base.parameters[level].log_domain_size
+        cand = hierarchical.candidate_children(rec["prefixes"], prev, lds)
+        vals = [v for b in published[win]["batch_ids"] for v in values_of[b]]
+        plain = collections.Counter(v >> (bits - lds) for v in vals)
+        if [int(x) for x in total] != [plain.get(int(c), 0) for c in cand]:
+            fail(f"21b: window {win} level {level}: the reconstructed counts differ from the "
+                 "plaintext")
+        checked += 1
+    for mode, (snap, ingest_s, publish_s, mlog, mode_launches) in runs.items():
+        per_level = collections.defaultdict(list)
+        for rec in mlog:
+            per_level[rec["level"]].append(rec)
+        print(f"phase 21b, mode {mode} ({n} Zipf({cfg['deep_zipf']}) keys over "
+              f"{cfg['deep_distinct']} values, {bits} bits, {bpl} a level ({levels} levels), "
+              f"threshold {threshold}, windows of {cfg['deep_window']}, K9-dealt; each mode's "
+              f"server pair in a process of its own, both at once): ingest {ingest_s:.2f} s = "
+              f"{n / ingest_s:.1f} keys/s; the backlog published {publish_s:.2f} s after the "
+              f"last ack; wall a window (the leader's advance + publish) "
+              f"{[w['keygen']['advance_ms'] for w in snap['published']]} ms; launches "
+              f"{mode_launches}; per level (candidates, launches a party, advance ms a party, "
+              "window 0): " + "; ".join(
+                  f"{lv}: {4 * max(1, len(recs[0]['prefixes']))}, "
+                  f"{recs[0]['launches']}, {recs[0]['wall'] * 1e3:.1f}"
+                  for lv, recs in sorted(per_level.items())), flush=True)
+    print(f"phase 21b: both modes in {both_s:.2f} s; modes fused and "
+          f"hierkernel equal bit for bit at every (window, level, party) "
+          f"({len(by_mode['fused'])} advances), {checked} (window, level) count vectors equal "
+          "to the plaintext, the published heavy hitters "
+          f"{[len(w['prefixes']) for w in published]} a window equal to the plaintext's",
+          flush=True)
+
+
+def _phase_21c(torch, T, dev, cfg, counts, serving, aes_cuda, root) -> None:
+    """benchmarks/bench_streaming.py's failover arm on the card."""
+    from distributed_point_functions_tpu_torch.utils.errors import FailedPreconditionError
+
+    bits, bpl, ttl = cfg["demo_bits"], cfg["demo_bpl"], cfg["flip_ttl"]
+    scfg = serving.StreamConfig.bitwise("flip", bits, bpl, threshold=cfg["flip_threshold"],
+                                        window_keys=cfg["flip_window"],
+                                        max_pending_windows=1 << 30)
+    dpf = T.DistributedPointFunction.create_incremental(list(scfg.parameters))
+    nlev = len(scfg.parameters)
+    rng = np.random.default_rng(16)
+    lease_dir = os.path.join(root, "lease")
+    policy = serving.RetryPolicy(attempts=8, base_backoff=0.05, max_backoff=0.5,
+                                 attempt_timeout=cfg["request_timeout"], connect_attempts=80,
+                                 connect_backoff=0.1, seed=0)
+
+    def keys(vals):
+        k0, k1 = dpf.generate_keys_batch(vals, [[1] * len(vals)] * nlev, seeds=rng.integers(
+            0, 2**32, size=(len(vals), 2, 4), dtype=np.uint32))
+        return list(k0), list(k1)
+
+    values_of = {}
+    counts.start()
+    f_stream = serving.HeavyHitterStream(scfg, os.path.join(root, "p1"), role="follower",
+                                         lease_dir=lease_dir, lease_ttl=ttl, owner="p1",
+                                         device=dev)
+    f_srv = serving.DpfServer(engine="device", max_wait_ms=1.0, device=dev)
+    f_srv.register_stream(f_stream)
+    f_srv.start()
+    l_srv = serving.DpfServer(engine="device", max_wait_ms=1.0, device=dev)
+    l_stream = serving.HeavyHitterStream(scfg, os.path.join(root, "p0"),
+                                         peer=("127.0.0.1", f_srv.port), lease_dir=lease_dir,
+                                         lease_ttl=ttl, owner="p0", device=dev)
+    l_srv.register_stream(l_stream)
+    l_srv.start()
+    f_stream.peer = ("127.0.0.1", l_srv.port)
+    f_stream.start()
+    endpoints = [("127.0.0.1", l_srv.port), ("127.0.0.1", f_srv.port)]
+    servers = [f_srv, l_srv]
+    try:
+        client = serving.TwoServerClient(endpoints, policy=policy)
+        client.wait_ready(timeout=60)
+        values_of["warm"] = [1] * 9
+        client.hh_ingest("flip", scfg.parameters, keys(values_of["warm"]), "warm", flush=True,
+                         deadline=60.0)
+        _hh_published(client.clients[1], "flip", ["warm"], 60.0, "21c warm window", idle=False)
+        # The backlog: 12 of the window's 16 keys, so the window stays open.
+        for i in range(3):
+            values_of[f"flip-{i}"] = [int(v) for v in rng.integers(0, 1 << bits, size=4)]
+            client.hh_ingest("flip", scfg.parameters, keys(values_of[f"flip-{i}"]), f"flip-{i}",
+                             deadline=60.0)
+        old_epoch = l_stream.snapshot()["lease_epoch"]
+        t_kill = time.perf_counter()
+        l_stream.release_on_stop = False  # the crash shape: the lease stays held
+        l_srv.stop()
+        servers.remove(l_srv)
+        promote_s = None
+        while time.perf_counter() - t_kill < 60:
+            if f_stream.role == "leader":
+                promote_s = time.perf_counter() - t_kill
+                break
+            time.sleep(0.005)
+        if promote_s is None:
+            fail("21c: the follower was never promoted")
+        # The zombie: a leg under the superseded epoch is refused, never merged.
+        with serving.DpfClient(*endpoints[1], policy=policy) as z:
+            try:
+                z.hh_aggregate("flip", 0, ["flip-0"], [(0, [])], epoch=old_epoch,
+                               quarantine=["zombie-id"], deadline=30)
+            except FailedPreconditionError as exc:
+                zombie = str(exc).split(":")[0]
+            else:
+                fail("21c: the promoted leader merged a leg of the superseded epoch")
+        l_srv2 = serving.DpfServer(engine="device", max_wait_ms=1.0, port=endpoints[0][1],
+                                   device=dev)
+        l_srv2.register_stream(serving.HeavyHitterStream(
+            scfg, os.path.join(root, "p0"), peer=("127.0.0.1", f_srv.port),
+            lease_dir=lease_dir, lease_ttl=ttl, owner="p0r", device=dev))
+        l_srv2.start()
+        servers.append(l_srv2)
+        flip_s = None
+        fin = serving.TwoServerClient(endpoints, policy=policy)
+        while time.perf_counter() - t_kill < 120:
+            try:
+                fin.hh_ingest("flip", scfg.parameters, ([], []), "", flush=True, deadline=30.0)
+                snap = fin.clients[1].hh_snapshot("flip", deadline=10.0)
+            except Exception:  # noqa: BLE001 (the restart settling)
+                time.sleep(0.02)
+                continue
+            if any("flip-0" in w["batch_ids"] for w in snap["published"]):
+                flip_s = time.perf_counter() - t_kill
+                break
+            time.sleep(0.005)
+        if flip_s is None:
+            fail("21c: the backlog window was never published after the flip")
+        snap = _hh_published(fin.clients[1], "flip", list(values_of), 60.0, "21c")
+        sync(torch, dev)
+        launches = counts.end("21c, failover on the card", (aes_cuda.K2, aes_cuda.K4))
+        _hh_check(snap, values_of, cfg["flip_threshold"], "21c")
+        flipped = [w for w in snap["published"] if "flip-0" in w["batch_ids"]]
+        if len(flipped) != 1 or snap["lease_epoch"] <= old_epoch or snap["role"] != "leader":
+            fail(f"21c: the backlog window published {len(flipped)} times, epoch "
+                 f"{snap['lease_epoch']} after {old_epoch}, role {snap['role']}")
+        if fin.clients[1].stats()["streams"]["flip"]["quarantined"]:
+            fail("21c: the zombie's quarantine id was merged")
+        ex = fin.clients[0].hh_snapshot("flip", deadline=10.0)
+        if ex["role"] != "follower":
+            fail(f"21c: the restarted ex-leader booted as {ex['role']}, not follower")
+        fin.close()
+        client.close()
+    finally:
+        # The restarted ex-leader first: stopped after the leader, it would
+        # take the released lease and spend its stop on a dead peer.
+        for srv in reversed(servers):
+            srv.stop()
+    # A journaled window survives a stop and start bit for bit: the promoted
+    # party's published log reloads from its journal directory.
+    again = serving.HeavyHitterStream(scfg, os.path.join(root, "p1"), role="follower",
+                                      lease_dir=lease_dir, lease_ttl=ttl, owner="p1r",
+                                      device=dev)
+    reloaded = again.snapshot()["published"]
+    again.stop()
+    key = lambda ws: [(w["generation"], w["batch_ids"], w["prefixes"], w["counts"]) for w in ws]
+    if key(reloaded) != key(snap["published"]):
+        fail("21c: the published windows did not survive a stop and start bit for bit")
+    print(f"phase 21c, benchmarks/bench_streaming.py's failover arm on {dev.type} (lease TTL "
+          f"{ttl:.2f} s, windows of {cfg['flip_window']} keys, mode fused): the follower "
+          f"promoted {promote_s:.3f} s after the leader's kill (lease held), the backlog window "
+          f"published once under epoch {snap['lease_epoch']} (was {old_epoch}) "
+          f"{flip_s:.3f} s after the kill; the zombie's hh_aggregate at epoch {old_epoch} "
+          f"refused {zombie}; the ex-leader restarted as {ex['role']}; the published log "
+          f"reloaded bit for bit after a stop and start; launches {launches}", flush=True)
+
+
+def _fleet_workload(T, gates, cfg):
+    """benchmarks/bench_serving.py's _fleet_workload with both parties'
+    keys: the same seeded draws, in the same order, from default_rng(seed)
+    (the keys' own seeds from another generator). Returns the objects and
+    the call list of (kind, key index, points)."""
+    rng = np.random.default_rng(cfg["fleet_seed"])
+    krng = np.random.default_rng(SEED + 2117)
+    params = [T.DpfParameters(10, T.Int(64))]
+    dpf = T.DistributedPointFunction.create(params[0])
+    alphas = [int(a) for a in rng.integers(0, 1 << 10, size=8)]
+    keys = dpf.generate_keys_batch(alphas, [[7] * 8],
+                                   seeds=krng.integers(0, 2**32, size=(8, 2, 4), dtype=np.uint32))
+    dcf = T.DistributedComparisonFunction.create(16, T.Int(64))
+    dalphas = [int(rng.integers(0, 1 << 16)) for _ in range(4)]
+    dkeys = dcf.generate_keys_batch(dalphas, 99, seeds=krng.integers(
+        0, 2**32, size=(4, 2, 4), dtype=np.uint32))
+    intervals = [(2, 1000), (2000, 9000), (20000, 40000)]
+    gate = gates.MultipleIntervalContainmentGate.create(16, intervals)
+    r_ins = [int(rng.integers(0, 1 << 16)) for _ in range(6)]
+    gkeys = [gate.gen(r, [3, 7, 11], prng=gates.CounterRng(b"fleet-%d" % i))
+             for i, r in enumerate(r_ins)]
+    draws = {"evaluate_at": (1 << 10, 8), "dcf": (1 << 16, 24), "mic": (1 << 16, 32)}
+    kinds = ("mic", "mic", "mic", "dcf", "evaluate_at")
+    calls = []
+    for i in range(2048):
+        kind = kinds[int(rng.integers(0, len(kinds)))]
+        hi, size = draws[kind]
+        calls.append((kind, i, [int(x) for x in rng.integers(0, hi, size=size)]))
+    return dict(params=params, vt=T.Int(64), dpf=dpf, alphas=alphas, keys=keys, dcf=dcf,
+                dalphas=dalphas,
+                dkeys=dkeys, intervals=intervals, gate=gate, r_ins=r_ins, gkeys=gkeys,
+                calls=calls)
+
+
+def _fleet_call(w, tsc, call, deadline: float) -> None:
+    """One call of the mix through both parties; fails unless the shares
+    reconstruct."""
+    kind, i, pts = call
+    if kind == "evaluate_at":
+        j = i % len(w["alphas"])
+        s0, s1 = tsc.evaluate_at(w["params"], ([w["keys"][0][j]], [w["keys"][1][j]]), pts,
+                                 deadline=deadline)
+        got = [(_u64(s0)[0, p] + _u64(s1)[0, p]) % (1 << 64) for p in range(len(pts))]
+        want = [7 if x == w["alphas"][j] else 0 for x in pts]
+    elif kind == "dcf":
+        j = i % len(w["dalphas"])
+        s0, s1 = tsc.dcf(16, w["vt"], ([w["dkeys"][0][j]], [w["dkeys"][1][j]]), pts,
+                         deadline=deadline)
+        got = [(_u64(s0)[0, p] + _u64(s1)[0, p]) % (1 << 64) for p in range(len(pts))]
+        want = [99 if x < w["dalphas"][j] else 0 for x in pts]
+    else:
+        j = i % len(w["gkeys"])
+        s0, s1 = tsc.mic(16, w["intervals"], w["gkeys"][j], pts, deadline=deadline)
+        r_in, n = w["r_ins"][j], w["gate"].n
+        got = [[(int(s0[p, m]) + int(s1[p, m]) - r) % n for m, r in enumerate((3, 7, 11))]
+               for p in range(len(pts))]
+        want = [[int(lo <= (x - r_in) % n <= hi) for lo, hi in w["intervals"]] for x in pts]
+    if got != want:
+        fail(f"21d: a {kind} answer does not reconstruct")
+
+
+def _u64(limbs) -> list:
+    a = np.asarray(limbs).astype(np.uint64)
+    return (a[..., 0] | (a[..., 1] << np.uint64(32))).astype(object)
+
+
+def _drive_mix(serving, w, endpoints, calls, threads: int, cfg, on_progress=None):
+    """`calls` over `threads` TwoServerClients; returns (wall, latencies,
+    client retries). Any error fails."""
+    import threading
+
+    from distributed_point_functions_tpu_torch.utils import telemetry
+
+    policy = serving.RetryPolicy(attempts=40, base_backoff=0.05, max_backoff=0.5,
+                                 attempt_timeout=cfg["request_timeout"], connect_attempts=80,
+                                 connect_backoff=0.1, seed=0)
+    lock = threading.Lock()
+    lat, errors, done = [], [], [0]
+
+    def worker(t):
+        try:
+            with serving.TwoServerClient(endpoints, policy=policy) as tsc:
+                for call in calls[t::threads]:
+                    t0 = time.perf_counter()
+                    _fleet_call(w, tsc, call, cfg["request_timeout"])
+                    with lock:
+                        lat.append(time.perf_counter() - t0)
+                        done[0] += 1
+                        n_done = done[0]
+                    if on_progress is not None:
+                        on_progress(n_done)
+        except BaseException as exc:  # noqa: BLE001 (reported below)
+            errors.append(repr(exc))
+
+    with telemetry.capture() as tel:
+        ts = [threading.Thread(target=worker, args=(t,)) for t in range(threads)]
+        t0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        wall = time.perf_counter() - t0
+    if errors:
+        fail(f"21d: {errors[0]}")
+    retries = sum(v for k, v in tel.snapshot()["counters"].items()
+                  if k.startswith("rpc.client.retries"))
+    return wall, lat, retries
+
+
+def _slot_launches(serving, port: int) -> dict:
+    """A running replica's launches by kernel, from its stats body."""
+    once = serving.RetryPolicy(attempts=1, connect_attempts=1, attempt_timeout=30.0, seed=0)
+    with serving.DpfClient("127.0.0.1", port, policy=once) as c:
+        return c.stats(timeout=30)["launches"]
+
+
+def _replica_launches(serving, pool) -> list:
+    """Each slot's launches by kernel from its stats body ({} for a slot
+    that is not running)."""
+    out = []
+    for port in pool.ports:
+        try:
+            out.append(_slot_launches(serving, port))
+        except Exception:  # noqa: BLE001 (a stopped slot)
+            out.append({})
+    return out
+
+
+def _sum_launches(bodies) -> dict:
+    total = {}
+    for b in bodies:
+        for k, v in b.items():
+            total[k] = total.get(k, 0) + int(v)
+    return total
+
+
+def _phase_21de(torch, T, dev, cfg, counts, serving, aes_cuda, root, out) -> None:
+    import signal
+    import threading
+
+    from distributed_point_functions_tpu_torch import gates
+    from distributed_point_functions_tpu_torch.serving import fleet as fleet_mod
+    from distributed_point_functions_tpu_torch.serving import wire
+
+    w = _fleet_workload(T, gates, cfg)
+    nrep, nthreads, nreq = cfg["fleet_replicas"], cfg["fleet_threads"], cfg["fleet_requests"]
+    server_args = ["--engine", "device", "--max-wait-ms", str(cfg["fleet_wait_ms"])]
+    pools = [fleet_mod.ReplicaPool(replicas=nrep, server_args=server_args,
+                                   base_dir=os.path.join(root, f"party{p}"),
+                                   device=cfg["device"])
+             for p in (0, 1)]
+    # The sheltered stream's two replicas of party 1 (21d's last arm), started
+    # with the others: every replica process starts at once.
+    spec = f"shelter:16:2:2:{cfg['shelter_window']}"
+    sheltered = fleet_mod.ReplicaPool(
+        replicas=2, base_dir=os.path.join(root, "shelter"), device=cfg["device"],
+        server_args=["--engine", "device", "--stream", spec, "--stream-lease-ttl",
+                     str(cfg["shelter_ttl"])],
+        stream_journal_root=os.path.join(root, "shelter-journals"))
+    proxies = []
+    try:
+        t0 = time.perf_counter()
+        _in_threads([lambda pool=pool: pool.start(timeout=cfg["start_timeout"])
+                     for pool in pools + [sheltered]], "21d: a replica did not start")
+        proxies = [serving.FleetProxy(p.endpoints, probe_interval=0.25).start() for p in pools]
+        endpoints = [("127.0.0.1", px.port) for px in proxies]
+        with serving.TwoServerClient(endpoints) as probe:
+            probe.wait_ready(timeout=cfg["start_timeout"])
+        up_s = time.perf_counter() - t0
+        # Warm every replica: a call of each kind straight to each replica,
+        # the replicas at once.
+        t0 = time.perf_counter()
+
+        def warm(r):
+            direct = [("127.0.0.1", pools[p].ports[r]) for p in (0, 1)]
+            with serving.TwoServerClient(direct, policy=serving.RetryPolicy(
+                    attempts=4, attempt_timeout=cfg["request_timeout"], seed=0)) as tsc:
+                for kind in ("mic", "dcf", "evaluate_at"):
+                    call = next(c for c in w["calls"] if c[0] == kind)
+                    _fleet_call(w, tsc, call, cfg["request_timeout"])
+
+        _in_threads([lambda r=r: warm(r) for r in range(nrep)], "21d: warming a replica")
+        warm_s = time.perf_counter() - t0
+        arms = {}
+        calls = w["calls"]
+        # -- 1 live replica a party: the other two retired on the proxy.
+        for p in (0, 1):
+            for r in range(1, nrep):
+                proxies[p].set_retiring("127.0.0.1", pools[p].ports[r], True)
+        before = [_sum_launches(_replica_launches(serving, pool)) for pool in pools]
+        wall, lat, retries = _drive_mix(serving, w, endpoints, calls[:nreq], nthreads, cfg)
+        after = [_sum_launches(_replica_launches(serving, pool)) for pool in pools]
+        arms[1] = (wall, lat, retries, [_launch_diff(a, b) for a, b in zip(after, before)])
+        for p in (0, 1):
+            for r in range(1, nrep):
+                proxies[p].set_retiring("127.0.0.1", pools[p].ports[r], False)
+        # -- 3 replicas a party, party 0's busiest SIGKILLed at a third.
+        kill = {}
+
+        def chaos():
+            st = proxies[0].stats()
+            routed = {r["endpoint"]: r["routed"] for r in st["fleet"]["replicas"]}
+            victim = max(range(nrep), key=lambda i: routed.get(f"127.0.0.1:{pools[0].ports[i]}", 0))
+            kill["victim"] = victim
+            kill["pre"] = _replica_launches(serving, pools[0])[victim]
+            pools[0].kill(victim, signal.SIGKILL)
+            kill["t"] = time.perf_counter()
+            time.sleep(0.3)
+            pools[0].restart(victim, timeout=cfg["start_timeout"])
+            kill["restart_s"] = time.perf_counter() - kill["t"]
+
+        def on_progress(n_done):
+            if "thread" not in kill and n_done >= nreq // 3:
+                kill["thread"] = threading.Thread(target=chaos)
+                kill["thread"].start()
+
+        before = [_sum_launches(_replica_launches(serving, pool)) for pool in pools]
+        base0 = proxies[0].stats()["fleet"]["counters"]
+        wall, lat, retries = _drive_mix(serving, w, endpoints, calls[nreq:2 * nreq], nthreads,
+                                        cfg, on_progress)
+        kill["thread"].join()
+        victim = kill["victim"]
+        after = [_sum_launches(_replica_launches(serving, pool)) for pool in pools]
+        delta = [_launch_diff(a, b) for a, b in zip(after, before)]
+        # The victim's counts died with it: its launches before the kill
+        # count in this arm, and its restarted process's from zero.
+        for k, v in kill["pre"].items():
+            delta[0][k] = delta[0].get(k, 0) + int(v)
+        arms[3] = (wall, lat, retries, delta)
+        mid = proxies[0].stats()["fleet"]["counters"]
+        if mid["failovers"] + mid["replica_down"] <= base0["failovers"] + base0["replica_down"]:
+            fail("21d: the proxy saw no failover across the kill")
+        # -- the restarted replica wins its rendezvous range back.
+        vkey = f"127.0.0.1:{pools[0].ports[victim]}"
+        t_end = time.perf_counter() + cfg["start_timeout"]
+        while not next(r for r in proxies[0].health()["fleet"]["replicas"]
+                       if r["endpoint"] == vkey)["alive"]:
+            if time.perf_counter() > t_end:
+                fail("21d: the restarted replica never rejoined the proxy's candidate set")
+            time.sleep(0.05)
+        owned = []
+        keys_of = [r.key for r in proxies[0]._replicas]
+        for call in calls[2 * nreq:]:
+            kind, i, pts = call
+            if kind != "evaluate_at":
+                continue
+            j = i % len(w["alphas"])
+            digest = wire.routing_digest("evaluate_at", wire.encode_evaluate_at(
+                w["params"], [w["keys"][0][j]], pts))
+            if max(keys_of, key=lambda k: fleet_mod._rendezvous_score(digest, k)) == vkey:
+                owned.append(call)
+        owned = owned[:cfg["fleet_rehome_requests"]] or [
+            c for c in calls[2 * nreq:] if c[0] == "mic"][:cfg["fleet_rehome_requests"]]
+        pre = proxies[0].stats()["fleet"]
+        pre_routed = next(r["routed"] for r in pre["replicas"] if r["endpoint"] == vkey)
+        _drive_mix(serving, w, endpoints, owned, 4, cfg)
+        post = proxies[0].stats()["fleet"]
+        post_routed = next(r["routed"] for r in post["replicas"] if r["endpoint"] == vkey)
+        if (post_routed <= pre_routed
+                or post["counters"]["affinity_hits"] <= pre["counters"]["affinity_hits"]):
+            fail(f"21d: the restarted replica did not win its range back (routed {pre_routed} "
+                 f"-> {post_routed})")
+        # The proxy's merged launches are the sum of its replicas'.
+        for p in (0, 1):
+            merged = proxies[p].stats()["launches"]
+            direct = _sum_launches(_replica_launches(serving, pools[p]))
+            if merged != direct:
+                fail(f"21d, party {p}: the proxy's merged launches {merged} are not the sum of "
+                     f"its replicas' {direct}")
+        for arm, (wall_a, lat_a, retries_a, delta_a) in arms.items():
+            for p in (0, 1):
+                missing = [k.name for k in (aes_cuda.K4, aes_cuda.K6)
+                           if not delta_a[p].get(k.name)]
+                if missing and counts.check:
+                    fail(f"21d, {arm} replica(s), party {p}: {missing} never launched "
+                         f"({delta_a[p]})")
+                for n, c in delta_a[p].items():
+                    out["server_launches"][n] = out["server_launches"].get(n, 0) + c
+            p50, p95 = _serving_pcts(lat_a)
+            print(f"phase 21d, the fleet mix against {arm} live replica(s) a party ({len(lat_a)} "
+                  f"requests: bench_serving.py's _fleet_workload, seed {cfg['fleet_seed']}, MIC : "
+                  f"DCF : EvaluateAt 3 : 1 : 1, {nthreads} threads, both parties' proxies on "
+                  f"{cfg['device']}; one request a thread, a single wave, so no rate): wall "
+                  f"{wall_a:.2f} s, "
+                  f"p50 {p50:.1f} ms, p95 {p95:.1f} ms, client retries {retries_a}; the "
+                  f"replicas' launches {delta_a}", flush=True)
+        print(f"phase 21d: replicas up in {up_s:.1f} s ({2 * nrep} processes), warmed in "
+              f"{warm_s:.1f} s; replica {victim} of party 0 SIGKILLed a third into the "
+              f"3-replica arm and restarted on its port in {kill['restart_s']:.2f} s; every "
+              f"answer reconstructs; the proxy counted failovers {mid['failovers']}, "
+              f"replica_down {mid['replica_down']}; {len(owned)} calls after the restart: its "
+              f"routed {pre_routed} -> {post_routed}, affinity_hits "
+              f"{pre['counters']['affinity_hits']} -> {post['counters']['affinity_hits']}; each "
+              "proxy's merged launches equal the sum of its replicas'", flush=True)
+        _phase_21d_shelter(torch, T, dev, cfg, counts, serving, aes_cuda, root, out,
+                           sheltered, spec)
+        _phase_21e(cfg, serving, aes_cuda, w, pools, proxies, endpoints, nthreads, out)
+    finally:
+        for px in proxies:
+            px.stop()
+        for pool in pools + [sheltered]:
+            pool.stop()
+
+
+def _in_threads(thunks, what: str) -> None:
+    """Runs the thunks at once, one thread each; fails with the first error."""
+    import threading
+
+    errs = []
+
+    def run(fn):
+        try:
+            fn()
+        except BaseException as exc:  # noqa: BLE001 (reported below)
+            errs.append(exc)
+
+    ts = [threading.Thread(target=run, args=(fn,)) for fn in thunks]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    if errs:
+        fail(f"{what}: {errs[0]!r}")
+
+
+def _phase_21d_shelter(torch, T, dev, cfg, counts, serving, aes_cuda, root, out, sheltered,
+                       spec) -> None:
+    """A --stream sheltered behind two replicas of party 1 on a shared
+    --stream-journal-root (the follower party's fleet; the leader, in this
+    process, reaches it through party 1's proxy): the replica that owns the
+    stream is SIGKILLed with the window open; the survivor takes ownership
+    from the journals, and the window publishes once, with the plaintext's
+    counts."""
+    import signal
+
+    scfg = serving.parse_stream_spec(spec)
+    dpf = T.DistributedPointFunction.create_incremental(list(scfg.parameters))
+    rng = np.random.default_rng(SEED + 2104)
+    proxy = leader = None
+    policy = serving.RetryPolicy(attempts=80, base_backoff=0.05, max_backoff=0.5,
+                                 attempt_timeout=cfg["request_timeout"], connect_attempts=80,
+                                 connect_backoff=0.1, seed=0)
+    values_of, blobs = {}, {}
+
+    def batch(i):
+        vals = [int(v) for v in rng.choice([9, 9, 40, 1234, 77], size=8)]
+        k0, k1 = dpf.generate_keys_batch(vals, [[1] * 8] * len(scfg.parameters),
+                                         seeds=rng.integers(0, 2**32, size=(8, 2, 4),
+                                                            dtype=np.uint32))
+        values_of[f"s-{i}"] = vals
+        blobs[f"s-{i}"] = (list(k0), list(k1))
+
+    try:
+        proxy = serving.FleetProxy(sheltered.endpoints, probe_interval=0.25).start()
+        leader = serving.DpfServer(engine="device", max_wait_ms=1.0, device=dev)
+        leader.register_stream(serving.HeavyHitterStream(
+            scfg, os.path.join(root, "shelter-leader"), peer=("127.0.0.1", proxy.port),
+            device=dev))
+        leader.start()
+        before = [_sum_launches(_replica_launches(serving, sheltered))]
+        counts.start()
+        with serving.TwoServerClient([("127.0.0.1", leader.port), ("127.0.0.1", proxy.port)],
+                                     policy=policy) as c:
+            c.wait_ready(timeout=cfg["start_timeout"])
+            for i in range(2):
+                batch(i)
+                c.hh_ingest("shelter", scfg.parameters, blobs[f"s-{i}"], f"s-{i}",
+                            deadline=cfg["request_timeout"])
+            owners = []
+            for i, port in enumerate(sheltered.ports):
+                with serving.DpfClient("127.0.0.1", port) as d:
+                    if d.stats()["streams"]["shelter"]["accepted_batches"]:
+                        owners.append(i)
+            if len(owners) != 1:
+                fail(f"21d shelter: replicas {owners} hold the stream, not exactly one")
+            owner = owners[0]
+            pre = _replica_launches(serving, sheltered)[owner]
+            t_kill = time.perf_counter()
+            sheltered.kill(owner, signal.SIGKILL)
+            batch(2)
+            c.hh_ingest("shelter", scfg.parameters, blobs["s-2"], "s-2",
+                        deadline=cfg["request_timeout"])
+            rehome_s = time.perf_counter() - t_kill
+            c.hh_ingest("shelter", scfg.parameters, ([], []), "", flush=True,
+                        deadline=cfg["request_timeout"])
+            snap = _hh_published(c.clients[0], "shelter", list(values_of),
+                                 cfg["publish_timeout"], "21d shelter")
+            publish_s = time.perf_counter() - t_kill
+            sync(torch, dev)
+            launches = counts.end("21d, the sheltered stream's leader", (aes_cuda.K2, aes_cuda.K4))
+            again = c.hh_ingest("shelter", scfg.parameters, blobs["s-0"], "s-0",
+                                deadline=cfg["request_timeout"])
+        _hh_check(snap, values_of, scfg.threshold, "21d shelter")
+        if [d for _g, d in again] != [True, True] or len(snap["published"]) != 1:
+            fail(f"21d shelter: {len(snap['published'])} windows published; the resent batch "
+                 f"acknowledged {again}")
+        survivor = 1 - owner
+        with serving.DpfClient("127.0.0.1", sheltered.ports[survivor]) as d:
+            st = d.stats()
+        rehomed = st["counters"].get("streaming.rehomed[shelter]", 0)
+        if rehomed < 1:
+            fail(f"21d shelter: the survivor never took the stream over ({st['counters']})")
+        served = _launch_diff(_sum_launches(_replica_launches(serving, sheltered) + [pre]),
+                              before[0])
+        missing = [k.name for k in (aes_cuda.K2, aes_cuda.K4) if not served.get(k.name)]
+        if missing and counts.check:
+            fail(f"21d shelter: the sheltered replicas never launched {missing} ({served})")
+        for n, v in served.items():
+            out["server_launches"][n] = out["server_launches"].get(n, 0) + v
+    finally:
+        if leader is not None:
+            leader.stop()
+        if proxy is not None:
+            proxy.stop()
+        sheltered.stop()
+    print(f"phase 21d, a --stream sheltered behind 2 replicas of party 1 on a shared "
+          f"--stream-journal-root ({spec}, lease TTL {cfg['shelter_ttl']} s; the leader in "
+          f"this process, its peer party 1's proxy): the owner (replica {owner}) SIGKILLed with "
+          f"the window open; the survivor took the stream over (streaming.rehomed {rehomed}) "
+          f"and acknowledged the next batch {rehome_s:.2f} s after the kill; the window "
+          f"published once ({len(snap['published'][0]['batch_ids'])} batches, counts equal "
+          f"the plaintext's) {publish_s:.2f} s after the kill; a resent batch deduped on both "
+          f"parties; launches here {launches}, the sheltered replicas' {served}", flush=True)
+
+
+class _DrainReadPool:
+    """A ReplicaPool as 21e's autoscaler drives it: `on_drain(i)` runs just
+    before slot i is drained."""
+
+    def __init__(self, pool, on_drain):
+        self._pool, self._on_drain = pool, on_drain
+
+    def __getattr__(self, name):
+        return getattr(self._pool, name)
+
+    def scale_down(self, i: int, timeout: float = 30.0) -> None:
+        self._on_drain(i)
+        self._pool.scale_down(i, timeout=timeout)
+
+
+def _phase_21e(cfg, serving, aes_cuda, w, pools, proxies, endpoints, nthreads, out) -> None:
+    """The autoscaler on party 0's proxy, from 1 replica: a burst of the mix,
+    then a trickle; every answer reconstructs, and nothing here (the
+    proxies, the pool, the control loop) launches a kernel in this
+    process."""
+    import threading
+
+    pool, proxy = pools[0], proxies[0]
+    here = {k.name: k.launches for k in aes_cuda.KERNELS}
+    for r in range(1, cfg["fleet_replicas"]):
+        proxy.set_retiring("127.0.0.1", pool.ports[r], True)
+        pool.scale_down(r)
+    # Launches are counted a process at a time, never from the proxy's
+    # merge (which keeps a stopped replica's last body): each slot's count is
+    # read just before the scaler drains it, and the running slots' at the
+    # end. The process running at the start counts from its count then, a
+    # revived one from 0. Party 1's replicas run throughout.
+    base = {i: _slot_launches(serving, pool.ports[i]) for i in pool.running_indices()}
+    base1 = [_slot_launches(serving, port) for port in pools[1].ports]
+    counted = {}
+    count_lock = threading.Lock()
+
+    def take(i):
+        got = _slot_launches(serving, pool.ports[i])
+        with count_lock:
+            for n, c in _launch_diff(got, base.pop(i, {})).items():
+                counted[n] = counted.get(n, 0) + c
+
+    scaler = serving.AutoScaler(
+        proxy, _DrainReadPool(pool, take), plane="eval", min_replicas=1,
+        max_replicas=cfg["fleet_replicas"], interval=cfg["scale_interval"],
+        up_backlog=cfg["scale_up_backlog"], down_backlog=cfg["scale_down_backlog"],
+        sustain=cfg["scale_sustain"],
+        cooldown=cfg["scale_cooldown"], drain_timeout=60.0, spawn_timeout=cfg["start_timeout"])
+    lost = {}
+    t0 = time.perf_counter()
+    scaler.start()
+    try:
+        stop = threading.Event()
+        served = [0]
+
+        def burst(t):
+            calls = w["calls"][t::nthreads]
+            policy = serving.RetryPolicy(attempts=40, base_backoff=0.05, max_backoff=0.5,
+                                         attempt_timeout=cfg["request_timeout"], seed=0)
+            try:
+                with serving.TwoServerClient(endpoints, policy=policy) as tsc:
+                    for call in calls:
+                        if stop.is_set():
+                            return
+                        _fleet_call(w, tsc, call, cfg["request_timeout"])
+                        served[0] += 1
+            except BaseException as exc:  # noqa: BLE001 (reported below)
+                lost[t] = repr(exc)
+
+        trickled = [0]
+        drained = threading.Event()
+
+        def trickle():
+            # One client, one call at a time, from the burst's end until the
+            # scaler has drained back to one replica: the drain runs under
+            # live traffic.
+            policy = serving.RetryPolicy(attempts=40, base_backoff=0.05, max_backoff=0.5,
+                                         attempt_timeout=cfg["request_timeout"], seed=0)
+            try:
+                with serving.TwoServerClient(endpoints, policy=policy) as tsc:
+                    i = 0
+                    while not drained.is_set():
+                        _fleet_call(w, tsc, w["calls"][-1 - i], cfg["request_timeout"])
+                        trickled[0] += 1
+                        i += 1
+                        time.sleep(0.2)
+            except BaseException as exc:  # noqa: BLE001 (reported below)
+                lost["trickle"] = repr(exc)
+
+        ts = [threading.Thread(target=burst, args=(t,)) for t in range(nthreads)]
+        for t in ts:
+            t.start()
+        t_end = time.perf_counter() + cfg["scale_burst_s"]
+        while time.perf_counter() < t_end and not scaler.stats()["ups"]:
+            time.sleep(0.1)
+        trick = threading.Thread(target=trickle)
+        trick.start()
+        stop.set()
+        for t in ts:
+            t.join()
+        burst_s = time.perf_counter() - t0
+        burst_served = served[0]
+        ups = scaler.stats()["ups"]
+        t1 = time.perf_counter()
+        while (time.perf_counter() - t1 < cfg["scale_idle_s"]
+               and (len(pool.running_indices()) > 1 or not scaler.stats()["downs"])):
+            time.sleep(0.1)
+        drained.set()
+        trick.join()
+        idle_s = time.perf_counter() - t1
+    finally:
+        scaler.stop()
+    if lost:
+        fail(f"21e: requests lost during the burst: {next(iter(lost.values()))}")
+    events = scaler.events()
+    downs = scaler.stats()["downs"]
+    if ups < 1 or downs < 1 or len(pool.running_indices()) != 1:
+        fail(f"21e: the autoscaler did not scale up and drain back to 1 (ups {ups}, downs "
+             f"{downs}, running {pool.running_indices()}; events {events})")
+    if any(e[1] == "error" for e in events):
+        fail(f"21e: the control loop erred: {events}")
+    if {k.name: k.launches for k in aes_cuda.KERNELS} != here:
+        fail("21e: the autoscaler's control loop launched a kernel in this process")
+    for i in pool.running_indices():
+        take(i)
+    party1 = _sum_launches(_launch_diff(_slot_launches(serving, port), b)
+                           for port, b in zip(pools[1].ports, base1))
+    launched = [counted, party1]
+    for n, c in _sum_launches(launched).items():
+        out["server_launches"][n] = out["server_launches"].get(n, 0) + c
+    print(f"phase 21e, the autoscaler on party 0's proxy (min 1, max {cfg['fleet_replicas']}, "
+          f"backlog a live replica up at {cfg['scale_up_backlog']}, down at "
+          f"{cfg['scale_down_backlog']}, sustain {cfg['scale_sustain']}, cooldown "
+          f"{cfg['scale_cooldown']} s): the burst ({nthreads} threads, {burst_served} requests in "
+          f"{burst_s:.1f} s) scaled up {ups} time(s); the trickle ({trickled[0]} requests in "
+          f"{idle_s:.1f} s) drained down {downs} time(s); events (s from start, kind, detail): "
+          + "; ".join(f"{e[0] - t0:.2f} {e[1]} {e[2]}" for e in events)
+          + "; no request lost, every answer reconstructs; the replicas' launches "
+          f"(party 0, party 1) {launched}",
+          flush=True)
+
+
 def main() -> None:
     import torch
+
+    global T0
+    T0 = time.perf_counter()
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -2495,11 +3641,20 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
           f"{sys.version.split()[0]}, {kind} x{torch.cuda.device_count()}")
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 1", flush=True)
     # -- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
     aes_cuda.library()
     print(f"build: csrc/{' + csrc/'.join(aes_cuda.SOURCES)} for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s")
+    if sys.argv[1:] == ["--phase", "21"]:
+        # Phase 21 alone (a development aid; the check runs every phase).
+        tier = PathCounts(aes_cuda)
+        phase_21(torch, T, dev, PHASE21, tier, card)
+        print(f"phase 21: launches {tier.total}")
+        print(f"[{time.perf_counter() - T0:.1f} s] the end")
+        print(card)
+        return
     if sys.argv[1:] == ["--phase", "20"]:
         # Phase 20 alone (a development aid; the check runs every phase):
         # phase 4's database and queries made the way phase 4 makes them.
@@ -2520,6 +3675,7 @@ def main() -> None:
             fail(f"no ptxas report for {kern.name}")
         print(f"  {kern.name}: {kern.ptxas}")
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 2", flush=True)
     # -- 2. kernels against their plain versions ---------------------------
     # Main-path widths: Int(64) at log-domain 20 has 19 tree levels, XorWrapper
     # (128) 20; 5 run on the host, so K2 sees W = 1 .. 2^(levels-6) input
@@ -2639,6 +3795,7 @@ def main() -> None:
                         for w in k2_widths}))
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 3", flush=True)
     # -- 3. the main path: full-domain fold ---------------------------------
     rng = np.random.default_rng(SEED)
     dpf = T.DistributedPointFunction.create(T.DpfParameters(LOG_DOMAIN, T.Int(64)))
@@ -2746,6 +3903,7 @@ def main() -> None:
     del results, ch
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 4", flush=True)
     # -- 4. the main path: PIR ----------------------------------------------
     pdpf = T.DistributedPointFunction.create(
         T.DpfParameters(LOG_DOMAIN, T.XorWrapper(128))
@@ -2817,6 +3975,7 @@ def main() -> None:
     del prepared, prepared_mk
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 5", flush=True)
     # -- 5. the walk kernels K6 and K7 against their plain versions ----------
     # Full width: EvaluateAt's main path, 1024 keys x 4096 points = 128 words
     # at log-domain 32, where Int(64) packs 2 elements a block: 31 levels.
@@ -2889,6 +4048,7 @@ def main() -> None:
     del a
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 6", flush=True)
     # -- 6. the main path: batched EvaluateAt ---------------------------------
     edpf = T.DistributedPointFunction.create(T.DpfParameters(EVAL_LOG_DOMAIN, T.Int(64)))
     if edpf.validator.hierarchy_to_tree[0] != elevels:
@@ -3017,6 +4177,7 @@ def main() -> None:
     del mvals, mkeys
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 7", flush=True)
     # -- 7. K7's DCF form against its plain version --------------------------
     # BASELINE config 4: log-domain 24, so the DCF's incremental DPF has 24
     # hierarchy levels on 23 tree levels, every depth capturing; 512 points
@@ -3083,6 +4244,7 @@ def main() -> None:
     del a
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 8", flush=True)
     # -- 8. the main path: DCF BatchEvaluate, BASELINE config 4 --------------
     dcf = T.DistributedComparisonFunction.create(DCF_LOG_DOMAIN, T.Int(64))
     dv = dcf.dpf.validator
@@ -3189,6 +4351,7 @@ def main() -> None:
     del shares, dch, got
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 9", flush=True)
     # -- 9. K8 against its plain version -------------------------------------
     # The heavy-hitters configuration first (host): its keys, its plan and
     # the hierkernel windows, whose full-width tables K8 is held at.
@@ -3328,6 +4491,7 @@ def main() -> None:
     del a, planes_h, hlk
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 10", flush=True)
     # -- 10. the main path: heavy hitters ------------------------------------
     tree_levels = hdpf.validator.hierarchy_to_tree[-1]
     chunks_hh = -(-HH_KEYS // HH_CHUNK)
@@ -3426,6 +4590,7 @@ def main() -> None:
     del hh_out
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 11", flush=True)
     # -- 11. K9 and K2's one-key view against their plain versions -----------
     # BM_KeyGeneration's batches first (host): the draws of
     # benchmarks/bench_keygen.py, depth by depth from one generator.
@@ -3501,6 +4666,7 @@ def main() -> None:
     del a
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 12", flush=True)
     # -- 12. the main path: batched keygen ----------------------------------
     class TimedPrg(keygen_batch.DeviceKeygenPrg):
         """Mode perlevel's provider, timing its calls: each uploads, packs,
@@ -3606,6 +4772,7 @@ def main() -> None:
         del outs, records, keys_k, kb, want
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 13", flush=True)
     # -- 13. end to end: K9's keys through EvaluateAt ------------------------
     e2e_dpf, e2e_alphas, e2e_betas, _ = kg[20]
     e2e_points = e2e_alphas + [int(x) for x in np.random.default_rng(SEED + 20).integers(
@@ -3625,6 +4792,7 @@ def main() -> None:
     del e2e, e2e_keys, kg
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 14", flush=True)
     # -- 14. the codec path's kernels at its shapes, and the codec on the card
     c3_domains = [C3_STEP * (i + 1) for i in range(C3_LEVELS)]
 
@@ -3725,6 +4893,7 @@ def main() -> None:
           f"{', '.join(codec_types)} (one K4 launch a value block), both parties")
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 15", flush=True)
     # -- 15. the main path: BASELINE config 3 ---------------------------------
     c3vt = T.IntModN(64, C3_MODULUS)
     c3dpf = T.DistributedPointFunction.create_incremental(
@@ -3929,6 +5098,7 @@ def main() -> None:
           f"{C3_CPU_POINTS} points a level")
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 16", flush=True)
     # -- 16. the FSS gates at bench_gates.py's configuration -------------------
     from distributed_point_functions_tpu_torch import gates, protos
     from distributed_point_functions_tpu_torch.gates import framework as gate_fw
@@ -4195,6 +5365,7 @@ def main() -> None:
     print("gates: " + json.dumps(gate_rows))
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 17", flush=True)
     # -- 17. the EvaluationContext API; 18. PIR in natural order -------------------
     new_paths = PathCounts(aes_cuda)
     phase_17(torch, T, dev, hh, dict(dpf=c3dpf, keys=c3keys, alphas=c3_alphas, betas=c3_betas,
@@ -4209,6 +5380,7 @@ def main() -> None:
     print(f"phases 17 and 18: launches {new_paths.total}")
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 19", flush=True)
     # -- 19. the resilience layer ---------------------------------------------
     resilience = PathCounts(aes_cuda)
     phase_19(torch, T, dev, fold_case, p4,
@@ -4220,12 +5392,22 @@ def main() -> None:
     events.check_all()
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 20", flush=True)
     # -- 20. the serving plane ------------------------------------------------
     served = PathCounts(aes_cuda)
     phase_20(torch, T, dev, p4, PHASE20, served, card)
     for name, n in served.total.items():
         main_launches[name] = main_launches.get(name, 0) + n
     print(f"phase 20: launches {served.total}")
+    torch.cuda.empty_cache()
+
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 21", flush=True)
+    # -- 21. the serving plane's replica tier ----------------------------------
+    tier = PathCounts(aes_cuda)
+    phase_21(torch, T, dev, PHASE21, tier, card)
+    for name, n in tier.total.items():
+        main_launches[name] = main_launches.get(name, 0) + n
+    print(f"phase 21: launches {tier.total}")
     torch.cuda.empty_cache()
 
     if "jax" in sys.modules:
@@ -4279,7 +5461,9 @@ def main() -> None:
                      + walk_launches_c3[aes_cuda.K6.name] + gate_launches[aes_cuda.K6.name]
                      + gate_launches[aes_cuda.K7_DCF.name] + new_paths.total[aes_cuda.K6.name]
                      + served.total[aes_cuda.K6.name] + served.total[aes_cuda.K7.name]
-                     + served.total[aes_cuda.K7_DCF.name] + served.total[aes_cuda.K8.name]),
+                     + served.total[aes_cuda.K7_DCF.name] + served.total[aes_cuda.K8.name]
+                     + tier.total[aes_cuda.K6.name] + tier.total[aes_cuda.K7.name]
+                     + tier.total[aes_cuda.K7_DCF.name] + tier.total[aes_cuda.K8.name]),
         "max_abs_err": checks["K6"],
         "ms": rows["K6"]["ms"],
         "device_ms": rows["K6"].get("device_ms"),
@@ -4339,7 +5523,7 @@ def main() -> None:
             "bound_by": r["bound_by"],
             "library_ms": None,
         })
-    k9_total = kg_launches[(aes_cuda.K9.name, "megakernel")]
+    k9_total = main_launches.get(aes_cuda.K9.name, 0)  # every phase's, 12 and 16-21
     for name, label, launches in (
         ("K9", "K9 keygen_megakernel (BM_KeyGeneration, 1024 keys, depth 20)", k9_total),
         ("K9 d128", "K9 keygen_megakernel (1024 keys, depth 128)", 1),
@@ -4367,6 +5551,7 @@ def main() -> None:
             "library_ms": None,
         })
     print(card)
+    print(f"[{time.perf_counter() - T0:.1f} s] the end")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -781,7 +781,7 @@ def _ctx_restore(ctx, snap: tuple) -> None:
     ) = snap
 
 
-def _ctx_record(ctx) -> dict:
+def ctx_record(ctx) -> dict:
     """Journal payload of a BatchedContext's resumable state: the prefix
     bookkeeping and the seeds / control, pulled to the host (uint32 seeds,
     0/1 control)."""
@@ -799,8 +799,8 @@ def _ctx_record(ctx) -> dict:
     return rec
 
 
-def _ctx_apply(ctx, rec: dict, device=None) -> None:
-    """Restores a ``_ctx_record`` payload into `ctx`, the state as int32
+def ctx_apply(ctx, rec: dict, device=None) -> None:
+    """Restores a ``ctx_record`` payload into `ctx`, the state as int32
     tensors on `device` (None: the CPU, which any entry point moves to its
     own device)."""
     import torch
@@ -909,9 +909,9 @@ def evaluate_levels_fused_robust(
             stored = jr.completed(ei) if jr is not None else None
             if stored is not None:
                 outs.append(_decode_array(stored["values"]))
-                _ctx_apply(ctx, stored["state"], dev)
+                ctx_apply(ctx, stored["state"], dev)
                 if shadow is not None:
-                    _ctx_apply(shadow, stored["state"])
+                    ctx_apply(shadow, stored["state"])
                     if shadow.seeds is not None:
                         shadow.seeds = shadow.seeds[-1:]
                         shadow.control = shadow.control[-1:]
@@ -973,7 +973,7 @@ def evaluate_levels_fused_robust(
             outs.append(np.asarray(out))
             if jr is not None:
                 jr.record(ei, {"values": _encode_array(np.asarray(out)),
-                               "state": _ctx_record(ctx)})
+                               "state": ctx_record(ctx)})
         if jr is not None:
             jr.finalize()
     finally:

@@ -11,11 +11,15 @@ ways).
         fut = door.submit(serving.Request.evaluate_at(dpf, [key], points))
         limbs = fut.result(timeout=5)
 
-The replica tier (the fleet proxy, autoscaling, leases and the streaming
-heavy-hitters tier) is not ported yet.
+The replica tier: ``FleetProxy`` over a ``ReplicaPool`` of server
+processes (each on the card unless ``device="cpu"``), the ``AutoScaler``
+that resizes it, and the streaming heavy-hitters tier
+(``HeavyHitterStream``, advancing on the card by default, with its
+``StreamLease`` failover).
 """
 
 from . import wire  # noqa: F401
+from .autoscale import DEALER_OPS, AutoScaler  # noqa: F401
 from .batcher import (  # noqa: F401
     ContinuousBatcher,
     Request,
@@ -29,7 +33,9 @@ from .client import (  # noqa: F401
     RetryPolicy,
     TwoServerClient,
 )
+from .fleet import FleetProxy, ReplicaPool  # noqa: F401
 from .frontdoor import FrontDoor  # noqa: F401
+from .lease import LeaseState, StreamLease  # noqa: F401
 from .router import (  # noqa: F401
     ANCHORS,
     DISPATCH_SECONDS_PRIOR,
@@ -40,3 +46,8 @@ from .router import (  # noqa: F401
     Workload,
 )
 from .server import DpfServer  # noqa: F401
+from .streaming import (  # noqa: F401
+    HeavyHitterStream,
+    StreamConfig,
+    parse_stream_spec,
+)

@@ -80,11 +80,13 @@ from ..utils.errors import (
 #: fused-DCF GatePlan; MIC predates the framework and keeps its own op)
 #: plus "keygen", the dealer-offload op (batched two-party key
 #: generation; same-parameter requests merge into one level-major pass)
-#: (the streaming heavy-hitters ingest op waits for the port of the
-#: streaming tier).
+#: plus "hh_ingest", the streaming heavy-hitters key-upload op
+#: (journaled-then-acknowledged window ingestion — its OWN op class in
+#: the fair-flush ordering, so a write-heavy ingest flood cannot starve
+#: the query ops behind its backlog).
 OPS = (
     "full_domain", "evaluate_at", "dcf", "mic", "gate", "pir",
-    "hierarchical", "keygen",
+    "hierarchical", "keygen", "hh_ingest",
 )
 
 
@@ -183,6 +185,10 @@ class Request:
     #: at construction so same-parameter batches merge by concatenation).
     betas: Optional[list] = None
     hierarchy_level: int = -1
+    #: hh_ingest: (parameters, key blobs, batch_id, flush) — obj is the
+    #: HeavyHitterStream; the flush callback journals and acknowledges
+    #: each batch individually.
+    ingest: Optional[tuple] = None
     #: multi-tenant QoS token: which tenant submitted this
     #: request — "" means untenanted (the wire absent-field default).
     #: Deliberately NOT part of :meth:`signature`: requests from
@@ -306,6 +312,22 @@ class Request:
         return cls(op="keygen", obj=dpf, points=alphas, betas=cols)
 
     @classmethod
+    def hh_ingest(cls, stream, parameters, key_blobs, batch_id: str,
+                  flush: bool = False):
+        """One client key batch into a heavy-hitter stream's open window.
+        `key_blobs` are the serialized DpfKey bytes exactly as received —
+        the journal records what was acknowledged, so the wire bytes ARE
+        the durable form. An empty batch with `flush` is a pure
+        window-close control message."""
+        return cls(
+            op="hh_ingest", obj=stream,
+            ingest=(
+                tuple(parameters), tuple(bytes(b) for b in key_blobs),
+                str(batch_id), bool(flush),
+            ),
+        )
+
+    @classmethod
     def hierarchical(cls, dpf, keys: Sequence, plan, group: int = 16):
         return cls(
             op="hierarchical", obj=dpf, keys=tuple(keys),
@@ -351,6 +373,11 @@ class Request:
             # merge — the batch is one level-major pass over the
             # concatenated alphas/beta columns.
             return (self.op, self.params_signature())
+        if self.op == "hh_ingest":
+            # One queue per stream: ingests serialize through the
+            # stream's window manager in arrival order, and the op class
+            # rides the fair-flush rotation like any other.
+            return (self.op, self.obj.config.name)
         if not self.keys:
             raise InvalidArgumentError("request carries no keys")
         # Party rides every signature: a merged KeyBatch must be one
@@ -393,6 +420,8 @@ class Request:
         key by construction), alphas for keygen (keys to produce)."""
         if self.op in ("mic", "gate", "keygen"):
             return len(self.points)
+        if self.op == "hh_ingest":
+            return max(1, len(self.ingest[1]))  # keys (1 for pure flush)
         return len(self.keys)
 
 

@@ -295,7 +295,22 @@ class FrontDoor:
 
     # -- submission --------------------------------------------------------
     def submit(self, request: Request) -> ServedFuture:
-        self._shed_check(request)
+        if request.op == "hh_ingest":
+            # Streaming ingest: admission is the stream's pending-window
+            # bound (RESOURCE_EXHAUSTED = backpressure, retried with
+            # backoff by the client), not the router's deadline model —
+            # an ingest has no engine candidates to cost. The batch id
+            # rides along so the retry of an ALREADY-ACCEPTED batch (a
+            # lost ack) is acknowledged even under backpressure — never
+            # refused for admitted work. Flush-only control messages skip
+            # the gate here: whether a flush adds a pending window
+            # depends on the open window's contents, which only ingest()
+            # can judge (it exempts the empty-window no-op the drain
+            # loops send).
+            if request.ingest[1]:
+                request.obj.check_admission(batch_id=request.ingest[2])
+        else:
+            self._shed_check(request)
         return self.batcher.submit(request)
 
     def _shed_check(self, request: Request) -> None:
@@ -460,6 +475,14 @@ class FrontDoor:
         if not live:
             return
         reqs = live
+        if reqs[0].op == "hh_ingest":
+            # Streaming ingest: no routing, no merging — each batch
+            # journals and acknowledges individually, in arrival order,
+            # and a single bad batch rejects only ITS future (the window
+            # manager is the authority on dedup/backpressure). The
+            # window advance runs on the stream's own worker.
+            self._execute_hh_ingest(reqs)
+            return
         # The merged point union is shared by the router's point count
         # and the runner's slicing map — computed once per batch.
         union = (
@@ -503,6 +526,20 @@ class FrontDoor:
                     r.future.latency_seconds * 1e3,
                     op=r.tenant,
                 )
+
+    def _execute_hh_ingest(self, reqs: List[Request]) -> None:
+        for r in reqs:
+            try:
+                parameters, blobs, batch_id, flush = r.ingest
+                generation, deduped = r.obj.ingest(
+                    parameters, list(blobs), batch_id, flush=flush
+                )
+                r.future.choice = "host"
+                r.future._resolve(
+                    np.array([generation, int(deduped)], dtype=np.uint64)
+                )
+            except BaseException as exc:  # noqa: BLE001 — per-future
+                r.future._reject(exc)
 
     def _learn(self, w: Workload, decision: RouteDecision, seconds, tel) -> None:
         """Feed the measured batch back into the router: rate EWMA,

@@ -30,8 +30,11 @@ Robustness vocabulary served to clients:
   ``T_STATS`` answers the counter snapshot a soak asserts completeness
   against, plus the kernels' launch counts and the last merged batches.
 
-Heavy-hitter streams are not served yet: a stream op answers
-INVALID_ARGUMENT, as a server answers for a stream it does not hold.
+Heavy-hitter streams (serving/streaming.py) registered on the server
+serve ``hh_ingest`` (through the batcher, its own op class),
+``hh_snapshot`` and ``hh_aggregate``; a stream op naming a stream the
+server does not hold answers INVALID_ARGUMENT. A ``--stream`` stream
+advances on the server's ``--device``.
 
 Run one party from the CLI (on the card; ``--device cpu`` runs the
 kernels' plain versions on the CPU)::
@@ -98,6 +101,10 @@ class DpfServer:
         #: A peer stalled mid-frame past this is dead: drop it.
         self.frame_timeout = frame_timeout
         self._dbs: Dict[str, np.ndarray] = {}
+        #: heavy-hitter streams by name — registered before start(); the
+        #: server owns their lifecycle (the leader's advance worker
+        #: starts/stops with the socket loop).
+        self._streams: Dict[str, object] = {}
         self._objs: "collections.OrderedDict[tuple, object]" = (
             collections.OrderedDict()
         )
@@ -120,15 +127,24 @@ class DpfServer:
         cache both key on the object's identity."""
         self._dbs[name] = np.asarray(db)
 
-    @staticmethod
-    def _no_stream(name: str):
-        """The answer for a stream op: this server holds no heavy-hitter
-        stream (the streaming tier is not ported yet), so it answers what
-        a server answers for a stream it does not hold."""
-        raise InvalidArgumentError(
-            f"stream {name!r} is not registered on this server "
-            "(registered: [])"
-        )
+    def register_stream(self, stream) -> None:
+        """Registers a heavy-hitter stream (a
+        :class:`~.streaming.HeavyHitterStream`) — its ``hh_ingest`` /
+        ``hh_snapshot`` / ``hh_aggregate`` ops become servable, its
+        stats ride the stats/health frames, and its lifecycle (journal
+        reload, the leader's advance worker) follows the server's."""
+        self._streams[stream.config.name] = stream
+        if self._listener is not None:
+            stream.start()
+
+    def _stream_for(self, name: str):
+        stream = self._streams.get(name)
+        if stream is None:
+            raise InvalidArgumentError(
+                f"stream {name!r} is not registered on this server "
+                f"(registered: {sorted(self._streams)})"
+            )
+        return stream
 
     # -- lifecycle ---------------------------------------------------------
     @property
@@ -158,6 +174,8 @@ class DpfServer:
         self._listener = listener
         self._port = listener.getsockname()[1]
         self.door.start()
+        for stream in self._streams.values():
+            stream.start()
         self._collector = _tm.attach_collector()
         self._accept_thread = threading.Thread(
             target=self._accept_loop, name="dpf-rpc-accept", daemon=True
@@ -188,6 +206,8 @@ class DpfServer:
 
     def stop(self, drain_timeout: float = 5.0) -> None:
         self.drain(drain_timeout)
+        for stream in self._streams.values():
+            stream.stop()
         self._stopped.set()
         with self._conns_lock:
             conns = list(self._conns)
@@ -360,7 +380,9 @@ class DpfServer:
             # Per-stream window/ingest state
             # (wire.STATS_STREAM_KEYS) — additive keys, old clients
             # never read them.
-            "streams": {},
+            "streams": {
+                name: st.stats_fields() for name, st in self._streams.items()
+            },
             # QoS/autoscale signals (wire.STATS_QOS_KEYS) —
             # per-op arrival-rate EWMAs feed the autoscaler's backlog
             # forecast, per-tenant counters its fairness dashboard.
@@ -390,7 +412,9 @@ class DpfServer:
             "inflight": inflight,
             "served": served,
             "warm": self.door.cache.inventory(),
-            "streams": {},
+            "streams": {
+                name: st.stats_fields() for name, st in self._streams.items()
+            },
             "rates": self.door.batcher.arrival_rates(),
             "tenants": self.door.batcher.tenant_stats(),
             # Additive keys of this package: the kernels' launch counts
@@ -424,9 +448,23 @@ class DpfServer:
                         "replica"
                     )
                 if op in ("hh_snapshot", "hh_aggregate"):
-                    # Streaming reads/exchanges answer on the handler
-                    # thread, with no engine choice and no merging.
-                    self._serve_stream_op(op, payload)
+                    # Streaming reads/exchanges are served by the window
+                    # manager directly — no engine choice, no batch
+                    # merging; the manager's own lock serializes window
+                    # state. They answer on the handler thread like
+                    # health/stats, inside the shared error taxonomy (an
+                    # incomplete window's UNAVAILABLE is a client retry
+                    # signal).
+                    arrays = self._serve_stream_op(op, payload)
+                    wire.write_frame(
+                        sock, wire.T_RESPONSE, frame.request_id,
+                        wire.encode_result_arrays(arrays),
+                    )
+                    _tm.observe(
+                        "rpc.server.request_ms",
+                        (time.perf_counter() - t0) * 1e3, op=op,
+                    )
+                    return
                 request = self._build_request(op, payload).with_tenant(
                     tenant
                 )
@@ -519,10 +557,21 @@ class DpfServer:
         """The streaming read/exchange ops, answered inline by the stream
         they name."""
         if op == "hh_snapshot":
-            name, _since = wire.decode_hh_snapshot(payload)
-        else:
-            name = wire.decode_hh_aggregate(payload)[0]
-        self._no_stream(name)
+            name, since = wire.decode_hh_snapshot(payload)
+            stream = self._stream_for(name)
+            return wire.json_result_arrays(
+                stream.snapshot(since_generation=since)
+            )
+        stream_name, generation, batch_ids, plan, extras = (
+            wire.decode_hh_aggregate(payload)
+        )
+        stream = self._stream_for(stream_name)
+        agg = stream.aggregate(
+            generation, batch_ids, plan,
+            epoch=extras["epoch"], publish=extras["publish"],
+            audit=extras["audit"], quarantine=extras["quarantine"],
+        )
+        return [np.asarray(agg, dtype=np.uint64)]
 
     def _build_request(self, op: str, payload: bytes) -> Request:
         if op == "full_domain":
@@ -571,12 +620,19 @@ class DpfServer:
                 self._dpf(parameters), keys, plan, group
             )
         if op == "hh_ingest":
-            # Streaming ingestion: the stream must be registered on this
-            # server, and none is until the streaming tier is ported.
-            _parameters, _blobs, stream_name, _batch_id, _flush = (
+            # Streaming ingestion: rides the batcher as its own op class
+            # (the fair-flush ordering — an ingest flood cannot starve
+            # the query ops), journaled-then-acknowledged inside the
+            # flush. Backpressure is checked at submit (FrontDoor ->
+            # stream.check_admission): past the pending-window bound the
+            # client sees RESOURCE_EXHAUSTED.
+            parameters, blobs, stream_name, batch_id, flush = (
                 wire.decode_hh_ingest(payload)
             )
-            self._no_stream(stream_name)
+            return Request.hh_ingest(
+                self._stream_for(stream_name), parameters, blobs, batch_id,
+                flush=flush,
+            )
         if op == "keygen":
             # Dealer offload: this server generates BOTH
             # parties' keys from the client's points/values — the BGI
@@ -666,22 +722,40 @@ def main(argv=None) -> int:
                     help="full-domain chunk-journal directory (crash resume)")
     ap.add_argument("--pir-db", type=_parse_pir_db, action="append",
                     default=[], metavar="NAME:LOG_DOMAIN:SEED[:WIDTH]")
-    # The streaming heavy-hitters flags of the JAX package's server. They
-    # parse, but this server holds no stream yet: every stream op answers
-    # INVALID_ARGUMENT ("not registered"), as for a stream a server lacks.
+    # Streaming heavy hitters. --stream registers a bitwise Int(64)
+    # stream advancing on --device; --stream-peer names the OTHER
+    # party's endpoint and makes this server the aggregation leader (it
+    # drives window advances + publishes); without it the server is the
+    # follower (serves hh_aggregate). Streams require --journal-dir (or
+    # the shared --stream-journal-root): journaled exactly-once window
+    # accounting is the tier's contract.
     ap.add_argument("--stream", action="append", default=[],
                     metavar="NAME:BITS:BPL:THRESHOLD:WINDOW"
                     "[:PENDING[:audit]]",
-                    help="heavy-hitter stream (not served by this server "
-                    "yet)")
-    for flag in ("--stream-peer", "--stream-follower-of",
-                 "--stream-lease-root", "--stream-journal-root"):
-        ap.add_argument(flag, default=None,
-                        help="heavy-hitter stream setting (not served by "
-                        "this server yet)")
+                    help="register a heavy-hitter stream (requires "
+                    "--journal-dir or --stream-journal-root)")
+    ap.add_argument("--stream-peer", default=None, metavar="HOST:PORT",
+                    help="peer party endpoint: this server becomes the "
+                    "stream aggregation leader")
+    ap.add_argument("--stream-follower-of", default=None,
+                    metavar="HOST:PORT",
+                    help="peer party endpoint, but boot as the FOLLOWER: "
+                    "the failover shape — this server promotes itself by "
+                    "lease when the leader's lease expires (requires "
+                    "--stream-lease-root)")
+    ap.add_argument("--stream-lease-root", default=None, metavar="DIR",
+                    help="role-lease directory shared by both parties: "
+                    "epoch-numbered TTL-renewed leader lease (failover + "
+                    "zombie fencing)")
     ap.add_argument("--stream-lease-ttl", type=float, default=2.0,
-                    help="heavy-hitter stream setting (not served by this "
-                    "server yet)")
+                    help="lease TTL seconds (renewed at ttl/3; a dead "
+                    "holder is superseded within ~ttl)")
+    ap.add_argument("--stream-journal-root", default=None, metavar="DIR",
+                    help="SHARED stream journal volume (fleet-sheltered "
+                    "streams): replicas arbitrate per-stream ownership "
+                    "by lease inside the stream directory, so a replica "
+                    "kill re-homes the stream to a survivor resuming "
+                    "from the same journals")
     ap.add_argument("--ready-file", default=None,
                     help="write '<port>\\n' here once listening (the "
                     "subprocess-orchestration handshake)")
@@ -740,11 +814,43 @@ def main(argv=None) -> int:
     for name, db in args.pir_db:
         server.register_db(name, db)
     if args.stream:
-        print(
-            "dpf-server: --stream: heavy-hitter streams are not served by "
-            "this server yet; stream ops answer INVALID_ARGUMENT",
-            file=sys.stderr, flush=True,
-        )
+        from .streaming import HeavyHitterStream, parse_stream_spec
+
+        if args.stream_peer and args.stream_follower_of:
+            ap.error("--stream-peer and --stream-follower-of are "
+                     "mutually exclusive (leader vs failover-follower)")
+        if args.stream_follower_of and not args.stream_lease_root:
+            ap.error("--stream-follower-of requires --stream-lease-root "
+                     "(the role is arbitrated by lease)")
+        if args.stream_journal_root and (
+            args.stream_peer or args.stream_follower_of
+            or args.stream_lease_root
+        ):
+            ap.error("--stream-journal-root (fleet-sheltered follower "
+                     "replica) excludes --stream-peer/"
+                     "--stream-follower-of/--stream-lease-root")
+        if not args.journal_dir and not args.stream_journal_root:
+            ap.error("--stream requires --journal-dir (durable windows) "
+                     "or --stream-journal-root (shared volume)")
+        peer_spec = args.stream_peer or args.stream_follower_of
+        peer = None
+        if peer_spec:
+            host_part, _, port_part = peer_spec.rpartition(":")
+            peer = (host_part or "127.0.0.1", int(port_part))
+        role = "follower" if args.stream_follower_of else None
+        owner = f"pid{os.getpid()}:{args.port or 0}"
+        for spec in args.stream:
+            server.register_stream(HeavyHitterStream(
+                parse_stream_spec(spec),
+                args.stream_journal_root or args.journal_dir,
+                peer=peer,
+                role=role,
+                lease_dir=args.stream_lease_root,
+                lease_ttl=args.stream_lease_ttl,
+                owner=owner,
+                shared=args.stream_journal_root is not None,
+                device=server.door.device,
+            ))
     server.start()
     print(
         f"dpf-server: pid={os.getpid()} listening on "

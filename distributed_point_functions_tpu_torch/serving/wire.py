@@ -1063,6 +1063,13 @@ def merge_stats(bodies: Sequence[dict]) -> dict:
             agg = out["tenants"].setdefault(tenant, {})
             for k, v in fields.items():
                 agg[k] = agg.get(k, 0) + v
+        # This package's kernel launch counts (the server's additive
+        # "launches" key) sum across replicas; absent from every body, the
+        # merged view lacks it too, as the JAX package's does.
+        if "launches" in body:
+            agg = out.setdefault("launches", {})
+            for k, v in (body.get("launches") or {}).items():
+                agg[k] = agg.get(k, 0) + int(v)
     return out
 
 

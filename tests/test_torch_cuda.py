@@ -13,13 +13,17 @@ mode="megakernel") against the same paths on the CPU; the pipelined
 executor against the serial one at the fold's full plan, a real
 out-of-memory error through the degradation chain, and the serving plane:
 a served batch of every op on the card against the same door on the CPU,
-with the launches of the direct call, and two servers' PIR over loopback.
+with the launches of the direct call, two servers' PIR over loopback, a
+heavy-hitter stream window in each mode against the CPU, and a round trip
+through a one-replica fleet a party (ReplicaPool, --device cuda).
 
 Every test here needs a card and skips without one. The file imports no
 JAX, so on a machine without JAX it runs without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import collections
 
 import numpy as np
 import pytest
@@ -844,3 +848,86 @@ def test_two_servers_on_the_card_reconstruct_pir(cuda):
             r0, r1 = tsc.pir(params, k0, "db", deadline=600)
         assert a.door.device.type == "cuda"
     assert np.array_equal(r0 ^ r1, db[[7, 4095, 0, 1234]])
+
+
+@pytest.mark.parametrize("mode", hierarchical.MODES)
+def test_stream_window_on_the_card_matches_the_cpu(cuda, mode, tmp_path):
+    """One heavy-hitter stream window advanced on the card (the stream's
+    default device) in each mode equals the same window on the CPU, level
+    for level, share for share, and launches that mode's kernels (K2 and
+    K4 in mode "fused", K8 in mode "hierkernel")."""
+    from distributed_point_functions_tpu_torch import serving
+    from distributed_point_functions_tpu_torch.protos import serialization as ser
+
+    cfg = serving.StreamConfig.bitwise("card", 12, 2, 2, window_keys=64, mode=mode)
+    dpf = port.DistributedPointFunction.create_incremental(list(cfg.parameters))
+    rng = np.random.default_rng(41)
+    values = [int(v) for v in rng.choice([5, 5, 5, 900, 900, 4000, 17, 2048], size=64)]
+    k0, k1 = dpf.generate_keys_batch(values, [[1] * 64] * len(cfg.parameters),
+                                     seeds=rng.integers(0, 2**32, size=(64, 2, 4),
+                                                        dtype=np.uint32))
+    blobs = [[ser.serialize_dpf_key(k, cfg.parameters) for k in ks] for ks in (k0, k1)]
+
+    def run(device, where):
+        leader = serving.HeavyHitterStream(cfg, str(where / "l"), peer=("127.0.0.1", 1),
+                                           device=device)
+        follower = serving.HeavyHitterStream(cfg, str(where / "f"), device=device)
+        leader.ingest(cfg.parameters, blobs[0], "b-0", flush=True)
+        follower.ingest(cfg.parameters, blobs[1], "b-0", flush=True)
+        leader._peer_level = lambda w, member, trail: follower.aggregate(
+            w.generation, list(member), trail)
+        aes_cuda.reset_launch_counts()
+        with leader._lock:
+            w = leader._pending_locked()[0]
+        leader._advance_window(w)
+        launches = {k.name: k.launches for k in aes_cuda.KERNELS if k.launches}
+        rec = leader.snapshot()["published"][0]
+        leader.stop()
+        follower.stop()
+        return (rec["prefixes"], rec["counts"]), launches
+
+    on_card, launches = run(None, tmp_path / "card")
+    on_cpu, cpu_launches = run("cpu", tmp_path / "cpu")
+    assert on_card == on_cpu and not cpu_launches
+    want = (aes_cuda.K8.name,) if mode == "hierkernel" else (aes_cuda.K2.name, aes_cuda.K4.name)
+    assert set(want) <= set(launches), launches
+    counts = {int(p): int(c) for p, c in zip(*on_card)}
+    assert counts == {v: c for v, c in collections.Counter(values).items() if c >= 2}
+
+
+def test_one_replica_fleet_on_the_card_round_trip(cuda, tmp_path):
+    """A FleetProxy over a ReplicaPool of one port server process on the
+    card (--device cuda --engine device): an EvaluateAt batch through the
+    proxy reconstructs, and the proxy's merged launches are the replica's
+    and show the walk's kernels."""
+    from distributed_point_functions_tpu_torch import serving
+
+    dpf = port.DistributedPointFunction.create(port.DpfParameters(10, port.Int(64)))
+    alphas = [3, 77, 1000, 512]
+    k0, k1 = dpf.generate_keys_batch(alphas, [[7] * 4],
+                                     seeds=np.arange(32, dtype=np.uint32).reshape(4, 2, 4))
+    params = dpf.validator.parameters
+    pools = [serving.ReplicaPool(replicas=1, server_args=["--engine", "device"],
+                                 base_dir=str(tmp_path / f"p{p}"), device="cuda")
+             for p in (0, 1)]
+    proxies = []
+    try:
+        for pool in pools:
+            pool.start(timeout=600)
+            proxies.append(serving.FleetProxy(pool.endpoints).start())
+        with serving.TwoServerClient([("127.0.0.1", px.port) for px in proxies]) as tsc:
+            tsc.wait_ready(timeout=600)
+            s0, s1 = tsc.evaluate_at(params, (k0, k1), alphas + [0, 5], deadline=600)
+            st = tsc.clients[0].stats()
+        total = (s0.astype(np.uint64)[..., 0] | (s0.astype(np.uint64)[..., 1] << np.uint64(32))) \
+            + (s1.astype(np.uint64)[..., 0] | (s1.astype(np.uint64)[..., 1] << np.uint64(32)))
+        for i, a in enumerate(alphas):
+            assert [int(v) for v in total[i]] == [7 if p == a else 0 for p in alphas + [0, 5]]
+        direct = serving.DpfClient("127.0.0.1", pools[0].ports[0]).stats()["launches"]
+        assert st["launches"] == direct
+        assert direct[aes_cuda.K6.name] + direct[aes_cuda.K7.name] > 0
+    finally:
+        for px in proxies:
+            px.stop()
+        for pool in pools:
+            pool.stop()

@@ -3,7 +3,9 @@ package (its fold, full-domain, PIR, EvaluateAt, DCF, hierarchical,
 keygen, gate and wire-format paths, the host engine, the robust wrappers,
 the executor, the deadline watchdog, telemetry, integrity, fault
 injection, profiling, the environment flags and the serving plane (wire,
-front door, server and client) driven in a fresh process), and its entry
+front door, server, client, the streaming heavy-hitters tier with its
+leases, the fleet proxy, the replica pool and the autoscaler) driven in a
+fresh process), and its entry
 points do not run on the CPU unless asked to.
 
 The import guard runs in a subprocess: tests/conftest.py imports jax into
@@ -112,6 +114,40 @@ with serving.DpfServer(device="cpu", engine="host", max_wait_ms=1.0) as srv:
     with serving.DpfClient("127.0.0.1", srv.port) as cli:
         assert cli.evaluate_at(dpf.validator.parameters, keys, [3, 4]).shape == (1, 2, 2)
         assert cli.stats()["batches"][0]["choice"] == "host"
+import tempfile
+from distributed_point_functions_tpu_torch.protos import serialization as ser
+with tempfile.TemporaryDirectory() as tmp:
+    lease = serving.StreamLease(tmp + "/x.lease", "guard", ttl=5.0)
+    assert lease.try_acquire() == 1 and lease.release(1)
+    cfg = serving.StreamConfig.bitwise("guard", 6, 2, 1, window_keys=2)
+    assert cfg.engine == "device"
+    sdpf = port.DistributedPointFunction.create_incremental(list(cfg.parameters))
+    sk0, sk1 = sdpf.generate_keys_batch([9, 9], [[1, 1]] * 3,
+                                        seeds=np.ones((2, 2, 4), np.uint32))
+    with serving.DpfServer(device="cpu", engine="host", max_wait_ms=1.0) as fsrv:
+        fsrv.register_stream(serving.HeavyHitterStream(cfg, tmp + "/f", device="cpu"))
+        with serving.DpfServer(device="cpu", engine="host", max_wait_ms=1.0) as lsrv:
+            lsrv.register_stream(serving.HeavyHitterStream(
+                cfg, tmp + "/l", peer=("127.0.0.1", fsrv.port), device="cpu"))
+            with serving.TwoServerClient([("127.0.0.1", lsrv.port),
+                                          ("127.0.0.1", fsrv.port)]) as tsc:
+                tsc.hh_ingest("guard", cfg.parameters, (sk0, sk1), "b-0", deadline=30)
+                import time
+                for _ in range(400):
+                    snap = tsc.clients[0].hh_snapshot("guard")
+                    if snap["published"]:
+                        break
+                    time.sleep(0.05)
+                assert snap["published"][0]["counts"] == ["2"]
+            proxy = serving.FleetProxy([("127.0.0.1", lsrv.port)], probe_interval=0.05).start()
+            with serving.DpfClient("127.0.0.1", proxy.port) as pcli:
+                pcli.wait_ready(timeout=30)
+                assert pcli.evaluate_at(dpf.validator.parameters, keys, [3]).shape == (1, 1, 2)
+                sc = serving.AutoScaler(proxy, object(), min_replicas=1, max_replicas=1)
+                assert sc.backlog() == 0.0
+            proxy.stop()
+    from distributed_point_functions_tpu_torch.serving import fleet
+    assert fleet.ReplicaPool(replicas=1, base_dir=tmp + "/pool", device="cpu").device == "cpu"
 jax_package = "distributed_point_functions_tpu"
 bad = sorted(
     m for m in sys.modules
