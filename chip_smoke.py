@@ -262,7 +262,30 @@ Phases (any failure raises and exits non-zero before the result line):
    AutoScaler (min 1, max 3) on party 0's proxy over a burst of the mix and
    then a trickle: it scales up and drains back with no request lost, its
    events printed, no kernel launched by this process.
-   ``python3 chip_smoke.py --phase 21`` runs the build and this phase alone.
+   ``python3 chip_smoke.py --phase 21`` runs the build and this phase alone;
+22. the multi-device path (parallel/sharded.py, parallel/multihost.py), on
+   meshes whose every shard names the one card (``[cuda:0] * n``: every
+   line of the mesh code runs there, in series: correctness, not scaling):
+   (a) BASELINE config 5 (2^24 x XorWrapper(128), 64 queries a server, key
+   chunk 8) through ``pir_query_batch_chunked(mode="megakernel", mesh=)``
+   at meshes 1x4 and 2x2, both servers byte-equal to the one-device
+   megakernel and XORing to db[alpha], K5 launched shards x chunks times,
+   and K5 at the per-shard plan timed and held against its plain version
+   (integrity off at 2^24: the reconstruction is the check); (b)
+   ``sharded.pir_query_batch`` in mode expand (K6, K2, K3) on phase 4's
+   database at 2x2 and in mode walk (K6, K4) at 2^14, integrity on, each
+   byte-equal to one device; (c) ``sharded_full_domain_evaluate`` at
+   log-domain 20, Int(64) x 32 keys on 2x2 (K6, K2, K4), equal to one
+   device, the shares adding to beta at alpha and 0 elsewhere; (d)
+   ``evaluate_until_batch(mesh=1x2)`` and ``evaluate_levels_fused(mesh=2x1,
+   mode="fused")`` at BM_HeavyHitters' first 16 levels x 128 keys, equal
+   to one device level by level; (e) ``pir_query_batch_robust(mesh=)``
+   with UNAVAILABLE armed on the sharded rung, answered bit-exact from
+   megakernel/cuda, its downgrade event printed; (f) two processes joined
+   over gloo on 127.0.0.1 (``multihost.initialize``), each answering its
+   ``local_key_slice`` of 64 config-5-shaped queries at 2^20 over a local
+   1x2 mesh on the card, their concatenation equal to one process's.
+   ``python3 chip_smoke.py --phase 22`` runs the build and this phase alone.
 
 Each path of the main path (fold default, fused and megakernel; PIR fold
 and megakernel; EvaluateAt walk and walkkernel, and the codec walk; DCF
@@ -270,7 +293,8 @@ walk and walkkernel; heavy hitters fused and hierkernel; keygen
 megakernel, perlevel and numpy-threaded at each configuration; config 3's
 fused pass at each level, and its walk, slab, prepared and levels checks;
 each gate's modes, the gate dealers on the card and the two layers; each
-path of phases 17-21, whose servers and replicas report their launches
+path of phases 17-22, whose servers, replicas and multihost processes
+report their launches
 in their stats) runs
 with every launch count set to 0
 just before it, and every kernel of that path must have launched just after
@@ -1310,12 +1334,14 @@ class EventLog:
         if bad:
             fail(f"{what}: degrade-kind events {bad} on a run with no fault armed")
 
-    def check_all(self) -> int:
+    def check_all(self, start: int = 0) -> int:
+        """No degrade-kind event from event `start` on outside an armed
+        window; returns the count of events."""
         armed = set()
         for a, b in self.windows:
             armed.update(range(a, b))
         bad = [(i, e.kind, e.detail) for i, e in enumerate(self.events)
-               if e.kind in DEGRADE_KINDS and i not in armed]
+               if i >= start and e.kind in DEGRADE_KINDS and i not in armed]
         if bad:
             fail(f"degrade-kind events outside an armed fault: {bad[:5]}")
         return len(self.events)
@@ -3607,6 +3633,398 @@ def _phase_21e(cfg, serving, aes_cuda, w, pools, proxies, endpoints, nthreads, o
           flush=True)
 
 
+# Phase 22: the multi-device path, on the one card: meshes made from an
+# explicit [cuda:0] * n device list, so that every line of the mesh code runs
+# and each shard launches its kernels on the card (in series: right, not
+# faster). (a) BASELINE config 5 (2^24 x XorWrapper(128), 64 queries a
+# server, key chunk 8) through the mesh megakernel at meshes 1x4 and 2x2;
+# (b) the sharded walk-and-expand PIR on phase 4's database (mode expand,
+# 2x2) and at 2^14 (mode walk); (c) the sharded full domain, log-domain 20
+# Int(64) x 32 keys on 2x2; (d) EvaluateUntil on a mesh at BM_HeavyHitters'
+# first 16 levels cut to 128 keys; (e) the supervisor's mesh rung under an
+# injected fault; (f) two processes joined over gloo, each answering its key
+# slice over a local 1x2 mesh.
+PHASE22 = dict(c5_log_domain=24, c5_queries=64, c5_chunk=8, c5_meshes=((1, 4), (2, 2)),
+               expand_mesh=(2, 2), walk_log_domain=14, walk_queries=64, walk_mesh=(2, 2),
+               fd_log_domain=20, fd_keys=32, fd_mesh=(2, 2),
+               hh_levels=16, hh_keys=128, hh_nonzeros=10_000, until_mesh=(1, 2),
+               fused_mesh=(2, 1),
+               rung_log_domain=18, rung_queries=16, rung_chunk=8, rung_mesh=(2, 2),
+               mh_log_domain=20, mh_queries=64, mh_chunk=8, mh_mesh=(1, 2), mh_timeout=300)
+
+
+def _one_card_mesh(sharded, dev, shape):
+    """A (keys, domain) mesh of `shape` whose every shard names `dev`."""
+    return sharded.make_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
+
+
+def _mesh_name(shape, dev) -> str:
+    return f"{shape[0]}x{shape[1]} mesh on [{dev}] * {shape[0] * shape[1]}"
+
+
+def _mh_case(T, cfg):
+    """Config-5-shaped queries (XorWrapper(128), beta all ones) at
+    cfg['mh_log_domain'], party 0's keys and the database, which each
+    multihost process derives from the same seed."""
+    lds, n = cfg["mh_log_domain"], cfg["mh_queries"]
+    rng = np.random.default_rng(SEED + 220)
+    dpf = T.DistributedPointFunction.create(T.DpfParameters(lds, T.XorWrapper(128)))
+    targets = [int(x) for x in rng.integers(0, 1 << lds, size=n)]
+    keys, _ = dpf.generate_keys_batch(targets, [(1 << 128) - 1],
+                                      seeds=rng.integers(0, 2**32, size=(n, 2, 4), dtype=np.uint32))
+    db = rng.integers(0, 2**32, size=(1 << lds, 4), dtype=np.uint32)
+    return dpf, keys, db
+
+
+def _mh_answers(cfg, keys_slice, dpf, db, dev):
+    """One process's answers over its local mesh (the mesh megakernel)."""
+    from distributed_point_functions_tpu_torch.parallel import multihost, pir
+
+    mesh = multihost.local_mesh(shape=cfg["mh_mesh"], devices=[dev] * 2)
+    pdb = pir.prepare_pir_database(dpf, db, order="megakernel", mesh=mesh)
+    return pir.pir_query_batch_chunked(dpf, keys_slice, pdb, key_chunk=cfg["mh_chunk"],
+                                       mode="megakernel", mesh=mesh, integrity=False)
+
+
+def _multihost_child(pid: int, n_proc: int, port: str, outp: str, device: str,
+                     cfg_json: str) -> None:
+    """Phase 22f's child process: joins the gloo group, answers its key
+    slice over a local mesh on `device` and saves the answers and its
+    launches."""
+    import torch
+
+    import distributed_point_functions_tpu_torch as T
+    from distributed_point_functions_tpu_torch.ops import aes_cuda
+    from distributed_point_functions_tpu_torch.parallel import multihost
+
+    cfg = json.loads(cfg_json)
+    multihost.initialize(coordinator_address=f"127.0.0.1:{port}", num_processes=n_proc,
+                         process_id=pid)
+    try:
+        dpf, keys, db = _mh_case(T, cfg)
+        lo, hi = multihost.local_key_slice(len(keys))
+        dev = torch.device(device)
+        aes_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = _mh_answers(cfg, keys[lo:hi], dpf, db, dev)
+        wall = time.perf_counter() - t0
+        np.save(outp, out)
+        print(json.dumps({"pid": pid, "lo": lo, "hi": hi,
+                          "world": torch.distributed.get_world_size(), "wall_s": wall,
+                          "launches": {k.name: k.launches for k in aes_cuda.KERNELS
+                                       if k.launches}}), flush=True)
+    finally:
+        multihost.shutdown()
+
+
+def phase_22(torch, T, dev, p4, cfg, counts: PathCounts, log: EventLog, key_planes) -> dict:
+    """The multi-device path (module docstring, phase 22). `p4`: phase 4's
+    DPF, database, query targets, keys and mode fold's answers. Returns the
+    K5 row of config 5's per-shard plan."""
+    from distributed_point_functions_tpu_torch.ops import (
+        aes_cuda, backend_torch, evaluator, hierarchical, supervisor,
+    )
+    from distributed_point_functions_tpu_torch.parallel import pir, sharded
+    from distributed_point_functions_tpu_torch.utils import faultinject, integrity
+    from distributed_point_functions_tpu_torch.utils.errors import UnavailableError
+
+    K2, K3, K4, K5, K6 = aes_cuda.K2, aes_cuda.K3, aes_cuda.K4, aes_cuda.K5, aes_cuda.K6
+    stamp = lambda what: print(f"[{time.perf_counter() - T0:.1f} s] {what}", flush=True)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    integrity.ensure_selftest(dev)  # its K4 launch before any count
+    all_ones = (1 << 128) - 1
+
+    # -- 22a. BASELINE config 5 on meshes (integrity off at 2^24: the
+    # reconstruction and the one-device answers are the check).
+    lds, nq, chunk = cfg["c5_log_domain"], cfg["c5_queries"], cfg["c5_chunk"]
+    rng = np.random.default_rng(SEED + 22)
+    dpf = T.DistributedPointFunction.create(T.DpfParameters(lds, T.XorWrapper(128)))
+    db = rng.integers(0, 2**32, size=(1 << lds, 4), dtype=np.uint32)
+    targets = [int(x) for x in rng.integers(0, 1 << lds, size=nq)]
+    keys = dpf.generate_keys_batch(targets, [all_ones],
+                                   seeds=rng.integers(0, 2**32, size=(nq, 2, 4), dtype=np.uint32))
+    t0 = time.perf_counter()
+    pdb1 = pir.prepare_pir_database(dpf, db, order="megakernel", device=dev)
+    prep1 = time.perf_counter() - t0
+    counts.start()
+    one, one_walls = [], []
+    for k in keys:
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        one.append(pir.pir_query_batch_chunked(dpf, k, pdb1, key_chunk=chunk, mode="megakernel",
+                                               integrity=False))
+        one_walls.append(time.perf_counter() - t0)
+    counts.end("22a one device", (K5,))
+    if not np.array_equal(one[0] ^ one[1], db[targets]):
+        fail("22a: the one-device megakernel answers do not reconstruct")
+    del pdb1
+    torch.cuda.empty_cache()
+    row = None
+    for shape in cfg["c5_meshes"]:
+        mesh = _one_card_mesh(sharded, dev, shape)
+        t0 = time.perf_counter()
+        pdb = pir.prepare_pir_database(dpf, db, order="megakernel", mesh=mesh)
+        prep = time.perf_counter() - t0
+        walls = []
+        counts.start()
+        got = []
+        for k in keys:
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            got.append(pir.pir_query_batch_chunked(dpf, k, pdb, key_chunk=chunk,
+                                                   mode="megakernel", mesh=mesh, integrity=False))
+            walls.append(time.perf_counter() - t0)
+        launches = counts.end(f"22a config 5 on the {_mesh_name(shape, dev)}", (K5,))
+        want_k5 = 2 * mesh.size * -(-nq // chunk)
+        if counts.check and launches.get(K5.name) != want_k5:
+            fail(f"22a {shape}: {launches} launches, {want_k5} K5 expected (shards x chunks x 2)")
+        for p in (0, 1):
+            if not np.array_equal(got[p], one[p]):
+                fail(f"22a {shape}: party {p}'s answers differ from one device's")
+        if not np.array_equal(got[0] ^ got[1], db[targets]):
+            fail(f"22a {shape}: the answers do not reconstruct")
+        plan = pdb.plan
+        kl = chunk // shape[0]
+        # K5 at the per-shard plan on shard 0's real database block.
+        g = torch.Generator(device=dev).manual_seed(SEED + 22 + shape[1])
+        rnd = word_source(torch, g)
+        lv = plan.levels_a + plan.levels_b
+        a = (rnd(kl, 128, plan.entry_words), rnd(kl, plan.entry_words), rnd(kl, lv, 128),
+             rnd(kl, lv), rnd(kl, lv), rnd(kl, 1, 4), pdb.lane_db[0][0])
+        kw = dict(plan=plan, bits=128, party=1, xor_group=True, keep=1)
+        want = backend_torch.megakernel_fold(*a, **kw)
+        got_k5 = aes_cuda.megakernel_fold(*a, **kw)
+        sync(torch, dev)
+        err = int((got_k5.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if err:
+            fail(f"22a: K5 at the {shape} per-shard plan disagrees with its plain version")
+        ms = plain_ms = None  # a CPU rehearsal times nothing
+        if dev.type == "cuda":
+            ms = time_ms(torch, lambda: aes_cuda.megakernel_fold(*a, **kw), 5)
+            plain_ms = time_ms(torch, lambda: backend_torch.megakernel_fold(*a, **kw), 1)
+        b_ms, b_by = bound_ms(*megakernel_cost(key_planes, plan, kl, 128, 1, 1, True, True))
+        print(f"phase 22a, config 5 (2^{lds} x XorWrapper(128), {nq} queries a server, key "
+              f"chunk {chunk}) on the {_mesh_name(shape, dev)}: database laid out in {prep:.2f} s "
+              f"(one device {prep1:.2f} s); wall {walls[0] * 1e3:.1f} / {walls[1] * 1e3:.1f} ms a "
+              f"batch (parties 0 / 1; one device {one_walls[0] * 1e3:.1f} / "
+              f"{one_walls[1] * 1e3:.1f}); launches {launches}; K5 at the per-shard plan {plan} "
+              f"(K={kl}, a {(1 << lds) // shape[1]}-leaf shard): {ms} ms "
+              f"(plain {plain_ms} ms, bound {b_ms:.4f} ms by {b_by}), == plain; integrity "
+              f"off at 2^{lds}: byte-equal to the one-device megakernel answers, and ra ^ rb == "
+              "db[alpha]", flush=True)
+        if shape == cfg["c5_meshes"][0]:
+            row = dict(kernel=K5, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       launches=launches.get(K5.name, 0), max_abs_err=err,
+                       shape=(shape, kl, plan))
+        del pdb, a, want, got_k5
+        torch.cuda.empty_cache()
+    del db
+    stamp("22b")
+
+    # -- 22b. The sharded walk-and-expand PIR (integrity on).
+    mesh = _one_card_mesh(sharded, dev, cfg["expand_mesh"])
+    for party in (0, 1):
+        counts.start()
+        t0 = time.perf_counter()
+        got = sharded.pir_query_batch(p4["dpf"], p4["keys"][party], p4["db"], mesh,
+                                      mode="expand", integrity=True)
+        wall = time.perf_counter() - t0
+        launches = counts.end("22b expand", (K6, K2, K3))
+        if not np.array_equal(got, p4["fold"][party]):
+            fail(f"22b: mode expand (party {party}) differs from one device's mode fold")
+    print(f"phase 22b, pir_query_batch mode expand on the {_mesh_name(cfg['expand_mesh'], dev)}: "
+          f"phase 4's 2^{p4['dpf'].validator.parameters[0].log_domain_size} x {len(p4['targets'])} "
+          f"queries, party 1 {wall * 1e3:.1f} ms with the probe's oracle; launches {launches}; "
+          "byte-equal to one device's mode fold, integrity on", flush=True)
+    wl, wq = cfg["walk_log_domain"], cfg["walk_queries"]
+    wdpf = T.DistributedPointFunction.create(T.DpfParameters(wl, T.XorWrapper(128)))
+    wdb = rng.integers(0, 2**32, size=(1 << wl, 4), dtype=np.uint32)
+    wt = [int(x) for x in rng.integers(0, 1 << wl, size=wq)]
+    wkeys = wdpf.generate_keys_batch(wt, [all_ones],
+                                     seeds=rng.integers(0, 2**32, size=(wq, 2, 4), dtype=np.uint32))
+    mesh = _one_card_mesh(sharded, dev, cfg["walk_mesh"])
+    wone = [pir.pir_query_batch_chunked(wdpf, k, wdb, mode="walk", device=dev, integrity=False)
+            for k in wkeys]
+    counts.start()
+    wgot = [sharded.pir_query_batch(wdpf, k, wdb, mesh, mode="walk", integrity=True)
+            for k in wkeys]
+    launches = counts.end("22b walk", (K6, K4))
+    if not all(np.array_equal(a, b) for a, b in zip(wgot, wone)):
+        fail("22b: mode walk differs from one device's")
+    if not np.array_equal(wgot[0] ^ wgot[1], wdb[wt]):
+        fail("22b: mode walk does not reconstruct")
+    print(f"phase 22b, pir_query_batch mode walk on the {_mesh_name(cfg['walk_mesh'], dev)}: 2^{wl} x "
+          f"{wq} queries a server; launches {launches}; byte-equal to one device's mode walk, "
+          "integrity on, ra ^ rb == db[alpha]", flush=True)
+    stamp("22c")
+
+    # -- 22c. The sharded full domain, Int(64).
+    fl, fk = cfg["fd_log_domain"], cfg["fd_keys"]
+    fdpf = T.DistributedPointFunction.create(T.DpfParameters(fl, T.Int(64)))
+    falphas = [int(x) for x in rng.integers(0, 1 << fl, size=fk)]
+    fbetas = [int(x) for x in rng.integers(1, 2**63, size=fk)]
+    fkeys = fdpf.generate_keys_batch(falphas, [fbetas],
+                                     seeds=rng.integers(0, 2**32, size=(fk, 2, 4), dtype=np.uint32))
+    mesh = _one_card_mesh(sharded, dev, cfg["fd_mesh"])
+    counts.start()
+    t0 = time.perf_counter()
+    shares = [sharded.sharded_full_domain_evaluate(fdpf, k, mesh) for k in fkeys]
+    sync(torch, dev)
+    fwall = time.perf_counter() - t0
+    launches = counts.end("22c sharded full domain", (K6, K2, K4))
+    if any(t.device != dev for s in shares for row in s.shards for t in row):
+        fail("22c: a shard's values left its device")
+    vals = [s.numpy() for s in shares]
+    del shares
+    one_fd = evaluator.full_domain_evaluate(fdpf, fkeys[0], device=dev, integrity=False)
+    if not np.array_equal(vals[0], one_fd):
+        fail("22c: the sharded full domain differs from one device's")
+    total = vals[0].view(np.uint64)[..., 0] + vals[1].view(np.uint64)[..., 0]
+    want = np.zeros_like(total)
+    want[np.arange(fk), falphas] = fbetas
+    if not np.array_equal(total, want):
+        fail("22c: the shares do not add to beta at alpha and 0 elsewhere")
+    print(f"phase 22c, sharded_full_domain_evaluate on the {_mesh_name(cfg['fd_mesh'], dev)}: "
+          f"log-domain {fl} Int(64) x {fk} keys, both parties in {fwall * 1e3:.1f} ms; launches "
+          f"{launches}; equal to one device's full_domain_evaluate; the shares add to beta at "
+          "alpha and to 0 elsewhere", flush=True)
+    del vals, one_fd, total, want
+    stamp("22d")
+
+    # -- 22d. EvaluateUntil on a mesh: BM_HeavyHitters' first 16 levels.
+    hl, hk = cfg["hh_levels"], cfg["hh_keys"]
+    hdpf = T.DistributedPointFunction.create_incremental(
+        [T.DpfParameters(i + 1, T.Int(64)) for i in range(hl)])
+    halphas = hierarchical.draw_random_finals(hl, hk, rng)
+    hkeys = hdpf.generate_keys_batch(halphas, [[1] * hk] * hl,
+                                     seeds=rng.integers(0, 2**32, size=(hk, 2, 4), dtype=np.uint32))
+    finals = hierarchical.draw_random_finals(hl, cfg["hh_nonzeros"], np.random.default_rng(7))
+    hplan = hierarchical.bitwise_hierarchy_plan(hl, finals + halphas)
+    umesh = _one_card_mesh(sharded, dev, cfg["until_mesh"])
+    fmesh = _one_card_mesh(sharded, dev, cfg["fused_mesh"])
+    walls = {}
+    for party in (0, 1):
+        base = hierarchical.BatchedContext.create(hdpf, hkeys[party])
+        ref = [hierarchical.evaluate_until_batch(base, h, p, device=dev) for h, p in hplan]
+        ctx = hierarchical.BatchedContext.create(hdpf, hkeys[party])
+        counts.start()
+        t0 = time.perf_counter()
+        for (h, p), want in zip(hplan, ref):
+            if not np.array_equal(hierarchical.evaluate_until_batch(ctx, h, p, mesh=umesh), want):
+                fail(f"22d: evaluate_until_batch on the mesh, level {h} (party {party}) differs")
+        walls["until", party] = time.perf_counter() - t0
+        ulaunch = counts.end("22d evaluate_until_batch(mesh=)", (K2, K4))
+        ctx = hierarchical.BatchedContext.create(hdpf, hkeys[party])
+        counts.start()
+        t0 = time.perf_counter()
+        outs = hierarchical.evaluate_levels_fused(ctx, hplan, mesh=fmesh, mode="fused")
+        walls["fused", party] = time.perf_counter() - t0
+        flaunch = counts.end("22d evaluate_levels_fused(mesh=)", (K2, K4))
+        for h, (a, b) in enumerate(zip(outs, ref)):
+            if not np.array_equal(a, b):
+                fail(f"22d: evaluate_levels_fused on the mesh, level {h} (party {party}) differs")
+    print(f"phase 22d, BM_HeavyHitters' first {hl} levels x {hk} keys: evaluate_until_batch on "
+          f"the {_mesh_name(cfg['until_mesh'], dev)} {walls['until', 0]:.3f} / "
+          f"{walls['until', 1]:.3f} s (parties 0 / 1; launches {ulaunch} a party), "
+          f"evaluate_levels_fused(mode fused) on the {_mesh_name(cfg['fused_mesh'], dev)} "
+          f"{walls['fused', 0]:.3f} / {walls['fused', 1]:.3f} s (launches {flaunch} a party); "
+          "both equal the one-device evaluate_until_batch level by level", flush=True)
+    stamp("22e")
+
+    # -- 22e. The supervisor's mesh rung under a fault on the sharded rung.
+    rl, rq = cfg["rung_log_domain"], cfg["rung_queries"]
+    rdpf = T.DistributedPointFunction.create(T.DpfParameters(rl, T.XorWrapper(128)))
+    rdb = rng.integers(0, 2**32, size=(1 << rl, 4), dtype=np.uint32)
+    rt = [int(x) for x in rng.integers(0, 1 << rl, size=rq)]
+    rkeys = rdpf.generate_keys_batch(rt, [all_ones],
+                                     seeds=rng.integers(0, 2**32, size=(rq, 2, 4), dtype=np.uint32))
+    rmesh = _one_card_mesh(sharded, dev, cfg["rung_mesh"])
+    rdb_mesh = pir.prepare_pir_database(rdpf, rdb, order="megakernel", mesh=rmesh)
+    b = "cuda" if dev.type == "cuda" else "torch"
+    chain = supervisor.fold_chain("sharded-megakernel", dev)
+    if chain != (("sharded-megakernel", b), ("megakernel", b), ("fold", b)) + (
+            ((None, "numpy"),) if b == "torch" else ()):
+        fail(f"22e: the mesh chain {chain} is not sharded-megakernel, megakernel, fold")
+    rans = []
+    start = len(log.events)
+    counts.start()
+    with log.armed(), faultinject.inject(faultinject.FaultPlan(
+            stage="device_call", exception=UnavailableError("UNAVAILABLE: mesh rung"),
+            modes=frozenset({"sharded-megakernel"}))):
+        for k in rkeys:
+            rans.append(supervisor.pir_query_batch_robust(
+                rdpf, k, rdb_mesh, key_chunk=cfg["rung_chunk"], mesh=rmesh, pipeline=False))
+    launches = counts.end("22e the mesh rung", (K5,))
+    events = log.events[start:]
+    downgrades = [e for e in events if e.kind == "degrade"]
+    if [e.data.get("mode") for e in downgrades] != ["sharded-megakernel"] * 2:
+        fail(f"22e: downgrades {[(e.kind, e.data) for e in downgrades]}")
+    if [e.kind for e in events].count("pir-db-reprepared") != 2:
+        fail("22e: the database was not laid out again once a downgrade")
+    rone = [pir.pir_query_batch_chunked(rdpf, k, rdb, mode="megakernel", device=dev,
+                                        integrity=False) for k in rkeys]
+    if not all(np.array_equal(a, b) for a, b in zip(rans, rone)):
+        fail("22e: the downgraded answers differ from megakernel/cuda's")
+    if not np.array_equal(rans[0] ^ rans[1], rdb[rt]):
+        fail("22e: the downgraded answers do not reconstruct")
+    print(f"phase 22e, pir_query_batch_robust(mesh=) on the {_mesh_name(cfg['rung_mesh'], dev)}, "
+          f"2^{rl} x {rq} queries, a device_call UNAVAILABLE armed on the sharded rung: "
+          f"answered bit-exact from megakernel/{b} (launches {launches}); the journal's "
+          f"downgrade event: {downgrades[0].kind} {downgrades[0].backend!r} {downgrades[0].detail}",
+          flush=True)
+    stamp("22f")
+
+    # -- 22f. Multihost: two processes over gloo on 127.0.0.1.
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mdpf, mkeys, mdb = _mh_case(T, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--multihost-child", str(pid), "2",
+             str(port), os.path.join(tmp, f"out{pid}.npy"), str(dev), json.dumps(cfg)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+            for pid in (0, 1)]
+        infos = []
+        try:
+            for p in procs:
+                out, err = p.communicate(timeout=cfg["mh_timeout"])
+                if p.returncode:
+                    fail(f"22f: a multihost process exited {p.returncode}: {err[-2000:]}")
+                infos.append(json.loads(out.strip().splitlines()[-1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        mwall = time.perf_counter() - t0
+        got = np.concatenate([np.load(os.path.join(tmp, f"out{pid}.npy")) for pid in (0, 1)])
+    counts.start()
+    want = _mh_answers(cfg, mkeys, mdpf, mdb, dev)
+    launches = counts.end("22f one process", (K5,))
+    if [i["world"] for i in infos] != [2, 2] or (
+            counts.check and not all(i["launches"].get(K5.name) for i in infos)):
+        fail(f"22f: {infos}")
+    if not np.array_equal(got, want):
+        fail("22f: the processes' concatenated answers differ from one process's")
+    print(f"phase 22f, multihost: 2 processes over gloo on 127.0.0.1, each its local_key_slice "
+          f"of {cfg['mh_queries']} config-5-shaped queries at 2^{cfg['mh_log_domain']} over a "
+          f"local {cfg['mh_mesh'][0]}x{cfg['mh_mesh'][1]} mesh on {dev}: slices "
+          f"{[(i['lo'], i['hi']) for i in infos]}, their launches "
+          f"{[i['launches'] for i in infos]}, walls {[round(i['wall_s'], 3) for i in infos]} s, "
+          f"{mwall:.1f} s with the processes' start; concatenated == one process's answers "
+          f"(launches {launches})", flush=True)
+    print("phase 22: every mesh here names the one card; it checks the multi-device code's "
+          "correctness, not its scaling", flush=True)
+    return row
+
+
 def main() -> None:
     import torch
 
@@ -3647,6 +4065,26 @@ def main() -> None:
     aes_cuda.library()
     print(f"build: csrc/{' + csrc/'.join(aes_cuda.SOURCES)} for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s")
+    if sys.argv[1:] == ["--phase", "22"]:
+        # Phase 22 alone (a development aid; the check runs every phase):
+        # phase 4's database and queries made the way phase 4 makes them,
+        # with mode fold's answers on one device.
+        rng = np.random.default_rng(SEED)
+        pdpf = T.DistributedPointFunction.create(T.DpfParameters(LOG_DOMAIN, T.XorWrapper(128)))
+        db = rng.integers(0, 2**32, size=(1 << LOG_DOMAIN, 4), dtype=np.uint32)
+        targets = [int(a) for a in rng.integers(0, 1 << LOG_DOMAIN, size=PIR_QUERIES)]
+        keys = pdpf.generate_keys_batch(targets, [(1 << 128) - 1], seeds=rng.integers(
+            0, 2**32, size=(PIR_QUERIES, 2, 4), dtype=np.uint32))
+        fold = [pir.pir_query_batch_chunked(pdpf, k, db, mode="fold", device=dev,
+                                            integrity=False) for k in keys]
+        mesh_paths = PathCounts(aes_cuda)
+        phase_22(torch, T, dev, dict(dpf=pdpf, db=db, targets=targets, keys=keys, fold=fold),
+                 PHASE22, mesh_paths, events, key_planes)
+        events.check_all()
+        print(f"phase 22: launches {mesh_paths.total}")
+        print(f"[{time.perf_counter() - T0:.1f} s] the end")
+        print(card)
+        return
     if sys.argv[1:] == ["--phase", "21"]:
         # Phase 21 alone (a development aid; the check runs every phase).
         tier = PathCounts(aes_cuda)
@@ -5410,6 +5848,20 @@ def main() -> None:
     print(f"phase 21: launches {tier.total}")
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 22", flush=True)
+    # -- 22. the multi-device path ---------------------------------------------
+    mesh_paths = PathCounts(aes_cuda)
+    # Phases 20-21 log degrade events of their own (hierkernel plans that K8
+    # cannot express fall to fused); phase 22's are checked from here.
+    start = len(events.events)
+    rows["K5 c5 shard"] = phase_22(torch, T, dev, p4, PHASE22, mesh_paths, events, key_planes)
+    print(card)
+    for name, n in mesh_paths.total.items():
+        main_launches[name] = main_launches.get(name, 0) + n
+    print(f"phase 22: launches {mesh_paths.total}")
+    events.check_all(start)
+    torch.cuda.empty_cache()
+
     if "jax" in sys.modules:
         fail("JAX was imported")
     if any(m == "distributed_point_functions_tpu" or m.startswith("distributed_point_functions_tpu.")
@@ -5463,7 +5915,8 @@ def main() -> None:
                      + served.total[aes_cuda.K6.name] + served.total[aes_cuda.K7.name]
                      + served.total[aes_cuda.K7_DCF.name] + served.total[aes_cuda.K8.name]
                      + tier.total[aes_cuda.K6.name] + tier.total[aes_cuda.K7.name]
-                     + tier.total[aes_cuda.K7_DCF.name] + tier.total[aes_cuda.K8.name]),
+                     + tier.total[aes_cuda.K7_DCF.name] + tier.total[aes_cuda.K8.name]
+                     + mesh_paths.total[aes_cuda.K6.name]),
         "max_abs_err": checks["K6"],
         "ms": rows["K6"]["ms"],
         "device_ms": rows["K6"].get("device_ms"),
@@ -5523,7 +5976,26 @@ def main() -> None:
             "bound_by": r["bound_by"],
             "library_ms": None,
         })
-    k9_total = main_launches.get(aes_cuda.K9.name, 0)  # every phase's, 12 and 16-21
+    r = rows["K5 c5 shard"]
+    (k_shards, d_shards), kl, splan = r["shape"]
+    kernels.append({
+        "name": f"{aes_cuda.K5.name} (BASELINE config 5's per-shard plan on a {k_shards}x"
+                f"{d_shards} mesh on one card, K = {kl}, 2^{PHASE22['c5_log_domain']} / "
+                f"{d_shards} leaves a shard, {splan.num_slabs} slabs; launches: phase 22a on "
+                "that mesh)",
+        "route": "cuda",
+        "source": "distributed_point_functions_tpu_torch/csrc/megakernel.cu",
+        "replaces": "distributed_point_functions_tpu/ops/aes_pallas.py:872",
+        "launches": r["launches"],
+        "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"],
+        "device_ms": None,
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": None,
+    })
+    k9_total = main_launches.get(aes_cuda.K9.name, 0)  # every phase's, 12 and 16-22
     for name, label, launches in (
         ("K9", "K9 keygen_megakernel (BM_KeyGeneration, 1024 keys, depth 20)", k9_total),
         ("K9 d128", "K9 keygen_megakernel (1024 keys, depth 128)", 1),
@@ -5558,4 +6030,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--multihost-child"]:
+        _multihost_child(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:8])
+    else:
+        main()

@@ -1266,6 +1266,7 @@ def plan_megakernel(
     hierarchy_level: int = -1,
     host_levels: Optional[int] = None,
     budget: Optional[int] = None,
+    domain_shards: int = 1,
 ) -> MegakernelPlan:
     """Sizes the megakernel's slab geometry from a byte budget.
 
@@ -1276,6 +1277,15 @@ def plan_megakernel(
     temporaries, in half the budget) and the mid state (129 rows x
     mid_words x 4 B, in a quarter). ``None`` takes ``MEGAKERNEL_BUDGET``,
     sized for K5's shared memory; the entry points always plan with it.
+
+    `domain_shards` > 1 plans one shard of the mesh-sharded PIR
+    (parallel/sharded.py): each 'domain' shard owns a contiguous
+    1/domain_shards slice of the level-host_levels entry tile, whose lane
+    index is the tree node id there, so K5 run unchanged on that slice
+    computes exactly the leaves of the shard's contiguous domain slice.
+    Entry and total widths divide by the shard count (a power of two, at
+    most the entry tile's words: host_levels >= 5 + log2(domain_shards));
+    the budget stays per shard.
     """
     v = dpf.validator
     if hierarchy_level < 0:
@@ -1299,6 +1309,19 @@ def plan_megakernel(
     w_v_max = _floor_pow2(max(1, (budget // 4) // (129 * 4)))
     entry_words = 1 << (host_levels - 5)
     total_words = 1 << (stop - 5)
+    if domain_shards != 1:
+        if domain_shards < 1 or domain_shards & (domain_shards - 1):
+            raise InvalidArgumentError(
+                f"domain_shards must be a power of two, got {domain_shards}"
+            )
+        if entry_words % domain_shards:
+            raise InvalidArgumentError(
+                f"sharded megakernel needs host_levels >= 5 + log2(domain_shards): the "
+                f"{entry_words}-word entry tile at host_levels {host_levels} does not split "
+                f"across {domain_shards} domain shards (each shard owns whole packed entry words)"
+            )
+        entry_words //= domain_shards
+        total_words //= domain_shards
     final_words = min(total_words, w_f_max)
     num_slabs = total_words // final_words
     if num_slabs > (1 << 20):

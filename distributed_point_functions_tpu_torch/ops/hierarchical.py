@@ -59,8 +59,16 @@ uint32 bit patterns (ops/aes_torch.py).
 ``evaluate_until_batch(engine="host")`` runs the expansion on the host
 engine (numpy, core/host_eval.py) for scalar Int/XorWrapper types, with the
 JAX package's host-format outputs; its context continues on the card and
-back. Refused: ``mesh=``, the
-multi-device path (ROADMAP Queue 1 item 6), with UnimplementedError.
+back.
+
+With a (keys, domain) ``mesh`` (parallel/sharded.py), ``evaluate_until_batch``
+shards the sorted parent prefixes over 'domain' (padded to 32 x D) and the
+keys over 'keys': each shard runs ``_expand_batch`` on its own device, the
+concatenation of the shards' leaf orders is the global leaf order, and the
+context keeps each shard's exit state on its device
+(``sharded.ShardedValues``). ``evaluate_levels_fused(mode="fused")`` shards
+the keys over 'keys'; mode "hierkernel" refuses a mesh, as the JAX package
+does.
 """
 
 from __future__ import annotations
@@ -78,7 +86,7 @@ from ..core.value_types import Int, XorWrapper
 from ..utils import faultinject
 from ..utils import telemetry as _tm
 from ..utils.devices import resolve_device
-from ..utils.errors import InvalidArgumentError, UnimplementedError
+from ..utils.errors import InvalidArgumentError
 from ..utils.timing import StepClock
 from . import aes_cuda, aes_torch, backend_torch, evaluator
 from . import pipeline as _pl
@@ -102,8 +110,11 @@ class BatchedContext:
     previous_hierarchy_level: int = -1
     parent_tree: Optional[np.ndarray] = None  # uint64 / U128 [Np], sorted unique
     child_levels: int = 0
-    seeds: Optional[torch.Tensor] = None  # int32[K, Np << L (+ pad), 4], leaf order
-    control: Optional[torch.Tensor] = None  # int32[K, Np << L (+ pad)], 0 / 1
+    # int32[K, Np << L (+ pad), 4] and int32[K, Np << L (+ pad)] (0 / 1) in leaf
+    # order; after a mesh advance, sharded.ShardedValues of them, each shard
+    # on its device (``.to(device)`` gathers either form).
+    seeds: Optional[torch.Tensor] = None
+    control: Optional[torch.Tensor] = None
 
     @classmethod
     def create(cls, dpf: DistributedPointFunction, keys: Sequence[DpfKey]) -> "BatchedContext":
@@ -140,10 +151,9 @@ class BatchedContext:
         idx = list(range(len(self.keys))) if key_indices is None else [int(i) for i in key_indices]
         prefix_ints = self._child_prefixes()
         if prefix_ints is not None:
-            rows = torch.tensor(idx, dtype=torch.int64, device=self.seeds.device)
             n = len(prefix_ints)
-            seeds_np = aes_torch.from_words(self.seeds.index_select(0, rows)[:, :n])
-            control_np = aes_torch.from_words(self.control.index_select(0, rows)[:, :n])
+            seeds_np = aes_torch.from_words(_state_take(self.seeds, idx, np.arange(n), "cpu"))
+            control_np = aes_torch.from_words(_state_take(self.control, idx, np.arange(n), "cpu"))
         out = []
         for j, i in enumerate(idx):
             partials = []
@@ -162,6 +172,19 @@ class BatchedContext:
                 partial_evaluations_level=self.previous_hierarchy_level,
             ))
         return out
+
+
+def _state_take(state, key_idx, pos, device) -> torch.Tensor:
+    """Rows `key_idx` and lanes `pos` of a context's seeds or control, on
+    `device`: from one tensor, or from a mesh advance's
+    ``sharded.ShardedValues``, each piece read on its shard's device."""
+    key_idx = np.asarray(key_idx, dtype=np.int64)
+    pos = np.asarray(pos, dtype=np.int64)
+    if not isinstance(state, torch.Tensor):
+        return state.take(key_idx, pos, device)
+    rows = torch.from_numpy(key_idx).to(state.device)
+    cols = torch.from_numpy(pos).to(state.device)
+    return state.index_select(0, rows).index_select(1, cols).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -388,8 +411,16 @@ def evaluate_until_batch(
     `timings`: a dict that gets each step's seconds (utils/timing.py:
     "keys", "positions", "tables", "expand" (K2), "compact", "hash"
     (K4), "finalize", "state", "select", "pull"; on the card with "_card"
-    twins). `mesh`, the multi-device path (ROADMAP Queue 1 item 6), raises
-    UnimplementedError.
+    twins).
+
+    `mesh` (``sharded.make_mesh``; `device` and `timings` then unused)
+    shards the sorted parent prefixes over 'domain', padded to 32 x D, and
+    the keys over 'keys' (padded by repeating key 0): shard (i, d) expands
+    its contiguous slice of the parents on its device, and the
+    concatenation of the shards' leaf orders is the global output. The
+    context keeps each shard's exit state on its device
+    (``sharded.ShardedValues``); `device_output` returns the outputs
+    gathered on the mesh's first device.
 
     engine="host" runs the expansion on the host engine (numpy, the
     branch of the JAX package's host engine without its native library;
@@ -402,10 +433,9 @@ def evaluate_until_batch(
     """
     if engine not in ("device", "host"):
         raise InvalidArgumentError(f"engine must be 'device' or 'host', got {engine!r}")
-    if mesh is not None:
-        raise UnimplementedError(
-            "evaluate_until_batch(mesh=...) is the multi-device path, ROADMAP Queue 1 "
-            "item 6")
+    if mesh is not None and (engine == "host" or device is not None):
+        raise InvalidArgumentError(
+            "mesh= runs on the mesh's devices: engine='host' and device= do not apply")
     dpf, v = ctx.dpf, ctx.dpf.validator
     if hierarchy_level <= ctx.previous_hierarchy_level:
         raise InvalidArgumentError(
@@ -429,6 +459,9 @@ def evaluate_until_batch(
         )
     if engine == "host":
         return _evaluate_until_host(ctx, hierarchy_level, prefixes, prev_lds, lds)
+    if mesh is not None:
+        return _evaluate_until_mesh(ctx, hierarchy_level, prefixes, prev_lds, lds, mesh,
+                                    device_output)
     dev = resolve_device(device)
     clock = StepClock(timings, dev)
     stop_level = v.hierarchy_to_tree[hierarchy_level]
@@ -479,6 +512,87 @@ def evaluate_until_batch(
         out = aes_torch.from_words(outs)
     clock("pull")
     return out
+
+
+def _evaluate_until_mesh(ctx: BatchedContext, hierarchy_level: int, prefixes, prev_lds: int,
+                         lds: int, mesh, device_output: bool):
+    """``evaluate_until_batch(mesh=)``: the JAX package's
+    ``_expand_batch_sharded``, one ``_expand_batch`` a shard."""
+    from ..parallel import sharded
+
+    sharded.check_mesh(mesh)
+    v = ctx.dpf.validator
+    stop_level = v.hierarchy_to_tree[hierarchy_level]
+    dev0 = mesh.devices[0][0]
+    key_shards, n_domain = mesh.shape["keys"], mesh.shape["domain"]
+    k = len(ctx.keys)
+    key_idx = np.concatenate([np.arange(k), np.zeros((-k) % key_shards, dtype=np.int64)])
+    kl = key_idx.shape[0] // key_shards
+    batch = evaluator.KeyBatch.from_keys(ctx.dpf, ctx.keys, hierarchy_level, device=dev0)
+    vf = evaluator._values_of(batch, ctx.dpf, hierarchy_level)
+    tree = tree_pos_of_prefix = prefix_arr = positions = None
+    if ctx.previous_hierarchy_level < 0:
+        start_level, num_parents = 0, 1
+    else:
+        start_level = v.hierarchy_to_tree[ctx.previous_hierarchy_level]
+        prefix_arr = _as_prefix_array(prefixes, prev_lds)
+        positions, tree, tree_pos_of_prefix = _positions_for_prefixes(
+            ctx.parent_tree, ctx.child_levels, prev_lds, start_level, prefix_arr,
+            hierarchy_level)
+        num_parents = positions.shape[0]
+    levels = stop_level - start_level
+    need_state = hierarchy_level < v.num_hierarchy_levels - 1
+    local = -(-num_parents // (32 * n_domain)) * 32  # parents a domain shard
+    outs, seeds, control = [], [], []
+    for i, row in enumerate(mesh.devices):
+        rows = key_idx[i * kl : (i + 1) * kl]
+        for out in (outs, seeds, control):
+            out.append([])
+        for d, dev in enumerate(row):
+            lo, hi = min(d * local, num_parents), min((d + 1) * local, num_parents)
+            kb = dataclasses.replace(batch.take(rows), device=dev)
+            with sharded._on(dev):
+                if positions is None:
+                    real = evaluator._upload(kb.seeds[:, None, :][:, : hi - lo], dev)
+                    real_control = torch.full((kl, hi - lo), kb.party, dtype=torch.int32,
+                                              device=dev)
+                else:
+                    real = _state_take(ctx.seeds, rows, positions[lo:hi], dev)
+                    real_control = _state_take(ctx.control, rows, positions[lo:hi], dev)
+                pad = local - (hi - lo)
+                seeds0 = torch.cat([real, real.new_zeros((kl, pad, 4))], dim=1)
+                control0 = torch.cat([real_control, real_control.new_zeros((kl, pad))], dim=1)
+                o, s_, c_ = _expand_batch(kb, seeds0, control0, start_level, levels, vf,
+                                          need_state, StepClock(None))
+            outs[i].append(o if isinstance(o, tuple) else (o,))
+            if need_state:
+                # The shard's real lanes: padding parents sit past the real
+                # ones, in the trailing shards.
+                n_state = (hi - lo) << levels
+                seeds[i].append(s_[:, :n_state])
+                control[i].append(c_[:, :n_state])
+    etp = (1 << levels) * vf.keep  # elements a parent
+    sel = None
+    if prefix_arr is not None and prev_lds - start_level:
+        sel = torch.from_numpy(_block_select(prefix_arr, tree_pos_of_prefix, prev_lds,
+                                             start_level, lds))
+    where = dev0 if device_output else torch.device("cpu")
+    res = []
+    for c in range(len(outs[0][0])):
+        o = sharded.ShardedValues([[s[c] for s in row] for row in outs], k).to(where)
+        o = o[:, : num_parents * etp]
+        if sel is not None:
+            o = o.index_select(1, sel.to(where))
+        res.append(o if device_output else aes_torch.from_words(o))
+    if need_state:
+        ctx.parent_tree = tree if tree is not None else np.zeros(1, dtype=np.uint64)
+        ctx.child_levels = levels
+        ctx.seeds = sharded.ShardedValues(seeds, k)
+        ctx.control = sharded.ShardedValues(control, k)
+    else:
+        ctx.parent_tree, ctx.child_levels, ctx.seeds, ctx.control = None, 0, None, None
+    ctx.previous_hierarchy_level = hierarchy_level
+    return tuple(res) if vf.spec.is_tuple else res[0]
 
 
 def _evaluate_until_host(ctx: BatchedContext, hierarchy_level: int, prefixes, prev_lds: int,
@@ -1010,7 +1124,7 @@ def _entry_state(ctx: BatchedContext, lk: LevelKeys, device, width: int = 1):
             [uint128.to_limbs(key.seed) for key in ctx.keys]))).to(device)[:, None, :]
         control = torch.full((k, 1), lk.party, dtype=torch.int32, device=device)
     else:
-        seeds, control = ctx.seeds.to(device), ctx.control.to(device)
+        seeds, control = ctx.seeds.to(device), ctx.control.to(device)  # gathers a mesh's
     pad = width - seeds.shape[1]
     if pad > 0:
         seeds = torch.cat([seeds, seeds.new_zeros((seeds.shape[0], pad, 4))], dim=1)
@@ -1107,6 +1221,7 @@ def evaluate_levels_fused(
     mode: Optional[str] = None,
     key_chunk: Optional[int] = None,
     device=None,
+    mesh=None,
 ) -> list:
     """Advances through many hierarchy levels whose prefix sets are known
     upfront: the heavy-hitters access pattern.
@@ -1129,6 +1244,12 @@ def evaluate_levels_fused(
       key_chunk: keys per K8 launch in mode "hierkernel" (default: all);
         mode "fused" takes the whole batch at once and ignores it.
       device: ``None`` = CUDA; ``"cpu"`` runs the plain PyTorch versions.
+      mesh: a ``sharded.make_mesh`` mesh (mode "fused" only, no `device`):
+        the key axis shards over 'keys' (the key count must divide evenly),
+        each key shard advancing on its row's first device with the plan's
+        tables there; the context keeps each shard's exit state on its
+        device, and `device_output` gathers the outputs on the mesh's first
+        device.
 
     Returns per plan entry the values as uint32[K, n_outputs, lpe] limbs,
     ordered by sorted prefix, then leaf.
@@ -1139,6 +1260,8 @@ def evaluate_levels_fused(
     _tm.decision("evaluate_levels_fused", mode, source)
     if mode not in MODES:
         raise InvalidArgumentError(f"mode must be 'fused' or 'hierkernel', got {mode!r}")
+    if mesh is not None:
+        return _levels_fused_mesh(ctx, plan, group, device_output, mode, device, mesh)
     if isinstance(plan, PreparedLevelsPlan):
         _check_prepared(ctx, plan, mode, device)
         prepared = plan
@@ -1158,6 +1281,63 @@ def evaluate_levels_fused(
     if device_output:
         return outs
     return _corrupt_outs(pull(outs), evaluator._fi_backend(prepared.device))
+
+
+def _levels_fused_mesh(ctx: BatchedContext, plan, group: int, device_output: bool, mode: str,
+                       device, mesh) -> list:
+    """``evaluate_levels_fused(mesh=)``: key shard i advances on
+    mesh.devices[i][0] (the JAX package shards the fused programs' key axis
+    over 'keys' and replicates over 'domain')."""
+    from ..parallel import sharded
+
+    sharded.check_mesh(mesh)
+    if mode != "fused":
+        raise InvalidArgumentError(
+            "mode='hierkernel' runs on one device; a mesh shards mode 'fused' only")
+    if device is not None:
+        raise InvalidArgumentError("mesh= runs on the mesh's devices: device= does not apply")
+    k, key_shards = len(ctx.keys), mesh.shape["keys"]
+    if k % key_shards:
+        raise InvalidArgumentError(
+            f"evaluate_levels_fused with a mesh requires the key count ({k}) to divide "
+            f"evenly over the 'keys' axis ({key_shards})"
+        )
+    if not isinstance(plan, PreparedLevelsPlan) and not plan:
+        return []
+    kl = k // key_shards
+    width = None if ctx.seeds is None else ctx.seeds.shape[1]
+    prepared_on, results = {}, []
+    for i, row in enumerate(mesh.devices):
+        dev = row[0]
+        rows = np.arange(i * kl, (i + 1) * kl)
+        sub = dataclasses.replace(ctx, keys=ctx.keys[i * kl : (i + 1) * kl])
+        if width is not None:
+            sub.seeds = _state_take(ctx.seeds, rows, np.arange(width), dev)
+            sub.control = _state_take(ctx.control, rows, np.arange(width), dev)
+        if dev not in prepared_on:
+            if isinstance(plan, PreparedLevelsPlan):
+                _check_prepared(ctx, plan, mode, dev)
+                prepared_on[dev] = plan
+            else:
+                prepared_on[dev] = prepare_levels_fused(ctx, plan, group, mode, dev)
+        prepared = prepared_on[dev]
+        with sharded._on(dev):
+            results.append(advance(sub, prepared, prepare_level_keys(sub, prepared)))
+    if prepared.emit_state:
+        ctx.parent_tree = prepared.end_parent_tree
+        ctx.child_levels = prepared.end_child_levels
+        ctx.seeds = sharded.ShardedValues([[r[1]] for r in results], k)
+        ctx.control = sharded.ShardedValues([[r[2]] for r in results], k)
+    else:
+        ctx.parent_tree, ctx.child_levels, ctx.seeds, ctx.control = None, 0, None, None
+    ctx.previous_hierarchy_level = prepared.final_level
+    steps = list(zip(*(r[0] for r in results)))
+    dev0 = mesh.devices[0][0]
+    if device_output:
+        return [torch.cat([o.to(dev0) for o in step], dim=0) for step in steps]
+    pulled = [pull(r[0]) for r in results]
+    outs = [np.concatenate(step, axis=0) for step in zip(*pulled)]
+    return _corrupt_outs(outs, evaluator._fi_backend(dev0))
 
 
 def _corrupt_outs(outs: list, backend: str) -> list:

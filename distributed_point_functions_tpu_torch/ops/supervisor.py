@@ -23,6 +23,8 @@ The port's copy of the JAX package's ``ops/supervisor.py``:
   (mode, backend) rungs, composed here per op. On a card::
 
       full-domain fold / PIR   megakernel/cuda → fold/cuda
+      PIR over a mesh          sharded-megakernel/cuda → megakernel/cuda
+                               → fold/cuda
       EvaluateAt / DCF / MIC   walkkernel/cuda → walk/cuda
       hierarchical             hierkernel/cuda → fused/cuda
       keygen                   keygen/megakernel → keygen/perlevel
@@ -51,9 +53,10 @@ key's worth of oracle work per call) and a mismatch raises
 ``DataCorruptionError`` into the chain. ``DegradationPolicy.verify=False``
 disables both forms.
 
-Not ported: the JAX package's mesh rung (``mesh=``, mode
-``"sharded-megakernel"``), which waits for the multi-device path (ROADMAP
-Queue 1 item 6) and raises UnimplementedError.
+The mesh rung (``pir_query_batch_robust(mesh=)``, mode
+``"sharded-megakernel"``) tops the PIR chain: its first downgrade is the
+same kernel on the mesh's first device, so a fault of the mesh layer sheds
+to one device before it sheds engines.
 """
 
 from __future__ import annotations
@@ -69,11 +72,7 @@ import numpy as np
 from ..utils import faultinject, integrity
 from ..utils import telemetry as _tm
 from ..utils.devices import resolve_device
-from ..utils.errors import (
-    DataCorruptionError,
-    InvalidArgumentError,
-    UnimplementedError,
-)
+from ..utils.errors import DataCorruptionError, InvalidArgumentError
 from ..utils.deadline import (  # noqa: F401  (re-exported: the one-stop surface)
     check_abandoned,
     current_deadline,
@@ -96,12 +95,6 @@ from .degrade import (  # noqa: F401  (re-exported: the one-stop surface)
 # ---------------------------------------------------------------------------
 # Per-op (mode, backend) chains
 # ---------------------------------------------------------------------------
-
-_MESH_REFUSAL = (
-    "the mesh rung (mode='sharded-megakernel', mesh=) is the multi-device "
-    "path, ROADMAP Queue 1 item 6"
-)
-
 
 def _mode_chain(kernel_mode: Optional[str], mode: str, device) -> Tuple[Rung, ...]:
     """[kernel_mode rung,] mode rung on `device`'s backend, then the numpy
@@ -159,15 +152,19 @@ def dcf_chain(dcf, mode: Optional[str], device=None) -> Tuple[Rung, ...]:
 def fold_chain(mode: Optional[str], device=None) -> Tuple[Rung, ...]:
     """The full-domain-fold / PIR chain: megakernel/cuda → fold/cuda on a
     card; megakernel/torch → fold/torch → numpy (the host fold) on the CPU,
-    where the megakernel rung runs K5's plain version."""
+    where the megakernel rung runs K5's plain version. Mode
+    "sharded-megakernel" (PIR over a mesh; `device` the mesh's first) puts
+    its rung on top: sharded-megakernel/cuda → megakernel/cuda → fold/cuda
+    (on the CPU the */torch rungs, then numpy)."""
     resolved = "fold" if mode is None else mode
-    if resolved == "sharded-megakernel":
-        raise UnimplementedError(_MESH_REFUSAL)
-    if resolved not in ("fold", "megakernel"):
+    if resolved not in ("fold", "megakernel", "sharded-megakernel"):
         raise InvalidArgumentError(
-            f"mode must be 'fold' or 'megakernel', got {resolved!r}"
+            f"mode must be 'fold', 'megakernel' or 'sharded-megakernel', got {resolved!r}"
         )
-    return _mode_chain("megakernel" if resolved == "megakernel" else None, "fold", device)
+    chain = _mode_chain("megakernel" if resolved != "fold" else None, "fold", device)
+    if resolved == "sharded-megakernel":
+        chain = (("sharded-megakernel", chain[0][1]),) + chain
+    return chain
 
 
 def hier_chain(mode: Optional[str], device=None) -> Tuple[Rung, ...]:
@@ -999,26 +996,46 @@ def pir_query_batch_robust(
     numpy, the host fold, on the CPU), sentinel-verified per device rung
     through the probe. A mode downgrade
     that needs another row order of the prepared database (megakernel's
-    rows vs the lane order) re-prepares it from its natural-order host
-    copy (``PreparedPirDatabase.natural_host``) — once per downgrade, not
+    rows vs the lane order; one mesh's column blocks vs one device's)
+    re-prepares it from its natural-order host copy
+    (``PreparedPirDatabase.natural_host``) — once per downgrade, not
     per query — so served queries keep their answers bit-exact across the
     transition. `db_limbs` is a host uint32[D, lpe] array or a
     ``PreparedPirDatabase`` of any order, whose device the rungs run on.
-    `mesh` (the JAX package's multi-device rung) raises
-    UnimplementedError."""
-    from ..parallel import pir
+
+    `mesh` (``sharded.make_mesh``; default, when mode="sharded-megakernel"
+    asks for one, ``sharded.pir_mesh_from_env()``) puts the mesh rung on
+    top of the chain (``fold_chain``): the sharded megakernel, then the
+    same kernel on the mesh's first device, where the single-device rungs
+    run."""
+    from ..parallel import pir, sharded
     from . import evaluator
 
-    if mesh is not None:
-        raise UnimplementedError(_MESH_REFUSAL)
-    if isinstance(db_limbs, pir.PreparedPirDatabase):
-        dev = db_limbs.lane_db.device
-        if device is not None and resolve_device(device) != dev:
+    if mesh is not None and mode is None:
+        mode = "sharded-megakernel"
+    if mode == "sharded-megakernel" and mesh is None:
+        mesh = sharded.pir_mesh_from_env()
+        if mesh is None:
             raise InvalidArgumentError(
-                f"device={device} disagrees with the database's {dev}"
+                "mode='sharded-megakernel' needs a mesh: pass mesh= (sharded.make_mesh) or "
+                "set DPF_TPU_PIR_MESH=KxD"
             )
+    # Where the device rungs run: the mesh's first device, a prepared
+    # database's device, or `device`.
+    if mesh is not None:
+        sharded.check_mesh(mesh)
+        if mode != "sharded-megakernel":
+            raise InvalidArgumentError(
+                f"mesh= tops the chain with mode 'sharded-megakernel', got mode={mode!r}")
+        dev = mesh.devices[0][0]
+    elif isinstance(db_limbs, pir.PreparedPirDatabase):
+        dev = db_limbs.device
     else:
         dev = resolve_device(device)
+    if device is not None and resolve_device(device) != dev:
+        raise InvalidArgumentError(
+            f"device={device} disagrees with {dev}, where the database or the mesh puts the "
+            "rungs")
     v = dpf.validator
     bits, _xor = evaluator._value_kind(v.parameters[-1].value_type)
     chain = fold_chain(mode, device=dev)
@@ -1034,36 +1051,41 @@ def pir_query_batch_robust(
             )
         return nat_cache["nat"]
 
-    def _db_for(want_order: str):
-        if isinstance(db_limbs, pir.PreparedPirDatabase) and db_limbs.order == want_order:
+    def _db_for(want_order: str, want_mesh):
+        if (isinstance(db_limbs, pir.PreparedPirDatabase) and db_limbs.order == want_order
+                and db_limbs.mesh == want_mesh and db_limbs.device == dev):
             return db_limbs
-        if want_order not in prepared_cache:
-            prepared_cache[want_order] = pir.prepare_pir_database(
-                dpf, _nat_db(), host_levels, order=want_order, device=dev)
+        if (want_order, want_mesh) not in prepared_cache:
+            prepared_cache[want_order, want_mesh] = pir.prepare_pir_database(
+                dpf, _nat_db(), host_levels, order=want_order,
+                device=None if want_mesh is not None else dev, mesh=want_mesh)
             if isinstance(db_limbs, pir.PreparedPirDatabase):
                 integrity.emit_event(
                     "pir-db-reprepared",
-                    "pir_query_batch_robust: the rung needs a "
-                    f"{want_order!r}-order database; re-prepared from the "
-                    f"{db_limbs.order!r}-order original's natural-order host "
-                    "copy (one upload per downgrade, not per query)",
+                    f"pir_query_batch_robust: the rung needs a {want_order!r}-order database "
+                    f"(mesh {sharded._mesh_desc(want_mesh)}); re-prepared from the "
+                    f"{db_limbs.order!r}-order (mesh {sharded._mesh_desc(db_limbs.mesh)}) "
+                    "original's natural-order host copy (one upload per downgrade, not per "
+                    "query)",
                     "",
                     op="pir_query_batch",
                     from_order=db_limbs.order,
                     to_order=want_order,
                 )
                 _tm.counter("supervisor.pir_db_reprepared", op="pir_query_batch")
-        return prepared_cache[want_order]
+        return prepared_cache[want_order, want_mesh]
 
     def attempt(mode_r: Optional[str], backend: str, chunk: Optional[int]):
         ck = chunk if chunk is not None else key_chunk
         if backend == "numpy":
             return _host_pir_fold(dpf, keys, _nat_db(), bits)
         mode_r = mode_r or "fold"
+        on_mesh = mode_r == "sharded-megakernel"
+        run_mode = "megakernel" if on_mesh else mode_r
         try:
             return pir.pir_query_batch_chunked(
-                dpf, keys, _db_for(pir.MODE_ORDER[mode_r]),
-                key_chunk=ck, mode=mode_r,
+                dpf, keys, _db_for(pir.MODE_ORDER[run_mode], mesh if on_mesh else None),
+                key_chunk=ck, mode=run_mode, mesh=mesh if on_mesh else None,
                 integrity=True if policy.verify is None else policy.verify,
                 pipeline=pipeline,
             )

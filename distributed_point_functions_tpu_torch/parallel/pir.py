@@ -34,8 +34,16 @@ Every mode runs its chunks through the pipelined executor
 pulled into pinned host memory right behind its kernels. ``integrity=``
 appends the sentinel probe key (utils/integrity.py) whose folded answer is
 checked against the host oracle over the natural-order database
-(``PreparedPirDatabase.natural_host``). The JAX package's mesh-sharded
-modes wait for the multi-device path (ROADMAP Queue 1 item 6).
+(``PreparedPirDatabase.natural_host``).
+
+With ``mesh=`` (parallel/sharded.py's ``make_mesh``), mode "megakernel"
+runs over a (keys, domain) mesh: ``prepare_pir_database(order=
+"megakernel", mesh=)`` lays out one column block a domain shard under the
+per-shard plan, each on the devices of its mesh column, and each key chunk
+launches K5 once a shard (``sharded._megakernel_thunks``). A database
+prepared for one mesh (or none) is refused by a query on another; every
+other mode refuses ``mesh``; ``sharded.pir_query_batch`` is the sharded
+walk-and-expand PIR.
 """
 
 from __future__ import annotations
@@ -70,20 +78,30 @@ class PreparedPirDatabase:
     mistaken for it: for one-element-per-block value types the lane order
     has the natural order's shape."""
 
-    __slots__ = ("lane_db", "order", "host_levels", "plan", "_nat_host")
+    __slots__ = ("lane_db", "order", "host_levels", "plan", "mesh", "_nat_host")
 
     def __init__(
         self,
-        lane_db: torch.Tensor,
+        lane_db,
         order: str,
         host_levels: Optional[int],
         plan: Optional[evaluator.MegakernelPlan] = None,
+        mesh=None,
     ):
-        self.lane_db = lane_db  # int32[positions, lpe] or megakernel rows
+        # int32[positions, lpe] or megakernel rows; with a mesh, lane_db[i][d]
+        # is domain shard d's column block on mesh.devices[i][d] (one copy a
+        # device: the same tensor wherever a column's devices repeat).
+        self.lane_db = lane_db
         self.order = order  # one of ORDERS
         self.host_levels = host_levels  # the lane permutation's parameter
-        self.plan = plan  # order "megakernel": the plan the rows encode
+        self.plan = plan  # order "megakernel": the plan the rows encode (per shard)
+        self.mesh = mesh  # the sharded.Mesh the column blocks are laid out for
         self._nat_host = None
+
+    @property
+    def device(self) -> torch.device:
+        """Where the database lies: its device, or its mesh's first one."""
+        return self.lane_db[0][0].device if self.mesh is not None else self.lane_db.device
 
     def natural_host(self, dpf: DistributedPointFunction) -> np.ndarray:
         """The database in natural order on the host, uint32[domain, lpe]:
@@ -91,7 +109,9 @@ class PreparedPirDatabase:
         first use and kept (the database is immutable)."""
         if self._nat_host is not None:
             return self._nat_host
-        lane_host = aes_torch.from_words(self.lane_db)
+        # A mesh layout concatenates one tile a domain shard along the words.
+        lane_host = (np.concatenate([aes_torch.from_words(t) for t in self.lane_db[0]], axis=1)
+                     if self.mesh is not None else aes_torch.from_words(self.lane_db))
         v = dpf.validator
         lds = v.parameters[-1].log_domain_size
         if self.order == "natural":
@@ -99,15 +119,21 @@ class PreparedPirDatabase:
         elif self.order == "megakernel":
             # Row (e * lpe + l) * 32 + i at word w holds limb l of element e
             # of the block at lane 32 w + i, whose domain row is
-            # leaves[lane] * keep + e (evaluator.megakernel_db_rows).
+            # leaves[lane] * keep + e (evaluator.megakernel_db_rows). Shard
+            # d's local leaf g is global leaf g + d * leaves_per_shard.
             keep = 1 << (lds - v.hierarchy_to_tree[-1])
             lpe = lane_host.shape[0] // (keep * 32)
-            blocks = evaluator._megakernel_block_leaves(self.plan).reshape(-1, 32)
+            leaves = evaluator._megakernel_block_leaves(self.plan)
+            d_shards = self.mesh.shape["domain"] if self.mesh is not None else 1
+            shard_w = lane_host.shape[1] // d_shards
             nat = np.zeros((1 << lds, lpe), np.uint32)
-            for e in range(keep):
-                rows = blocks * keep + e
-                for l in range(lpe):
-                    nat[rows, l] = lane_host[(e * lpe + l) * 32 : (e * lpe + l + 1) * 32].T
+            for d in range(d_shards):
+                tile = lane_host[:, d * shard_w : (d + 1) * shard_w]
+                blocks = (leaves + d * leaves.shape[0]).reshape(-1, 32)
+                for e in range(keep):
+                    rows = blocks * keep + e
+                    for l in range(lpe):
+                        nat[rows, l] = tile[(e * lpe + l) * 32 : (e * lpe + l + 1) * 32].T
         else:
             # Padded lane positions hold zeros and map to no domain row.
             m = evaluator.lane_order_map(dpf, -1, self.host_levels)
@@ -124,6 +150,7 @@ def prepare_pir_database(
     host_levels: Optional[int] = None,
     order: str = "lane",
     device=None,
+    mesh=None,
 ) -> PreparedPirDatabase:
     """Lays a uint32[D, lpe] database (D = the DPF domain) out for its
     consumer and uploads it to `device` once: order="lane" (the
@@ -132,7 +159,15 @@ def prepare_pir_database(
     order as given) for modes "walk" and "fused", order="megakernel"
     (``evaluator.megakernel_db_rows`` under ``plan_megakernel``, which the
     prepared database records) for mode "megakernel". A server's database
-    is static: prepare it at setup and query it many times."""
+    is static: prepare it at setup and query it many times.
+
+    `mesh` (order "megakernel" only; `device` then unused) lays the rows out
+    for the mesh-sharded megakernel: the domain splits into
+    mesh.shape['domain'] contiguous slices, each gets its own row tile
+    under the per-shard plan (``plan_megakernel(domain_shards=D)``;
+    host_levels None takes the least that splits the entry tile, 5 +
+    log2(D)), and each tile is uploaded, as its own contiguous tensor, to
+    every device of its mesh column."""
     v = dpf.validator
     hierarchy_level = v.num_hierarchy_levels - 1
     domain = 1 << v.parameters[hierarchy_level].log_domain_size
@@ -146,6 +181,19 @@ def prepare_pir_database(
         raise InvalidArgumentError(
             f"order must be 'lane', 'natural' or 'megakernel', got {order!r}"
         )
+    if mesh is not None:
+        from .sharded import check_mesh
+
+        check_mesh(mesh)
+        if order != "megakernel":
+            raise InvalidArgumentError(
+                f"mesh-sharded preparation exists only for order='megakernel' (got "
+                f"order={order!r}); the other orders feed single-device consumers"
+            )
+        if device is not None:
+            raise InvalidArgumentError(
+                "pass mesh= or device=, not both: the mesh names its devices")
+        return _prepare_mesh(dpf, db_limbs, host_levels, mesh)
     device = resolve_device(device)
     if order == "natural":
         return PreparedPirDatabase(evaluator._upload(db_limbs, device), order, None)
@@ -161,6 +209,25 @@ def prepare_pir_database(
     return PreparedPirDatabase(evaluator._upload(db_lane, device), order, host_levels)
 
 
+def _prepare_mesh(dpf, db_limbs: np.ndarray, host_levels, mesh) -> PreparedPirDatabase:
+    from .sharded import _subtree_levels
+
+    d_shards = mesh.shape["domain"]
+    if host_levels is None:
+        host_levels = 5 + _subtree_levels(mesh)
+    plan = evaluator.plan_megakernel(dpf, -1, host_levels, domain_shards=d_shards)
+    per = db_limbs.shape[0] // d_shards
+    blocks = [evaluator.megakernel_db_rows(dpf, db_limbs[d * per : (d + 1) * per], plan)
+              for d in range(d_shards)]
+    uploaded = {}
+    for row in mesh.devices:
+        for d, dev in enumerate(row):
+            if (d, dev) not in uploaded:
+                uploaded[d, dev] = evaluator._upload(blocks[d], dev)
+    lane = tuple(tuple(uploaded[d, dev] for d, dev in enumerate(row)) for row in mesh.devices)
+    return PreparedPirDatabase(lane, "megakernel", plan.host_levels, plan, mesh)
+
+
 def _pir_fold(values: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     """XOR inner product of a chunk's values int32[K, N, lpe] against a
     database int32[N, lpe] in the same order -> int32[K, lpe]: the JAX
@@ -169,16 +236,27 @@ def _pir_fold(values: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     return backend_torch.xor_reduce(values & db[None], dim=1)
 
 
-def _check_prepared(dpf, pdb: PreparedPirDatabase, mode: str, host_levels, device) -> None:
+def _check_prepared(dpf, pdb: PreparedPirDatabase, mode: str, host_levels, device,
+                    mesh=None) -> None:
+    from .sharded import _mesh_desc
+
     want_order = MODE_ORDER[mode]
     if pdb.order != want_order:
         raise InvalidArgumentError(
             f"mode={mode!r} needs a {want_order!r}-order "
             f"PreparedPirDatabase, got {pdb.order!r}"
         )
-    if device is not None and resolve_device(device) != pdb.lane_db.device:
+    # The row layout encodes one mesh and one plan: a query on another is
+    # refused, never silently laid out again.
+    if pdb.mesh != mesh:
         raise InvalidArgumentError(
-            f"device={device} disagrees with the database's {pdb.lane_db.device}"
+            f"database prepared for mesh {_mesh_desc(pdb.mesh)} but the query asked for mesh "
+            f"{_mesh_desc(mesh)}; prepare it again (prepare_pir_database(order='megakernel', "
+            "mesh=...)) for the query's mesh"
+        )
+    if device is not None and resolve_device(device) != pdb.device:
+        raise InvalidArgumentError(
+            f"device={device} disagrees with the database's {pdb.device}"
         )
     if pdb.order != "natural" and host_levels is not None and host_levels != pdb.host_levels:
         raise InvalidArgumentError(
@@ -186,7 +264,8 @@ def _check_prepared(dpf, pdb: PreparedPirDatabase, mode: str, host_levels, devic
             f"{pdb.order} order (prepared at host_levels={pdb.host_levels})"
         )
     if pdb.order == "megakernel" and pdb.plan != evaluator.plan_megakernel(
-        dpf, host_levels=pdb.host_levels
+        dpf, host_levels=pdb.host_levels,
+        domain_shards=1 if mesh is None else mesh.shape["domain"],
     ):
         raise InvalidArgumentError(
             f"the database was laid out under {pdb.plan}, which this DPF "
@@ -206,6 +285,7 @@ def pir_query_batch_chunked(
     device=None,
     integrity: Optional[bool] = None,
     pipeline: Optional[bool] = None,
+    mesh=None,
 ) -> np.ndarray:
     """PIR answers uint32[len(keys), lpe] of one server for a batch of keys.
 
@@ -227,7 +307,12 @@ def pir_query_batch_chunked(
     natural-order database (cached on a prepared database); a mismatch
     raises DataCorruptionError. `pipeline` (None = DPF_TPU_PIPELINE / on
     for a CUDA device) overlaps chunk N+1's pack and upload with chunk N's
-    kernels and chunk N-1's pull; the answers are the same either way."""
+    kernels and chunk N-1's pull; the answers are the same either way.
+
+    `mesh` (a ``sharded.make_mesh`` mesh; mode "megakernel" only, and no
+    `device`) runs each chunk over the mesh: keys over 'keys', one K5 launch
+    a shard on its slice of the entry tile against its own column block of
+    a database prepared for that mesh (module docstring)."""
     from ..utils import integrity as _integrity
 
     source = "explicit"
@@ -238,9 +323,23 @@ def pir_query_batch_chunked(
             f"mode must be one of {', '.join(repr(m) for m in MODES)}, got {mode!r}"
         )
     _tm.decision("pir_query_batch_chunked", mode, source)
+    if mesh is not None:
+        from .sharded import check_mesh
+
+        check_mesh(mesh)
+        if mode != "megakernel":
+            raise InvalidArgumentError(
+                f"mesh sharding exists only for mode='megakernel' (got mode={mode!r}); the "
+                "sharded walk-and-expand PIR is sharded.pir_query_batch"
+            )
+        if device is not None or fuse_last_hash:
+            raise InvalidArgumentError(
+                "device= and fuse_last_hash do not apply with mesh=: the mesh names its "
+                "devices and K5 hashes in the kernel"
+            )
     if isinstance(db_limbs, PreparedPirDatabase):
         pdb = db_limbs
-        _check_prepared(dpf, pdb, mode, host_levels, device)
+        _check_prepared(dpf, pdb, mode, host_levels, device, mesh)
     elif isinstance(db_limbs, torch.Tensor):
         raise InvalidArgumentError(
             "pass the PreparedPirDatabase from prepare_pir_database (or a "
@@ -248,8 +347,8 @@ def pir_query_batch_chunked(
         )
     else:
         pdb = prepare_pir_database(dpf, db_limbs, host_levels, order=MODE_ORDER[mode],
-                                   device=device)
-    db, dev = pdb.lane_db, pdb.lane_db.device
+                                   device=device, mesh=mesh)
+    db, dev = pdb.lane_db, pdb.device
     backend = evaluator._fi_backend(dev)
     pipe = _pl.resolve(pipeline, dev)
     keys, probe = _integrity.setup_probe(
@@ -260,6 +359,15 @@ def pir_query_batch_chunked(
         db_nat = (pdb.natural_host(dpf) if isinstance(db_limbs, PreparedPirDatabase)
                   else np.asarray(db_limbs, dtype=np.uint32))
 
+    if mesh is not None:
+        from . import sharded
+
+        thunks = sharded._megakernel_thunks(dpf, keys, pdb, mesh, key_chunk, pipe, backend)
+        rows = list(_pl.map_chunks(thunks, _pull_shards, pipe, backend=backend,
+                                   op="pir_query_batch_chunked", device=dev))
+        # Trim the key padding that makes every chunk split over 'keys'.
+        res = np.concatenate(rows, axis=0)[: len(keys)]
+        return _pir_verify_fold(probe, res, db_nat, backend)
     if mode in ("fold", "levels", "megakernel"):
         fs = evaluator._fold_setup(
             dpf, keys, -1, key_chunk, pdb.host_levels, db, fuse_last_hash,
@@ -290,6 +398,13 @@ def pir_query_batch_chunked(
     return _pir_verify_fold(probe, np.concatenate(rows, axis=0), db_nat, backend)
 
 
+def _pull_shards(item) -> np.ndarray:
+    """A mesh chunk's answer: its key shards' pulls, concatenated and cut to
+    the chunk's valid rows."""
+    valid, pulls = item
+    return np.concatenate([aes_torch.from_words(p.result()) for p in pulls], axis=0)[:valid]
+
+
 def _folded(thunk, db: torch.Tensor):
     """A values thunk of mode walk followed by its chunk's fold against the
     natural-order database, the answer pulled right behind it."""
@@ -301,7 +416,8 @@ def _folded(thunk, db: torch.Tensor):
     return run
 
 
-def _pir_verify_fold(probe, responses: np.ndarray, db_natural, backend: str) -> np.ndarray:
+def _pir_verify_fold(probe, responses: np.ndarray, db_natural, backend: str,
+                     context: str = "pir_query_batch_chunked") -> np.ndarray:
     """Strips and checks the probe's answer row: its XOR fold against the
     natural-order database is recomputed from the host oracle
     (utils/integrity.verify_probe_fold). Returns the answers without the
@@ -314,7 +430,7 @@ def _pir_verify_fold(probe, responses: np.ndarray, db_natural, backend: str) -> 
     if probe is None:
         return responses
     _integrity.verify_probe_fold(probe, responses[-1], db_limbs=db_natural,
-                                 context="pir_query_batch_chunked",
+                                 context=context,
                                  key_index=responses.shape[0] - 1)
     return responses[:-1]
 

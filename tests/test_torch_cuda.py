@@ -14,8 +14,11 @@ executor against the serial one at the fold's full plan, a real
 out-of-memory error through the degradation chain, and the serving plane:
 a served batch of every op on the card against the same door on the CPU,
 with the launches of the direct call, two servers' PIR over loopback, a
-heavy-hitter stream window in each mode against the CPU, and a round trip
-through a one-replica fleet a party (ReplicaPool, --device cuda).
+heavy-hitter stream window in each mode against the CPU, a round trip
+through a one-replica fleet a party (ReplicaPool, --device cuda), and the
+multi-device path (the mesh megakernel PIR, the sharded PIR, full domain
+and EvaluateUntil) on a mesh whose four shards name the one card and on a
+mesh over two cards (which skips with fewer), against one device.
 
 Every test here needs a card and skips without one. The file imports no
 JAX, so on a machine without JAX it runs without the suite's conftest:
@@ -931,3 +934,68 @@ def test_one_replica_fleet_on_the_card_round_trip(cuda, tmp_path):
             px.stop()
         for pool in pools:
             pool.stop()
+
+
+def _mesh_paths(mesh, dev):
+    """The multi-device paths on `mesh` against one device `dev`: the
+    mesh megakernel PIR, the sharded PIR in both modes, the sharded full
+    domain and EvaluateUntil on the mesh, with K5, K6, K2, K3 and K4
+    launched on the mesh's paths."""
+    from distributed_point_functions_tpu_torch.parallel import sharded
+
+    dpf = port.DistributedPointFunction.create(port.DpfParameters(14, port.XorWrapper(128)))
+    rng = np.random.default_rng(22)
+    targets = [int(a) for a in rng.integers(0, 1 << 14, size=9)]
+    keys, _ = dpf.generate_keys_batch(targets, [[(1 << 128) - 1] * 9],
+                                      seeds=rng.integers(0, 2**32, size=(9, 2, 4), dtype=np.uint32))
+    db = rng.integers(0, 2**32, size=(1 << 14, 4), dtype=np.uint32)
+    megakernel = pir.MODES[1]
+    want = pir.pir_query_batch_chunked(dpf, keys, db, mode=megakernel, key_chunk=4, device=dev)
+    aes_cuda.reset_launch_counts()
+    mdb = pir.prepare_pir_database(dpf, db, order="megakernel", mesh=mesh)
+    got = pir.pir_query_batch_chunked(dpf, keys, mdb, mode=megakernel, key_chunk=4, mesh=mesh,
+                                      integrity=True)
+    assert np.array_equal(got, want)
+    # Three chunks of 4 keys (the probe makes 10, padded to the 'keys' axis).
+    assert aes_cuda.K5.launches == 3 * mesh.size
+    for mode, kernels in (("expand", (aes_cuda.K6, aes_cuda.K2, aes_cuda.K3)),
+                          ("walk", (aes_cuda.K6, aes_cuda.K4))):
+        aes_cuda.reset_launch_counts()
+        assert np.array_equal(sharded.pir_query_batch(dpf, keys, db, mesh, mode=mode), want)
+        assert all(k.launches for k in kernels), mode
+    mdpf = port.DistributedPointFunction.create(port.DpfParameters(12, port.IntModN(64, 2**64 - 59)))
+    mkeys, _ = mdpf.generate_keys_batch([5, 4000, 77], [[1, 2, 3]],
+                                        seeds=rng.integers(0, 2**32, size=(3, 2, 4), dtype=np.uint32))
+    full = sharded.sharded_full_domain_evaluate(mdpf, mkeys, mesh)
+    assert all(t.device == d for row, drow in zip(full.shards, mesh.devices)
+               for t, d in zip(row, drow))
+    assert np.array_equal(full.numpy(), evaluator.full_domain_evaluate(mdpf, mkeys, device=dev,
+                                                                       integrity=False))
+    hdpf = port.DistributedPointFunction.create_incremental(
+        [port.DpfParameters(l, port.Int(64)) for l in (4, 8, 12)])
+    hkeys, _ = hdpf.generate_keys_batch([9, 3000], [[1, 2]] * 3,
+                                        seeds=rng.integers(0, 2**32, size=(2, 2, 4), dtype=np.uint32))
+    a = hierarchical.BatchedContext.create(hdpf, hkeys)
+    b = hierarchical.BatchedContext.create(hdpf, hkeys)
+    for h, prefixes in enumerate([[], [0, 9, 11], [150, 151, 187]]):
+        assert np.array_equal(hierarchical.evaluate_until_batch(a, h, prefixes, mesh=mesh),
+                              hierarchical.evaluate_until_batch(b, h, prefixes, device=dev))
+
+
+def test_mesh_on_one_card_matches_one_device(cuda):
+    """A 2 x 2 mesh whose four shards all name the one card runs every line
+    of the multi-device code there, and equals one device."""
+    from distributed_point_functions_tpu_torch.parallel import sharded
+
+    _mesh_paths(sharded.make_mesh(2, 2, devices=[torch.device("cuda:0")] * 4),
+                torch.device("cuda:0"))
+
+
+def test_mesh_over_two_cards_matches_one_device(cuda):
+    """A 1 x 2 mesh over two distinct cards (each shard launching on its
+    own card, the partials copied to the first) equals one device."""
+    from distributed_point_functions_tpu_torch.parallel import sharded
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    _mesh_paths(sharded.make_mesh(1, 2), torch.device("cuda:0"))

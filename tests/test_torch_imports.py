@@ -4,8 +4,9 @@ keygen, gate and wire-format paths, the host engine, the robust wrappers,
 the executor, the deadline watchdog, telemetry, integrity, fault
 injection, profiling, the environment flags and the serving plane (wire,
 front door, server, client, the streaming heavy-hitters tier with its
-leases, the fleet proxy, the replica pool and the autoscaler) driven in a
-fresh process), and its entry
+leases, the fleet proxy, the replica pool and the autoscaler, and the
+multi-device path: the mesh, the sharded PIR and full domain, EvaluateUntil
+on a mesh, multihost) driven in a fresh process), and its entry
 points do not run on the CPU unless asked to.
 
 The import guard runs in a subprocess: tests/conftest.py imports jax into
@@ -148,6 +149,22 @@ with tempfile.TemporaryDirectory() as tmp:
             proxy.stop()
     from distributed_point_functions_tpu_torch.serving import fleet
     assert fleet.ReplicaPool(replicas=1, base_dir=tmp + "/pool", device="cpu").device == "cpu"
+from distributed_point_functions_tpu_torch.parallel import multihost, sharded
+mesh = sharded.make_mesh(1, 2, devices=["cpu"] * 2)
+assert multihost.local_mesh(shape=(1, 2), devices=["cpu"] * 2) == mesh
+multihost.initialize()
+assert multihost.local_key_slice(5) == (0, 5)
+mpdpf = port.DistributedPointFunction.create(port.DpfParameters(7, port.XorWrapper(128)))
+mpkeys, _ = mpdpf.generate_keys_batch([3], [[1]], seeds=np.ones((1, 2, 4), np.uint32))
+mdb_host = np.arange(512, dtype=np.uint32).reshape(128, 4)
+mdb = pir.prepare_pir_database(mpdpf, mdb_host, order="megakernel", mesh=mesh)
+want = pir.pir_query_batch_chunked(mpdpf, mpkeys, mdb_host, mode="fold", device="cpu")
+assert (pir.pir_query_batch_chunked(mpdpf, mpkeys, mdb, mode="megakernel", mesh=mesh) == want).all()
+for mode in ("expand", "walk"):
+    assert (sharded.pir_query_batch(mpdpf, mpkeys, mdb_host, mesh, mode=mode) == want).all()
+assert sharded.sharded_full_domain_evaluate(mdpf, mkeys, mesh).numpy().shape == (1, 64, 2)
+ctx = hierarchical.BatchedContext.create(hdpf, hkeys)
+assert hierarchical.evaluate_until_batch(ctx, 0, mesh=mesh).shape == (1, 2, 2)
 jax_package = "distributed_point_functions_tpu"
 bad = sorted(
     m for m in sys.modules

@@ -10,6 +10,7 @@ On the CPU the chains start at the ``torch`` rung (no card, no ``cuda``
 rung), so the fault plans here are scoped to backend "torch".
 """
 
+import functools
 import json
 import time
 
@@ -35,14 +36,13 @@ from distributed_point_functions_tpu_torch.ops import (
     hierarchical,
     supervisor,
 )
-from distributed_point_functions_tpu_torch.parallel import pir
+from distributed_point_functions_tpu_torch.parallel import pir, sharded
 from distributed_point_functions_tpu_torch.utils import faultinject, integrity, telemetry
 from distributed_point_functions_tpu_torch.utils.errors import (
     DataCorruptionError,
     InvalidArgumentError,
     ResourceExhaustedError,
     UnavailableError,
-    UnimplementedError,
 )
 from torch_fold_case import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -322,8 +322,9 @@ def test_chain_builders_mode_rungs(monkeypatch):
     assert supervisor.fold_chain("megakernel", device="cpu") == (
         ("megakernel", "torch"), ("fold", "torch"), (None, "numpy"))
     assert supervisor.full_domain_chain("cpu") == ((None, "torch"), (None, "numpy"))
-    with pytest.raises(UnimplementedError, match="item 6"):
-        supervisor.fold_chain("sharded-megakernel", device="cpu")
+    assert supervisor.fold_chain("sharded-megakernel", device="cpu") == (
+        ("sharded-megakernel", "torch"), ("megakernel", "torch"), ("fold", "torch"),
+        (None, "numpy"))
     with pytest.raises(InvalidArgumentError):
         supervisor.hier_chain("bogus", device="cpu")
     assert supervisor.keygen_chain(None, device="cpu") == (
@@ -336,6 +337,8 @@ def test_chain_builders_mode_rungs(monkeypatch):
     cuda = "cuda:0"
     assert supervisor.fold_chain("megakernel", device=cuda) == (
         ("megakernel", "cuda"), ("fold", "cuda"))
+    assert supervisor.fold_chain("sharded-megakernel", device=cuda) == (
+        ("sharded-megakernel", "cuda"), ("megakernel", "cuda"), ("fold", "cuda"))
     assert supervisor.full_domain_chain(cuda) == ((None, "cuda"),)
     assert supervisor.hier_chain("hierkernel", device=cuda) == (
         ("hierkernel", "cuda"), ("fused", "cuda"))
@@ -395,8 +398,54 @@ def test_pir_db_reprepared_when_order_mismatches(fixtures):
             out = fx["run"](POLICY, mode=pir.MODES[1])
     np.testing.assert_array_equal(out, fx["want"])
     assert "pir-db-reprepared" in [e.kind for e in events]
-    with pytest.raises(UnimplementedError, match="item 6"):
+    # The mesh rung needs the mesh's column blocks: the single-device
+    # database is laid out again for it, and the answers stay the same.
+    mesh = sharded.make_mesh(1, 2, devices=["cpu"] * 2)
+    with integrity.capture_events() as events:
+        out = supervisor.pir_query_batch_robust(fx["dpf"], fx["keys"], fx["pdb"], mesh=mesh,
+                                                policy=POLICY)
+    np.testing.assert_array_equal(out, fx["want"])
+    assert "pir-db-reprepared" in [e.kind for e in events]
+    assert [e.backend for e in events if e.kind == "recovered"] == []
+    with pytest.raises(InvalidArgumentError, match="Mesh"):
         supervisor.pir_query_batch_robust(fx["dpf"], fx["keys"], fx["pdb"], mesh=object())
+
+
+def test_pir_mesh_rung_downgrades_bit_exact(fixtures, monkeypatch):
+    """The mesh chain on the CPU: sharded-megakernel/torch answers a clean
+    run; a fault on the sharded rung sheds to megakernel/torch (the same
+    kernel's plain version on the mesh's first device) bit-exact, the
+    mesh's database laid out again for one device once."""
+    fx = fixtures["pir"]
+    mesh = sharded.make_mesh(2, 2, devices=["cpu"] * 4)
+    mdb = pir.prepare_pir_database(fx["dpf"], fx["db"], order="megakernel", mesh=mesh)
+    run = functools.partial(supervisor.pir_query_batch_robust, fx["dpf"], fx["keys"], mdb,
+                            key_chunk=2, policy=POLICY, pipeline=False, mesh=mesh)
+    with integrity.capture_events() as events:
+        np.testing.assert_array_equal(run(), fx["want"])
+    assert not [e for e in events if e.kind in ("degrade", "pir-db-reprepared")]
+    with integrity.capture_events() as events:
+        with faultinject.inject(faultinject.FaultPlan(
+                stage="device_call", exception=UnavailableError("UNAVAILABLE: mesh"),
+                modes=frozenset({"sharded-megakernel"}))):
+            np.testing.assert_array_equal(run(), fx["want"])
+    kinds = [e.kind for e in events]
+    assert kinds.count("pir-db-reprepared") == 1
+    assert [e.data.get("mode") for e in events if e.kind == "degrade"] == ["sharded-megakernel"]
+    # The mode asks for a mesh: DPF_TPU_PIR_MESH's, which on the CPU cannot
+    # form over cards, or none.
+    monkeypatch.delenv("DPF_TPU_PIR_MESH", raising=False)
+    with pytest.raises(InvalidArgumentError, match="needs a mesh"):
+        supervisor.pir_query_batch_robust(fx["dpf"], fx["keys"], fx["db"],
+                                          mode="sharded-megakernel", device="cpu")
+    monkeypatch.setenv("DPF_TPU_PIR_MESH", "1x2")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(InvalidArgumentError, match="sees 0 CUDA"):
+        supervisor.pir_query_batch_robust(fx["dpf"], fx["keys"], fx["db"],
+                                          mode="sharded-megakernel", device="cpu")
+    with pytest.raises(InvalidArgumentError, match="sharded-megakernel"):
+        supervisor.pir_query_batch_robust(fx["dpf"], fx["keys"], fx["db"], mesh=mesh,
+                                          mode="fold")
 
 
 # ---------------------------------------------------------------------------

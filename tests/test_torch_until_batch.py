@@ -38,7 +38,6 @@ from distributed_point_functions_tpu_torch.ops import value_codec as port_vc
 from distributed_point_functions_tpu_torch.protos import serialization as port_ser
 from distributed_point_functions_tpu_torch.utils.errors import (
     InvalidArgumentError,
-    UnimplementedError,
 )
 from test_torch_codec import VALUE_CASES, sample
 from test_torch_hierarchical import as_host, level_plan
@@ -262,7 +261,7 @@ def test_the_scalar_fast_path_and_the_codec_give_the_same_bytes(name, monkeypatc
 
 def test_refusals():
     """engine="host" refuses a codec type as the JAX package's host engine
-    does (InvalidArgumentError), mesh= (item 6) raises UnimplementedError; an
+    does (InvalidArgumentError), mesh= with device= raises InvalidArgumentError; an
     unknown engine, a level not past the context's, prefixes on a first call
     and none after it, repeated prefixes, a prefix the context lacks and
     keys of both parties raise InvalidArgumentError."""
@@ -271,7 +270,7 @@ def test_refusals():
     ctx = port_hier.BatchedContext.create(dpf, keys)
     with pytest.raises(InvalidArgumentError, match="engine='host' supports Int/XorWrapper"):
         port_hier.evaluate_until_batch(ctx, 0, engine="host", device="cpu")
-    with pytest.raises(UnimplementedError, match="item 6"):
+    with pytest.raises(InvalidArgumentError, match="mesh's devices"):
         port_hier.evaluate_until_batch(ctx, 0, mesh=object(), device="cpu")
     with pytest.raises(InvalidArgumentError, match="engine"):
         port_hier.evaluate_until_batch(ctx, 0, engine="tpu", device="cpu")
