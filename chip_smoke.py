@@ -285,7 +285,28 @@ Phases (any failure raises and exits non-zero before the result line):
    over gloo on 127.0.0.1 (``multihost.initialize``), each answering its
    ``local_key_slice`` of 64 config-5-shaped queries at 2^20 over a local
    1x2 mesh on the card, their concatenation equal to one process's.
-   ``python3 chip_smoke.py --phase 22`` runs the build and this phase alone.
+   ``python3 chip_smoke.py --phase 22`` runs the build and this phase alone;
+23. the native AES-NI host engine (native/, built by g++ in phase 1, where
+   the run fails if it does not load) and the device check: (a) every
+   native wrapper bit for bit against the numpy engine at a small shape,
+   in this process and in three children (``DPF_TPU_NO_VAES=1``, the
+   128-bit AES-NI path; ``DPF_TPU_THREADS=1`` and ``=0``; the two
+   one-thread children run beside (c), the all-threads one alone after),
+   whose outputs equal this process's; the engine's path, threads, the host CPU and its
+   full-domain rate at 2^20 Int(64) at 1 and at all threads; the probe's
+   oracle over one 2^24 XorWrapper(128) key native against numpy (numpy
+   timed at 2^20 and scaled by 16); BASELINE config 4's DCF (512 keys x 512
+   points at 2^24) on the host engine against mode walkkernel (K7's DCF
+   form), equal and reconstructing; (b) ``integrity.run_device_check`` on
+   the card in every mode at 64x20 (hierkernel: 64 keys x 20 levels), fold
+   and megakernel with ``pipeline=False`` and ``True``, each returning 0,
+   and once with a root-seed bit of one key flipped, which must return 1
+   with one corruption event; (c) ``python -m
+   distributed_point_functions_tpu_torch.tools.check_device`` with
+   ``CHECK_MODE=megakernel`` in a child process, exit 0, its summary and
+   its launches (the K5 it reports) printed. Phase 20's first request is
+   printed again beside the probe's native oracle.
+   ``python3 chip_smoke.py --phase 23`` runs the build and this phase alone.
 
 Each path of the main path (fold default, fused and megakernel; PIR fold
 and megakernel; EvaluateAt walk and walkkernel, and the codec walk; DCF
@@ -293,9 +314,9 @@ walk and walkkernel; heavy hitters fused and hierkernel; keygen
 megakernel, perlevel and numpy-threaded at each configuration; config 3's
 fused pass at each level, and its walk, slab, prepared and levels checks;
 each gate's modes, the gate dealers on the card and the two layers; each
-path of phases 17-22, whose servers, replicas and multihost processes
-report their launches
-in their stats) runs
+path of phases 17-23, whose servers, replicas, multihost processes and
+check_device child report their launches
+in their stats or output) runs
 with every launch count set to 0
 just before it, and every kernel of that path must have launched just after
 it. The line before
@@ -1933,6 +1954,7 @@ def _phase_20a_d(torch, T, dev, cfg, counts, servers, out, serving, pir, aes_cud
     t0 = time.perf_counter()
     warm = clients[0].pir(params, (k0[:per], k1[:per]), name, deadline=cfg["request_timeout"])
     warm_s = time.perf_counter() - t0
+    out["first_request_s"] = warm_s
     if not np.array_equal(warm[0] ^ warm[1], db[targets[:per]]):
         fail("config 5 over two servers: the warm-up answers do not reconstruct")
     print(f"phase 20a, BASELINE config 5 over two server processes (2^{lds} x XorWrapper(128), "
@@ -4025,6 +4047,311 @@ def phase_22(torch, T, dev, p4, cfg, counts: PathCounts, log: EventLog, key_plan
     return row
 
 
+# Phase 23: the native AES-NI host engine and the device check. 23a: the
+# engine's status (it must load on the card's host), every wrapper bit for
+# bit against the numpy engine in this process and in three children
+# (DPF_TPU_NO_VAES=1: the 128-bit AES-NI path; DPF_TPU_THREADS=1 and 0), its
+# full-domain rate at 2^20 Int(64), the probe's oracle over one 2^24
+# XorWrapper(128) key (numpy at 2^20, scaled by 16), and BASELINE config
+# 4's DCF (512 keys x 512 points, 2^24, Int(64); benchmarks/bench_dcf.py)
+# on the host engine against mode walkkernel. 23b: run_device_check on the
+# card in every mode at tools/check_device.py's default shape, fold and
+# megakernel with pipeline off and on, and once with a root-seed bit flipped
+# in one key. 23c: the CLI in a child process, beside 23a's two one-thread
+# children (the all-threads child runs alone after them).
+PHASE23 = dict(check_shape=(64, 20), oracle_log_domain=24, oracle_numpy_log_domain=20,
+               dcf_log_domain=24, dcf_keys=512, dcf_points=512, rate_log_domain=20,
+               rate_keys=16, child_timeout=300.0, cli_timeout=600.0)
+NATIVE_CHILD_ENVS = (("DPF_TPU_NO_VAES", "1"), ("DPF_TPU_THREADS", "1"), ("DPF_TPU_THREADS", "0"))
+
+
+def _native_report(T, rate_log_domain: int, rate_keys: int) -> dict:
+    """Every native wrapper against the port's numpy engine at a small shape
+    (bit for bit): the walk, forest, value hash, MMO hashes and key schedule
+    against the numpy bodies; the fused forest pass through the host full
+    domain, and both DCF kernels through the DCF host engine, against the
+    same calls with the engine suspended. Returns the engine's status, the
+    wrappers that disagree, a digest of the native outputs (equal across
+    thread counts and AES paths) and the full-domain rate at
+    2^rate_log_domain Int(64) over rate_keys keys."""
+    import hashlib
+
+    from distributed_point_functions_tpu_torch import native
+    from distributed_point_functions_tpu_torch.core import aes_numpy, host_eval, uint128
+    from distributed_point_functions_tpu_torch.core import backend_numpy as bn
+
+    st = native.status()
+    out = {"status": st, "cpu": native.cpu_model(), "bad": [], "digest": None, "rate": None}
+    if not st["available"]:
+        out["bad"].append("the engine did not load")
+        return out
+    rng = np.random.default_rng(SEED + 23)
+    h = hashlib.sha256()
+
+    def same(name, got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g in got:
+            h.update(np.ascontiguousarray(g).tobytes())
+        if not all(np.array_equal(np.asarray(g), np.asarray(w)) for g, w in zip(got, want)):
+            out["bad"].append(name)
+
+    rkl, rkr, rkv = host_eval._round_keys()
+    n = 1031  # not a multiple of the four blocks a VAES register holds
+    x = rng.integers(0, 2**32, size=(n, 4), dtype=np.uint32)
+    kb = uint128.to_bytes(int.from_bytes(rng.bytes(16), "little"))
+    same("expand_key", native.expand_key(kb),
+         np.asarray(aes_numpy.expand_key(kb), dtype=np.uint8).reshape(11, 16))
+    same("mmo_hash_limbs", native.mmo_hash_limbs(rkl, x), bn._PRG_LEFT.evaluate_limbs_numpy(x))
+    mask = rng.integers(0, 2, size=n).astype(np.uint8)
+    same("mmo_hash_masked_limbs", native.mmo_hash_masked_limbs(rkl, rkr, x, mask),
+         np.where(mask[:, None].astype(bool), bn._PRG_RIGHT.evaluate_limbs_numpy(x),
+                  bn._PRG_LEFT.evaluate_limbs_numpy(x)))
+    ctl = rng.integers(0, 2, size=n).astype(bool)
+    paths = rng.integers(0, 2**32, size=(n, 4), dtype=np.uint32)
+    cw = rng.integers(0, 2**32, size=(40, 4), dtype=np.uint32)
+    ccl, ccr = (rng.integers(0, 2, size=40).astype(bool) for _ in range(2))
+    same("evaluate_seeds", native.evaluate_seeds(rkl, rkr, x, ctl, paths, cw, ccl, ccr),
+         bn._evaluate_seeds_numpy(x, ctl, paths, cw, ccl, ccr))
+    same("expand_forest", native.expand_forest(rkl, rkr, x[:7], ctl[:7], cw[:9], ccl[:9],
+                                               ccr[:9], 9),
+         bn._expand_seeds_numpy(x[:7], ctl[:7], cw[:9], ccl[:9], ccr[:9]))
+    same("value_hash", native.value_hash(rkv, x, 3), bn._hash_expanded_seeds_numpy(x, 3))
+    for vt in (T.Int(64), T.XorWrapper(128), T.Int(8)):
+        dpf = T.DistributedPointFunction.create(T.DpfParameters(12, vt))
+        for keys in dpf.generate_keys_batch([int(a) for a in rng.integers(0, 4096, size=3)],
+                                            [[5, 6, 7]], seeds=rng.integers(
+                                                0, 2**32, size=(3, 2, 4), dtype=np.uint32)):
+            got = host_eval.full_domain_evaluate_host(dpf, keys)
+            with native.suspended():
+                want = host_eval.full_domain_evaluate_host(dpf, keys)
+            same(f"expand_forest_values ({vt})", got, want)
+    for vt in (T.Int(64), T.Int(128), T.XorWrapper(32)):
+        # The host dcf.evaluate is one numpy EvaluateAt a level a point: a
+        # few points of a small domain keep this to a fraction of a second.
+        dcf = T.DistributedComparisonFunction.create(8, vt)
+        xs = [int(v) for v in rng.integers(0, 256, size=8)]
+        for keys in dcf.generate_keys_batch([int(a) for a in rng.integers(0, 256, size=2)],
+                                            [3, 9], seeds=rng.integers(
+                                                0, 2**32, size=(2, 2, 4), dtype=np.uint32)):
+            raw = dcf.batch_evaluate(keys, xs, engine="host")
+            h.update(raw.tobytes())
+            got = (raw[..., 0].astype(object) | (raw[..., 1].astype(object) << 64)
+                   if raw.ndim == 3 else raw.astype(object))
+            with native.suspended():
+                want = np.array([[int(dcf.evaluate(k, v)) for v in xs] for k in keys],
+                                dtype=object)
+            if not np.array_equal(got, want):
+                kind = "u64" if isinstance(vt, T.Int) and vt.bitsize <= 64 else "wide"
+                out["bad"].append(f"dcf_evaluate_{kind} ({vt})")
+    dpf = T.DistributedPointFunction.create(T.DpfParameters(rate_log_domain, T.Int(64)))
+    keys, _ = dpf.generate_keys_batch(
+        [int(a) for a in rng.integers(0, 1 << rate_log_domain, size=rate_keys)],
+        [[1] * rate_keys], seeds=rng.integers(0, 2**32, size=(rate_keys, 2, 4), dtype=np.uint32))
+    host_eval.full_domain_evaluate_host(dpf, keys[:1])
+    t = time.perf_counter()
+    host_eval.full_domain_evaluate_host(dpf, keys)
+    secs = time.perf_counter() - t
+    out.update(digest=h.hexdigest(), rate=rate_keys * (1 << rate_log_domain) / secs,
+               rate_secs=secs)
+    return out
+
+
+def phase_23(torch, T, dev, cfg, counts: PathCounts, log: EventLog, card: str = "",
+             first_request_s=None) -> dict:
+    """The native host engine and the device check (PHASE23's comment)."""
+    from distributed_point_functions_tpu_torch import native
+    from distributed_point_functions_tpu_torch.core import host_eval
+    from distributed_point_functions_tpu_torch.dcf import batch as dcf_batch
+    from distributed_point_functions_tpu_torch.ops import aes_cuda, evaluator
+    from distributed_point_functions_tpu_torch.utils import faultinject, integrity
+
+    t_phase = time.perf_counter()
+    out = {}
+    # -- 23a. the engine.
+    t = time.perf_counter()
+    rep = _native_report(T, cfg["rate_log_domain"], cfg["rate_keys"])
+    report_s = time.perf_counter() - t
+    st = rep["status"]
+    if not st["available"]:
+        fail(f"23a: the native host engine did not load on this host: {st['reason']}")
+    if rep["bad"]:
+        fail(f"23a: native wrappers disagree with the numpy engine: {rep['bad']}")
+    print(f"phase 23a, the host engine: loaded, path {st['path']}, {st['threads']} thread(s), "
+          f"CPU {rep['cpu']} ({os.cpu_count()} hardware threads), {st['library']}; every "
+          f"wrapper bit-exact with the numpy engine; full domain 2^{cfg['rate_log_domain']} "
+          f"Int(64) x {cfg['rate_keys']} keys {rep['rate']:.4e} evals/s "
+          f"({rep['rate_secs']:.3f} s, {st['threads']} thread); the checks {report_s:.1f} s",
+          flush=True)
+    out["rates"] = {(st["path"], st["threads"]): rep["rate"]}
+    odpf = T.DistributedPointFunction.create(
+        T.DpfParameters(cfg["oracle_log_domain"], T.XorWrapper(128)))
+    (opair, _) = integrity._probe_pair(odpf)
+    t = time.perf_counter()
+    big = host_eval.full_domain_evaluate_host(odpf, [opair[0]])
+    native_s = time.perf_counter() - t
+    ndpf = T.DistributedPointFunction.create(
+        T.DpfParameters(cfg["oracle_numpy_log_domain"], T.XorWrapper(128)))
+    (npair, _) = integrity._probe_pair(ndpf)
+    t = time.perf_counter()
+    small = host_eval.full_domain_evaluate_host(ndpf, [npair[0]])
+    native_small_s = time.perf_counter() - t
+    with native.suspended():
+        t = time.perf_counter()
+        small_np = host_eval.full_domain_evaluate_host(ndpf, [npair[0]])
+        numpy_s = time.perf_counter() - t
+    if not np.array_equal(small, small_np):
+        fail("23a: the probe's oracle differs between the engine and numpy")
+    scale = 1 << (cfg["oracle_log_domain"] - cfg["oracle_numpy_log_domain"])
+    del big
+    out.update(oracle_native_s=native_s, oracle_numpy_s=numpy_s * scale)
+    print(f"phase 23a, the probe's oracle (one XorWrapper(128) key over the whole domain, "
+          f"{st['threads']} thread): native 2^{cfg['oracle_log_domain']} {native_s:.3f} s; "
+          f"numpy 2^{cfg['oracle_numpy_log_domain']} {numpy_s:.3f} s (native {native_small_s:.4f} "
+          f"s, equal), x{scale} = {numpy_s * scale:.1f} s at 2^{cfg['oracle_log_domain']}: "
+          f"{numpy_s * scale / native_s:.0f}x", flush=True)
+
+    lds, nk, npts = cfg["dcf_log_domain"], cfg["dcf_keys"], cfg["dcf_points"]
+    dcf = T.DistributedComparisonFunction.create(lds, T.Int(64))
+    drng = np.random.default_rng(SEED + 230)
+    dalphas = [int(a) for a in drng.integers(0, 1 << lds, size=nk)]
+    dbetas = [int(b) for b in drng.integers(1, 2**63, size=nk, dtype=np.uint64)]
+    t = time.perf_counter()
+    dkeys = dcf.generate_keys_batch(dalphas, dbetas, seeds=drng.integers(
+        0, 2**32, size=(nk, 2, 4), dtype=np.uint32))
+    deal_s = time.perf_counter() - t
+    xs = sorted(set(dalphas[: npts // 2] + [max(a - 1, 0) for a in dalphas[: npts // 2]]))
+    xs += [int(v) for v in drng.integers(0, 1 << lds, size=npts - len(xs))]
+    host, host_s, dev_s, walk = [], [], [], []
+    for party in (0, 1):
+        t = time.perf_counter()
+        host.append(dcf.batch_evaluate(dkeys[party], xs, engine="host"))
+        host_s.append(time.perf_counter() - t)
+    counts.start()
+    for party in (0, 1):
+        sync(torch, dev)
+        t = time.perf_counter()
+        walk.append(evaluator.values_to_numpy(dcf_batch.batch_evaluate(
+            dcf, dkeys[party], xs, mode="walkkernel", device=dev), 64))
+        dev_s.append(time.perf_counter() - t)
+    launches = counts.end("23a config 4's DCF in mode walkkernel", (aes_cuda.K7_DCF,))
+    for party in (0, 1):
+        if not np.array_equal(host[party], walk[party]):
+            fail(f"23a: config 4's DCF, party {party}: the host engine's shares differ from "
+                 "mode walkkernel's")
+    lt = np.asarray(xs, dtype=object)[None, :] < np.asarray(dalphas, dtype=object)[:, None]
+    want = np.where(lt, np.asarray(dbetas, dtype=np.uint64)[:, None], np.uint64(0))
+    if not np.array_equal(host[0] + host[1], want):
+        fail("23a: config 4's DCF shares do not reconstruct beta * [x < alpha]")
+    out.update(dcf_host_s=host_s, dcf_walkkernel_s=dev_s)
+    print(f"phase 23a, BASELINE config 4's DCF ({nk} keys x {npts} points, 2^{lds}, Int(64)): "
+          f"host engine {host_s[0] * 1e3:.1f} / {host_s[1] * 1e3:.1f} ms a party "
+          f"({nk * npts / statistics.mean(host_s):.4e} comparisons/s, {st['threads']} thread), "
+          f"mode walkkernel {dev_s[0] * 1e3:.1f} / {dev_s[1] * 1e3:.1f} ms "
+          f"({nk * npts / statistics.mean(dev_s):.4e}/s); equal shares, reconstructing; "
+          f"launches {launches}; the keys dealt on the host in {deal_s:.1f} s", flush=True)
+
+    # -- 23b. the device check in every mode.
+    K = aes_cuda
+    needs = {"levels": (K.K2, K.K4), "fused": (K.K2, K.K4), "walk": (K.K6, K.K4),
+             "fold": (K.K2, K.K4), "megakernel": (K.K5,), "walkkernel": (K.K7, K.K7_DCF),
+             "hierkernel": (K.K8,), "supervisor": (K.K2, K.K4), "router": (K.K2, K.K4),
+             "keygen": (K.K9,), "sharded": (K.K5,)}
+    runs = []
+    for mode in integrity.CHECK_MODES:
+        runs += [(mode, p) for p in ((False, True) if mode in ("fold", "megakernel") else (None,))]
+    shape = tuple(cfg["check_shape"])
+    out["check_s"] = {}
+    for mode, pipe in runs:
+        lines = []
+        counts.start()
+        t = time.perf_counter()
+        window = log.armed() if mode == "supervisor" else contextlib.nullcontext()
+        with window:
+            bad = integrity.run_device_check(shapes=(shape,), mode=mode, device=dev,
+                                             pipeline=pipe, report=lines.append)
+        secs = time.perf_counter() - t
+        what = f"mode {mode}" + ("" if pipe is None else f", pipeline={pipe}")
+        launches = counts.end(f"23b run_device_check {what}", needs[mode])
+        if bad:
+            fail(f"23b run_device_check {what}: {bad} mismatches: {lines}")
+        out["check_s"][what] = secs
+        verdicts = [l for l in lines if not l.startswith(("router anchor", "selftest"))]
+        print(f"phase 23b, run_device_check {what} at {shape[0]}x{shape[1]}: 0 mismatches in "
+              f"{secs:.2f} s ({'; '.join(verdicts)}); launches {launches}", flush=True)
+    lines = []
+    with integrity.capture_events() as evs, log.armed():
+        with faultinject.inject(faultinject.FaultPlan(stage="seeds", bit=11, key_row=1)):
+            counts.start()
+            bad = integrity.run_device_check(shapes=(shape,), mode="megakernel", device=dev,
+                                             report=lines.append, selftest=False)
+            launches = counts.end("23b run_device_check under a flipped seed bit", (K.K5,))
+    if bad != 1 or [e.kind for e in evs] != ["corruption"]:
+        fail(f"23b: a flipped root-seed bit in key 1 gave {bad} mismatches and events "
+             f"{[e.kind for e in evs]}, expected 1 and one corruption event")
+    print(f"phase 23b, run_device_check mode megakernel with a root-seed bit of key 1 flipped: "
+          f"1 mismatch, one corruption event ({lines[-1]}); launches {launches}", flush=True)
+
+    # -- 23c. the CLI in a child process; beside it, 23a's children that
+    # time one thread (the all-threads child runs alone after them).
+    def spawn(argv, env, cwd=None):
+        return subprocess.Popen(argv, env={**os.environ, **env}, cwd=cwd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    def native_child(proc, name, value, t0):
+        stdout, stderr = proc.communicate(timeout=cfg["child_timeout"])
+        if proc.returncode:
+            fail(f"23a: the child with {name}={value} exited {proc.returncode}: {stderr[-2000:]}")
+        child = json.loads(stdout.strip().splitlines()[-1])
+        cst = child["status"]
+        if child["bad"] or child["digest"] != rep["digest"]:
+            fail(f"23a: with {name}={value} the engine disagrees: {child['bad']}, digest "
+                 f"{child['digest']} against {rep['digest']}")
+        if name == "DPF_TPU_NO_VAES" and cst["path"] != "aes-ni":
+            fail(f"23a: DPF_TPU_NO_VAES=1 took path {cst['path']}")
+        out["rates"][(cst["path"], cst["threads"])] = child["rate"]
+        print(f"phase 23a, a child with {name}={value}: path {cst['path']}, {cst['threads']} "
+              f"thread(s), every wrapper bit-exact and its outputs equal this process's; full "
+              f"domain 2^{cfg['rate_log_domain']} Int(64) {child['rate']:.4e} evals/s "
+              f"({child['rate_secs']:.3f} s); the child {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    me = [sys.executable, os.path.abspath(__file__), "--native-child"]
+    t = time.perf_counter()
+    cli_proc = spawn(
+        [sys.executable, "-m", "distributed_point_functions_tpu_torch.tools.check_device",
+         "--device", str(dev)],
+        {"CHECK_MODE": "megakernel", "CHECK_SHAPES": f"{shape[0]}x{shape[1]}"},
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    single = [(spawn(me, {name: value}), name, value) for name, value in NATIVE_CHILD_ENVS
+              if (name, value) != ("DPF_TPU_THREADS", "0")]
+    cli, cli_err = cli_proc.communicate(timeout=cfg["cli_timeout"])
+    cli_s = time.perf_counter() - t
+    for proc, name, value in single:
+        native_child(proc, name, value, t)
+    t_all = time.perf_counter()
+    native_child(spawn(me, {"DPF_TPU_THREADS": "0"}), "DPF_TPU_THREADS", "0", t_all)
+    if cli_proc.returncode != 0:
+        fail(f"23c: the CLI exited {cli_proc.returncode}: {cli[-3000:]} {cli_err[-2000:]}")
+    launch_lines = [l for l in cli.splitlines() if l.startswith("launches: ")]
+    child = json.loads(launch_lines[-1][len("launches: "):]) if launch_lines else {}
+    if ("telemetry:" not in cli or "mode=megakernel: OK" not in cli
+            or (dev.type == "cuda" and not child.get(K.K5.name))):
+        fail(f"23c: the CLI's output lacks its verdict, summary or K5 launches: {cli[-3000:]}")
+    for name, c in child.items():
+        counts.total[name] += c
+    print(f"phase 23c, CHECK_MODE=megakernel python -m "
+          f"distributed_point_functions_tpu_torch.tools.check_device: exit 0 in {cli_s:.1f} s "
+          f"(beside the one-thread children), launches {child}; its output:", flush=True)
+    print("\n".join("  " + l for l in cli.strip().splitlines()))
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(card)
+    first = "not run" if first_request_s is None else f"{first_request_s:.2f} s"
+    print(f"phase 23: {out['phase_s']:.1f} s; phase 20's first request {first} (the probe's "
+          f"oracle: native {native_s:.3f} s at 2^{cfg['oracle_log_domain']})", flush=True)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -4065,6 +4392,25 @@ def main() -> None:
     aes_cuda.library()
     print(f"build: csrc/{' + csrc/'.join(aes_cuda.SOURCES)} for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s")
+    # The native host engine (g++ into _build/), built here before any server,
+    # replica or child process of a later phase loads it.
+    from distributed_point_functions_tpu_torch import native
+
+    t0 = time.perf_counter()
+    nst = native.status()
+    if not nst["available"]:
+        fail(f"the native host engine did not load on this host: {nst['reason']}")
+    print(f"build: native/dpf_native.cc with g++ in {time.perf_counter() - t0:.1f} s: path "
+          f"{nst['path']}, {nst['threads']} thread(s), CPU {native.cpu_model()}", flush=True)
+    if sys.argv[1:] == ["--phase", "23"]:
+        # Phase 23 alone (a development aid; the check runs every phase).
+        checked = PathCounts(aes_cuda)
+        phase_23(torch, T, dev, PHASE23, checked, events, card)
+        events.check_all()
+        print(f"phase 23: launches {checked.total}")
+        print(f"[{time.perf_counter() - T0:.1f} s] the end")
+        print(card)
+        return
     if sys.argv[1:] == ["--phase", "22"]:
         # Phase 22 alone (a development aid; the check runs every phase):
         # phase 4's database and queries made the way phase 4 makes them,
@@ -5833,10 +6179,11 @@ def main() -> None:
     print(f"[{time.perf_counter() - T0:.1f} s] phase 20", flush=True)
     # -- 20. the serving plane ------------------------------------------------
     served = PathCounts(aes_cuda)
-    phase_20(torch, T, dev, p4, PHASE20, served, card)
+    served_out = phase_20(torch, T, dev, p4, PHASE20, served, card)
     for name, n in served.total.items():
         main_launches[name] = main_launches.get(name, 0) + n
-    print(f"phase 20: launches {served.total}")
+    print(f"phase 20: launches {served.total}; the first request "
+          f"{served_out['first_request_s']:.2f} s")
     torch.cuda.empty_cache()
 
     print(f"[{time.perf_counter() - T0:.1f} s] phase 21", flush=True)
@@ -5859,6 +6206,18 @@ def main() -> None:
     for name, n in mesh_paths.total.items():
         main_launches[name] = main_launches.get(name, 0) + n
     print(f"phase 22: launches {mesh_paths.total}")
+    events.check_all(start)
+    torch.cuda.empty_cache()
+
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 23", flush=True)
+    # -- 23. the native host engine and the device check ------------------------
+    checked = PathCounts(aes_cuda)
+    start = len(events.events)
+    phase_23(torch, T, dev, PHASE23, checked, events, card,
+             first_request_s=served_out.get("first_request_s"))
+    for name, n in checked.total.items():
+        main_launches[name] = main_launches.get(name, 0) + n
+    print(f"phase 23: launches {checked.total}")
     events.check_all(start)
     torch.cuda.empty_cache()
 
@@ -6032,5 +6391,9 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multihost-child"]:
         _multihost_child(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:8])
+    elif sys.argv[1:] == ["--native-child"]:
+        import distributed_point_functions_tpu_torch as _T
+
+        print(json.dumps(_native_report(_T, PHASE23["rate_log_domain"], PHASE23["rate_keys"])))
     else:
         main()

@@ -62,7 +62,8 @@ host oracle, ``utils/integrity.py``), and report to the telemetry bus
 walk a degradation chain with retries, chunk halving, deadlines and a
 crash-safe journal: on a card its rungs are the kernel modes only (a kernel
 mode, then the per-level kernels), on the CPU the plain versions and then
-the numpy host engine of ``core/host_eval.py``:
+the host engine of ``core/host_eval.py`` (the native AES-NI engine of
+``native/`` where it loads, numpy otherwise):
 
     from distributed_point_functions_tpu_torch.ops import supervisor
     answers = supervisor.pir_query_batch_robust(dpf, keys_a, prepared_db,

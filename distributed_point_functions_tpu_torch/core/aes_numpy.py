@@ -8,8 +8,10 @@ the reference uses for its SIMD kernels
 
 All tables are generated programmatically from GF(2^8) arithmetic so the
 implementation is correct by construction (tests/test_torch_kernels.py checks
-the FIPS-197 vector and the JAX package's copy of this module). Unlike that
-copy, this one has no native AES-NI engine: it is pure numpy.
+the FIPS-197 vector and the JAX package's copy of this module). As in that
+copy, the MMO hash runs on the native AES-NI engine (native/) when it loads;
+``Aes128FixedKeyHash.evaluate_limbs_numpy`` is the numpy body, bit-exact
+with it (tests/test_torch_native.py).
 
 Block layout: each 128-bit block is 16 bytes in little-endian order of the
 underlying uint128 (see core/uint128.py). AES itself is byte-oriented, so this
@@ -136,6 +138,20 @@ class Aes128FixedKeyHash:
 
     def evaluate_limbs(self, in_limbs: np.ndarray) -> np.ndarray:
         """uint32[N, 4] -> uint32[N, 4]."""
+        x = np.ascontiguousarray(np.asarray(in_limbs, dtype=np.uint32))
+        if x.shape[0]:
+            # The AES-NI engine when it loads (bit-exact; see native/). The
+            # numpy key schedule is byte-identical to the native one
+            # (tests/test_torch_native.py), so it feeds the FFI directly.
+            from .. import native
+
+            if native.available():
+                return native.mmo_hash_limbs(self._round_keys, x)
+        return self.evaluate_limbs_numpy(x)
+
+    def evaluate_limbs_numpy(self, in_limbs: np.ndarray) -> np.ndarray:
+        """uint32[N, 4] -> uint32[N, 4] in numpy (the native engine's
+        differential oracle)."""
         x = np.ascontiguousarray(np.asarray(in_limbs, dtype=np.uint32))
         n = x.shape[0]
         if n == 0:

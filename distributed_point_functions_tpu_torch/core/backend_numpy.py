@@ -8,8 +8,10 @@ HashExpandedSeeds (reference dpf/distributed_point_function.cc:500-524);
 EvaluateAt's walk (core/dpf.py) and the oracle the card is checked against;
 ``expand_seeds`` is the host doubling expansion of EvaluateUntil, children
 in leaf order.
-Pure numpy over core/aes_numpy.py; unlike the JAX package's copy there is no
-native AES-NI path.
+As in the JAX package's copy, the three run inside the native AES-NI engine
+(native/, one FFI call a walk, expansion or hash) when it loads, and
+otherwise on their numpy bodies over core/aes_numpy.py (``_*_numpy``), which
+stay the engine's differential oracle.
 
 Seed layout: uint32[N, 4], little-endian limbs (see core/uint128.py).
 Control bits: bool[N]. Paths: uint32[N, 4] limbs of the tree index.
@@ -29,9 +31,26 @@ _PRG_RIGHT = Aes128FixedKeyHash(constants.PRG_KEY_RIGHT)
 _PRG_VALUE = Aes128FixedKeyHash(constants.PRG_KEY_VALUE)
 
 
+def _native_prg():
+    """The native module when the AES-NI engine loads, else None
+    (``DPF_TPU_NO_NATIVE=1`` keeps the numpy bodies)."""
+    from .. import native
+
+    return native if native.available() else None
+
+
 def hash_expanded_seeds(seeds: np.ndarray, blocks_needed: int) -> np.ndarray:
     """Value-PRG hash of seeds[i] + j for j < blocks_needed (uint128 limb
     addition with carry). Returns uint32[N, blocks_needed, 4]."""
+    seeds = np.asarray(seeds, dtype=np.uint32)
+    native = _native_prg()
+    if native is not None and seeds.shape[0] and blocks_needed:
+        return native.value_hash(_PRG_VALUE._round_keys, seeds, blocks_needed)
+    return _hash_expanded_seeds_numpy(seeds, blocks_needed)
+
+
+def _hash_expanded_seeds_numpy(seeds: np.ndarray, blocks_needed: int) -> np.ndarray:
+    """The numpy value-PRG hash (the native engine's oracle)."""
     seeds = np.asarray(seeds, dtype=np.uint32)
     n = seeds.shape[0]
     inputs = np.repeat(seeds[:, None, :], blocks_needed, axis=1).astype(np.uint64)
@@ -40,7 +59,7 @@ def hash_expanded_seeds(seeds: np.ndarray, blocks_needed: int) -> np.ndarray:
         inputs[:, :, limb + 1] += inputs[:, :, limb] >> np.uint64(32)
         inputs[:, :, limb] &= np.uint64(0xFFFFFFFF)
     inputs[:, :, 3] &= np.uint64(0xFFFFFFFF)
-    hashed = _PRG_VALUE.evaluate_limbs(
+    hashed = _PRG_VALUE.evaluate_limbs_numpy(
         inputs.astype(np.uint32).reshape(n * blocks_needed, 4)
     )
     return hashed.reshape(n, blocks_needed, 4)
@@ -73,6 +92,20 @@ def evaluate_seeds(
       correction_controls_{left,right}: bool[L].
     Returns: (uint32[N, 4] seeds, bool[N] control bits).
     """
+    native = _native_prg()
+    if native is not None and len(seeds):
+        return native.evaluate_seeds(
+            _PRG_LEFT._round_keys, _PRG_RIGHT._round_keys, seeds, control_bits, paths,
+            correction_seeds, correction_controls_left, correction_controls_right,
+        )
+    return _evaluate_seeds_numpy(seeds, control_bits, paths, correction_seeds,
+                                 correction_controls_left, correction_controls_right)
+
+
+def _evaluate_seeds_numpy(seeds, control_bits, paths, correction_seeds,
+                          correction_controls_left, correction_controls_right
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """The numpy walk (the native engine's oracle)."""
     seeds = np.array(seeds, dtype=np.uint32)
     control = np.asarray(control_bits, dtype=bool).copy()
     num_levels = len(correction_seeds)
@@ -81,8 +114,8 @@ def evaluate_seeds(
         path_bits = get_bit(paths, bit_index) if bit_index < 128 else np.zeros(
             len(seeds), dtype=bool
         )
-        left = _PRG_LEFT.evaluate_limbs(seeds)
-        right = _PRG_RIGHT.evaluate_limbs(seeds)
+        left = _PRG_LEFT.evaluate_limbs_numpy(seeds)
+        right = _PRG_RIGHT.evaluate_limbs_numpy(seeds)
         seeds = np.where(path_bits[:, None], right, left)
         seeds ^= np.where(control[:, None], correction_seeds[level][None, :], 0).astype(
             np.uint32
@@ -114,12 +147,26 @@ def expand_seeds(
     the output is in leaf order. Returns (uint32[N << L, 4] seeds,
     bool[N << L] control bits).
     """
+    native = _native_prg()
+    if native is not None and len(seeds):
+        return native.expand_forest(
+            _PRG_LEFT._round_keys, _PRG_RIGHT._round_keys, seeds, control_bits,
+            correction_seeds, correction_controls_left, correction_controls_right,
+            len(correction_seeds),
+        )
+    return _expand_seeds_numpy(seeds, control_bits, correction_seeds,
+                               correction_controls_left, correction_controls_right)
+
+
+def _expand_seeds_numpy(seeds, control_bits, correction_seeds, correction_controls_left,
+                        correction_controls_right) -> Tuple[np.ndarray, np.ndarray]:
+    """The numpy doubling expansion (the native engine's oracle)."""
     seeds = np.array(seeds, dtype=np.uint32)
     control = np.asarray(control_bits, dtype=bool).copy()
     for level in range(len(correction_seeds)):
         n = seeds.shape[0]
-        left = _PRG_LEFT.evaluate_limbs(seeds)
-        right = _PRG_RIGHT.evaluate_limbs(seeds)
+        left = _PRG_LEFT.evaluate_limbs_numpy(seeds)
+        right = _PRG_RIGHT.evaluate_limbs_numpy(seeds)
         correction = np.where(
             control[:, None], correction_seeds[level][None, :], 0
         ).astype(np.uint32)

@@ -1,13 +1,14 @@
 """Vectorized host evaluation: the oracle the card is checked against.
 
 The port's copy of the JAX package's ``core/host_eval.py``: the whole
-doubling expansion, value hash and correction of a key batch as batched
-numpy over core/aes_numpy.py, with no Python loop over elements and no
-device. It is the integrity layer's oracle (utils/integrity.py) and the
-host rung, the last rung, of the degradation chains (ops/degrade.py,
-ops/supervisor.py). The JAX package streams through its native AES-NI
-library when that is built; the port keeps the numpy branch the JAX package
-takes without it. Results are bit-identical to ops/evaluator.py.
+doubling expansion, value hash and correction of a key batch on the host,
+with no Python loop over elements and no device. It is the integrity
+layer's oracle (utils/integrity.py) and the host rung, the last rung, of
+the degradation chains (ops/degrade.py, ops/supervisor.py). When the
+native AES-NI engine loads (native/), a key streams through one fused
+native pass (expansion, then the last level, value hash and correction in
+one stream); otherwise batched numpy over core/aes_numpy.py runs. Results
+are bit-identical either way, and to ops/evaluator.py.
 
 Scope: scalar Int/XorWrapper value types; other types evaluate through
 ops/evaluator.py or the host reference path (core/dpf.py).
@@ -83,6 +84,28 @@ def full_domain_evaluate_host(
         else np.empty((num_keys, domain, 4), dtype=np.uint32)
     )
     vc = batch.value_corrections  # uint32[K, epb, 4]
+
+    from .. import native
+
+    if native.available():
+        # The fused native pass: expansion to the last level, then ONE
+        # streaming pass of last level + value hash + correction (the
+        # engine is memory-bound; the fused tail saves two full-size
+        # passes over the leaf arrays).
+        rkl, rkr, rkv = _round_keys()
+        vc_wide = pack_vc_wide(vc)  # [K, epb, 2]
+        ctl0 = np.array([batch.party & 1], dtype=np.uint8)
+        for j in range(num_keys):
+            # 2^stop * keep == domain for power-of-2 bitsizes, so native-
+            # width rows stream in place (sub-64-bit elements into the
+            # uint64 rows take one upcast copy inside the helper).
+            fused_forest_values_into(
+                out[j], rkl, rkr, rkv, batch.seeds[j : j + 1], ctl0,
+                batch.cw_seeds[j], batch.cw_left[j], batch.cw_right[j],
+                batch.party, stop_level, vc_wide[j], bits, xor_group, keep_per_block,
+            )
+        return out
+
     for start in range(0, num_keys, key_chunk):
         idx = np.arange(start, min(start + key_chunk, num_keys))
         kb = batch.take(idx)
@@ -120,6 +143,68 @@ def values_to_limbs(vals: np.ndarray, bits: int) -> np.ndarray:
         ],
         axis=-1,
     )
+
+
+def _round_keys():
+    """uint8[11, 16] round keys of the left, right and value PRGs."""
+    return tuple(
+        np.asarray(prg._round_keys, dtype=np.uint8)
+        for prg in (backend_numpy._PRG_LEFT, backend_numpy._PRG_RIGHT, backend_numpy._PRG_VALUE)
+    )
+
+
+def pack_vc_wide(vc: np.ndarray) -> np.ndarray:
+    """uint32[..., 4] correction limb rows -> uint64[..., 2] (lo, hi) pairs
+    (the native fused kernels' correction layout)."""
+    return np.stack(
+        [
+            vc[..., 0].astype(np.uint64) | (vc[..., 1].astype(np.uint64) << np.uint64(32)),
+            vc[..., 2].astype(np.uint64) | (vc[..., 3].astype(np.uint64) << np.uint64(32)),
+        ],
+        axis=-1,
+    )
+
+
+def fused_forest_values_into(
+    out_row: np.ndarray,
+    rkl, rkr, rkv,
+    seeds: np.ndarray,  # uint32[N, 4] roots
+    control: np.ndarray,  # uint8[N]
+    cw, cl, cr,
+    party: int,
+    levels: int,
+    vc_wide_row: np.ndarray,  # uint64[epb, 2]
+    bits: int,
+    xor_group: bool,
+    keep_per_block: int,
+) -> None:
+    """One key's fused native forest evaluation into `out_row`.
+
+    Holds the native kernel's calling convention in one place for both
+    host engines (the full domain and the hierarchy). Streams directly
+    into the row when it is C-contiguous at the kernel's exact byte size
+    (native-width rows: uint32 for <= 32-bit values in the hierarchy,
+    uint64 for 64-bit, uint32[..., 4] for 128-bit); otherwise one
+    width-view copy (the full domain's uint64 rows for sub-64 widths).
+    """
+    from .. import native
+
+    n_bytes = (seeds.shape[0] << levels) * keep_per_block * (bits // 8)
+    if out_row.flags["C_CONTIGUOUS"] and out_row.nbytes == n_bytes:
+        native.expand_forest_values(
+            rkl, rkr, rkv, seeds, control, cw, cl, cr, party, levels,
+            vc_wide_row, bits, xor_group, keep_per_block, out=out_row,
+        )
+        return
+    raw = native.expand_forest_values(
+        rkl, rkr, rkv, seeds, control, cw, cl, cr, party, levels,
+        vc_wide_row, bits, xor_group, keep_per_block,
+    )
+    if bits == 128:  # limb rows
+        out_row[...] = raw.view(np.uint32).reshape(out_row.shape)
+        return
+    width = {8: np.uint8, 16: np.uint16, 32: np.uint32, 64: np.uint64}[bits]
+    out_row[...] = raw.view(width).reshape(out_row.shape)
 
 
 def correct_scalar_blocks(

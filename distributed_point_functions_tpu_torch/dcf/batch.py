@@ -37,6 +37,11 @@ Two modes, per key chunk:
 tables), ``prepare_chunk`` (one chunk's upload) and ``evaluate_chunk``
 (one chunk on the device) are the steps of ``batch_evaluate``; its
 ``timings`` argument times them apart (utils/timing.py).
+
+``batch_evaluate_host`` is the host engine, the JAX package's
+``batch_evaluate_host``: the same walk in the native AES-NI engine
+(native/), one call a key, for ``dcf.batch_evaluate(engine="host")``, the
+gates' host engine and the supervisor's spot checks.
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ from ..ops import pipeline as _pl
 from ..utils import faultinject
 from ..utils import telemetry as _tm
 from ..utils.devices import resolve_device
-from ..utils.errors import InvalidArgumentError
+from ..utils.errors import InvalidArgumentError, UnavailableError
 from ..utils.timing import StepClock
 
 MODES = ("walk", "walkkernel")
@@ -394,3 +399,139 @@ def batch_evaluate(
     out = aes_torch.from_words(out)
     clock("pull")
     return faultinject.corrupt_output(out, backend=backend)
+
+
+def _host_tables(dcf, keys, xs: Sequence[int]):
+    """The host engine's tables: the keys' KeyBatch (numpy, on the CPU), the
+    points' tree paths uint32[P, 4], their capture tables (acc_mask,
+    block_sel) and each depth's hierarchy level."""
+    v = dcf.dpf.validator
+    n = dcf.log_domain_size
+    xs = [int(x) for x in xs]
+    for x in xs:
+        if x < 0 or (n < 128 and x >= (1 << n)):
+            raise InvalidArgumentError(f"evaluation point {x} outside the domain")
+    batch = evaluator.KeyBatch.from_keys(dcf.dpf, [k.key for k in keys], device="cpu")
+    last = v.num_hierarchy_levels - 1
+    paths = uint128.array_to_limbs([v.domain_to_tree_index(x >> 1, last) for x in xs])
+    acc_mask, block_sel = _capture_tables(dcf, xs, len(xs))
+    return batch, paths, acc_mask, block_sel, _depth_to_hierarchy(dcf)
+
+
+def batch_evaluate_host(dcf, keys: Sequence, xs: Sequence[int]) -> np.ndarray:
+    """The host engine's fused batched DCF evaluation (native AES-NI).
+
+    The same one-walk-per-point pass as ``batch_evaluate``, run in
+    native/dpf_native.cc, one FFI call a key: additive Int up to 64 bits on
+    ``dpf_dcf_evaluate_u64``, 128-bit and XOR-group values on the two-word
+    ``dpf_dcf_evaluate_wide``. Returns uint64[K, P] shares for bits <= 64,
+    uint64[K, P, 2] (lo, hi) pairs for 128-bit values, as the JAX package's
+    ``batch_evaluate_host`` does; bit-identical to the card's path. Uniform
+    tuple payloads run the same walk through core/backend_numpy's seed
+    primitives (native when the engine loads, numpy otherwise) and return
+    uint64[K, P, n_elems, 2]. IntModN raises NotImplementedError, as in the
+    JAX package (the host ``dcf.evaluate`` serves it a point at a time); a
+    scalar payload without the engine raises UnavailableError.
+    """
+    from .. import native
+    from ..core import host_eval
+
+    bits, xor_group, n_elems = evaluator._payload_kind(dcf.value_type)
+    if n_elems > 1:
+        return _batch_evaluate_host_tuple(dcf, keys, xs, bits, xor_group, n_elems)
+    if not native.available():
+        raise UnavailableError(
+            "the native AES-NI engine is not available on this host "
+            f"({native.status()['reason']}); use engine='device'"
+        )
+    batch, paths, acc_mask, block_sel, depth_to_hierarchy = _host_tables(dcf, keys, xs)
+    k, num_points = batch.seeds.shape[0], paths.shape[0]
+    capture = np.array([i >= 0 for i in depth_to_hierarchy], dtype=np.uint8)
+    vc_wide = host_eval.pack_vc_wide(_value_corrections_all(dcf, keys))  # [K, T+1, epb, 2]
+    rkl, rkr, rkv = host_eval._round_keys()
+    am = acc_mask.astype(np.uint8)
+    if not xor_group and bits <= 64:
+        out = np.empty((k, num_points), dtype=np.uint64)
+        for j in range(k):
+            out[j] = native.dcf_evaluate_u64(
+                rkl, rkr, rkv, batch.seeds[j], batch.party, batch.cw_seeds[j],
+                batch.cw_left[j], batch.cw_right[j], vc_wide[j, ..., 0], capture, am,
+                block_sel, paths, bits,
+            )
+        return out
+    out = np.empty((k, num_points, 2), dtype=np.uint64)
+    for j in range(k):
+        out[j] = native.dcf_evaluate_wide(
+            rkl, rkr, rkv, batch.seeds[j], batch.party, batch.cw_seeds[j],
+            batch.cw_left[j], batch.cw_right[j], vc_wide[j], capture, am, block_sel,
+            paths, bits, xor_group,
+        )
+    return out if bits > 64 else out[..., 0]
+
+
+def _batch_evaluate_host_tuple(dcf, keys: Sequence, xs: Sequence[int], bits: int,
+                               xor_group: bool, n_elems: int) -> np.ndarray:
+    """The host walk for uniform tuple payloads: one
+    ``backend_numpy.evaluate_seeds`` call a tree level with the level's path
+    bit in the LSB, and at every capturing depth ``hash_expanded_seeds(seeds,
+    nb)`` split into the first n_elems elements, each corrected by element e
+    of block element 0's correction (a DCF point addresses element 0: its
+    tree depth is its hierarchy level; the JAX package's copy takes the last
+    element's, ROADMAP Queue 3 item 1), masked and summed mod 2^bits.
+    Returns uint64[K, P, n_elems, 2] (lo, hi; hi is 0 up to 64 bits)."""
+    from ..core import backend_numpy, host_eval
+
+    batch, paths, acc_mask, _block_sel, depth_to_hierarchy = _host_tables(dcf, keys, xs)
+    k, num_points = batch.seeds.shape[0], paths.shape[0]
+    t = batch.num_levels
+    nb = -(-(n_elems * bits) // 128)
+    vc_limbs = _value_corrections_all(dcf, keys, n_elems)  # [K, T+1, n_elems, 4]
+    # `evaluate_seeds` reads bit L-1-level of its paths relative to its own
+    # correction count, so a one-level call reads the LSB: stage depth d's
+    # bit (bit T-1-d of the full path) there.
+    path_bits = np.zeros((t, num_points, 4), dtype=np.uint32)
+    for d in range(t):
+        idx = t - 1 - d
+        path_bits[d, :, 0] = (paths[:, idx // 32] >> np.uint32(idx % 32)) & 1
+    acc = np.zeros((k, num_points, n_elems, 4), dtype=np.uint32)
+    for ki in range(k):
+        seeds = np.broadcast_to(batch.seeds[ki][None, :], (num_points, 4)).copy()
+        control = np.full(num_points, bool(batch.party), dtype=bool)
+        for d in range(t + 1):
+            if depth_to_hierarchy[d] >= 0:
+                hashed = backend_numpy.hash_expanded_seeds(seeds, nb)  # [P, nb, 4]
+                elems = _host_elements(hashed, bits, n_elems)  # [P, n_elems, 4]
+                gated = vc_limbs[ki, d][None] * control.astype(np.uint32)[:, None, None]
+                if xor_group:
+                    value = elems ^ gated
+                else:
+                    value = _mask_bits(host_eval._add128(elems, gated), bits)
+                value = value * acc_mask[d, :, None, None]
+                if xor_group:
+                    acc[ki] ^= value
+                else:
+                    acc[ki] = _mask_bits(host_eval._add128(acc[ki], value), bits)
+            if d < t:
+                seeds, control = backend_numpy.evaluate_seeds(
+                    seeds, control, path_bits[d], batch.cw_seeds[ki, d : d + 1],
+                    batch.cw_left[ki, d : d + 1], batch.cw_right[ki, d : d + 1],
+                )
+        if batch.party == 1 and not xor_group:
+            acc[ki] = _mask_bits(host_eval._neg128(acc[ki]), bits)
+    return host_eval.pack_vc_wide(acc)
+
+
+def _host_elements(hashed: np.ndarray, bits: int, n_elems: int) -> np.ndarray:
+    """uint32[P, nb, 4] packed value blocks -> the first n_elems elements of
+    `bits` (32, 64 or 128) each, zero-padded to uint32[P, n_elems, 4]."""
+    lpe = bits // 32
+    flat = hashed.reshape(hashed.shape[0], -1, lpe)[:, :n_elems]
+    out = np.zeros(flat.shape[:2] + (4,), dtype=np.uint32)
+    out[..., :lpe] = flat
+    return out
+
+
+def _mask_bits(limbs: np.ndarray, bits: int) -> np.ndarray:
+    """uint32[..., 4] limbs reduced mod 2^bits (bits 32, 64 or 128)."""
+    limbs[..., bits // 32 :] = 0
+    return limbs

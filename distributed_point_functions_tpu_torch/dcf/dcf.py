@@ -34,7 +34,7 @@ from ..core.dpf import DistributedPointFunction
 from ..core.keys import DpfKey
 from ..core.params import DpfParameters
 from ..core.value_types import ValueType
-from ..utils.errors import InvalidArgumentError, UnimplementedError
+from ..utils.errors import InvalidArgumentError
 
 
 @dataclasses.dataclass
@@ -154,24 +154,26 @@ class DistributedComparisonFunction:
         self, keys: Sequence[DcfKey], xs: Sequence[int], engine: str = "device",
         **device_kwargs,
     ) -> np.ndarray:
-        """Every key at every point in one walk per point
-        (``batch.batch_evaluate``; `device_kwargs` are its keyword
-        arguments: key_chunk, mode, device, device_output). Returns
-        uint32[K, P, lpe] limbs, or uint32[K, P, n_elems, 4] for a uniform
-        tuple payload (each element zero-padded to 4 limbs).
+        """Every key at every point in one walk per point.
 
-        engine="host" (the JAX package's native AES-NI engine,
-        ``dcf/batch.batch_evaluate_host``) waits for the port of
-        ``native/`` and raises UnimplementedError; the host ``evaluate``
-        serves one point at a time.
+        engine="device" (``batch.batch_evaluate``; `device_kwargs` are its
+        keyword arguments: key_chunk, mode, device, device_output, timings,
+        pipeline) returns uint32[K, P, lpe] limbs, or uint32[K, P, n_elems,
+        4] for a uniform tuple payload (each element zero-padded to 4
+        limbs). engine="host" runs the native AES-NI host engine
+        (``batch.batch_evaluate_host``) and returns, as the JAX package's,
+        uint64[K, P] (bits <= 64), uint64[K, P, 2] (lo, hi) pairs, or
+        uint64[K, P, n_elems, 2] for a tuple payload; it takes no device
+        keyword arguments.
         """
-        if engine == "host":
-            raise UnimplementedError(
-                "the DCF host engine (native AES-NI) waits for the port of "
-                "native/ (ROADMAP Queue 1 item 9); use engine='device'"
-            )
-        if engine != "device":
-            raise InvalidArgumentError(f"engine must be 'device' or 'host', got {engine!r}")
         from . import batch
 
+        if engine == "host":
+            if device_kwargs:
+                raise InvalidArgumentError(
+                    f"engine='host' takes no device kwargs, got {sorted(device_kwargs)}"
+                )
+            return batch.batch_evaluate_host(self, keys, xs)
+        if engine != "device":
+            raise InvalidArgumentError(f"engine must be 'device' or 'host', got {engine!r}")
         return batch.batch_evaluate(self, keys, xs, **device_kwargs)

@@ -9,8 +9,9 @@ telemetry span (the port has no telemetry bus yet) but takes a
 ``timings`` dict that it and the DCF fill with their steps' seconds
 (utils/timing.py); and ``bundle_eval`` turns only each key's own block of
 the fused pass into Python ints.
-``engine="host"`` (the JAX package's native AES-NI engine) raises the port
-DCF's UnimplementedError; the keyword arguments of ``batch_eval`` and
+``engine="host"`` runs the DCF's host engine (``dcf.batch.batch_evaluate_host``:
+the native AES-NI walk, or its tuple walk for vector payloads); with the
+default ``engine="device"`` the keyword arguments of ``batch_eval`` and
 ``bundle_eval`` pass through to ``dcf.batch.batch_evaluate`` (``mode``,
 ``key_chunk``, ``device``: None is the card, "cpu" the plain versions).
 
@@ -175,11 +176,17 @@ class GateKey:
 # ---------------------------------------------------------------------------
 
 
-def _values_as_ints(evals) -> np.ndarray:
-    """A batched-DCF result, uint32 limbs [K, P, 4] (the gates' Int(128)
-    scalar payloads) or [K, P, t, 4] (vector payloads, each element
-    zero-padded to 4 limbs), as an object ndarray of Python ints [K, P] or
-    [K, P, t]."""
+def _values_as_ints(evals, engine: str = "device") -> np.ndarray:
+    """A batched-DCF result as an object ndarray of Python ints [K, P]
+    (scalar payloads) or [K, P, t] (vector payloads): the device engine's
+    uint32 limbs [K, P, 4] / [K, P, t, 4] (each element zero-padded to 4
+    limbs), or the host engine's uint64 (lo, hi) pairs [K, P, 2] / [K, P,
+    t, 2] for the gates' Int(128) payloads."""
+    evals = np.asarray(evals)
+    if engine == "host":
+        if evals.dtype == np.uint64 and evals.ndim >= 3 and evals.shape[-1] == 2:
+            return evals[..., 0].astype(object) | (evals[..., 1].astype(object) << 64)
+        return evals.astype(object)
     return evaluator.values_to_numpy(evals, 128)
 
 
@@ -236,14 +243,16 @@ class GatePlan:
         """ONE fused batched-DCF pass over all components x all sites;
         returns object ints [num_components, len(points)] (vector
         payloads: [num_components, len(points), payload_elems]).
-        ``timings`` gets the DCF's steps and "ints" (utils/timing.py)."""
-        if timings is not None:
+        ``timings`` gets the DCF's steps (the device engine's) and "ints"
+        (utils/timing.py)."""
+        clock = StepClock(timings)
+        if timings is not None and engine == "device":
             device_kwargs["timings"] = timings
         evals = self.gate.dcf.batch_evaluate(
             list(dcf_keys), self.points, engine=engine, **device_kwargs
         )
-        clock = StepClock(timings)
-        values = _values_as_ints(evals)
+        clock.restart()
+        values = _values_as_ints(evals, engine)
         clock("ints")
         return values
 
@@ -667,9 +676,9 @@ def bundle_eval(
     limbs = np.asarray(
         gate.dcf.batch_evaluate(all_dcf, plan.points, engine=engine, **device_kwargs)
     )
-    if limbs.ndim == 4:  # vector payload [K, P, t, 4]: key-major coefficient rows
-        k, p, t, lpe = limbs.shape
-        limbs = limbs.transpose(0, 2, 1, 3).reshape(k * t, p, lpe)
+    if limbs.ndim == 4:  # vector payload [K, P, t, lanes]: key-major coefficient rows
+        k, p, t, lanes = limbs.shape
+        limbs = limbs.transpose(0, 2, 1, 3).reshape(k * t, p, lanes)
     n = gate.n
     party = all_dcf[0].key.party
     rows = c * gate.payload_elems
@@ -677,5 +686,5 @@ def bundle_eval(
     for b, (key, x) in enumerate(zip(keys, plan.xs)):
         _, shares = gate._key_parts(key)
         block = limbs[b * rows : (b + 1) * rows, b * s : (b + 1) * s]
-        out[b] = gate._combine_one(party, shares, x, _values_as_ints(block) % n)
+        out[b] = gate._combine_one(party, shares, x, _values_as_ints(block, engine) % n)
     return out

@@ -57,9 +57,10 @@ reference's EvaluateUntil orders them. Words are int32 tensors carrying
 uint32 bit patterns (ops/aes_torch.py).
 
 ``evaluate_until_batch(engine="host")`` runs the expansion on the host
-engine (numpy, core/host_eval.py) for scalar Int/XorWrapper types, with the
-JAX package's host-format outputs; its context continues on the card and
-back.
+engine (core/host_eval.py: the native AES-NI engine when it loads, at the
+last hierarchy level in one fused native pass a key, else numpy) for scalar
+Int/XorWrapper types, with the JAX package's host-format outputs; its
+context continues on the card and back.
 
 With a (keys, domain) ``mesh`` (parallel/sharded.py), ``evaluate_until_batch``
 shards the sorted parent prefixes over 'domain' (padded to 32 x D) and the
@@ -79,6 +80,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..core import backend_numpy, uint128
 from ..core.dpf import DistributedPointFunction
 from ..core.keys import DpfKey, EvaluationContext, PartialEvaluation
@@ -422,9 +424,10 @@ def evaluate_until_batch(
     (``sharded.ShardedValues``); `device_output` returns the outputs
     gathered on the mesh's first device.
 
-    engine="host" runs the expansion on the host engine (numpy, the
-    branch of the JAX package's host engine without its native library;
-    core/host_eval.py) instead of the card — scalar Int/XorWrapper types
+    engine="host" runs the expansion on the host engine (the native AES-NI
+    engine when it loads, numpy otherwise; core/host_eval.py; at the last
+    hierarchy level one fused native pass a key) instead of the card —
+    scalar Int/XorWrapper types
     only, and outputs come back host-format at the native element width,
     as the JAX package's: uint32[K, n_outputs] for bits <= 32, uint64[...]
     for 64-bit types, uint32[K, n_outputs, 4] limb rows for 128-bit types.
@@ -598,7 +601,9 @@ def _evaluate_until_mesh(ctx: BatchedContext, hierarchy_level: int, prefixes, pr
 def _evaluate_until_host(ctx: BatchedContext, hierarchy_level: int, prefixes, prev_lds: int,
                          lds: int):
     """``evaluate_until_batch(engine="host")``: the JAX package's host
-    branch of ``evaluate_until_batch``, on ``evaluator._host_expand``."""
+    branch of ``evaluate_until_batch``, on ``evaluator._host_expand`` (its
+    PRGs on the native engine when it loads) or, at the last hierarchy
+    level with the engine loaded, on ``_fused_host_values``."""
     from ..core import host_eval
 
     v = ctx.dpf.validator
@@ -629,10 +634,17 @@ def _evaluate_until_host(ctx: BatchedContext, hierarchy_level: int, prefixes, pr
         control0 = ctx.control.cpu().index_select(1, pos).numpy().astype(bool)
     levels = stop_level - start_level
     need_state = hierarchy_level < v.num_hierarchy_levels - 1
-    seeds, control = evaluator._host_expand(seeds0, control0, batch, levels, start_level)
-    hashed = backend_numpy.hash_expanded_seeds(seeds.reshape(-1, 4), 1).reshape(seeds.shape)
-    outs = host_eval.correct_scalar_blocks(hashed, control, batch.value_corrections, bits,
-                                           xor_group, batch.party, keep_per_block)
+    if need_state or not native.available():
+        seeds, control = evaluator._host_expand(seeds0, control0, batch, levels, start_level)
+        hashed = backend_numpy.hash_expanded_seeds(seeds.reshape(-1, 4), 1).reshape(seeds.shape)
+        outs = host_eval.correct_scalar_blocks(hashed, control, batch.value_corrections, bits,
+                                               xor_group, batch.party, keep_per_block)
+    else:
+        # The last hierarchy level: nothing resumes from the leaf seeds, so
+        # each key takes the fused native forest pass (expansion, then the
+        # last level, value hash and correction in one stream).
+        outs = _fused_host_values(batch, seeds0, control0, start_level, levels, bits,
+                                  xor_group, keep_per_block)
     if prefix_arr is not None and prev_lds - start_level:
         outs = outs[:, _block_select(prefix_arr, tree_pos_of_prefix, prev_lds, start_level, lds)]
     if need_state:
@@ -643,6 +655,33 @@ def _evaluate_until_host(ctx: BatchedContext, hierarchy_level: int, prefixes, pr
     else:
         ctx.parent_tree, ctx.child_levels, ctx.seeds, ctx.control = None, 0, None, None
     ctx.previous_hierarchy_level = hierarchy_level
+    return outs
+
+
+def _fused_host_values(batch, seeds0: np.ndarray, control0: np.ndarray, start_level: int,
+                       levels: int, bits: int, xor_group: bool, keep_per_block: int):
+    """The JAX package's ``_expand_batch_host(need_state=False)``: every
+    key's parents [K, Np, 4] expanded `levels` tree levels from
+    `start_level` and valued in one native pass a key, into the host
+    format's rows (uint32 <= 32 bits, uint64 at 64, uint32[..., 4] at 128)
+    in leaf order."""
+    from ..core import host_eval
+
+    k, n_vals = seeds0.shape[0], (seeds0.shape[1] << levels) * keep_per_block
+    if bits == 128:
+        outs = np.empty((k, n_vals, 4), dtype=np.uint32)
+    else:
+        outs = np.empty((k, n_vals), dtype=np.uint64 if bits == 64 else np.uint32)
+    rkl, rkr, rkv = host_eval._round_keys()
+    vc_wide = host_eval.pack_vc_wide(batch.value_corrections)
+    window = slice(start_level, start_level + levels)
+    for j in range(k):
+        host_eval.fused_forest_values_into(
+            outs[j], rkl, rkr, rkv, np.ascontiguousarray(seeds0[j], dtype=np.uint32),
+            np.asarray(control0[j]).astype(np.uint8), batch.cw_seeds[j, window],
+            batch.cw_left[j, window], batch.cw_right[j, window], batch.party, levels,
+            vc_wide[j], bits, xor_group, keep_per_block,
+        )
     return outs
 
 

@@ -487,25 +487,35 @@ def _dcf_host_limbs(dcf, keys, xs, bits: int, cap: Optional[int] = None
                     ) -> Tuple[np.ndarray, int]:
     """Host-oracle DCF values as uint32[K, P', lpe] limbs (a uniform tuple
     payload: uint32[K, P', n_elems, 4], each element zero-padded to 4
-    limbs, the device layout) plus the number of points covered. The JAX
-    package's native engine is not ported: the port's host ``dcf.evaluate``
-    (numpy AES) runs — all points by default (the chain's rung of last
-    resort must SERVE, however slowly), or a `cap`-bounded prefix for spot
-    checks."""
+    limbs, the device layout) plus the number of points covered. The
+    native engine (``dcf.batch.batch_evaluate_host``) covers every point,
+    and a tuple payload takes the host tuple walk whether the engine loads
+    or not (its seed primitives fall back to numpy). Without the engine a
+    scalar payload runs the host ``dcf.evaluate`` a point at a time: all
+    points by default (the chain's rung of last resort must SERVE, however
+    slowly), or a `cap`-bounded prefix for spot checks."""
+    from .. import native
+    from ..core import host_eval
+    from ..dcf import batch as dcf_batch
     from . import evaluator
 
     _, _, n_elems = evaluator._payload_kind(dcf.value_type)
-    covered = len(xs) if cap is None else min(len(xs), cap)
     with integrity._faults_suspended():
+        if native.available() or n_elems > 1:
+            raw = dcf_batch.batch_evaluate_host(dcf, keys, xs)
+            if raw.ndim >= 3 and raw.shape[-1] == 2:
+                # (lo, hi) pairs [K, P(, n_elems), 2]: a tuple keeps all 4
+                # limbs, a scalar the value width's.
+                limbs = np.zeros(raw.shape[:-1] + (4,), np.uint32)
+                limbs[..., 0] = raw[..., 0] & np.uint64(0xFFFFFFFF)
+                limbs[..., 1] = raw[..., 0] >> np.uint64(32)
+                limbs[..., 2] = raw[..., 1] & np.uint64(0xFFFFFFFF)
+                limbs[..., 3] = raw[..., 1] >> np.uint64(32)
+                return (limbs if n_elems > 1 else limbs[..., : max(bits // 32, 1)]), len(xs)
+            return host_eval.values_to_limbs(raw, bits), len(xs)
+        covered = len(xs) if cap is None else min(len(xs), cap)
         vals = [[dcf.evaluate(k, int(x)) for x in xs[:covered]] for k in keys]
-    if n_elems == 1:
-        return _ints_to_limbs(vals, bits), covered
-    lpe = bits // 32
-    out = np.zeros((len(keys), covered, n_elems, 4), np.uint32)
-    for i, row in enumerate(vals):
-        for j, tup in enumerate(row):
-            out[i, j, :, :lpe] = _ints_to_limbs(list(tup), bits)
-    return out, covered
+    return _ints_to_limbs(vals, bits), covered
 
 
 def _spot_check(
@@ -571,8 +581,8 @@ def batch_evaluate_robust(
 ) -> np.ndarray:
     """`dcf.batch.batch_evaluate` behind the supervisor: the chain walks
     walkkernel/cuda → walk/cuda on a card (on the CPU walk/torch, then
-    numpy, the host ``dcf.evaluate``), each device rung spot-verified against the host
-    oracle on the last key row (a DCF has no sentinel-probe seam). Returns
+    numpy: the host engine, ``_dcf_host_limbs``), each device rung
+    spot-verified against the host oracle on the last key row (a DCF has no sentinel-probe seam). Returns
     the device layout's limbs on every rung, the host one included."""
     from ..dcf import batch as dcf_batch
     from . import evaluator

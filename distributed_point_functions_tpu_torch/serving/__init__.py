@@ -1,6 +1,6 @@
 """The serving plane's core: continuous batching of asynchronously
 arriving small requests into the wide uniform batches the card's kernels
-need, a cost-model router that picks the numpy host engine or a kernel
+need, a cost-model router that picks the host engine or a kernel
 mode per batch, executed through the robust wrappers of ops/supervisor.py,
 and the two-server RPC boundary (the JAX package's wire frames, both
 ways).

@@ -29,9 +29,10 @@ Per merged batch, the flow is:
    ``decision(source="degrade")`` records penalize the failed choice
    (``Router.on_degrade``).
 
-Engine "host" is the numpy host engine (core/host_eval.py, the host
-``dcf.evaluate``, ``evaluate_until_batch(engine="host")``, the threaded
-host dealer). It runs only when the router or the caller chooses it, and
+Engine "host" is the host engine (core/host_eval.py, the DCF's
+``batch_evaluate_host``, ``evaluate_until_batch(engine="host")``, the
+threaded host dealer), on the native AES-NI engine where it loads (native/)
+and on numpy otherwise. It runs only when the router or the caller chooses it, and
 the batch's decision record says so: on the card the robust chains hold
 kernel rungs only, so a failed card batch answers its requests with the
 error, never with a quiet host answer.
@@ -571,7 +572,7 @@ class FrontDoor:
     # Each _run_* merges the batch, executes on the chosen engine, and
     # returns one result per request (a row/column slice of the batch
     # result). Device paths go through ops/supervisor.py when
-    # self.robust; host paths run the numpy host engine the CPU chains
+    # self.robust; host paths run the host engine the CPU chains
     # end on — identical limb formats.
 
     def _run_full_domain(self, reqs, engine, mode, union=None):
@@ -684,9 +685,9 @@ class FrontDoor:
             floor=self.batcher.width_target,
         )
         if engine == "host":
-            # The DCF host engine (JAX dcf.batch_evaluate_host, native
-            # AES) is not ported: the host dcf.evaluate walks each point,
-            # as the CPU chains' numpy rung does.
+            # The DCF host engine (dcf.batch_evaluate_host, native AES-NI)
+            # through the supervisor's host oracle, which walks each point
+            # with the host dcf.evaluate only where the engine is missing.
             plan = gate_framework.GatePlan.build(gate, xs)
             dcf_keys, _ = gate._key_parts(key)
             bits = evaluator._payload_kind(gate.dcf.value_type)[0]

@@ -1,4 +1,4 @@
-"""Cost-model engine router: the numpy host engine vs the card's kernel
+"""Cost-model engine router: the host engine vs the card's kernel
 modes, per batch.
 
 Small batches lose on the card (a fixed launch-and-pull latency a
@@ -65,8 +65,11 @@ EWMA_ALPHA = 0.3
 #: one forced batch through the robust front door, read as the router
 #: reads a served batch (``CostModel.observe`` at the dispatch prior).
 #: The shapes and the card are PERF.md §4's "router anchors" row (an
-#: NVIDIA H100 80GB HBM3 at 700.00 W); the host engine is the numpy one
-#: on that machine's CPU. A kind missing from an entry falls back to the
+#: NVIDIA H100 80GB HBM3 at 700.00 W); the host engine is the native AES-NI
+#: one (native/, one thread) on that machine's CPU (an Intel Xeon Platinum
+#: 8570 by CPUID). The device anchors of the DCF, EvaluateAt, keygen and the
+#: hierarchy include their host spot checks, on the same engine. A kind
+#: missing from an entry falls back to the
 #: "u64" rate scaled by 64/bits, or has no rate. Units:
 #: full_domain/pir = domain evals/s, evaluate_at/dcf/mic/gate = point
 #: evals/s, hierarchical = (key x prefix x level) advances/s, keygen =
@@ -74,36 +77,36 @@ EWMA_ALPHA = 0.3
 ANCHORS: Dict[Tuple[str, str, Optional[str]], Dict[str, float]] = {
     # full domain, values out: 32 Int(64) keys at log-domain 20 on the
     # card; 4 keys at log-domain 12 on the host.
-    ("full_domain", "device", "levels"): {"u64": 1.2250e8},
-    ("full_domain", "host", None): {"u64": 3.9635e5},
+    ("full_domain", "device", "levels"): {"u64": 1.2370e8},
+    ("full_domain", "host", None): {"u64": 2.6960e7},
     # EvaluateAt, BASELINE config 2 (1024 keys x 4096 points, log-domain
     # 32) on the card; 8 keys x 64 points on the host.
-    ("evaluate_at", "device", "walk"): {"u64": 6.7095e6},
-    ("evaluate_at", "device", "walkkernel"): {"u64": 7.4278e6},
-    ("evaluate_at", "host", None): {"u64": 2.4753e3},
+    ("evaluate_at", "device", "walk"): {"u64": 1.7650e7},
+    ("evaluate_at", "device", "walkkernel"): {"u64": 1.4980e7},
+    ("evaluate_at", "host", None): {"u64": 1.9150e5},
     # DCF, BASELINE config 4 (512 keys x 512 points, log-domain 24) on the
     # card, its host spot check of 64 points included; 2 keys x 16 points
-    # on the host (the host dcf.evaluate a point).
-    ("dcf", "device", "walk"): {"u64": 3.3483e4},
-    ("dcf", "device", "walkkernel"): {"u64": 3.2164e4},
-    ("dcf", "host", None): {"u64": 7.2730},
+    # on the host engine.
+    ("dcf", "device", "walk"): {"u64": 2.4080e6},
+    ("dcf", "device", "walkkernel"): {"u64": 3.6870e6},
+    ("dcf", "host", None): {"u64": 5.1920e4},
     # PIR, phase 4's 2^20 x XorWrapper(128) database, 128 queries (key
     # chunk 128), the sentinel probe included; 4 queries of 2^12 on the
     # host.
-    ("pir", "device", "fold"): {"u128": 6.8635e8},
-    ("pir", "device", "megakernel"): {"u128": 1.6613e9},
-    ("pir", "host", None): {"u128": 2.8973e5},
+    ("pir", "device", "fold"): {"u128": 7.3560e8},
+    ("pir", "device", "megakernel"): {"u128": 1.9980e9},
+    ("pir", "host", None): {"u128": 8.6810e6},
     # Heavy hitters, BM_HeavyHitters' first 16 levels, 64 keys; 6 levels,
     # 2 keys on the host.
-    ("hierarchical", "device", "fused"): {"u64": 9.7366e6},
-    ("hierarchical", "device", "hierkernel"): {"u64": 1.0214e7},
-    ("hierarchical", "host", None): {"u64": 1.7869e4},
+    ("hierarchical", "device", "fused"): {"u64": 1.3780e7},
+    ("hierarchical", "device", "hierkernel"): {"u64": 2.6000e7},
+    ("hierarchical", "host", None): {"u64": 7.7440e4},
     # Keygen, BM_KeyGeneration (1024 Int(64) keys at depth 20) on the
     # card, the scalar spot check included; 64 keys on the host
     # (numpy-threaded).
-    ("keygen", "device", "perlevel"): {"u64": 7.3061e4},
-    ("keygen", "device", "megakernel"): {"u64": 5.4234e4},
-    ("keygen", "host", None): {"u64": 2.6145e3},
+    ("keygen", "device", "perlevel"): {"u64": 5.4700e4},
+    ("keygen", "device", "megakernel"): {"u64": 4.3150e4},
+    ("keygen", "host", None): {"u64": 1.4080e4},
 }
 
 #: The port's device modes with no measured anchor: candidates only once

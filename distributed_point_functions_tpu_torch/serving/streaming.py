@@ -57,9 +57,10 @@ PyTorch versions) in the config's ``mode`` — "fused" (K2 a tree level,
 then K4; the default) or "hierkernel" (K8, one launch a window). On the
 card that chain holds kernel rungs only: a failed advance raises (the
 advance worker retries the window), it is never answered by the host.
-``engine="host"`` runs the numpy host engine
-(``evaluate_until_batch(engine="host")``) and only when the caller names
-it; the JAX package's native AES engine is not ported.
+``engine="host"`` runs the host engine
+(``evaluate_until_batch(engine="host")``: the native AES-NI engine where it
+loads, numpy otherwise) and only when the caller names it; unlike the JAX
+package's, the default stays the card.
 
 **Failover & robustness** — three coupled layers on top:
 
@@ -144,7 +145,7 @@ class StreamConfig:
     group: int = 16
     #: "device" (the default: the robust hierarchical chain on the
     #: stream's device; mode= below picks the kernel) or "host" (the
-    #: numpy host engine, only when named).
+    #: host engine, only when named).
     engine: str = "device"
     #: device advance mode (None = "fused": K2 then K4 a level;
     #: "hierkernel": K8, one launch a window).
@@ -1468,7 +1469,7 @@ class HeavyHitterStream:
         per-key per-candidate shares summed over keys mod 2^bits. Device
         engine = the robust hierarchical chain on the stream's device in
         the config's mode (kernel rungs only on the card); host = the
-        numpy host engine."""
+        host engine."""
         cfg = self.config
         bits = cfg.value_bits
         if cfg.engine == "host":

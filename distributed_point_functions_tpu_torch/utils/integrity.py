@@ -1,7 +1,6 @@
 """Runtime integrity layer: sentinel-key verification and backend self-test.
 
-The port's copy of the JAX package's ``utils/integrity.py`` (through
-``verify_probe_fold``). In a two-server FSS deployment a silently wrong
+The port's copy of the JAX package's ``utils/integrity.py``. In a two-server FSS deployment a silently wrong
 answer is worse than a crash, so correctness checking is a library
 capability:
 
@@ -28,8 +27,12 @@ capability:
   telemetry bus (``utils/telemetry.py``).
 
 Enabled per call via the ``integrity=`` keyword or process-wide via the
-``DPF_TPU_INTEGRITY`` env var (strict boolean parsing; unset = off). The
-JAX package's whole-backend ``run_device_check`` is not ported yet.
+``DPF_TPU_INTEGRITY`` env var (strict boolean parsing; unset = off).
+
+* **Whole-path device check** (:func:`run_device_check`, the library
+  behind ``python -m distributed_point_functions_tpu_torch.tools.
+  check_device``): one execution path (``CHECK_MODES``) on the card held
+  against the host oracle at given shapes, the hardware gate for a new card.
 """
 
 from __future__ import annotations
@@ -622,3 +625,499 @@ def verify_probe_fold(
         pattern="fold mismatch",
         backend=probe.backend,
     )
+
+
+# ---------------------------------------------------------------------------
+# Whole-path device check (the library form of tools/check_device.py)
+# ---------------------------------------------------------------------------
+
+#: ``run_device_check``'s modes: the execution paths it verifies.
+CHECK_MODES = (
+    "levels", "fused", "walk", "fold", "megakernel", "walkkernel", "hierkernel",
+    "supervisor", "router", "keygen", "sharded",
+)
+
+
+def run_device_check(
+    shapes: Sequence[Tuple[int, int]] = ((64, 20),),
+    mode: str = "levels",
+    device=None,
+    seed: int = 7,
+    report: Callable[[str], None] = print,
+    selftest: bool = True,
+    pipeline: Optional[bool] = None,
+) -> int:
+    """Verifies one execution path on `device` (None = the card; "cpu" =
+    the kernels' plain versions) against the host oracle at the given
+    (num_keys, log_domain) shapes; returns the number of mismatched keys
+    (0 = all verified) and emits a ``corruption`` event for each shape that
+    mismatches. ``tools/check_device.py`` is a thin CLI over this function,
+    so the CLI and the library cannot drift. The JAX package's function,
+    with ``device=`` for its ``use_pallas=``.
+
+    `mode` is the path under test (``CHECK_MODES``):
+
+    - "levels", "fused", "walk": ``full_domain_evaluate_chunks`` in that
+      mode (K2 a level and K4; K6 a level and K4), each key's values
+      XOR-folded and held against the host oracle's fold;
+    - "fold", "megakernel": ``full_domain_fold_chunks`` (K2 and K4; K5);
+    - "walkkernel": an ``evaluate_at_batch(mode="walkkernel")`` batch of
+      256 points against the host oracle at every point, plus one DCF
+      ``batch_evaluate(mode="walkkernel")`` pass (K7 and its DCF form);
+    - "hierkernel": a heavy-hitters-shaped bitwise hierarchy (num_keys
+      keys, log_domain levels) advanced by ``evaluate_levels_fused(mode=
+      "hierkernel")`` (K8) and checked at every level against the host
+      engine (``CHECK_HH_GROUP`` levels a window, ``CHECK_HH_NONZEROS``
+      leaves);
+    - "supervisor": the robust PIR wrapper in mode "megakernel" with its
+      first rung forced unavailable, so that it must degrade to the next
+      kernel rung and answer exactly, with a ``decision(source=
+      "degrade")`` record;
+    - "router": the front door in engines "auto", "device" and "host",
+      every request's answer against the host oracle, with the decision
+      records;
+    - "keygen": a batched dealer on the device (mode
+      ``CHECK_KEYGEN_MODE``, default "megakernel", K9) byte-equal to the
+      host dealer on its first and last pairs, and every pair evaluated by
+      the host engine at alpha and beside it;
+    - "sharded": a two-server PIR through the mesh megakernel against the
+      records and the one-device megakernel.
+
+    `pipeline` (None = ``DPF_TPU_PIPELINE`` / on for a card) drives the
+    chunked paths through the pipelined executor (ops/pipeline.py): pass
+    both values when qualifying a card.
+    """
+    import torch
+
+    from ..core.dpf import DistributedPointFunction
+    from ..core.host_eval import full_domain_evaluate_host
+    from ..core.params import DpfParameters
+    from ..core.value_types import Int
+    from ..ops import aes_torch, evaluator
+    from .devices import resolve_device
+    from .errors import InvalidArgumentError
+
+    if mode not in CHECK_MODES:
+        raise InvalidArgumentError(f"mode must be one of {CHECK_MODES}, got {mode!r}")
+    dev = resolve_device(device)
+    if selftest:
+        ensure_selftest(dev)
+        report(f"selftest: fixed-key AES KAT OK on {dev}")
+    rng = np.random.default_rng(seed)
+    special = {
+        "walkkernel": _run_walkkernel_check, "hierkernel": _run_hierkernel_check,
+        "supervisor": _run_supervisor_check, "router": _run_router_check,
+        "keygen": _run_keygen_check, "sharded": _run_sharded_check,
+    }
+    if mode in special:
+        return special[mode](shapes, rng, report, dev, pipeline)
+    failures = 0
+    for num_keys, lds in shapes:
+        dpf = DistributedPointFunction.create(DpfParameters(lds, Int(64)))
+        alphas = [int(x) for x in rng.integers(0, 1 << lds, size=num_keys)]
+        betas = [[int(x) for x in rng.integers(1, 1000, size=num_keys)]]
+        keys, _ = dpf.generate_keys_batch(alphas, betas)
+        want = np.bitwise_xor.reduce(full_domain_evaluate_host(dpf, keys), axis=1)
+        folds = []
+        if mode in ("fold", "megakernel"):
+            for valid, fold in evaluator.full_domain_fold_chunks(
+                    dpf, keys, key_chunk=num_keys, mode=mode, device=dev, pipeline=pipeline):
+                folds.append(aes_torch.from_words(fold)[:valid])
+        else:
+            for valid, out in evaluator.full_domain_evaluate_chunks(
+                    dpf, keys, key_chunk=num_keys, mode=mode, device=dev, pipeline=pipeline):
+                folds.append(aes_torch.from_words(_xor_fold_rows(torch, out))[:valid])
+        got = evaluator.values_to_numpy(np.concatenate(folds, axis=0), 64)
+        bad = int((got != want).sum())
+        status = "OK" if bad == 0 else f"MISMATCH ({bad}/{num_keys} keys)"
+        report(f"keys={num_keys:4d} log_domain={lds:3d} mode={mode}: {status}")
+        if bad:
+            emit_event(
+                "corruption",
+                f"device check: {bad}/{num_keys} keys mismatch at log_domain={lds} mode={mode}",
+                dev.type, num_keys=num_keys, log_domain=lds, mode=mode,
+            )
+        failures += bad
+    return failures
+
+
+def _xor_fold_rows(torch, values):
+    """int32[K, D, lpe] -> int32[K, lpe]: each key's XOR over its D values
+    (a power of two), halving on the values' device."""
+    while values.shape[1] > 1:
+        half = values.shape[1] // 2
+        values = torch.bitwise_xor(values[:, :half], values[:, half:])
+    return values[:, 0]
+
+
+def _check_mesh(dev):
+    """The sharded check's mesh: ``DPF_TPU_PIR_MESH`` when set, else 2 x
+    n/2 over n local cards (n/1 when n is odd); one card, or the CPU, names
+    its device four times (2 x 2), so that every line of the mesh code runs
+    there in series."""
+    import torch
+
+    from ..parallel import sharded
+
+    if dev.type == "cuda":
+        n = torch.cuda.device_count()
+        if n > 1:
+            mesh = sharded.pir_mesh_from_env()
+            if mesh is not None:
+                return mesh
+            k = 2 if n % 2 == 0 else 1
+            return sharded.make_mesh(k, n // k)
+    mesh = sharded.pir_mesh_from_env([dev] * 64)
+    return mesh if mesh is not None else sharded.make_mesh(2, 2, devices=[dev] * 4)
+
+
+def _run_sharded_check(shapes, rng, report, dev, pipeline=None) -> int:
+    """mode "sharded" of `run_device_check`: per (num_keys, log_domain)
+    shape, a two-server XorWrapper(128) PIR batch through
+    ``pir.pir_query_batch_chunked(mode="megakernel", mesh=...)`` (the
+    database's column blocks over 'domain', the keys over 'keys', K5 a
+    shard, the sentinel probe riding every batch) must (a) reconstruct each
+    record (the servers' answers XOR to db[alpha]) and (b) equal the
+    one-device megakernel's answers on the same keys and database byte for
+    byte. The mesh: ``_check_mesh``."""
+    from ..core.dpf import DistributedPointFunction
+    from ..core.params import DpfParameters
+    from ..core.value_types import XorWrapper
+    from ..parallel import pir, sharded
+
+    failures = 0
+    mesh = _check_mesh(dev)
+    d_shards = mesh.shape["domain"]
+    # Each domain shard must own whole packed entry words: host_levels >=
+    # 5 + log2(domain shards), as plan_megakernel requires.
+    need_hl = 5 + max(0, (d_shards - 1).bit_length())
+    for num_keys, lds in shapes:
+        if lds < need_hl + 1:
+            report(f"keys={num_keys:4d} log_domain={lds:3d} mode=sharded: SKIP (needs "
+                   f"log_domain > {need_hl} for {d_shards} domain shards)")
+            continue
+        dpf = DistributedPointFunction.create(DpfParameters(lds, XorWrapper(128)))
+        domain = 1 << lds
+        db = rng.integers(0, 1 << 32, size=(domain, 4), dtype=np.uint64).astype(np.uint32)
+        alphas = [int(x) for x in rng.integers(0, domain, size=num_keys)]
+        pairs = [dpf.generate_keys(a, (1 << 128) - 1) for a in alphas]
+        pdb = pir.prepare_pir_database(dpf, db, host_levels=need_hl, order="megakernel",
+                                       mesh=mesh)
+        pdb_one = pir.prepare_pir_database(dpf, db, host_levels=need_hl, order="megakernel",
+                                           device=dev)
+        res, res_one = [], []
+        for party in (0, 1):
+            pk = [p[party] for p in pairs]
+            res.append(pir.pir_query_batch_chunked(
+                dpf, pk, pdb, key_chunk=num_keys, host_levels=need_hl, mode="megakernel",
+                mesh=mesh, pipeline=pipeline, integrity=True))
+            res_one.append(pir.pir_query_batch_chunked(
+                dpf, pk, pdb_one, key_chunk=num_keys, host_levels=need_hl, mode="megakernel",
+                device=dev, pipeline=pipeline, integrity=True))
+        bad = int((np.bitwise_xor(res[0], res[1]) != db[np.asarray(alphas)]).any(axis=1).sum())
+        bad_eng = sum(int((a != b).any(axis=1).sum()) for a, b in zip(res, res_one))
+        desc = sharded._mesh_desc(mesh)
+        status = ("OK" if bad == 0 and bad_eng == 0
+                  else f"MISMATCH ({bad} keys vs oracle, {bad_eng} vs one device)")
+        report(f"keys={num_keys:4d} log_domain={lds:3d} mode=sharded mesh={desc}: {status}")
+        if bad or bad_eng:
+            emit_event(
+                "corruption",
+                f"sharded device check: {bad} keys mismatch the oracle, {bad_eng} the "
+                f"one-device megakernel at log_domain={lds} mesh={desc}",
+                dev.type, num_keys=num_keys, log_domain=lds, mode="sharded",
+            )
+        failures += bad + bad_eng
+    return failures
+
+
+def _run_keygen_check(shapes, rng, report, dev, pipeline=None) -> int:
+    """mode "keygen" of `run_device_check`: per (num_keys, log_domain)
+    shape, a batched dealer on `dev` in mode ``CHECK_KEYGEN_MODE`` (default
+    "megakernel", one K9 launch; "perlevel" runs K2's one-key view and K4)
+    from pinned seeds, then two verdicts: the first and last key pairs are
+    byte-equal on the wire to the scalar host dealer's from the same seeds,
+    and every pair, evaluated by the host engine at alpha and at alpha + 1,
+    reconstructs beta and 0. Returns the failed verdicts."""
+    del pipeline  # the dealer's level loop has no chunk executor
+    from ..core.dpf import DistributedPointFunction
+    from ..core.params import DpfParameters
+    from ..core.value_types import Int
+    from ..ops import keygen_batch
+    from ..protos import serialization
+    from .envflags import env_str
+    from .errors import InvalidArgumentError
+
+    mode = env_str("CHECK_KEYGEN_MODE") or "megakernel"
+    if mode not in keygen_batch.KEYGEN_MODES:
+        raise InvalidArgumentError(
+            f"CHECK_KEYGEN_MODE must be one of {keygen_batch.KEYGEN_MODES}, got {mode!r}")
+    device = None if mode in keygen_batch.HOST_MODES else dev
+    failures = 0
+    for num_keys, lds in shapes:
+        dpf = DistributedPointFunction.create(DpfParameters(lds, Int(64)))
+        # Byte-drawn alphas: rng.integers stops at int64, and deep domains
+        # must be checkable too.
+        alphas = [int.from_bytes(rng.bytes(16), "little") % (1 << lds) for _ in range(num_keys)]
+        betas = [int(x) for x in rng.integers(1, 1000, size=num_keys)]
+        seeds = rng.integers(0, 2**32, size=(num_keys, 2, 4), dtype=np.uint32)
+        keys_0, keys_1 = keygen_batch.generate_keys_batch(
+            dpf, alphas, [betas], mode=mode, seeds=seeds, device=device)
+        params = dpf.validator.parameters
+        bad = 0
+        for i in sorted({0, num_keys - 1}):
+            s = tuple(int.from_bytes(seeds[i, p].tobytes(), "little") for p in (0, 1))
+            for got, want in zip((keys_0[i], keys_1[i]),
+                                 dpf.generate_keys(alphas[i], betas[i], seeds=s)):
+                if (serialization.serialize_dpf_key(got, params)
+                        != serialization.serialize_dpf_key(want, params)):
+                    bad += 1
+        byte_bad = bad
+        mask = (1 << 64) - 1
+        for i in range(num_keys):
+            pts = [alphas[i], (alphas[i] + 1) % (1 << lds)]
+            e0 = dpf.evaluate_at(keys_0[i], 0, pts)
+            e1 = dpf.evaluate_at(keys_1[i], 0, pts)
+            if (e0[0] + e1[0]) & mask != betas[i] or (e0[1] + e1[1]) & mask:
+                bad += 1
+        status = ("OK" if bad == 0
+                  else f"MISMATCH ({bad} verdicts: {byte_bad} byte, {bad - byte_bad} eval)")
+        report(f"keys={num_keys:4d} log_domain={lds:3d} keygen[{mode}]: {status}")
+        if bad:
+            emit_event(
+                "corruption",
+                f"keygen device check: {bad} failed verdicts at keys={num_keys} "
+                f"log_domain={lds} mode={mode}",
+                dev.type, num_keys=num_keys, log_domain=lds, mode=mode,
+            )
+        failures += bad
+    return failures
+
+
+def _run_router_check(shapes, rng, report, dev, pipeline=None) -> int:
+    """mode "router" of `run_device_check`: the serving front door on `dev`.
+
+    1. **Anchors**: every (op, engine, mode) rate anchor of
+       ``serving.router.ANCHORS`` is a candidate of the cold router (the
+       JAX package pins a measured engine table here instead; the port's
+       anchors are the card's own and have no such table).
+    2. **One routed batch per engine**: num_keys one-key full-domain
+       requests a ``FrontDoor`` with engine "auto" (the router decides),
+       "device" and "host", merged into one batch, run through the
+       supervisor, each request's slice held against the host oracle.
+    3. **Decision records**: the auto batch carries a
+       ``decision(source="router")`` with its predicted costs, the forced
+       ones ``source="explicit"``.
+    """
+    from ..core.dpf import DistributedPointFunction
+    from ..core.host_eval import full_domain_evaluate_host, values_to_limbs
+    from ..core.params import DpfParameters
+    from ..core.value_types import Int
+    from .. import serving
+    from ..serving import router as router_mod
+
+    failures = 0
+    model = router_mod.CostModel()
+    for op, engine, mode in router_mod.ANCHORS:
+        ok = (engine, mode) in model.candidates(op)
+        report(f"router anchor: {op} {engine} {mode}: {'OK' if ok else 'NOT A CANDIDATE'}")
+        failures += 0 if ok else 1
+    for num_keys, lds in shapes:
+        dpf = DistributedPointFunction.create(DpfParameters(lds, Int(64)))
+        alphas = [int(x) for x in rng.integers(0, 1 << lds, size=num_keys)]
+        betas = [[int(x) for x in rng.integers(1, 1000, size=num_keys)]]
+        keys, _ = dpf.generate_keys_batch(alphas, betas)
+        want = values_to_limbs(full_domain_evaluate_host(dpf, keys), 64)
+        router = serving.Router(calibration="")
+        for engine in ("auto", "device", "host"):
+            with telemetry.capture() as tel:
+                with serving.FrontDoor(router=router, engine=engine, max_wait_ms=50,
+                                       width_target=num_keys, pipeline=pipeline,
+                                       device=dev) as door:
+                    futs = [door.submit(serving.Request.full_domain(dpf, [k])) for k in keys]
+                    outs = [f.result(timeout=600) for f in futs]
+            bad = sum(0 if np.array_equal(np.asarray(outs[i])[0], want[i]) else 1
+                      for i in range(num_keys))
+            src = "router" if engine == "auto" else "explicit"
+            decisions = tel.decision_records(source=src, op="full_domain")
+            if not decisions:
+                bad += 1
+                detail = f"no decision(source={src!r}) recorded"
+            elif src == "router" and "predicted_ms" not in decisions[0].get("data", {}):
+                bad += 1
+                detail = "router decision carries no predicted cost"
+            else:
+                detail = f"chose {decisions[-1]['data'].get('choice')}"
+            status = "OK" if bad == 0 else f"MISMATCH ({bad})"
+            report(f"keys={num_keys:4d} log_domain={lds:3d} mode=router engine={engine}: "
+                   f"{status} ({detail})")
+            if bad:
+                emit_event(
+                    "corruption",
+                    f"router device check: {bad} failed verdicts at log_domain={lds} "
+                    f"engine={engine}",
+                    dev.type, num_keys=num_keys, log_domain=lds, mode="router",
+                )
+            failures += bad
+    return failures
+
+
+def _run_supervisor_check(shapes, rng, report, dev, pipeline=None) -> int:
+    """mode "supervisor" of `run_device_check`: per (num_keys, log_domain)
+    shape, the robust PIR wrapper in mode "megakernel" over an
+    XorWrapper(128) database with its first rung (megakernel) forced
+    ``UnavailableError`` by a mode-scoped fault plan, so that the chain
+    must retry, degrade and answer from the next rung, still a kernel rung
+    on the card (fold: K2 and K4), equal to the host PIR fold, with a
+    ``degrade`` event and a ``decision(source="degrade")`` record. (The
+    JAX package forces the flat full-domain chain's first rung; on the
+    card that chain has one rung.)"""
+    from ..core.dpf import DistributedPointFunction
+    from ..core.params import DpfParameters
+    from ..core.value_types import XorWrapper
+    from ..ops import degrade, supervisor
+    from ..parallel import pir
+    from .errors import UnavailableError
+
+    failures = 0
+    policy = degrade.DegradationPolicy(backoff_seconds=0.0)
+    first = supervisor.fold_chain("megakernel", device=dev)[0]
+    for num_keys, lds in shapes:
+        dpf = DistributedPointFunction.create(DpfParameters(lds, XorWrapper(128)))
+        db = rng.integers(0, 1 << 32, size=(1 << lds, 4), dtype=np.uint64).astype(np.uint32)
+        alphas = [int(x) for x in rng.integers(0, 1 << lds, size=num_keys)]
+        keys, _ = dpf.generate_keys_batch(alphas, [(1 << 128) - 1])
+        want = supervisor._host_pir_fold(dpf, keys, db, 128)
+        pdb = pir.prepare_pir_database(dpf, db, order="megakernel", device=dev)
+        with telemetry.capture() as tel, capture_events() as events:
+            with faultinject.inject(faultinject.FaultPlan(
+                    stage="device_call",
+                    exception=UnavailableError("UNAVAILABLE: injected supervisor check"),
+                    modes=frozenset({first[0]}))):
+                got = supervisor.pir_query_batch_robust(
+                    dpf, keys, pdb, key_chunk=num_keys, policy=policy, pipeline=pipeline,
+                    mode="megakernel", device=dev)
+        bad = int((np.asarray(got) != want).any(axis=1).sum())
+        degraded = any(e.kind == "degrade" for e in events)
+        recorded = tel.snapshot()["decisions_by_source"].get("degrade", 0) >= 1
+        ok = bad == 0 and degraded and recorded
+        status = "OK" if ok else (f"MISMATCH ({bad}/{num_keys} keys)" if bad
+                                  else "NO DEGRADE RECORD")
+        report(f"keys={num_keys:4d} log_domain={lds:3d} mode=supervisor (rung "
+               f"{degrade.rung_label(first)!r} forced unavailable): {status}")
+        if not ok:
+            emit_event(
+                "corruption",
+                f"supervisor check failed at log_domain={lds}: bad={bad}, "
+                f"degrade_event={degraded}, decision_recorded={recorded}",
+                dev.type, num_keys=num_keys, log_domain=lds, mode="supervisor",
+            )
+            failures += max(bad, 1)
+    return failures
+
+
+def _run_hierkernel_check(shapes, rng, report, dev, pipeline=None) -> int:
+    """mode "hierkernel" of `run_device_check`: per (num_keys, levels)
+    shape, a heavy-hitters-shaped bitwise hierarchy (one level a bit) is
+    advanced through ``evaluate_levels_fused(mode="hierkernel")`` (K8) and
+    every level's outputs are held per key against the host engine
+    (``evaluate_until_batch(engine="host")``). ``CHECK_HH_GROUP`` sets the
+    levels a window, ``CHECK_HH_NONZEROS`` the leaf count."""
+    del pipeline  # evaluate_levels_fused runs its windows in order
+    from ..core.dpf import DistributedPointFunction
+    from ..core.params import DpfParameters
+    from ..core.value_types import Int
+    from ..ops import evaluator, hierarchical
+    from .envflags import env_int
+
+    group = env_int("CHECK_HH_GROUP", 16)
+    nonzeros = env_int("CHECK_HH_NONZEROS", 200)
+    failures = 0
+    for num_keys, levels in shapes:
+        dpf = DistributedPointFunction.create_incremental(
+            [DpfParameters(i + 1, Int(64)) for i in range(levels)])
+        keys = [dpf.generate_keys_incremental(alpha, [23] * levels)[0]
+                for alpha in hierarchical.draw_random_finals(levels, num_keys, rng)]
+        plan = hierarchical.bitwise_hierarchy_plan(
+            levels, hierarchical.draw_random_finals(levels, nonzeros, rng))
+        outs = hierarchical.evaluate_levels_fused(
+            hierarchical.BatchedContext.create(dpf, keys), plan, group=group,
+            mode="hierkernel", device=dev)
+        bad = 0
+        host = hierarchical.BatchedContext.create(dpf, keys)
+        for i, (h, p) in enumerate(plan):
+            ref = np.asarray(hierarchical.evaluate_until_batch(host, h, p, engine="host"))
+            got = evaluator.values_to_numpy(np.asarray(outs[i]), 64)
+            bad = max(bad, int((got != ref.astype(np.uint64)).any(axis=1).sum()))
+        status = "OK" if bad == 0 else f"MISMATCH ({bad}/{num_keys} keys)"
+        report(f"keys={num_keys:4d} levels={levels:3d} mode=hierkernel "
+               f"({len(plan[-1][1])} unique deepest prefixes, group={group}): {status}")
+        if bad:
+            emit_event(
+                "corruption",
+                f"device check: {bad}/{num_keys} keys mismatch on the {levels}-level "
+                "hierkernel advance",
+                dev.type, num_keys=num_keys, levels=levels, mode="hierkernel",
+            )
+        failures += bad
+    return failures
+
+
+def _run_walkkernel_check(shapes, rng, report, dev, pipeline=None) -> int:
+    """mode "walkkernel" of `run_device_check`: per shape, an
+    ``evaluate_at_batch(mode="walkkernel")`` batch of 256 points (K7) held
+    key by key against the host oracle (``host_eval.evaluate_at_host``) at
+    every point, then ONE DCF ``batch_evaluate(mode="walkkernel")`` pass
+    (K7's DCF form: per-depth captures and the sum in the kernel) against
+    the host engine (every point with the native engine, the host
+    ``dcf.evaluate`` over the first 16 without it)."""
+    from ..core.dpf import DistributedPointFunction
+    from ..core.host_eval import evaluate_at_host
+    from ..core.params import DpfParameters
+    from ..core.value_types import Int
+    from ..dcf import batch as dcf_batch
+    from ..dcf.dcf import DistributedComparisonFunction
+    from ..ops import evaluator, supervisor
+
+    failures = 0
+    for num_keys, lds in shapes:
+        dpf = DistributedPointFunction.create(DpfParameters(lds, Int(64)))
+        alphas = [int(x) for x in rng.integers(0, 1 << lds, size=num_keys)]
+        betas = [[int(x) for x in rng.integers(1, 1000, size=num_keys)]]
+        keys, _ = dpf.generate_keys_batch(alphas, betas)
+        pts = [alphas[0]] + [int(x) for x in rng.integers(0, 1 << lds, size=255)]
+        got = evaluator.values_to_numpy(np.asarray(evaluator.evaluate_at_batch(
+            dpf, keys, pts, key_chunk=num_keys, pipeline=pipeline, mode="walkkernel",
+            device=dev)), 64)
+        want = evaluate_at_host(dpf, keys, np.asarray(pts, dtype=np.uint64)).astype(np.uint64)
+        bad = int((got != want).any(axis=1).sum())
+        status = "OK" if bad == 0 else f"MISMATCH ({bad}/{num_keys} keys)"
+        report(f"keys={num_keys:4d} log_domain={lds:3d} mode=walkkernel evaluate_at "
+               f"({len(pts)} pts): {status}")
+        if bad:
+            emit_event(
+                "corruption",
+                f"device check: {bad}/{num_keys} keys mismatch at log_domain={lds} "
+                "mode=walkkernel (evaluate_at)",
+                dev.type, num_keys=num_keys, log_domain=lds, mode="walkkernel",
+            )
+        failures += bad
+    # One DCF pass through the same kernel family (the per-depth captures
+    # and the in-kernel sum are the DCF form's own code).
+    lds = min(16, max(l for _, l in shapes))
+    dc = DistributedComparisonFunction.create(lds, Int(64))
+    ka, _ = dc.generate_keys(int(rng.integers(0, 1 << lds)), 4242)
+    xs = [int(x) for x in rng.integers(0, 1 << lds, size=128)]
+    got = np.asarray(dcf_batch.batch_evaluate(dc, [ka], xs, mode="walkkernel", device=dev,
+                                              pipeline=pipeline))
+    want, covered = supervisor._dcf_host_limbs(dc, [ka], xs, 64, cap=16)
+    bad = 0 if np.array_equal(got[:, :covered], want) else 1
+    report(f"keys=   1 log_domain={lds:3d} mode=walkkernel dcf ({len(xs)} pts, {covered} "
+           f"host-checked): {'OK' if bad == 0 else 'MISMATCH'}")
+    if bad:
+        emit_event(
+            "corruption",
+            f"device check: DCF walkkernel mismatch at log_domain={lds}",
+            dev.type, log_domain=lds, mode="walkkernel",
+        )
+    return failures + bad

@@ -18,7 +18,9 @@ heavy-hitter stream window in each mode against the CPU, a round trip
 through a one-replica fleet a party (ReplicaPool, --device cuda), and the
 multi-device path (the mesh megakernel PIR, the sharded PIR, full domain
 and EvaluateUntil) on a mesh whose four shards name the one card and on a
-mesh over two cards (which skips with fewer), against one device.
+mesh over two cards (which skips with fewer), against one device; and the
+whole-path device check (utils/integrity.run_device_check) in every mode,
+with an injected fault counted.
 
 Every test here needs a card and skips without one. The file imports no
 JAX, so on a machine without JAX it runs without the suite's conftest:
@@ -999,3 +1001,25 @@ def test_mesh_over_two_cards_matches_one_device(cuda):
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards")
     _mesh_paths(sharded.make_mesh(1, 2), torch.device("cuda:0"))
+
+
+@pytest.mark.parametrize("mode", ["levels", "fused", "walk", "fold", "megakernel", "walkkernel",
+                                  "hierkernel", "supervisor", "router", "keygen", "sharded"])
+def test_device_check_on_the_card(cuda, mode):
+    """Each mode of the device check verifies on the card (hierkernel reads
+    its shape as keys x levels)."""
+    from distributed_point_functions_tpu_torch.utils import integrity
+
+    shapes = ((8, 12),) if mode == "hierkernel" else ((16, 12),)
+    lines = []
+    assert integrity.run_device_check(shapes=shapes, mode=mode, report=lines.append) == 0, lines
+
+
+def test_device_check_counts_an_injected_fault_on_the_card(cuda):
+    from distributed_point_functions_tpu_torch.utils import faultinject, integrity
+
+    with integrity.capture_events() as events:
+        with faultinject.inject(faultinject.FaultPlan(stage="seeds", bit=11, key_row=1)):
+            bad = integrity.run_device_check(shapes=((8, 12),), report=lambda s: None,
+                                             selftest=False)
+    assert bad == 1 and [e.kind for e in events] == ["corruption"]

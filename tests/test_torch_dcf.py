@@ -40,10 +40,7 @@ import distributed_point_functions_tpu_torch as port
 from distributed_point_functions_tpu_torch.dcf import batch as port_batch
 from distributed_point_functions_tpu_torch.ops import aes_cuda, aes_torch, backend_torch
 from distributed_point_functions_tpu_torch.ops import evaluator as port_ev
-from distributed_point_functions_tpu_torch.utils.errors import (
-    InvalidArgumentError,
-    UnimplementedError,
-)
+from distributed_point_functions_tpu_torch.utils.errors import InvalidArgumentError
 from torch_fold_case import one_torch_thread  # noqa: F401 (autouse fixture)
 
 MODES = port_batch.MODES
@@ -315,7 +312,8 @@ def refusal(name):
         return (lambda: port_batch.batch_evaluate(flat, fk, [1], mode=MODES[1], device="cpu"),
                 InvalidArgumentError, "at least one tree level")
     if name == "host engine":
-        return lambda: dcf.batch_evaluate(keys, xs, engine="host"), UnimplementedError, "Queue 1 item 9"
+        return (lambda: dcf.batch_evaluate(keys, xs, engine="host", device="cpu"),
+                InvalidArgumentError, "no device kwargs")
     if name == "outside the domain":
         return (lambda: port_batch.batch_evaluate(dcf, keys, [1 << 9], device="cpu"),
                 InvalidArgumentError, "outside the domain")
@@ -336,8 +334,9 @@ def test_refusals(name):
     """IntModN, a tuple that is not uniform, a tuple of sub-word elements
     and mode "walkkernel" on a tuple (NotImplementedError, with the JAX
     package's words), mode "walkkernel" on a sub-word type or a tree
-    without levels, the host engine (not ported yet), a point outside the
-    domain, an unknown mode and keys of two parties are refused."""
+    without levels, the host engine given a device keyword, a point
+    outside the domain, an unknown mode and keys of two parties are
+    refused."""
     call, exc, match = refusal(name)
     with pytest.raises(exc, match=match):
         call()

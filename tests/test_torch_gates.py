@@ -312,9 +312,14 @@ def test_walkkernel_refuses_a_vector_payload():
 
 
 def test_host_engine_is_not_ported():
+    """engine="host" (the DCF's native host engine) answers with the
+    device engine's shares, both parties; it takes no device keyword."""
     c = gate_case("drelu")
-    with pytest.raises(port_errors.UnimplementedError, match="host engine"):
-        c["pgate"].batch_eval(c["pkeys"][0], c["xs"], engine="host")
+    for p in (0, 1):
+        got = c["pgate"].batch_eval(c["pkeys"][p], c["xs"], engine="host")
+        assert got.tolist() == c["want"][p].tolist()
+    with pytest.raises(port_errors.InvalidArgumentError, match="no device kwargs"):
+        c["pgate"].batch_eval(c["pkeys"][0], c["xs"], engine="host", device="cpu")
 
 
 def test_helpers_match_jax():

@@ -6,7 +6,9 @@ injection, profiling, the environment flags and the serving plane (wire,
 front door, server, client, the streaming heavy-hitters tier with its
 leases, the fleet proxy, the replica pool and the autoscaler, and the
 multi-device path: the mesh, the sharded PIR and full domain, EvaluateUntil
-on a mesh, multihost) driven in a fresh process), and its entry
+on a mesh, multihost; the native AES-NI host engine with the DCF's and the
+gates' host engines; the device check and its CLI) driven in a fresh
+process), and its entry
 points do not run on the CPU unless asked to.
 
 The import guard runs in a subprocess: tests/conftest.py imports jax into
@@ -165,6 +167,16 @@ for mode in ("expand", "walk"):
 assert sharded.sharded_full_domain_evaluate(mdpf, mkeys, mesh).numpy().shape == (1, 64, 2)
 ctx = hierarchical.BatchedContext.create(hdpf, hkeys)
 assert hierarchical.evaluate_until_batch(ctx, 0, mesh=mesh).shape == (1, 2, 2)
+from distributed_point_functions_tpu_torch import native
+from distributed_point_functions_tpu_torch.tools import check_device
+st = native.status()
+assert st["available"] or st["reason"], st
+assert dcf.batch_evaluate(dkeys, [3, 4], engine="host").shape == (1, 2)
+drelu = gates.DReluGate.create(6)
+h0, h1 = drelu.gen(5, [7], prng=gates.CounterRng(b"guard-host"))
+hs = [drelu.batch_eval(k, [9, 60], engine="host") for k in (h0, h1)]
+assert [(int(a) + int(b) - 7) % 64 for a, b in zip(hs[0][:, 0], hs[1][:, 0])] == [1, 0]
+assert integrity.run_device_check(((2, 7),), mode="fold", device="cpu", report=str) == 0
 jax_package = "distributed_point_functions_tpu"
 bad = sorted(
     m for m in sys.modules
