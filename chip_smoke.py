@@ -326,7 +326,24 @@ Phases (any failure raises and exits non-zero before the result line):
    arms at ci.sh's sizes, their servers on the card (the stream arms beside
    the others), each exiting 0, their servers' launches printed.
    ``python3 chip_smoke.py --phase 24`` runs the build and this phase alone
-   (24a then at the roofline module's recorded fold rate: no phase 19a).
+   (24a then at the roofline module's recorded fold rate: no phase 19a);
+25. the application layer: (a) the sparse-histogram experiment
+   (``experiments/synthetic_data_benchmarks.py``) at the reference's
+   published size: ``gen_data``'s 2^32 fixture of 2^20 nonzeros at skew
+   0.1, ``run_hierarchical`` at expansion factor 4 in mode fused (K2, K4)
+   and ``run_direct`` in modes walk (K6, K4) and walkkernel (K7), one
+   iteration each at the CLI's alpha, every level's outputs and the direct
+   outputs equal to the native host engine's on the same key; then a key
+   pair whose alpha is one of the nonzeros, both parties in each mode,
+   their shares adding mod 2^32 to 1 at alpha's prefix at every level and
+   0 elsewhere; (b) the same at 2^128 over 2^14 nonzeros (a reduced count:
+   the full 2^20 runs are the CLI's), U128 prefix arrays throughout; (c)
+   the three demos as ``python -m`` children on the card, after (a) and
+   (b) and side by side, each exiting 0 with its success line and printing its launches:
+   ``pir_demo --log_domain 20`` (K2, K4) and ``--serve``, ``heavy_hitters_demo``
+   with ``HH_MODE=fused`` (K2, K4) and ``hierkernel`` (K8) and ``--serve``
+   (K2, K4), ``secure_relu_demo`` (K6, K4).
+   ``python3 chip_smoke.py --phase 25`` runs the build and this phase alone.
 
 Each path of the main path (fold default, fused and megakernel; PIR fold
 and megakernel; EvaluateAt walk and walkkernel, and the codec walk; DCF
@@ -334,8 +351,8 @@ walk and walkkernel; heavy hitters fused and hierkernel; keygen
 megakernel, perlevel and numpy-threaded at each configuration; config 3's
 fused pass at each level, and its walk, slab, prepared and levels checks;
 each gate's modes, the gate dealers on the card and the two layers; each
-path of phases 17-24, whose servers, replicas, multihost processes and
-check_device child report their launches
+path of phases 17-25, whose servers, replicas, multihost processes,
+check_device child and demo children report their launches
 in their stats or output) runs
 with every launch count set to 0
 just before it, and every kernel of that path must have launched just after
@@ -4390,6 +4407,248 @@ def phase_24(torch, T, dev, cfg, counts: PathCounts, log: EventLog, p4, card: st
     return out
 
 
+# The sparse-histogram experiment of the reference library
+# (experiments/synthetic_data_benchmarks.cc and its README's configuration):
+# 2^20 unique nonzeros over a 2^32 domain at skew 0.1 (distribution 1),
+# Int(32), expansion factor 4; then a 2^128 domain over 2^14 nonzeros (the
+# count cut: the full 2^20 over 2^128 is the CLI's run, whose 128 prefix
+# passes over U128 arrays this phase cannot afford). The demo children run
+# at their defaults, the PIR demo at a 2^20 database, after (a) and (b), so
+# that (a)'s and (b)'s walls and the card's busy time are theirs alone.
+PHASE25 = dict(log_domain=32, nonzeros=1 << 20, skew="0.1", factor=4, wide_log_domain=128,
+               wide_nonzeros=1 << 14, pir_log_domain=20, child_timeout=600.0)
+
+
+def _alpha_position(prefixes, prev_lds: int, lds: int, total: int, alpha: int) -> int:
+    """The output index of alpha's `lds`-bit prefix in an advance from
+    `prev_lds` bits under `prefixes` (sorted, uint64 or U128): the outputs
+    run by sorted prefix, then leaf."""
+    from distributed_point_functions_tpu_torch.core import uint128
+
+    a = alpha >> (total - lds)
+    if not prev_lds:
+        return a
+    d = lds - prev_lds
+    parent = a >> d
+    if prefixes.dtype == uint128.U128:
+        idx = int(uint128.u128_searchsorted(prefixes, uint128.u128_array([parent]))[0])
+        found = uint128.u128_to_ints(prefixes[idx:idx + 1]) == [parent]
+    else:
+        idx = int(np.searchsorted(prefixes, np.uint64(parent)))
+        found = idx < len(prefixes) and int(prefixes[idx]) == parent
+    if not found:
+        fail(f"alpha's {prev_lds}-bit prefix is not among the plan's prefixes")
+    return (idx << d) | (a & ((1 << d) - 1))
+
+
+def _one_hot(s0, s1, pos: int, what: str) -> None:
+    """The two parties' Int(32) shares add mod 2^32 to 1 at `pos`, 0 elsewhere."""
+    rec = (s0.astype(np.uint64) + s1.astype(np.uint64)) & np.uint64(0xFFFFFFFF)
+    hits = np.flatnonzero(rec)
+    if hits.tolist() != [pos] or int(rec[pos]) != 1:
+        fail(f"{what}: the shares add to nonzeros at {hits[:5].tolist()}, alpha's output is "
+             f"{pos}")
+
+
+def _p25_experiment(torch, dev, cfg, counts: PathCounts, sdb, gen_data, root: str,
+                    log_domain: int, num: int, what: str) -> None:
+    """25a / 25b at one domain (PHASE25's comment; module docstring)."""
+    from distributed_point_functions_tpu_torch.core import uint128
+    from distributed_point_functions_tpu_torch.ops import aes_cuda as K
+    from distributed_point_functions_tpu_torch.ops import hierarchical
+
+    def as_int(a):
+        return uint128.u128_to_ints(a[:1])[0] if a.dtype == uint128.U128 else int(a[0])
+
+    t_all = time.perf_counter()
+    t = time.perf_counter()
+    path = gen_data.write_fixture(root, log_domain, num, cfg["skew"])
+    gen_s = time.perf_counter() - t
+    t = time.perf_counter()
+    nz = sdb.read_nonzeros(path, log_domain)
+    read_s = time.perf_counter() - t
+    t = time.perf_counter()
+    prefixes = sdb.compute_prefixes(nz, log_domain)
+    levels = sdb.compute_levels_to_evaluate(prefixes, log_domain, cfg["factor"])
+    prefix_s = time.perf_counter() - t
+    if len(nz) != num:
+        fail(f"{what}: read {len(nz)} nonzeros, wrote {num}")
+    plan = sdb.hierarchical_plan(prefixes, levels)
+    hdpf, ddpf = sdb.create_dpf(log_domain, levels), sdb.create_dpf(log_domain)
+    print(f"phase {what}: 2^{log_domain} x {num} nonzeros (skew {cfg['skew']}): gen_data "
+          f"{gen_s:.2f} s, read {read_s:.2f} s, prefixes and levels {prefix_s:.2f} s; "
+          f"{len(levels)} levels at factor {cfg['factor']}: {levels}", flush=True)
+
+    def check_levels(got, want, tag):
+        for h, (g, w) in enumerate(zip(got, want)):
+            if not np.array_equal(g, w):
+                fail(f"{what} {tag}: level {h} (log-domain {levels[h]}) differs from the "
+                     f"native host engine at {int(np.flatnonzero(g != w)[0])}")
+
+    # The CLI's alpha, party 0, each mode against the native host engine.
+    alpha = sdb.draw_alpha(log_domain)
+    hkey, dkey = sdb.generate_keys(hdpf, alpha)[0], sdb.generate_keys(ddpf, alpha)[0]
+    reset_peak(torch, dev)
+    counts.start()
+    fused = sdb.run_hierarchical(hdpf, [hkey], plan, mode="fused", device=dev)
+    sync(torch, dev)
+    got = counts.end(f"{what}, hierarchical in mode fused", (K.K2, K.K4))
+    peak = peak_gib(torch, dev)
+    host = sdb.run_hierarchical(hdpf, [hkey], plan, engine="host")
+    check_levels(fused.outputs, host.outputs, "fused")
+    print(f"phase {what}, hierarchical fused, the CLI's alpha: plan prepared in "
+          f"{fused.prepare_seconds:.3f} s, {fused.per_iteration:.4f} s/key/iteration, peak "
+          f"{peak:.2f} GiB; outputs a level {[o.shape[1] for o in fused.outputs]}; launches "
+          f"{got}; every level equal to the native host engine's ({host.per_iteration:.3f} s)",
+          flush=True)
+    # Where a replay's time goes: the card's kernel time (torch.profiler)
+    # over one more replay of a plan prepared apart, against the replay's
+    # wall above (outside the counted launches).
+    prepared = hierarchical.prepare_levels_fused(
+        hierarchical.BatchedContext.create(hdpf, [hkey]), plan, mode="fused", device=dev)
+    busy = device_busy_ms(torch, dev, lambda: hierarchical.evaluate_levels_fused(
+        hierarchical.BatchedContext.create(hdpf, [hkey]), prepared, device_output=True,
+        mode="fused", device=dev))
+    del prepared
+    print(f"phase {what}, hierarchical fused: the card busy {busy} ms in a replay of "
+          f"{1e3 * fused.per_iteration:.1f} ms (the plan, once, {1e3 * fused.prepare_seconds:.1f})",
+          flush=True)
+    host_direct = sdb.run_direct(ddpf, [dkey], nz, engine="host")
+    for mode, need in (("walk", (K.K6, K.K4)), ("walkkernel", (K.K7,))):
+        counts.start()
+        run = sdb.run_direct(ddpf, [dkey], nz, mode=mode, device=dev)
+        sync(torch, dev)
+        got = counts.end(f"{what}, direct in mode {mode}", need)
+        if not np.array_equal(run.outputs[0], host_direct.outputs[0]):
+            fail(f"{what}: direct in mode {mode} differs from the native host engine")
+        busy = device_busy_ms(torch, dev, lambda: sdb.run_direct(ddpf, [dkey], nz, mode=mode,
+                                                                 device=dev))
+        print(f"phase {what}, direct {mode}, the CLI's alpha: {run.per_iteration:.4f} "
+              f"s/key/iteration (the walk points' host tables {run.host_seconds:.3f} s, once "
+              f"more apart); the card busy {busy} ms in a run; launches {got}; equal to the "
+              f"native host engine's ({host_direct.per_iteration:.3f} s)", flush=True)
+
+    # Alpha among the nonzeros, both parties: one-hot at alpha's prefixes.
+    i = len(nz) // 3
+    pick = as_int(nz[i:])
+    hkeys, dkeys = sdb.generate_keys(hdpf, pick), sdb.generate_keys(ddpf, pick)
+    counts.start()
+    shares = [sdb.run_hierarchical(hdpf, [k], plan, mode="fused", device=dev).outputs
+              for k in hkeys]
+    sync(torch, dev)
+    counts.end(f"{what}, hierarchical fused, both parties", (K.K2, K.K4))
+    for h, (_, parents) in enumerate(plan):
+        pos = _alpha_position(parents, levels[h - 1] if h else 0, levels[h], log_domain, pick)
+        _one_hot(shares[0][h][0], shares[1][h][0], pos, f"{what} fused level {h}")
+    for mode, need in (("walk", (K.K6, K.K4)), ("walkkernel", (K.K7,))):
+        counts.start()
+        s0, s1 = (sdb.run_direct(ddpf, [k], nz, mode=mode, device=dev).outputs[0][0]
+                  for k in dkeys)
+        sync(torch, dev)
+        counts.end(f"{what}, direct {mode}, both parties", need)
+        _one_hot(s0, s1, i, f"{what} direct {mode}")
+    print(f"phase {what}: alpha = nonzero {i}; both parties' shares add mod 2^32 to 1 at its "
+          f"prefix at each of the {len(levels)} levels (fused) and at its point (walk, "
+          f"walkkernel), 0 elsewhere; {time.perf_counter() - t_all:.1f} s", flush=True)
+
+
+_P25_DEMOS = (
+    # (label, module and flags, environment, success line's start, kernels it needs)
+    ("pir_demo", ("pir_demo", "--log_domain", "{pir}"), {}, "client: reconstructed record",
+     ("K2", "K4")),
+    ("pir_demo --serve", ("pir_demo", "--log_domain", "{pir}", "--serve"), {},
+     "client: reconstructed record", ()),
+    ("heavy_hitters_demo HH_MODE=fused", ("heavy_hitters_demo",), {"HH_MODE": "fused"},
+     "OK: servers learned only the heavy hitters", ("K2", "K4")),
+    ("heavy_hitters_demo HH_MODE=hierkernel", ("heavy_hitters_demo",),
+     {"HH_MODE": "hierkernel"}, "OK: servers learned only the heavy hitters", ("K8",)),
+    ("heavy_hitters_demo --serve", ("heavy_hitters_demo", "--serve"), {},
+     "OK: every window's published counts equal", ("K2", "K4")),
+    ("secure_relu_demo", ("secure_relu_demo",), {}, "OK: ReLU and sigmoid layers", ("K6", "K4")),
+)
+
+
+def _p25_start_demos(dev, cfg, root: str) -> list:
+    """25c: every demo as a ``python -m`` child on the card, all at once."""
+    import threading
+
+    procs = []
+    for label, argv, env, ok, need in _P25_DEMOS:
+        out = open(os.path.join(root, f"demo-{len(procs)}.log"), "w+")
+        cmd = [sys.executable, "-m", "distributed_point_functions_tpu_torch.examples." + argv[0],
+               *(a.format(pir=cfg["pir_log_domain"]) for a in argv[1:]), "--device", str(dev)]
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, text=True,
+                                env={**os.environ, **env})
+        # The child's wall: a thread notes when it exits (the children are
+        # read one after another).
+        walls = [time.perf_counter()]
+        threading.Thread(target=lambda p=proc, w=walls: (p.wait(), w.append(time.perf_counter())),
+                         daemon=True).start()
+        procs.append((label, ok, need, out, walls, proc))
+    return procs
+
+
+def _p25_finish_demos(cfg, counts: PathCounts, procs, card: str) -> None:
+    """Waits for 25c's children; each must exit 0 with its success line and
+    report launches of its path's kernels, which join the phase's."""
+    names = {k.name.split()[0]: k.name for k in counts.aes_cuda.KERNELS
+             if k is not counts.aes_cuda.K7_DCF}
+    t_end = time.perf_counter() + cfg["child_timeout"]
+    try:
+        for label, ok, need, out, walls, proc in procs:
+            try:
+                rc = proc.wait(timeout=max(1.0, t_end - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                fail(f"25c {label}: still running after {cfg['child_timeout']} s")
+            while len(walls) < 2:
+                time.sleep(0.01)
+            wall = walls[1] - walls[0]
+            out.seek(0)
+            lines = out.read().strip().splitlines()
+            if rc or not lines or not lines[-1].startswith(ok):
+                fail(f"25c {label}: exited {rc}:\n" + "\n".join(lines[-30:]))
+            launched = [json.loads(ln[len("launches: "):]) for ln in lines
+                        if ln.startswith("launches: ")]
+            launched = launched[-1] if launched else {}
+            missing = [k for k in need if names[k] not in launched]
+            if not launched or missing:
+                fail(f"25c {label}: launches {launched}; its path needs {list(need)}")
+            for n, c in launched.items():
+                counts.total[n] = counts.total.get(n, 0) + c
+            detail = [ln for ln in lines if "answered" in ln or "aggregation" in ln
+                      or "ingested" in ln or ln.startswith("# server ")]
+            print(f"phase 25c, {label} on the card: exit 0 in {wall:.1f} s; "
+                  + " | ".join(detail[:4]) + f" | launches {launched} | {lines[-1]}", flush=True)
+    finally:
+        for _, _, _, out, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+    print(card, flush=True)
+
+
+def phase_25(torch, T, dev, cfg, counts: PathCounts, card: str = "") -> None:
+    """The application layer (module docstring, phase 25): 25a (2^32 x
+    2^20) and 25b (2^128 x 2^14) run in this process, then the demo
+    children start together and are read."""
+    from distributed_point_functions_tpu_torch.experiments import gen_data
+    from distributed_point_functions_tpu_torch.experiments import (
+        synthetic_data_benchmarks as sdb,
+    )
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dpf-phase25-") as root:
+        _p25_experiment(torch, dev, cfg, counts, sdb, gen_data, root, cfg["log_domain"],
+                        cfg["nonzeros"], "25a")
+        print(card, flush=True)
+        _p25_experiment(torch, dev, cfg, counts, sdb, gen_data, root,
+                        cfg["wide_log_domain"], cfg["wide_nonzeros"], "25b")
+        print(card, flush=True)
+        _p25_finish_demos(cfg, counts, _p25_start_demos(dev, cfg, root), card)
+    print(f"phase 25: {time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -4436,6 +4695,14 @@ def main() -> None:
         fail(f"the native host engine did not load on this host: {nst['reason']}")
     print(f"build: native/dpf_native.cc with g++ in {time.perf_counter() - t0:.1f} s: path "
           f"{nst['path']}, {nst['threads']} thread(s), CPU {native.cpu_model()}", flush=True)
+    if sys.argv[1:] == ["--phase", "25"]:
+        # Phase 25 alone (a development aid; the check runs every phase).
+        apps = PathCounts(aes_cuda)
+        phase_25(torch, T, dev, PHASE25, apps, card)
+        print(f"phase 25: launches {apps.total}")
+        print(f"[{time.perf_counter() - T0:.1f} s] the end")
+        print(card)
+        return
     if sys.argv[1:] == ["--phase", "24"]:
         # Phase 24 alone (a development aid; the check runs every phase):
         # phase 4's database and queries from phase 4's builder; 24a prints
@@ -6265,6 +6532,17 @@ def main() -> None:
     events.check_all(start)
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 25", flush=True)
+    # -- 25. the application layer: the experiments CLI's paths and the demos --
+    apps = PathCounts(aes_cuda)
+    start = len(events.events)
+    phase_25(torch, T, dev, PHASE25, apps, card)
+    for name, n in apps.total.items():
+        main_launches[name] = main_launches.get(name, 0) + n
+    print(f"phase 25: launches {apps.total}")
+    events.check_all(start)
+    torch.cuda.empty_cache()
+
     if "jax" in sys.modules:
         fail("JAX was imported")
     if any(m == "distributed_point_functions_tpu" or m.startswith("distributed_point_functions_tpu.")
@@ -6319,7 +6597,8 @@ def main() -> None:
                      + served.total[aes_cuda.K7_DCF.name] + served.total[aes_cuda.K8.name]
                      + tier.total[aes_cuda.K6.name] + tier.total[aes_cuda.K7.name]
                      + tier.total[aes_cuda.K7_DCF.name] + tier.total[aes_cuda.K8.name]
-                     + mesh_paths.total[aes_cuda.K6.name]),
+                     + mesh_paths.total[aes_cuda.K6.name] + apps.total[aes_cuda.K6.name]
+                     + apps.total[aes_cuda.K7.name] + apps.total[aes_cuda.K8.name]),
         "max_abs_err": checks["K6"],
         "ms": rows["K6"]["ms"],
         "device_ms": rows["K6"].get("device_ms"),

@@ -72,6 +72,7 @@ import functools
 import os
 import re
 import sys
+import threading
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -224,9 +225,21 @@ def _stdout_to(path: Path):
         os.close(saved)
 
 
-@functools.lru_cache(maxsize=1)
+_library_lock = threading.Lock()
+
+
 def library():
-    """Builds (when a source changed) and loads the kernel extension."""
+    """Builds (when a source changed) and loads the kernel extension, once a
+    process. The first call holds a lock: threads that reach a cold process
+    together (a server's two parties, a front door's workers) wait for one
+    build and one import, and none sees the module half imported or stdout
+    left redirected to the build log."""
+    with _library_lock:
+        return _load_library()
+
+
+@functools.lru_cache(maxsize=1)
+def _load_library():
     from torch.utils.cpp_extension import load
 
     include = BUILD_DIR / "include"

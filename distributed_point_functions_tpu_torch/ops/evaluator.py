@@ -1644,6 +1644,35 @@ class WalkPoints:
     select: torch.Tensor
 
 
+def _point_tables(points, lds: int, low: int, hierarchy_level: int):
+    """Points (Python ints, or a uint64 or U128 (core/uint128.py) array) ->
+    (paths uint32[P, 4] of tree indices, block_sel int64[P]), vectorized
+    over a U128 array; raises on a point outside the domain."""
+
+    def outside(i, pt):
+        return InvalidArgumentError(
+            f"`points[{i}]` = {pt} is outside the domain of hierarchy level "
+            f"{hierarchy_level} (log size {lds})"
+        )
+
+    if not (isinstance(points, np.ndarray)
+            and (points.dtype == uint128.U128 or points.dtype.kind == "u")):
+        points = [int(pt) for pt in points]
+        if points and (min(points) < 0 or max(points) >> lds):
+            i = next(i for i, pt in enumerate(points) if pt < 0 or pt >> lds)
+            raise outside(i, points[i])
+    elif points.ndim != 1:
+        raise InvalidArgumentError(f"`points` must be one-dimensional, got shape {points.shape}")
+    points = uint128.u128_array(points)
+    high = uint128.u128_rshift(points, lds)
+    bad = np.flatnonzero((high["hi"] | high["lo"]) != 0)
+    if bad.size:
+        i = int(bad[0])
+        raise outside(i, uint128.u128_to_ints(points[i : i + 1])[0])
+    paths = uint128.u128_to_limb_rows(uint128.u128_rshift(points, low))
+    return paths, uint128.u128_and_low(points, low).astype(np.int64)
+
+
 def prepare_walk_points(
     dpf: DistributedPointFunction,
     points: Sequence[int],
@@ -1670,19 +1699,11 @@ def prepare_walk_points(
             "or sub-word outputs"
         )
     lds = v.parameters[hierarchy_level].log_domain_size
-    points = [int(pt) for pt in points]
-    for i, pt in enumerate(points):
-        if pt < 0 or pt >> lds:
-            raise InvalidArgumentError(
-                f"`points[{i}]` = {pt} is outside the domain of hierarchy level "
-                f"{hierarchy_level} (log size {lds})"
-            )
-    device = resolve_device(device)
-    num_levels, p = v.hierarchy_to_tree[hierarchy_level], len(points)
     low = v.block_index_bits(hierarchy_level)
     keep = 1 << low
-    paths = uint128.array_to_limbs([pt >> low for pt in points])
-    block_sel = np.array([pt & (keep - 1) for pt in points], dtype=np.int64)
+    paths, block_sel = _point_tables(points, lds, low, hierarchy_level)
+    device = resolve_device(device)
+    num_levels, p = v.hierarchy_to_tree[hierarchy_level], len(block_sel)
     if mode == "walkkernel":
         if num_levels < 1:
             raise InvalidArgumentError(
@@ -1775,7 +1796,7 @@ def evaluate_at_batch(
     Args:
       keys: DpfKeys of one party.
       points: domain indices at ``hierarchy_level``, any number, repeats
-        allowed.
+        allowed: Python ints, or a uint64 or U128 (core/uint128.py) array.
       key_chunk: keys per chunk (default: the whole batch in one chunk).
       mode: "walk" (the default: one K6 launch per tree level, then K4 a
         value block and the correction in plain PyTorch, every value type)

@@ -8,8 +8,9 @@ leases, the fleet proxy, the replica pool and the autoscaler, and the
 multi-device path: the mesh, the sharded PIR and full domain, EvaluateUntil
 on a mesh, multihost; the native AES-NI host engine with the DCF's and the
 gates' host engines; the device check and its CLI; the roofline module
-and the chaos soak) driven in a fresh process), and its entry
-points do not run on the CPU unless asked to.
+and the chaos soak; the sparse-histogram experiments and the demos) driven
+in a fresh process), and its entry points do not run on the CPU unless
+asked to.
 
 The import guard runs in a subprocess: tests/conftest.py imports jax into
 every pytest process.
@@ -182,6 +183,18 @@ assert roofline.mfu_fields(1e9, 20)["mfu_estimate"] > 0
 assert roofline.hash_ops_per_block(1)["element_ops_per_block"] > 0
 from distributed_point_functions_tpu_torch.tools import chaos_soak
 assert chaos_soak.fault_plans("oom", ("megakernel", "cuda"), np.random.default_rng(7))[0].modes
+from distributed_point_functions_tpu_torch.experiments import gen_data
+from distributed_point_functions_tpu_torch.experiments import synthetic_data_benchmarks as sdb
+from distributed_point_functions_tpu_torch.examples import (
+    heavy_hitters_demo, pir_demo, secure_relu_demo,
+)
+nz = np.array(gen_data.sample_unique(16, 8, 0.1), dtype=np.uint64)
+xlevels = sdb.compute_levels_to_evaluate(sdb.compute_prefixes(nz, 8), 8, 2)
+assert xlevels[-1] == 8 and sdb.resolve_engine("auto", None) == "device"
+xdpf = sdb.create_dpf(8)
+xrun = sdb.run_direct(xdpf, [sdb.generate_keys(xdpf, int(nz[0]))[0]], nz, engine="host")
+assert xrun.outputs[0].shape == (1, 16)
+assert callable(pir_demo.main) and callable(heavy_hitters_demo.cli) and callable(secure_relu_demo.main)
 jax_package = "distributed_point_functions_tpu"
 bad = sorted(
     m for m in sys.modules

@@ -1277,3 +1277,34 @@ def test_csrc_keygen_body_on_the_host_compiler(host_harness):
         assert got.size == sum(a.size for a in want)
         for g, a in zip(np.split(got, sizes), want):
             assert np.array_equal(g.reshape(a.shape), a), captures
+
+
+def test_library_loads_once_when_threads_reach_a_cold_process(monkeypatch, tmp_path):
+    """Two servers' workers in one fresh process call the kernels together:
+    one build and one import, and every thread gets that module."""
+    import threading
+    import time
+
+    import torch.utils.cpp_extension as cpp_extension
+
+    calls = []
+
+    def fake_load(**kwargs):
+        calls.append(kwargs["name"])
+        time.sleep(0.2)
+        return object()
+
+    monkeypatch.setattr(cpp_extension, "load", fake_load)
+    monkeypatch.setattr(aes_cuda, "BUILD_DIR", tmp_path)
+    aes_cuda._load_library.cache_clear()
+    got = []
+    try:
+        threads = [threading.Thread(target=lambda: got.append(aes_cuda.library()))
+                   for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        aes_cuda._load_library.cache_clear()
+    assert calls == ["dpf_tpu_torch_kernels"] and len(got) == 4 and len({id(m) for m in got}) == 1
