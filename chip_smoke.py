@@ -323,8 +323,10 @@ Phases (any failure raises and exits non-zero before the result line):
    one-key view + K4); every answer equal to the native host oracle, each
    case's kind, answering rung, seconds and events printed; (c) the soak's
    ``--wire``, ``--fleet --replicas 2``, ``--fleet-scale`` and ``--stream``
-   arms at ci.sh's sizes, their servers on the card (the stream arms beside
-   the others), each exiting 0, their servers' launches printed.
+   arms at ci.sh's sizes (the wire and fleet arms' requests cut to 40 and
+   80 of its 60 and 120 for the script's time), their servers on the card
+   (the stream arms beside the others), each exiting 0, their servers'
+   launches printed.
    ``python3 chip_smoke.py --phase 24`` runs the build and this phase alone
    (24a then at the roofline module's recorded fold rate: no phase 19a);
 25. the application layer: (a) the sparse-histogram experiment
@@ -343,7 +345,24 @@ Phases (any failure raises and exits non-zero before the result line):
    ``pir_demo --log_domain 20`` (K2, K4) and ``--serve``, ``heavy_hitters_demo``
    with ``HH_MODE=fused`` (K2, K4) and ``hierkernel`` (K8) and ``--serve``
    (K2, K4), ``secure_relu_demo`` (K6, K4).
-   ``python3 chip_smoke.py --phase 25`` runs the build and this phase alone.
+   ``python3 chip_smoke.py --phase 25`` runs the build and this phase alone;
+26. the repo's remaining tools on the port: (a) the headline strategy
+   shootout (``tools/variants.py``) at its default shape, 256 Int(64) keys
+   at log-domain 20 in chunks of 64, two passes of every strategy in this
+   process:
+   ``levels`` (K2, K4, the device XOR fold), ``walk`` (K6, K4), ``fold``
+   (K2, K4), ``fold-fused`` (K2, K3) and ``megakernel`` (K5), each key's
+   fold equal to the native host engine's, with evals/s, the first chunk
+   and the launches a chunk; (b) ``tools/measure.py`` sessions as children:
+   stages check (``CHECK_MODE=fold``, 16x14) and variants (2^14 x 16 keys)
+   done, their records naming the GPU platform and their launches joining
+   the phase's; the same session again, both stages skipped; the variants
+   stage with ``--device cpu``, exit 0 and a cpu record, not done; the soak
+   stage with ``--wire`` cut at 15 s, its process group (the soak and its
+   server processes) killed and none of it left; (c) the port's lint
+   (``python -m distributed_point_functions_tpu_torch.tools.dpflint``)
+   exiting 0 on this checkout, run beside (a) and (b).
+   ``python3 chip_smoke.py --phase 26`` runs the build and this phase alone.
 
 Each path of the main path (fold default, fused and megakernel; PIR fold
 and megakernel; EvaluateAt walk and walkkernel, and the codec walk; DCF
@@ -351,8 +370,8 @@ walk and walkkernel; heavy hitters fused and hierkernel; keygen
 megakernel, perlevel and numpy-threaded at each configuration; config 3's
 fused pass at each level, and its walk, slab, prepared and levels checks;
 each gate's modes, the gate dealers on the card and the two layers; each
-path of phases 17-25, whose servers, replicas, multihost processes,
-check_device child and demo children report their launches
+path of phases 17-26, whose servers, replicas, multihost processes,
+check_device child, demo children and measure stages report their launches
 in their stats or output) runs
 with every launch count set to 0
 just before it, and every kernel of that path must have launched just after
@@ -4218,14 +4237,15 @@ def phase_23(torch, T, dev, cfg, counts: PathCounts, log: EventLog, card: str = 
 # walk, hierkernel -> fused, keygen megakernel -> perlevel); the flat full
 # domain with values out has one rung on the card. Key chunks keep every
 # chunk's launch and pull well inside the hang cases' 0.25 s deadline. 24c:
-# the soak's process arms at ci.sh's sizes (:139-185).
+# the soak's process arms at ci.sh's sizes (:139-185), the wire and fleet
+# arms' request counts cut from 60 and 120 to keep the script in its limit.
 PHASE24 = dict(seed=7, rounds=2, pir_chunk=128, eval_log_domain=32, eval_keys=1024,
                eval_points=4096, dcf_log_domain=24, dcf_keys=512, dcf_points=512,
                mic_log_group=16, mic_inputs=2048, mic_intervals=4, hh_levels=16, hh_keys=128,
                hh_nonzeros=10_000, hh_group=16, fd_log_domain=20, fd_keys=32, fd_chunk=8,
                kg_keys=1024, kg_log_domain=20,
-               arms=(("wire", ("--wire", "--wire-requests", "60", "--wire-faults", "6")),
-                     ("fleet", ("--fleet", "--replicas", "2", "--fleet-requests", "120",
+               arms=(("wire", ("--wire", "--wire-requests", "40", "--wire-faults", "6")),
+                     ("fleet", ("--fleet", "--replicas", "2", "--fleet-requests", "80",
                                 "--fleet-threads", "4")),
                      ("fleet-scale", ("--fleet-scale", "--fleet-threads", "4")),
                      ("stream", ("--stream", "--stream-batches", "12", "--stream-threads", "3"))),
@@ -4649,6 +4669,135 @@ def phase_25(torch, T, dev, cfg, counts: PathCounts, card: str = "") -> None:
     print(f"phase 25: {time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
 
 
+PHASE26 = dict(log_domain=20, keys=256, key_chunk=64, lint_timeout=120.0,
+               stage_env={"CHECK_MODE": "fold", "CHECK_SHAPES": "16x14"},
+               stage_args="variants=--log-domain 14 --keys 16 --key-chunk 8",
+               cpu_args="variants=--log-domain 8 --keys 4 --key-chunk 2",
+               kill_stage="soak", kill_args="soak=--wire", kill_after=15.0,
+               session_timeout=300.0)
+# The kernels each strategy of the shootout launches (tools/variants.py).
+P26_NEED = {"levels": ("K2", "K4"), "walk": ("K6", "K4"), "fold": ("K2", "K4"),
+            "fold-fused": ("K2", "K3"), "megakernel": ("K5",)}
+
+
+def _p26_measure(args, cfg, env=None) -> tuple:
+    """One ``tools/measure`` session as a child: (exit code, output)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "distributed_point_functions_tpu_torch.tools.measure", *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=cfg["session_timeout"], env=dict(os.environ, **(env or {})))
+    return proc.returncode, proc.stdout + proc.stderr
+
+
+def _p26_records(state: str) -> list:
+    path = os.path.join(state, "records.jsonl")
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def phase_26(torch, T, dev, cfg, counts: PathCounts, card: str = "") -> None:
+    """The repo's remaining tools on the port (module docstring, phase 26):
+    26a the strategy shootout in this process, 26b measure sessions as
+    children, 26c the port's lint (started first, read last)."""
+    from distributed_point_functions_tpu_torch.tools import measure, variants
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    lint = subprocess.Popen(
+        [sys.executable, "-m", "distributed_point_functions_tpu_torch.tools.dpflint"],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        # -- 26a: every strategy at the tool's default shape, on the card.
+        t0 = time.perf_counter()
+        dpf, keys, _, _, _ = variants.make_keys(cfg["log_domain"], cfg["keys"])
+        want = variants.host_folds(dpf, keys, cfg["key_chunk"])
+        print(f"phase 26a: {cfg['keys']} Int(64) keys at log-domain {cfg['log_domain']} and "
+              f"their host-engine folds in {time.perf_counter() - t0:.1f} s", flush=True)
+        K = counts.aes_cuda
+        for name in variants.STRATEGIES:
+            counts.start()
+            r = variants.run_strategy(name, dpf, keys, cfg["key_chunk"], dev, want)
+            got = counts.end(f"26a {name}", [getattr(K, k) for k in P26_NEED[name]])
+            if r.mismatched_keys:
+                fail(f"26a {name}: {r.mismatched_keys}/{cfg['keys']} keys' folds differ from "
+                     "the host engine's")
+            print(f"phase 26a, {name}: {r.seconds:.4f} s for {cfg['keys']} keys in chunks of "
+                  f"{cfg['key_chunk']} (first chunk {r.first_chunk_seconds:.4f} s), "
+                  f"{r.evals_per_s:.4e} evals/s with it, {r.steady_evals_per_s:.4e} steady, "
+                  f"{r.warm_evals_per_s:.4e} on a warm second pass; "
+                  f"launches a chunk {r.launches_per_chunk}; verify: OK | {card}", flush=True)
+            assert got == r.launches, (got, r.launches)
+
+        # -- 26b: measure sessions, each a child running its stages as children.
+        with tempfile.TemporaryDirectory(prefix="dpf-phase26-") as tmp:
+            state = os.path.join(tmp, "gpu")
+            first = ["--stages", "check,variants", "--state-dir", state,
+                     "--stage-args", cfg["stage_args"]]
+            rc, out = _p26_measure(first, cfg, cfg["stage_env"])
+            runs = _p26_records(state)
+            done = measure.read_done(os.path.join(state, "stages.state"))
+            if rc or done != ["check", "variants"] or not all(r["done"] for r in runs):
+                fail(f"26b: the first session exited {rc}, done {done}:\n{out[-4000:]}")
+            for run in runs:
+                rec = run["record"]
+                launched = rec["launches"] if run["stage"] == "check" else {
+                    k: n for s in rec["strategies"].values() for k, n in s["launches"].items()}
+                if not launched:
+                    fail(f"26b: stage {run['stage']} reports no launches: {rec}")
+                for n, c in launched.items():
+                    counts.total[n] = counts.total.get(n, 0) + c
+                print(f"phase 26b, session 1, stage {run['stage']}: done in "
+                      f"{run['seconds']:.1f} s, platform {run['platform']}, launches "
+                      f"{launched}", flush=True)
+            rc, out = _p26_measure(first, cfg, cfg["stage_env"])
+            if rc or out.count("skipped (resume)") != 2 or len(_p26_records(state)) != 2:
+                fail(f"26b: the second session did not skip both stages (exit {rc}):\n"
+                     f"{out[-3000:]}")
+            print("phase 26b, session 2: both stages skipped (resume), no child started",
+                  flush=True)
+            cpu_state = os.path.join(tmp, "cpu")
+            rc, out = _p26_measure(["--stages", "variants", "--device", "cpu", "--state-dir",
+                                    cpu_state, "--stage-args", cfg["cpu_args"]], cfg)
+            runs = _p26_records(cpu_state)
+            if (rc != 2 or measure.read_done(os.path.join(cpu_state, "stages.state"))
+                    or len(runs) != 1 or runs[0]["rc"] != 0 or runs[0]["platform"] != "cpu"):
+                fail(f"26b: a CPU record completed a stage or failed (exit {rc}):\n"
+                     f"{out[-3000:]}")
+            print(f"phase 26b, --device cpu: the stage exited 0 with a cpu record in "
+                  f"{runs[0]['seconds']:.1f} s and is not done (session exit 2)", flush=True)
+            kill_state = os.path.join(tmp, "kill")
+            stage = cfg["kill_stage"]
+            rc, out = _p26_measure(["--stages", stage, "--state-dir", kill_state,
+                                    "--timeout", f"{stage}={cfg['kill_after']}",
+                                    "--stage-args", cfg["kill_args"]], cfg)
+            runs = _p26_records(kill_state)
+            if rc != 1 or len(runs) != 1 or not runs[0]["timed_out"]:
+                fail(f"26b: the {stage} stage was not cut at {cfg['kill_after']} s (exit "
+                     f"{rc}):\n{out[-3000:]}")
+            left = measure.group_members(runs[0]["pgid"])
+            if left or measure.read_done(os.path.join(kill_state, "stages.state")):
+                fail(f"26b: processes {left} of the killed group {runs[0]['pgid']} survive")
+            print(f"phase 26b, {stage} {cfg['kill_args'].split('=', 1)[1]} cut at "
+                  f"{cfg['kill_after']} s: its group {runs[0]['pgid']} killed "
+                  f"({len(runs[0]['killed'])} processes: {runs[0]['killed']}), none left, "
+                  f"not done (session exit 1)", flush=True)
+        print(card, flush=True)
+    finally:
+        try:
+            lint_out, _ = lint.communicate(timeout=cfg["lint_timeout"])
+        except subprocess.TimeoutExpired:
+            lint.kill()
+            lint_out, _ = lint.communicate()
+    # -- 26c: the port's lint on this checkout.
+    if lint.returncode != 0:
+        fail(f"26c: the port's dpflint exited {lint.returncode}:\n{lint_out[-4000:]}")
+    print(f"phase 26c, python -m distributed_point_functions_tpu_torch.tools.dpflint: exit 0, "
+          f"{lint_out.strip().splitlines()[-1]}", flush=True)
+    print(f"phase 26: {time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -4695,6 +4844,14 @@ def main() -> None:
         fail(f"the native host engine did not load on this host: {nst['reason']}")
     print(f"build: native/dpf_native.cc with g++ in {time.perf_counter() - t0:.1f} s: path "
           f"{nst['path']}, {nst['threads']} thread(s), CPU {native.cpu_model()}", flush=True)
+    if sys.argv[1:] == ["--phase", "26"]:
+        # Phase 26 alone (a development aid; the check runs every phase).
+        tooled = PathCounts(aes_cuda)
+        phase_26(torch, T, dev, PHASE26, tooled, card)
+        print(f"phase 26: launches {tooled.total}")
+        print(f"[{time.perf_counter() - T0:.1f} s] the end")
+        print(card)
+        return
     if sys.argv[1:] == ["--phase", "25"]:
         # Phase 25 alone (a development aid; the check runs every phase).
         apps = PathCounts(aes_cuda)
@@ -6543,6 +6700,17 @@ def main() -> None:
     events.check_all(start)
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - T0:.1f} s] phase 26", flush=True)
+    # -- 26. the repo's remaining tools: the shootout, measure sessions, the lint --
+    tooled = PathCounts(aes_cuda)
+    start = len(events.events)
+    phase_26(torch, T, dev, PHASE26, tooled, card)
+    for name, n in tooled.total.items():
+        main_launches[name] = main_launches.get(name, 0) + n
+    print(f"phase 26: launches {tooled.total}")
+    events.check_all(start)
+    torch.cuda.empty_cache()
+
     if "jax" in sys.modules:
         fail("JAX was imported")
     if any(m == "distributed_point_functions_tpu" or m.startswith("distributed_point_functions_tpu.")
@@ -6598,7 +6766,8 @@ def main() -> None:
                      + tier.total[aes_cuda.K6.name] + tier.total[aes_cuda.K7.name]
                      + tier.total[aes_cuda.K7_DCF.name] + tier.total[aes_cuda.K8.name]
                      + mesh_paths.total[aes_cuda.K6.name] + apps.total[aes_cuda.K6.name]
-                     + apps.total[aes_cuda.K7.name] + apps.total[aes_cuda.K8.name]),
+                     + apps.total[aes_cuda.K7.name] + apps.total[aes_cuda.K8.name]
+                     + tooled.total[aes_cuda.K6.name]),
         "max_abs_err": checks["K6"],
         "ms": rows["K6"]["ms"],
         "device_ms": rows["K6"].get("device_ms"),

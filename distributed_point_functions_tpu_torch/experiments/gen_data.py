@@ -14,12 +14,14 @@ Writes ``<bits>_<nonzeros>_<count>_<skew>.csv`` with one bucket id a line
 (the first column, which the experiments read), byte-identical to the JAX
 package's ``experiments/gen_data.py`` for the same arguments: the RNG is
 seeded from the fixture's parameters. The default ``--out_dir`` is this
-package's ``experiments/data/``.
+package's ``experiments/data/``. The last line is one JSON record naming
+the files written.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import random
 
@@ -65,9 +67,13 @@ def main(argv=None) -> int:
                                                       "data"))
     args = ap.parse_args(argv)
     os.makedirs(args.out_dir, exist_ok=True)
+    paths = []
     for skew in SKEWS:
-        path = write_fixture(args.out_dir, args.log_domain_size, args.num_nonzeros, skew)
-        print(f"wrote {path} ({args.num_nonzeros} nonzeros)")
+        paths.append(write_fixture(args.out_dir, args.log_domain_size, args.num_nonzeros, skew))
+        print(f"wrote {paths[-1]} ({args.num_nonzeros} nonzeros)")
+    print(json.dumps({"tool": "gen_data", "platform": "host", "paths": paths,
+                      "log_domain_size": args.log_domain_size,
+                      "num_nonzeros": args.num_nonzeros}))
     return 0
 
 

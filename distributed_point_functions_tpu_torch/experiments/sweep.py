@@ -35,22 +35,14 @@ ENGINES = ("device", "host")
 DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 
 
-def _card() -> str:
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=30).stdout.strip() or "no card"
-    except (OSError, subprocess.SubprocessError):
-        return "no card"
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="", help="a JSON-lines file the rows are appended to")
     args = ap.parse_args(argv)
     from .. import native
+    from ..utils.devices import card_line
 
-    print(f"# card: {_card()}; host CPU: {native.cpu_model()}", flush=True)
+    print(f"# card: {card_line()}; host CPU: {native.cpu_model()}", flush=True)
     os.makedirs(DATA_DIR, exist_ok=True)
     failed = 0
     out = open(args.out, "a") if args.out else None

@@ -358,6 +358,7 @@ def main(argv=None) -> int:
         "unit": "s/key/iteration",
         "engine": engine,
         "device": str(dev),
+        "platform": "gpu" if dev.type == "cuda" else "cpu",
     }
     if engine == "device":
         record["kernel_mode"] = mode

@@ -28,6 +28,7 @@ import torch
 
 from ..core import uint128
 from ..core.aes_numpy import expand_key
+from ..utils.errors import InvalidArgumentError
 
 
 def as_words(x: np.ndarray) -> np.ndarray:
@@ -85,7 +86,7 @@ def pack_to_planes(x: torch.Tensor) -> torch.Tensor:
     holds bit b of blocks 32w..32w+31 (block 32w+i in bit i). N % 32 == 0."""
     *lead, n, _ = x.shape
     if n % 32:
-        raise ValueError(f"block count {n} is not a multiple of 32")
+        raise InvalidArgumentError(f"block count {n} is not a multiple of 32")
     w = n // 32
     rows = x.reshape(*lead, w, 32, 4).movedim(-1, -3)  # [..., limb, W, 32]
     t = _bit_transpose32(rows)  # word j holds bit j of the 32 rows
@@ -106,7 +107,7 @@ def pack_bit_mask(bits: np.ndarray) -> np.ndarray:
     bits = np.asarray(bits, dtype=bool)
     n = bits.shape[-1]
     if n % 32:
-        raise ValueError(f"lane count {n} is not a multiple of 32")
+        raise InvalidArgumentError(f"lane count {n} is not a multiple of 32")
     w = bits.reshape(bits.shape[:-1] + (n // 32, 32)).astype(np.uint32)
     return (w << np.arange(32, dtype=np.uint32)).sum(axis=-1, dtype=np.uint32)
 

@@ -71,6 +71,7 @@ plain versions on the CPU.
 """
 
 import argparse
+import json
 import os
 import sys
 import threading
@@ -484,6 +485,9 @@ def soak_main(args) -> int:
     total = time.perf_counter() - t_start
     verdict = "PASS" if not failed else f"FAIL ({len(failed)}/{len(records)} cases)"
     print(f"chaos soak: {len(records)} cases in {total:.1f}s — {verdict}")
+    print(json.dumps({"tool": "chaos_soak", "platform": "gpu" if device.type == "cuda" else "cpu",
+                      "device": str(device), "seed": args.seed, "rounds": args.rounds,
+                      "cases": len(records), "failed": len(failed), "seconds": total}))
     return 0 if not failed else 1
 
 

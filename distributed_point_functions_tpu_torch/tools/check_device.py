@@ -13,7 +13,8 @@ mismatch. Run it on a new card, or after a change to a kernel:
 Environment (the JAX package's ``tools/check_device.py`` names):
 
 - ``CHECK_MODE``: the path, one of ``integrity.CHECK_MODES`` (default
-  "levels"); "hierkernel" reads a shape as (keys, levels);
+  "levels"), or "all" for each of them in turn; "hierkernel" reads a shape
+  as (keys, levels);
 - ``CHECK_SHAPES``: comma-separated KEYSxLOGDOMAIN shapes (default
   "64x20");
 - ``CHECK_PIPELINE``: 1 forces the pipelined chunk executor, 0 the serial
@@ -24,7 +25,8 @@ Environment (the JAX package's ``tools/check_device.py`` names):
   prepared plan replayed across two key batches, a 1x1-mesh PIR.
 
 ``--device`` names the device (default: the card; "cpu" runs the kernels'
-plain versions).
+plain versions). Before the verdict it prints one JSON record: the platform
+("gpu" or "cpu"), the modes, the failures and the launches.
 """
 
 from __future__ import annotations
@@ -68,18 +70,26 @@ def main(argv=None) -> int:
         pipeline = envflags.env_opt_bool("CHECK_PIPELINE")
     except InvalidArgumentError as e:
         raise SystemExit(str(e))
+    modes = integrity.CHECK_MODES if mode == "all" else (mode,)
     rng = np.random.default_rng(7)
+    failures = 0
     with telemetry.capture() as tel:
-        try:
-            failures = integrity.run_device_check(
-                shapes=shapes, mode=mode, device=dev, pipeline=pipeline)
-        except (DataCorruptionError, InternalError) as e:
-            print(f"SELF-TEST FAILED: {e}")
-            failures = 1
+        for m in modes:
+            try:
+                failures += integrity.run_device_check(
+                    shapes=shapes, mode=m, device=dev, pipeline=pipeline)
+            except (DataCorruptionError, InternalError) as e:
+                print(f"SELF-TEST FAILED: {e}")
+                failures += 1
         failures += _run_extras(dev, rng)
     # This process's kernel launches, for a caller that counts them.
-    print("launches: " + json.dumps({k.name: k.launches for k in aes_cuda.KERNELS if k.launches}))
+    launches = {k.name: k.launches for k in aes_cuda.KERNELS if k.launches}
+    print("launches: " + json.dumps(launches))
     print(telemetry.summary(tel.snapshot()))
+    print(json.dumps({"tool": "check_device", "platform": "gpu" if dev.type == "cuda" else "cpu",
+                      "device": str(dev), "device_name": name, "modes": list(modes),
+                      "shapes": [list(s) for s in shapes], "failures": failures,
+                      "launches": launches}))
     if failures:
         print(f"DEVICE OUTPUT IS WRONG on {dev}: do not trust its performance numbers.")
         return 1

@@ -8,6 +8,8 @@ a silent move to the CPU.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 from .errors import InvalidArgumentError, UnavailableError
@@ -34,3 +36,16 @@ def resolve_device(device=None) -> torch.device:
     if dev.type != "cpu":
         raise InvalidArgumentError(f"the port runs on 'cuda' or 'cpu', got {dev}")
     return dev
+
+
+def card_line(index: int = 0) -> str:
+    """Card `index`'s name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them, for a
+    measurement's record; "no card" where nvidia-smi has no answer."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30).stdout.strip() or "no card"
+    except (OSError, subprocess.SubprocessError):
+        return "no card"

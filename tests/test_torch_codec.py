@@ -186,9 +186,16 @@ def test_divmod_by_const_matches_python_and_jax(modulus):
                 assert sum(int(q[i, l]) << (32 * l) for l in range(4)) == x // modulus
 
 
+def as_ints(limbs: np.ndarray) -> list:
+    """uint32[N, lpe] limb rows -> Python ints."""
+    return [sum(int(x) << (32 * l) for l, x in enumerate(row)) for row in limbs]
+
+
 def test_limb_arithmetic_matches_jax():
-    """extract_bits, modn_add, modn_neg, limb_add_pow2 and limb_neg_pow2 on
-    random limbs and on all-zero / all-ones limbs."""
+    """extract_bits (against the JAX package's), modn_add, modn_neg,
+    limb_add_pow2 and limb_neg_pow2 (against its host value types'
+    ``add`` / ``neg``, the arithmetic its host engine corrects values with)
+    on random limbs and on all-zero / all-ones limbs."""
     rng = np.random.default_rng(31)
     stream = rng.integers(0, 2**32, size=(40, 8), dtype=np.uint32)
     stream[0], stream[1] = 0xFFFFFFFF, 0
@@ -203,45 +210,49 @@ def test_limb_arithmetic_matches_jax():
         limbs = np.array([[(x >> (32 * l)) & 0xFFFFFFFF for l in range(lpe)] for x in vals],
                          dtype=np.uint32)
         a, b = limbs, limbs[::-1].copy()
-        assert np.array_equal(
-            aes_torch.from_words(port_vc.modn_add(words(a), words(b), modulus)),
-            np.asarray(jax_vc.modn_add(jnp.asarray(a), jnp.asarray(b), modulus)))
-        assert np.array_equal(aes_torch.from_words(port_vc.modn_neg(words(a), modulus)),
-                              np.asarray(jax_vc.modn_neg(jnp.asarray(a), modulus)))
+        vt = jax_vt.IntModN(128, modulus)
+        assert as_ints(aes_torch.from_words(port_vc.modn_add(words(a), words(b), modulus))) \
+            == [vt.add(x, y) for x, y in zip(as_ints(a), as_ints(b))]
+        assert as_ints(aes_torch.from_words(port_vc.modn_neg(words(a), modulus))) \
+            == [vt.neg(x) for x in as_ints(a)]
     for bits in (8, 16, 32, 64, 128):
         lpe = max(bits // 32, 1)
         a = stream[:, :lpe] & np.uint32((1 << min(bits, 32)) - 1)
         b = a[::-1].copy()
-        assert np.array_equal(
-            aes_torch.from_words(port_vc.limb_add_pow2(words(a), words(b), bits)),
-            np.asarray(jax_vc.limb_add_pow2(jnp.asarray(a), jnp.asarray(b), bits)))
-        assert np.array_equal(aes_torch.from_words(port_vc.limb_neg_pow2(words(a), bits)),
-                              np.asarray(jax_vc.limb_neg_pow2(jnp.asarray(a), bits)))
+        vt = jax_vt.Int(bits)
+        assert as_ints(aes_torch.from_words(port_vc.limb_add_pow2(words(a), words(b), bits))) \
+            == [vt.add(x, y) for x, y in zip(as_ints(a), as_ints(b))]
+        assert as_ints(aes_torch.from_words(port_vc.limb_neg_pow2(words(a), bits))) \
+            == [vt.neg(x) for x in as_ints(a)]
 
 
 @pytest.mark.parametrize("name", list(VALUE_CASES))
 def test_correct_values_matches_jax(name):
     """Random hashed streams, control bits and corrections in the group,
-    both parties: the port's correct_values equals the JAX package's,
-    component by component."""
+    both parties: the port's correct_values equals the JAX package's host
+    engine (``DistributedPointFunction._correct_expansion``: sample each
+    element from the stream's bytes, add the correction where the control
+    bit is set, negate for party 1), element by element."""
     c = case(name)
     spec = spec_of(c)
     rng = np.random.default_rng(len(name))
     stream = rng.integers(0, 2**32, size=(64, 4 * spec.blocks_needed), dtype=np.uint32)
     stream[0], stream[1] = 0xFFFFFFFF, 0
     control = rng.integers(0, 2, size=64).astype(np.uint32)
-    corrections = port_vc.correction_limbs(
-        spec, [sample(c["vt"], rng) for _ in range(spec.epb)])
+    values = [sample(c["vt"], rng) for _ in range(spec.epb)]
+    corrections = port_vc.correction_limbs(spec, values)
+    jax_dpf = c["jax_dpf"]
+    jax_vtype = jax_dpf.validator.parameters[0].value_type
+    jax_spec = jax_vc.build_spec(jax_vtype, spec.blocks_needed)
     for party in (0, 1):
         got = port_vc.correct_values(words(stream), words(control),
                                      [words(a) for a in corrections], spec, party)
-        jax_spec = jax_vc.build_spec(c["jax_dpf"].validator.parameters[0].value_type,
-                                     spec.blocks_needed)
-        want = jax_vc.correct_values(jnp.asarray(stream), jnp.asarray(control),
-                                     tuple(jnp.asarray(a) for a in corrections), jax_spec, party)
-        assert len(got) == len(want)
-        for g, w in zip(got, want):
-            assert np.array_equal(aes_torch.from_words(g), np.asarray(w)), party
+        assert len(got) == len(spec.components)
+        got = jax_vc.values_to_host(
+            tuple(aes_torch.from_words(g).reshape(-1, g.shape[-1]) for g in got), jax_spec)
+        want = jax_dpf._correct_expansion(stream, control.astype(bool), values, spec.epb,
+                                          party, jax_vtype)
+        assert got == want, party
 
 
 @pytest.mark.parametrize("name", list(VALUE_CASES))

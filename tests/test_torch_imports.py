@@ -8,8 +8,9 @@ leases, the fleet proxy, the replica pool and the autoscaler, and the
 multi-device path: the mesh, the sharded PIR and full domain, EvaluateUntil
 on a mesh, multihost; the native AES-NI host engine with the DCF's and the
 gates' host engines; the device check and its CLI; the roofline module
-and the chaos soak; the sparse-histogram experiments and the demos) driven
-in a fresh process), and its entry points do not run on the CPU unless
+and the chaos soak; the sparse-histogram experiments and the demos; the
+port's lint, the strategy shootout and the measurement session) driven in
+a fresh process), and its entry points do not run on the CPU unless
 asked to.
 
 The import guard runs in a subprocess: tests/conftest.py imports jax into
@@ -195,6 +196,15 @@ xdpf = sdb.create_dpf(8)
 xrun = sdb.run_direct(xdpf, [sdb.generate_keys(xdpf, int(nz[0]))[0]], nz, engine="host")
 assert xrun.outputs[0].shape == (1, 16)
 assert callable(pir_demo.main) and callable(heavy_hitters_demo.cli) and callable(secure_relu_demo.main)
+from pathlib import Path
+from distributed_point_functions_tpu_torch.tools import dpflint, measure, variants
+assert dpflint.run(Path("."), checkers=("port-isolation",))[0] == []
+vdpf, vkeys, _, _, _ = variants.make_keys(8, 2)
+import torch
+vr = variants.run_strategy("fold-fused", vdpf, vkeys, 2, torch.device("cpu"), variants.host_folds(vdpf, vkeys, 2))
+assert vr.mismatched_keys == 0
+with tempfile.TemporaryDirectory() as tmp:
+    assert [s.name for s in measure.stages(Path(tmp))][:2] == ["check", "variants"]
 jax_package = "distributed_point_functions_tpu"
 bad = sorted(
     m for m in sys.modules

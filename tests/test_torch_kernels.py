@@ -2,8 +2,10 @@
 
 K1 (bitsliced AES, ops/aes_torch.py), K2/K3/K4 (ops/backend_torch.py, the
 plain versions the CUDA wrappers in ops/aes_cuda.py run for CPU tensors) are
-held bit-exact against ``jax.vmap(backend_jax.expand_one_level)``,
-``jax.vmap(backend_jax.hash_value_planes)`` and their composition. K5's
+held bit-exact against the JAX package's host engine on the same lanes
+(``core/backend_numpy.expand_seeds`` and ``hash_expanded_seeds``, native
+AES-NI where the host has it: no XLA program), the plane layout checked
+against ``aes_jax.pack_to_planes`` once. K5's
 plain version (``backend_torch.megakernel_fold``) is held against the JAX
 package's eager replay ``aes_pallas.megakernel_reference_rows`` (the real
 circuit under ``jax.disable_jit()``; no interpret-mode kernel), and its
@@ -25,6 +27,7 @@ import pytest
 import torch
 
 from distributed_point_functions_tpu.core import aes_numpy as jax_aes_numpy
+from distributed_point_functions_tpu.core import backend_numpy as jax_backend_numpy
 from distributed_point_functions_tpu.core import constants as jax_constants
 from distributed_point_functions_tpu.core.dpf import DistributedPointFunction as JaxDpf
 from distributed_point_functions_tpu.core.params import DpfParameters as JaxParams
@@ -39,15 +42,41 @@ from distributed_point_functions_tpu_torch.ops import (
     aes_cuda, aes_torch, backend_torch, evaluator, hier_cases, value_codec,
 )
 from distributed_point_functions_tpu_torch.utils.errors import InvalidArgumentError
-from torch_fold_case import one_torch_thread  # noqa: F401 (autouse fixture)
+from torch_fold_case import (  # noqa: F401 (one_torch_thread: an autouse fixture)
+    blocks_to_planes, lane_bits, lane_masks, one_torch_thread, planes_to_blocks,
+)
 
 RNG_SEED = 20261016
 K = 3  # keys
 WIDTHS = (3, 40)  # lane words: a ragged width and one past a warp
 
-_jax_expand = jax.jit(jax.vmap(backend_jax.expand_one_level))
-_jax_expand_one_key = jax.jit(backend_jax.expand_one_level)
-_jax_hash = jax.jit(jax.vmap(backend_jax.hash_value_planes))
+
+def host_expand(planes, control, cw, ccl, ccr):
+    """K2's operands of one key through the JAX package's host engine
+    (``backend_numpy.expand_seeds``, one level): planes and control with
+    the lane axis doubled, [left children | right children], as the plane
+    form lays them out."""
+    seed_cw = planes_to_blocks(cw[:, None] & np.uint32(1))[0]
+    children, child_control = jax_backend_numpy.expand_seeds(
+        planes_to_blocks(planes), lane_bits(control), seed_cw[None],
+        np.array([ccl != 0]), np.array([ccr != 0]))
+    order = np.concatenate([np.arange(0, len(children), 2), np.arange(1, len(children), 2)])
+    return (blocks_to_planes(children[order]),
+            lane_masks(child_control[order]))
+
+
+def host_expand_batch(planes, control, cw, ccl, ccr):
+    """host_expand for each key of a batch."""
+    out = [host_expand(*a) for a in zip(planes, control, cw, ccl, ccr)]
+    return np.stack([o[0] for o in out]), np.stack([o[1] for o in out])
+
+
+def host_hash(planes):
+    """K4's value hash of every lane through the JAX package's host engine
+    (``backend_numpy.hash_expanded_seeds``, block 0)."""
+    blocks = planes_to_blocks(planes)
+    hashed = jax_backend_numpy.hash_expanded_seeds(blocks.reshape(-1, 4), 1)[:, 0]
+    return blocks_to_planes(hashed.reshape(blocks.shape))
 
 
 def words(x: np.ndarray) -> torch.Tensor:
@@ -115,22 +144,27 @@ def test_host_aes_and_constants_match_jax_package():
 def test_pack_unpack_match_jax(n):
     x = np.random.default_rng(n).integers(0, 2**32, size=(2, n, 4), dtype=np.uint32)
     planes = aes_torch.pack_to_planes(words(x))
-    want = np.stack([np.asarray(aes_jax.pack_to_planes(jnp.asarray(b))) for b in x])
+    # Both keys' blocks in one jitted call: whole lane words, key after key.
+    joint = np.asarray(jax.jit(aes_jax.pack_to_planes)(jnp.asarray(x.reshape(-1, 4))))
+    want = joint.reshape(128, 2, n // 32).transpose(1, 0, 2)
     assert np.array_equal(aes_torch.from_words(planes), want)
+    # The host-engine tests' numpy layout is the JAX package's.
+    assert np.array_equal(blocks_to_planes(x), want)
+    assert np.array_equal(planes_to_blocks(want), x)
     assert np.array_equal(aes_torch.from_words(aes_torch.unpack_from_planes(planes)), x)
     bits = np.random.default_rng(n + 1).integers(0, 2, size=(2, n)).astype(bool)
     assert np.array_equal(aes_torch.pack_bit_mask(bits), aes_jax.pack_bit_mask(bits))
     mask = aes_torch.pack_bit_mask(bits)
     assert np.array_equal(
         aes_torch.from_words(backend_torch.unpack_mask_device(words(mask))),
-        np.asarray(jax.vmap(backend_jax.unpack_mask_device)(jnp.asarray(mask))),
+        np.asarray(jax.jit(jax.vmap(backend_jax.unpack_mask_device))(jnp.asarray(mask))),
     )
 
 
 @pytest.mark.parametrize("w", WIDTHS)
 def test_k2_expand_one_level_matches_jax(w):
     args = expand_inputs(w, RNG_SEED + w)
-    want = [np.asarray(a) for a in _jax_expand(*map(jnp.asarray, args))]
+    want = host_expand_batch(*args)
     for fn in (backend_torch.expand_one_level, aes_cuda.expand_one_level):
         got = fn(*map(words, args))
         assert np.array_equal(aes_torch.from_words(got[0]), want[0])
@@ -139,11 +173,11 @@ def test_k2_expand_one_level_matches_jax(w):
 
 def test_k2_one_key_view_matches_jax():
     """K2's one-key view in the legacy [128, W] layout (the replacement of
-    aes_pallas.expand_one_level_pallas) equals its stated twin,
-    ``backend_jax.expand_one_level``, jitted at W = 32: the plain version
-    and the wrapper on CPU tensors."""
+    aes_pallas.expand_one_level_pallas) equals the JAX package's host
+    expansion of the key's lanes at W = 32: the plain version and the
+    wrapper on CPU tensors."""
     args = [a[0] for a in expand_inputs(32, RNG_SEED + 32)]
-    want = [np.asarray(a) for a in _jax_expand_one_key(*map(jnp.asarray, args))]
+    want = host_expand(*args)
     for fn in (backend_torch.expand_one_level_single, aes_cuda.expand_one_level_single):
         got = fn(*map(words, args))
         assert np.array_equal(aes_torch.from_words(got[0]), want[0])
@@ -155,7 +189,7 @@ def test_k4_hash_value_planes_matches_jax(w):
     planes = np.random.default_rng(RNG_SEED - w).integers(
         0, 2**32, size=(K, 128, w), dtype=np.uint32
     )
-    want = np.asarray(_jax_hash(jnp.asarray(planes)))
+    want = host_hash(planes)
     for fn in (backend_torch.hash_value_planes, aes_cuda.hash_value_planes):
         assert np.array_equal(aes_torch.from_words(fn(words(planes))), want)
     # The plain K1 under the value key is the numpy oracle's MMO hash.
@@ -170,8 +204,8 @@ def test_k4_hash_value_planes_matches_jax(w):
 @pytest.mark.parametrize("w", WIDTHS)
 def test_k3_expand_and_hash_matches_jax_composition(w):
     args = expand_inputs(w, RNG_SEED + w)
-    children, control = _jax_expand(*map(jnp.asarray, args))
-    want = (np.asarray(_jax_hash(children)), np.asarray(control))
+    children, control = host_expand_batch(*args)
+    want = (host_hash(children), control)
     for fn in (backend_torch.expand_and_hash_last_level, aes_cuda.expand_and_hash_last_level):
         got = fn(*map(words, args))
         assert np.array_equal(aes_torch.from_words(got[0]), want[0])

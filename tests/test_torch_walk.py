@@ -8,8 +8,9 @@ CPU.
 - the JAX package's host oracle ``core/host_eval.evaluate_at_host``,
   bit-identical to its ``dpf.evaluate_at`` and ``evaluate_at_batch`` (its
   own tests hold them equal): no JAX compile;
-- for the kernels' plain versions, ``backend_jax.evaluate_seeds_planes``
-  (K6, level for level) and the eager replay
+- for the kernels' plain versions, the host engine's walk
+  ``core/backend_numpy.evaluate_seeds`` (K6, level for level, lane by
+  lane) and the eager replay
   ``aes_pallas.walk_megakernel_reference_rows`` under ``jax.disable_jit()``
   (K7, one key: the real circuit eagerly costs ~10 s a replay).
 
@@ -24,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_point_functions_tpu.core import backend_numpy as jax_backend_numpy
 from distributed_point_functions_tpu.core import host_eval
 from distributed_point_functions_tpu.core.dpf import DistributedPointFunction as JaxDpf
 from distributed_point_functions_tpu.core.params import DpfParameters as JaxParams
@@ -36,7 +38,9 @@ from distributed_point_functions_tpu_torch.core.keys import EvaluationContext
 from distributed_point_functions_tpu_torch.ops import aes_cuda, aes_torch, backend_torch
 from distributed_point_functions_tpu_torch.ops import evaluator as port_ev
 from distributed_point_functions_tpu_torch.utils.errors import InvalidArgumentError
-from torch_fold_case import one_torch_thread  # noqa: F401 (autouse fixture)
+from torch_fold_case import (  # noqa: F401 (one_torch_thread: an autouse fixture)
+    blocks_to_planes, lane_bits, lane_masks, one_torch_thread, planes_to_blocks,
+)
 
 LOG_DOMAIN = 11
 NUM_KEYS = 12
@@ -176,9 +180,24 @@ def test_host_evaluate_at_matches_jax(name):
                 )
 
 
+def host_walk_level(planes, control, path, cw, ccl, ccr):
+    """One walk level of one key's lanes through the JAX package's host
+    engine (``backend_numpy.evaluate_seeds``, one level: the path bit is
+    bit 0 of a lane's path)."""
+    seeds = planes_to_blocks(planes)
+    paths = np.zeros_like(seeds)
+    paths[:, 0] = lane_bits(path)
+    seed_cw = planes_to_blocks(cw[:, None] & np.uint32(1))[0]
+    out, ctl = jax_backend_numpy.evaluate_seeds(
+        seeds, lane_bits(control), paths, seed_cw[None], np.array([ccl != 0]),
+        np.array([ccr != 0]))
+    return blocks_to_planes(out), lane_masks(ctl)
+
+
 def test_walk_level_plain_matches_jax_scan():
-    """K6's plain version equals ``backend_jax.evaluate_seeds_planes``, level
-    for level, on the same planes, path masks and tables."""
+    """K6's plain version equals the JAX package's host walk
+    (``backend_numpy.evaluate_seeds``), level for level, on the same
+    planes, path masks and tables."""
     rng = np.random.default_rng(6)
     k, w, levels = 3, 3, 4
     planes = rng.integers(0, 2**32, size=(k, 128, w), dtype=np.uint32)
@@ -187,19 +206,18 @@ def test_walk_level_plain_matches_jax_scan():
     cw = backend_torch.cw_seed_planes(rng.integers(0, 2**32, size=(k, levels, 4), dtype=np.uint32))
     ccl = backend_torch.control_masks(rng.integers(0, 2, size=(k, levels)))
     ccr = backend_torch.control_masks(rng.integers(0, 2, size=(k, levels)))
-    one_level = jax.jit(jax.vmap(backend_jax.evaluate_seeds_planes, in_axes=(0, 0, None, 0, 0, 0)))
-    p_jax, c_jax = jnp.asarray(planes), jnp.asarray(control)
+    p_host, c_host = planes, control
     p_port, c_port = words(planes), words(control)
     for lvl in range(levels):
-        s = slice(lvl, lvl + 1)
-        p_jax, c_jax = one_level(p_jax, c_jax, jnp.asarray(paths[s]), jnp.asarray(cw[:, s]),
-                                 jnp.asarray(ccl[:, s]), jnp.asarray(ccr[:, s]))
+        host = [host_walk_level(p_host[i], c_host[i], paths[lvl], cw[i, lvl], ccl[i, lvl],
+                                ccr[i, lvl]) for i in range(k)]
+        p_host, c_host = np.stack([h[0] for h in host]), np.stack([h[1] for h in host])
         p_port, c_port = backend_torch.walk_level(
             p_port, c_port, words(paths[lvl]), words(cw[:, lvl]), words(ccl[:, lvl]),
             words(ccr[:, lvl]),
         )
-        assert np.array_equal(aes_torch.from_words(p_port), np.asarray(p_jax)), lvl
-        assert np.array_equal(aes_torch.from_words(c_port), np.asarray(c_jax)), lvl
+        assert np.array_equal(aes_torch.from_words(p_port), p_host), lvl
+        assert np.array_equal(aes_torch.from_words(c_port), c_host), lvl
 
 
 def test_walk_megakernel_plain_matches_jax_replay():

@@ -10,6 +10,9 @@
   the same seeds, a database in natural and in lane order, and the JAX
   package's folds from its host oracle, computed once per process (both
   modules compare against the same ones).
+- ``planes_to_blocks``, ``blocks_to_planes`` and ``lane_bits``: the plane
+  layout in plain numpy, so the kernels' plain versions can be held against
+  the JAX package's host engine (``core/backend_numpy``) lane by lane.
 """
 
 import functools
@@ -25,6 +28,36 @@ from distributed_point_functions_tpu.core.value_types import Int as JaxInt
 import distributed_point_functions_tpu_torch as port
 from distributed_point_functions_tpu_torch.ops import evaluator
 
+
+
+def planes_to_blocks(planes: np.ndarray) -> np.ndarray:
+    """uint32[..., 128, W] planes -> uint32[..., 32 W, 4] blocks: bit i of
+    word w of plane b is bit b of block 32 w + i."""
+    *lead, _, w = planes.shape
+    bits = (planes[..., None] >> np.arange(32, dtype=np.uint32)) & np.uint32(1)
+    bits = bits.reshape(*lead, 4, 32, 32 * w)  # [..., limb, bit, lane]
+    blocks = (bits << np.arange(32, dtype=np.uint32)[:, None]).sum(axis=-2, dtype=np.uint32)
+    return np.moveaxis(blocks, -2, -1)
+
+
+def lane_masks(bits: np.ndarray) -> np.ndarray:
+    """bool[..., 32 W] -> uint32[..., W] lane masks (bit i of word w is lane
+    32 w + i)."""
+    words = bits.reshape(*bits.shape[:-1], -1, 32).astype(np.uint32)
+    return (words << np.arange(32, dtype=np.uint32)).sum(axis=-1, dtype=np.uint32)
+
+
+def blocks_to_planes(blocks: np.ndarray) -> np.ndarray:
+    """The inverse of planes_to_blocks."""
+    *lead, n, _ = blocks.shape
+    bits = (blocks[..., None] >> np.arange(32, dtype=np.uint32)) & np.uint32(1)
+    return lane_masks(np.moveaxis(bits.reshape(*lead, n, 128), -1, -2))
+
+
+def lane_bits(masks: np.ndarray) -> np.ndarray:
+    """uint32[..., W] lane masks -> bool[..., 32 W]."""
+    bits = (masks[..., None] >> np.arange(32, dtype=np.uint32)) & np.uint32(1)
+    return bits.reshape(*masks.shape[:-1], -1).astype(bool)
 
 
 @pytest.fixture(autouse=True, scope="module")
